@@ -1,0 +1,163 @@
+"""Model configuration types of the PyTorch port.
+
+A copy of ``LayerSpec``, ``_round_up`` and ``ModelConfig`` from
+``repro.core.types``: that module holds no JAX code, but importing anything
+under ``repro`` runs ``repro/__init__.py``, which imports jax.  The fields and
+derived properties are kept identical, so a config built here compares equal
+field by field with its JAX twin.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Literal, Optional, Tuple
+
+LayerKind = Literal["attn", "mamba", "cross_attn"]
+FFNKind = Literal["dense", "moe", "none"]
+
+
+@dataclass(frozen=True)
+class LayerSpec:
+    """One decoder layer: its mixer (attention / mamba) and its FFN."""
+
+    mixer: LayerKind = "attn"
+    ffn: FFNKind = "dense"
+
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    """Architecture description. One instance per ``configs/<id>.py``."""
+
+    name: str
+    family: Literal["dense", "ssm", "moe", "audio", "vlm", "hybrid"]
+    source: str
+
+    num_layers: int
+    d_model: int
+    num_heads: int
+    num_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: int = 0  # 0 -> d_model // num_heads
+
+    # --- attention flavour ---
+    attention: Literal["gqa", "mla", "none"] = "gqa"
+    rope_theta: float = 10_000.0
+    qkv_bias: bool = False
+    sliding_window: Optional[int] = None  # tokens; None = full attention
+
+    # --- MLA (DeepSeek-V2) ---
+    kv_lora_rank: int = 0
+    q_lora_rank: int = 0
+    qk_rope_head_dim: int = 0
+    v_head_dim: int = 0  # 0 -> head_dim
+
+    # --- MoE ---
+    num_experts: int = 0
+    num_shared_experts: int = 0
+    top_k: int = 0
+    moe_d_ff: int = 0
+    moe_layer_period: int = 1
+    moe_first_dense: int = 0
+    router_aux_loss: float = 0.01
+
+    # --- SSM (Mamba2 / SSD) ---
+    ssm_state: int = 0
+    ssm_expand: int = 2
+    ssm_head_dim: int = 64
+    ssm_conv_kernel: int = 4
+    attn_period: int = 0
+
+    # --- encoder-decoder (audio) ---
+    encoder_layers: int = 0
+
+    # --- VLM cross-attention interleave ---
+    cross_attn_period: int = 0
+    num_vision_tokens: int = 0
+    num_audio_frames: int = 0
+
+    # --- misc ---
+    ffn_act: Literal["swiglu", "gelu", "geglu"] = "swiglu"
+    norm_eps: float = 1e-5
+    tie_embeddings: bool = False
+    max_seq_len: int = 524_288
+
+    @property
+    def resolved_head_dim(self) -> int:
+        if self.head_dim:
+            return self.head_dim
+        return self.d_model // self.num_heads if self.num_heads else 0
+
+    @property
+    def resolved_v_head_dim(self) -> int:
+        return self.v_head_dim or self.resolved_head_dim
+
+    @property
+    def padded_vocab(self) -> int:
+        """Vocab padded so the embedding/LM-head shard cleanly over TP=16."""
+        return _round_up(self.vocab_size, 256)
+
+    @property
+    def is_moe(self) -> bool:
+        return self.num_experts > 0
+
+    @property
+    def is_encoder_decoder(self) -> bool:
+        return self.encoder_layers > 0
+
+    def layer_specs(self) -> Tuple[LayerSpec, ...]:
+        """Per-layer (mixer, ffn) pattern for the decoder stack."""
+        specs = []
+        for i in range(self.num_layers):
+            if self.attention == "none":
+                mixer = "mamba"
+            elif self.attn_period > 0:
+                mixer = "attn" if i % self.attn_period == 0 else "mamba"
+            elif self.cross_attn_period > 0 and (i % self.cross_attn_period
+                                                 == self.cross_attn_period - 1):
+                mixer = "cross_attn"
+            else:
+                mixer = "attn"
+            if self.ssm_state > 0 and self.attn_period == 0:
+                ffn = "none" if self.d_ff == 0 else "dense"
+            elif self.is_moe and i >= self.moe_first_dense and (
+                    i % self.moe_layer_period == self.moe_layer_period - 1
+                    or self.moe_layer_period == 1):
+                ffn = "moe"
+            else:
+                ffn = "dense"
+            specs.append(LayerSpec(mixer=mixer, ffn=ffn))
+        return tuple(specs)
+
+    def layer_groups(self) -> Tuple[Tuple[Tuple[LayerSpec, ...], int], ...]:
+        """Group the layer pattern into (period, repeats).
+
+        The JAX package scans over parameters stacked per group; the port
+        loops over layers, and uses the grouping only to unstack the JAX
+        parameter tree in the same layer order (``repro_torch.bridge``).
+        """
+        specs = self.layer_specs()
+        best = ((specs, 1),)
+        best_period = len(specs)
+        for prefix in range(0, 3):
+            body = specs[prefix:]
+            m = len(body)
+            if not m:
+                continue
+            for period in range(1, m + 1):
+                if m % period:
+                    continue
+                pat = body[:period]
+                if all(body[j] == pat[j % period] for j in range(m)):
+                    if period < best_period:
+                        groups = []
+                        if prefix:
+                            groups.append((specs[:prefix], 1))
+                        groups.append((pat, m // period))
+                        best = tuple(groups)
+                        best_period = period
+                    break
+        return best

@@ -1,0 +1,47 @@
+"""Serving: prefill + batched single-token decode against the KV cache.
+
+Port of ``repro.serve.step``."""
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+import torch
+
+from repro_torch.core.types import ModelConfig
+from repro_torch.models.transformer import decode_step, forward
+
+
+def make_serve_step(cfg: ModelConfig, window: Optional[int] = None,
+                    temperature: float = 0.0) -> Callable:
+    """Returns step(params, cache, tokens (B,1), pos, generator) ->
+    (next_tokens (B,1) int64, logits, cache).
+
+    Greedy argmax at temperature 0; otherwise a sample from
+    softmax(logits / temperature) drawn with ``generator``."""
+
+    def serve_step(params, cache, tokens, pos, generator=None):
+        logits, cache = decode_step(cfg, params, cache, tokens, pos,
+                                    window=window)
+        last = logits[:, -1, :]
+        if temperature > 0.0:
+            probs = torch.softmax(last.float() / temperature, dim=-1)
+            nxt = torch.multinomial(probs, 1, generator=generator)[:, 0]
+        else:
+            nxt = torch.argmax(last, dim=-1)
+        return nxt[:, None], logits, cache
+
+    return serve_step
+
+
+def make_prefill(cfg: ModelConfig, window: Optional[int] = None) -> Callable:
+    """Forward over the prompt: prefill(params, tokens (B,S)) -> logits.
+
+    On the card its attention runs the flash-attention kernel, once per
+    layer.  The batcher fills its cache by replaying the prompt through
+    decode_step instead (simple and cache-exact)."""
+
+    def prefill(params, tokens):
+        logits, _ = forward(cfg, params, tokens, window=window)
+        return logits
+
+    return prefill

@@ -1,0 +1,110 @@
+"""The port's flash-attention module against the JAX package.
+
+On the CPU the port's wrapper computes its plain version; that plain
+version is held against the JAX reference and against the JAX Pallas kernel
+in interpret mode, on the same inputs made with numpy from a seed.  The
+CUDA kernel itself runs only on the card: tests/test_torch_cuda.py holds it
+against the plain version there.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash_attention.ops import flash_attention as jax_flash
+from repro.kernels.flash_attention.ref import attention_ref as jax_ref
+from repro_torch.kernels import launch_counts
+from repro_torch.kernels.flash_attention import attention_ref, flash_attention
+
+# tests/test_kernels.py:15-17
+TOL = {"float32": dict(atol=2e-5, rtol=2e-5),
+       "bfloat16": dict(atol=2e-2, rtol=2e-2)}
+
+# the sweep of tests/test_kernels.py:21-28, plus group size 7 (qwen2) and
+# head dim 80 (h2o-danube)
+SHAPES = [(1, 2, 2, 128, 128, 64), (2, 4, 2, 256, 256, 64),
+          (1, 8, 1, 256, 512, 128), (1, 14, 2, 128, 128, 64),
+          (1, 4, 2, 128, 128, 80)]
+MASKS = [(True, None), (False, None), (True, 128)]
+
+
+def _inputs(seed, b, h, kv, sq, sk, d):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((b, h, sq, d), dtype=np.float32),
+            rng.standard_normal((b, kv, sk, d), dtype=np.float32),
+            rng.standard_normal((b, kv, sk, d), dtype=np.float32))
+
+
+def _torch(arrays, dtype):
+    return [torch.from_numpy(a).to(getattr(torch, dtype)) for a in arrays]
+
+
+def _jax(arrays, dtype):
+    return [jnp.asarray(a).astype(getattr(jnp, dtype)) for a in arrays]
+
+
+def _np(x):
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(x, np.float32)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("causal,window", MASKS)
+def test_plain_matches_jax_ref_and_interpret_kernel(shape, causal, window,
+                                                    dtype):
+    arrays = _inputs(sum(shape), *shape)
+    port = flash_attention(*_torch(arrays, dtype), causal=causal,
+                           window=window)
+    jq, jk, jv = _jax(arrays, dtype)
+    ref = jax_ref(jq, jk, jv, causal=causal, window=window)
+    kern = jax_flash(jq, jk, jv, causal=causal, window=window)
+    assert port.dtype == getattr(torch, dtype)
+    np.testing.assert_allclose(_np(port), _np(ref), **TOL[dtype])
+    np.testing.assert_allclose(_np(port), _np(kern), **TOL[dtype])
+
+
+@pytest.mark.parametrize("shape,causal,window", [
+    ((2, 4, 2, 200, 200, 32), True, None),   # ragged length
+    ((1, 4, 1, 100, 300, 128), False, 64),   # rectangular, window only
+    # Sq > Sk with a window: rows past Sk - 1 + window keep no key and
+    # average all keys (finite NEG_INF, top-left causal alignment)
+    ((1, 4, 2, 300, 100, 64), True, 32),
+])
+def test_plain_matches_jax_ref_ragged(shape, causal, window):
+    arrays = _inputs(7, *shape)
+    port = attention_ref(*_torch(arrays, "float32"), causal=causal,
+                         window=window)
+    ref = jax_ref(*_jax(arrays, "float32"), causal=causal, window=window)
+    assert np.isfinite(_np(port)).all()
+    np.testing.assert_allclose(_np(port), _np(ref), **TOL["float32"])
+
+
+def test_cpu_wrapper_counts_no_launch():
+    q, k, v = _torch(_inputs(0, 1, 4, 2, 64, 64, 32), "float32")
+    before = launch_counts()["flash_attention"]
+    out = flash_attention(q, k, v, causal=True)
+    assert torch.equal(out, attention_ref(q, k, v, causal=True))
+    assert launch_counts()["flash_attention"] == before
+
+
+@pytest.mark.parametrize("case", ["head_dim", "dtype", "layout", "group",
+                                  "window"])
+def test_wrapper_rejects_what_the_kernel_does_not_take(case):
+    q, k, v = _torch(_inputs(0, 1, 4, 2, 64, 64, 32), "float32")
+    kw = dict(causal=True)
+    err = ValueError
+    if case == "head_dim":
+        q, k, v = _torch(_inputs(0, 1, 4, 2, 64, 64, 48), "float32")
+    elif case == "dtype":
+        q, k, v = q.half(), k.half(), v.half()
+        err = TypeError
+    elif case == "layout":
+        q = q.transpose(1, 2).contiguous().transpose(1, 2)  # (B,H,S,D) view
+    elif case == "group":
+        q, k, v = _torch(_inputs(0, 1, 3, 2, 64, 64, 32), "float32")
+    else:
+        kw["window"] = 0
+    with pytest.raises(err):
+        flash_attention(q, k, v, **kw)
