@@ -96,6 +96,14 @@ class ModelConfig:
         return self.v_head_dim or self.resolved_head_dim
 
     @property
+    def ssm_d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_num_heads(self) -> int:
+        return self.ssm_d_inner // self.ssm_head_dim
+
+    @property
     def padded_vocab(self) -> int:
         """Vocab padded so the embedding/LM-head shard cleanly over TP=16."""
         return _round_up(self.vocab_size, 256)

@@ -2,15 +2,22 @@
 
 ``WRAPPERS`` maps each kernel to its public wrapper; every wrapper carries a
 ``launches`` count that it raises by one where it launches its kernel.
+``SOURCES`` maps each kernel to its CUDA source.
 """
 from __future__ import annotations
 
 from typing import Dict
 
 from repro_torch.kernels.flash_attention import ops as _fa
+from repro_torch.kernels.moe_gmm import ops as _gmm
+from repro_torch.kernels.ssd_scan import ops as _ssd
 
-WRAPPERS = {"flash_attention": _fa.flash_attention}
-SOURCES = {"flash_attention": _fa.SOURCE}
+WRAPPERS = {"flash_attention": _fa.flash_attention,
+            "ssd_scan": _ssd.ssd_scan,
+            "moe_gmm": _gmm.moe_gmm}
+SOURCES = {"flash_attention": _fa.SOURCE,
+           "ssd_scan": _ssd.SOURCE,
+           "moe_gmm": _gmm.SOURCE}
 
 
 def reset_launch_counts() -> None:

@@ -1,0 +1,84 @@
+"""Public wrapper of the grouped expert GEMM kernel.
+
+On CUDA tensors it launches the hand-written Hopper kernel
+(``csrc/moe_gmm.cu``) or raises; on CPU tensors it computes the plain
+PyTorch version (``ref.moe_gmm_ref``).  The device of the tensors decides:
+there is no flag and no fallback.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from pathlib import Path
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.moe_gmm.ref import moe_gmm_ref
+
+SOURCE = Path(__file__).resolve().parent / "csrc" / "moe_gmm.cu"
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    lib = _build.load(SOURCE)
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.moe_gmm.argtypes = [p, p, p, i, i, i, i, ll, ll, i, p]
+    lib.moe_gmm.restype = i
+    lib.moe_gmm_error_string.argtypes = [i]
+    lib.moe_gmm_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check(x, w) -> None:
+    if x.dim() != 3 or w.dim() != 3 or x.shape[0] != w.shape[0] or \
+            x.shape[2] != w.shape[1]:
+        raise ValueError(f"want x (E,C,d), w (E,d,f); got {tuple(x.shape)}, "
+                         f"{tuple(w.shape)}")
+    if min(x.shape) < 1 or w.shape[2] < 1:
+        raise ValueError(f"empty operand: x {tuple(x.shape)}, w "
+                         f"{tuple(w.shape)}")
+    if x.dtype not in _DTYPE_CODES or w.dtype != x.dtype:
+        raise TypeError(f"want x and w both f32 or both bf16; got {x.dtype}, "
+                        f"{w.dtype}")
+    # x may be the tokens expanded over experts (expert stride 0) or any
+    # row-strided view with a unit stride along d; w is contiguous
+    if x.stride(2) != 1:
+        raise ValueError(f"x must have a unit stride along d; strides "
+                         f"{x.stride()}")
+    if not w.is_contiguous():
+        raise ValueError("w must be contiguous in the (E,d,f) layout")
+    if x.device != w.device:
+        raise ValueError(f"x on {x.device}, w on {w.device}")
+
+
+def moe_gmm(x, w):
+    """Grouped expert matmul: (E,C,d) x (E,d,f) -> (E,C,f) contiguous in x's
+    dtype, accumulated in f32 (full f32 for f32 inputs, never TF32).
+
+    x: unit stride along d; its expert stride may be 0 (every expert on the
+    same tokens, as ``moe_dense`` computes) and C, d, f need not divide any
+    tile."""
+    _check(x, w)
+    if x.device.type == "cpu":
+        return moe_gmm_ref(x, w)
+    if x.device.type != "cuda":
+        raise ValueError(f"no moe_gmm for device {x.device}")
+    e, c, d = x.shape
+    f = w.shape[2]
+    out = torch.empty((e, c, f), dtype=x.dtype, device=x.device)
+    lib = _lib()
+    with torch.cuda.device(x.device):
+        err = lib.moe_gmm(x.data_ptr(), w.data_ptr(), out.data_ptr(), e, c, d,
+                          f, x.stride(0), x.stride(1), _DTYPE_CODES[x.dtype],
+                          torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"moe_gmm launch failed: CUDA error {err} "
+                           f"({lib.moe_gmm_error_string(err).decode()})")
+    moe_gmm.launches += 1
+    return out
+
+
+moe_gmm.launches = 0  # kernel launches, counted only where they happen

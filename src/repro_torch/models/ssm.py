@@ -1,0 +1,152 @@
+"""Mamba2 (state-space duality) block: chunked SSD prefill, recurrent decode.
+
+Port of ``repro.models.ssm``.  Projections stay separate tensors (z / x / B /
+C / dt and per-stream convs) in the JAX package's layout.  The scan of
+prefill (``mamba_forward``) goes through ``ssd_scan``, which runs the
+hand-written SSD-scan kernel on a CUDA tensor and the plain chunked dual
+form (``ssd_chunked``) on the CPU; the device decides.  ``ssd_chunked``
+and ``_segsum`` live beside the kernel (``repro_torch.kernels.ssd_scan.ref``)
+and are re-exported here.
+
+Decode (``mamba_decode``) is the single-step recurrence and runs no kernel,
+as in the JAX package; it updates the cache in place and returns it.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core.types import ModelConfig
+from repro_torch.kernels.ssd_scan.ops import ssd_scan
+from repro_torch.kernels.ssd_scan.ref import (  # noqa: F401
+    DEFAULT_CHUNK,
+    _segsum,
+    ssd_chunked,
+)
+from repro_torch.models.modules import dense_init, init_norm, rms_norm
+
+
+def init_mamba(cfg: ModelConfig, dtype, device,
+               generator: torch.Generator) -> dict:
+    d = cfg.d_model
+    din = cfg.ssm_d_inner
+    n = cfg.ssm_state
+    h = cfg.ssm_num_heads
+    k = cfg.ssm_conv_kernel
+
+    def conv_init(ch):
+        return (torch.randn((k, ch), dtype=torch.float32, device=device,
+                            generator=generator) * 0.1).to(dtype)
+
+    def zeros(ch, dt=dtype):
+        return torch.zeros((ch,), dtype=dt, device=device)
+
+    return {
+        "z_proj": dense_init(d, (din,), dtype, device, generator),
+        "x_proj": dense_init(d, (din,), dtype, device, generator),
+        "b_proj": dense_init(d, (n,), dtype, device, generator),
+        "c_proj": dense_init(d, (n,), dtype, device, generator),
+        "dt_proj": dense_init(d, (h,), dtype, device, generator),
+        "conv_x": conv_init(din),
+        "conv_x_bias": zeros(din),
+        "conv_b": conv_init(n),
+        "conv_b_bias": zeros(n),
+        "conv_c": conv_init(n),
+        "conv_c_bias": zeros(n),
+        # f32 whatever the weights' dtype, as in the JAX package
+        "A_log": torch.log(torch.linspace(1.0, 16.0, h, dtype=torch.float32,
+                                          device=device)),
+        "D": torch.ones((h,), dtype=torch.float32, device=device),
+        "dt_bias": zeros(h, torch.float32),
+        "norm": init_norm(din, dtype, device),
+        "out_proj": dense_init(din, (d,), dtype, device, generator),
+    }
+
+
+def _causal_conv(x: torch.Tensor, w: torch.Tensor,
+                 b: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv via shifted adds. x: (B, L, C); w: (K, C)."""
+    k = w.shape[0]
+    pad = F.pad(x, (0, 0, k - 1, 0))
+    out = torch.zeros_like(x)
+    for i in range(k):
+        out = out + pad[:, i:i + x.shape[1], :] * w[i]
+    return F.silu(out + b)
+
+
+def mamba_forward(p: dict, cfg: ModelConfig, xin: torch.Tensor, *,
+                  chunk: int = DEFAULT_CHUNK) -> torch.Tensor:
+    """xin: (B, L, d) -> (B, L, d).  L must be <= chunk or a multiple of it
+    (``ValueError`` otherwise, where the JAX package asserts)."""
+    din, h = cfg.ssm_d_inner, cfg.ssm_num_heads
+    hd = cfg.ssm_head_dim
+    z = xin @ p["z_proj"]
+    x = _causal_conv(xin @ p["x_proj"], p["conv_x"], p["conv_x_bias"])
+    b = _causal_conv(xin @ p["b_proj"], p["conv_b"], p["conv_b_bias"])
+    c = _causal_conv(xin @ p["c_proj"], p["conv_c"], p["conv_c_bias"])
+    dt = F.softplus((xin @ p["dt_proj"]).float() + p["dt_bias"])
+    a = -torch.exp(p["A_log"])
+    # the scan runs in f32 whatever the weights' dtype (repro ssm.py:157-162)
+    xh = x.float().reshape(*x.shape[:2], h, hd)
+    # the kernel's (B,H,L,P) / (B,H,L) as permuted views: no copy
+    y = ssd_scan(xh.permute(0, 2, 1, 3), dt.permute(0, 2, 1), a,
+                 b.float(), c.float(), chunk=chunk).permute(0, 2, 1, 3)
+    y = y + xh * p["D"][:, None]
+    y = y.reshape(*xin.shape[:2], din).to(xin.dtype)
+    y = rms_norm(y * F.silu(z), p["norm"]["scale"], cfg.norm_eps)
+    return y @ p["out_proj"]
+
+
+def init_mamba_cache(cfg: ModelConfig, batch: int, dtype, device) -> dict:
+    """Slot axis first: conv histories (batch, K-1, C) in ``dtype``, the
+    SSM state (batch, H, P, N) in f32."""
+    din, n = cfg.ssm_d_inner, cfg.ssm_state
+    km1 = cfg.ssm_conv_kernel - 1
+    return {
+        "conv_x": torch.zeros((batch, km1, din), dtype=dtype, device=device),
+        "conv_b": torch.zeros((batch, km1, n), dtype=dtype, device=device),
+        "conv_c": torch.zeros((batch, km1, n), dtype=dtype, device=device),
+        "ssm": torch.zeros((batch, cfg.ssm_num_heads, cfg.ssm_head_dim, n),
+                           dtype=torch.float32, device=device),
+    }
+
+
+def _conv_step(hist: torch.Tensor, new: torch.Tensor, w: torch.Tensor,
+               b: torch.Tensor) -> torch.Tensor:
+    """hist: (B, K-1, C) past inputs, shifted in place; new: (B, C).
+    Concatenates in the cache's dtype and sums in f32 (repro ssm.py:181-186).
+    Returns the activated output."""
+    full = torch.cat([hist, new[:, None, :].to(hist.dtype)], dim=1)
+    out = torch.einsum("bkc,kc->bc", full.float(), w.float()) + b
+    hist.copy_(full[:, 1:])
+    return F.silu(out)
+
+
+def mamba_decode(p: dict, cfg: ModelConfig, xin: torch.Tensor, cache: dict
+                 ) -> Tuple[torch.Tensor, dict]:
+    """Single-token recurrent step. xin: (B, 1, d).  Updates ``cache`` in
+    place; returns (out (B, 1, d), cache)."""
+    din, h = cfg.ssm_d_inner, cfg.ssm_num_heads
+    hd = cfg.ssm_head_dim
+    x0 = xin[:, 0]
+    z = x0 @ p["z_proj"]
+    x = _conv_step(cache["conv_x"], x0 @ p["x_proj"], p["conv_x"],
+                   p["conv_x_bias"])
+    b = _conv_step(cache["conv_b"], x0 @ p["b_proj"], p["conv_b"],
+                   p["conv_b_bias"])
+    c = _conv_step(cache["conv_c"], x0 @ p["c_proj"], p["conv_c"],
+                   p["conv_c_bias"])
+    dt1 = F.softplus((x0 @ p["dt_proj"]).float() + p["dt_bias"])  # (B,H)
+    a = -torch.exp(p["A_log"])
+
+    xh = x.float().reshape(-1, h, hd)
+    decay = torch.exp(dt1 * a)  # (B,H)
+    hnew = (cache["ssm"] * decay[..., None, None]
+            + torch.einsum("bh,bhp,bn->bhpn", dt1, xh, b.float()))
+    cache["ssm"].copy_(hnew)
+    y = torch.einsum("bhpn,bn->bhp", hnew, c.float()) + xh * p["D"][:, None]
+    y = y.reshape(-1, din).to(xin.dtype)
+    y = rms_norm(y * F.silu(z), p["norm"]["scale"], cfg.norm_eps)
+    return (y @ p["out_proj"])[:, None, :], cache

@@ -1,12 +1,13 @@
 """Full-model assembly: embeddings -> decoder layers -> LM head.
 
-Port of ``repro.models.transformer`` for configs whose every layer is GQA
-self-attention plus a dense FFN.  The JAX package scans over parameters
-stacked per layer group; here the parameters are a list of per-layer dicts
-(``params["layers"]``) walked by a Python loop, in the JAX layer order.
-MLA, MoE, Mamba, cross-attention and encoder configs raise
-``NotImplementedError`` when their parameters are made (``init_params``,
-``repro_torch.bridge.params_from_jax``).
+Port of ``repro.models.transformer`` for decoders whose layers mix GQA
+self-attention or Mamba2 (``LayerSpec.mixer``) with a dense, MoE or no FFN
+(``LayerSpec.ffn``): the dense GQA family, the SSM, MoE and the hybrid.  The
+JAX package scans over parameters stacked per layer group; here the
+parameters are a list of per-layer dicts (``params["layers"]``) walked by a
+Python loop, in the JAX layer order.  MLA, cross-attention and encoder
+configs raise ``NotImplementedError`` when their parameters are made
+(``init_params``, ``repro_torch.bridge.params_from_jax``).
 """
 from __future__ import annotations
 
@@ -17,20 +18,47 @@ import torch
 from repro_torch.core.device import resolve_device
 from repro_torch.core.types import LayerSpec, ModelConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssm
 from repro_torch.models.modules import (dense_init, embed_init, ffn_apply,
                                         init_ffn, init_norm, rms_norm)
 
-_PORTED_LAYER = LayerSpec(mixer="attn", ffn="dense")
-
 
 def check_ported(cfg: ModelConfig) -> None:
-    """Raise unless every layer of ``cfg`` is GQA self-attention plus a
-    dense FFN."""
-    if cfg.attention != "gqa" or cfg.is_encoder_decoder or \
-            any(s != _PORTED_LAYER for s in cfg.layer_specs()):
+    """Raise for the families not ported yet: MLA, cross-attention and
+    encoder-decoder configs."""
+    if cfg.attention == "mla" or cfg.is_encoder_decoder or \
+            any(s.mixer == "cross_attn" for s in cfg.layer_specs()):
         raise NotImplementedError(
-            f"{cfg.name}: only GQA self-attention + dense FFN layers are "
-            f"ported yet")
+            f"{cfg.name}: MLA, cross-attention and encoder-decoder layers "
+            f"are not ported yet")
+
+
+def prefill_launches(cfg: ModelConfig) -> dict:
+    """Kernel launches of one ``forward`` on CUDA tensors, by the names of
+    ``repro_torch.kernels.WRAPPERS``: flash attention once per attention
+    layer, the SSD scan once per Mamba layer, the grouped expert GEMM three
+    times (gate, up, down) per MoE layer."""
+    specs = cfg.layer_specs()
+    return {"flash_attention": sum(s.mixer == "attn" for s in specs),
+            "ssd_scan": sum(s.mixer == "mamba" for s in specs),
+            "moe_gmm": 3 * sum(s.ffn == "moe" for s in specs)}
+
+
+def _init_layer(cfg: ModelConfig, spec: LayerSpec, dtype, device,
+                generator: torch.Generator) -> dict:
+    p = {"norm1": init_norm(cfg.d_model, dtype, device)}
+    if spec.mixer == "attn":
+        p["mixer"] = attn.init_gqa(cfg, dtype, device, generator)
+    else:
+        p["mixer"] = ssm.init_mamba(cfg, dtype, device, generator)
+    if spec.ffn != "none":
+        p["norm2"] = init_norm(cfg.d_model, dtype, device)
+        if spec.ffn == "moe":
+            p["ffn"] = moe_mod.init_moe(cfg, dtype, device, generator)
+        else:
+            p["ffn"] = init_ffn(cfg, cfg.d_ff, dtype, device, generator)
+    return p
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
@@ -47,12 +75,8 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     if not cfg.tie_embeddings:
         params["lm_head"] = dense_init(cfg.d_model, (cfg.padded_vocab,),
                                        dtype, dev, generator)
-    params["layers"] = [
-        {"norm1": init_norm(cfg.d_model, dtype, dev),
-         "mixer": attn.init_gqa(cfg, dtype, dev, generator),
-         "norm2": init_norm(cfg.d_model, dtype, dev),
-         "ffn": init_ffn(cfg, cfg.d_ff, dtype, dev, generator)}
-        for _ in range(cfg.num_layers)]
+    params["layers"] = [_init_layer(cfg, spec, dtype, dev, generator)
+                        for spec in cfg.layer_specs()]
     return params
 
 
@@ -71,22 +95,43 @@ def _lm_head(cfg: ModelConfig, params: dict, x) -> torch.Tensor:
     return logits + _vocab_bias(cfg, logits.dtype, logits.device)
 
 
+def _apply_layer(lp: dict, spec: LayerSpec, cfg: ModelConfig, x,
+                 positions, window
+                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """One decoder layer over the whole sequence; returns (x, aux_loss),
+    aux_loss None without a MoE FFN."""
+    h = rms_norm(x, lp["norm1"]["scale"], cfg.norm_eps)
+    if spec.mixer == "attn":
+        h = attn.gqa_forward(lp["mixer"], cfg, h, positions, window=window)
+    else:
+        h = ssm.mamba_forward(lp["mixer"], cfg, h)
+    x = x + h
+    aux = None
+    if spec.ffn != "none":
+        h2 = rms_norm(x, lp["norm2"]["scale"], cfg.norm_eps)
+        if spec.ffn == "moe":
+            y, aux = moe_mod.moe_apply(lp["ffn"], cfg, h2)
+        else:
+            y = ffn_apply(lp["ffn"], h2, cfg.ffn_act)
+        x = x + y
+    return x, aux
+
+
 def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
             window: Optional[int] = None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """tokens: (B, S) int. Returns (logits (B,S,V_pad), aux_loss).
+    """tokens: (B, S) int. Returns (logits (B,S,V_pad), aux_loss): the sum
+    of the MoE layers' router losses (0 without MoE).
 
-    ``window`` overrides cfg.sliding_window.  aux_loss is 0: no MoE router
-    is ported."""
+    ``window`` overrides cfg.sliding_window."""
     x = params["embed"][tokens]
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     win = window if window is not None else cfg.sliding_window
-    for lp in params["layers"]:
-        h = rms_norm(x, lp["norm1"]["scale"], cfg.norm_eps)
-        x = x + attn.gqa_forward(lp["mixer"], cfg, h, positions, window=win)
-        h = rms_norm(x, lp["norm2"]["scale"], cfg.norm_eps)
-        x = x + ffn_apply(lp["ffn"], h, cfg.ffn_act)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for spec, lp in zip(cfg.layer_specs(), params["layers"]):
+        x, a = _apply_layer(lp, spec, cfg, x, positions, win)
+        if a is not None:
+            aux = aux + a
     return _lm_head(cfg, params, x), aux
 
 
@@ -98,14 +143,36 @@ def encode(cfg: ModelConfig, params: dict, frames: torch.Tensor):
 
 def init_cache(cfg: ModelConfig, params: dict, batch: int, max_len: int,
                dtype=torch.float32, *, window: Optional[int] = None) -> dict:
-    """Decode cache on the parameters' device: one {"k", "v"} per layer,
-    slot (batch) axis first.  Defaults to f32 whatever the parameters'
-    dtype, like the JAX package."""
+    """Decode cache on the parameters' device, one dict per layer, slot
+    (batch) axis first: {"k", "v"} for attention, conv histories and the
+    SSM state for Mamba.  Defaults to f32 whatever the parameters' dtype,
+    like the JAX package (the SSM state is f32 always)."""
     win = window if window is not None else cfg.sliding_window
     device = params["embed"].device
-    return {"layers": [attn.init_kv_cache(cfg, batch, max_len, dtype, device,
-                                          window=win)
-                       for _ in range(cfg.num_layers)]}
+    return {"layers": [
+        attn.init_kv_cache(cfg, batch, max_len, dtype, device, window=win)
+        if spec.mixer == "attn" else
+        ssm.init_mamba_cache(cfg, batch, dtype, device)
+        for spec in cfg.layer_specs()]}
+
+
+def _decode_layer(lp: dict, spec: LayerSpec, cfg: ModelConfig, x, lcache,
+                  pos, window) -> torch.Tensor:
+    h = rms_norm(x, lp["norm1"]["scale"], cfg.norm_eps)
+    if spec.mixer == "attn":
+        h, _ = attn.gqa_decode(lp["mixer"], cfg, h, lcache, pos,
+                               window=window)
+    else:
+        h, _ = ssm.mamba_decode(lp["mixer"], cfg, h, lcache)
+    x = x + h
+    if spec.ffn != "none":
+        h2 = rms_norm(x, lp["norm2"]["scale"], cfg.norm_eps)
+        if spec.ffn == "moe":
+            y, _ = moe_mod.moe_apply(lp["ffn"], cfg, h2)
+        else:
+            y = ffn_apply(lp["ffn"], h2, cfg.ffn_act)
+        x = x + y
+    return x
 
 
 def decode_step(cfg: ModelConfig, params: dict, cache: dict,
@@ -115,10 +182,7 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict,
     Returns (logits (B,1,V_pad), cache), the cache updated in place."""
     win = window if window is not None else cfg.sliding_window
     x = params["embed"][tokens]
-    for lp, lc in zip(params["layers"], cache["layers"]):
-        h = rms_norm(x, lp["norm1"]["scale"], cfg.norm_eps)
-        h, _ = attn.gqa_decode(lp["mixer"], cfg, h, lc, pos, window=win)
-        x = x + h
-        h = rms_norm(x, lp["norm2"]["scale"], cfg.norm_eps)
-        x = x + ffn_apply(lp["ffn"], h, cfg.ffn_act)
+    for spec, lp, lc in zip(cfg.layer_specs(), params["layers"],
+                            cache["layers"]):
+        x = _decode_layer(lp, spec, cfg, x, lc, pos, win)
     return _lm_head(cfg, params, x), cache

@@ -1,11 +1,12 @@
 """Continuous batching: slot-based serving with per-sequence positions.
 
-Port of ``repro.serve.batcher`` for the dense GQA family.  A fixed pool of
-``max_slots`` cache slots, each with its own decode position; new requests
-are admitted into free slots mid-flight (their prompt is replayed through the
-same batched decode step while other slots keep generating) and finished
-slots are recycled.  The slot axis is structural here: it is axis 0 of every
-per-layer K/V cache tensor.
+Port of ``repro.serve.batcher`` for every decoder the port builds (dense
+GQA, Mamba2, MoE, hybrid).  A fixed pool of ``max_slots`` cache slots, each
+with its own decode position; new requests are admitted into free slots
+mid-flight (their prompt is replayed through the same batched decode step
+while other slots keep generating) and finished slots are recycled.  The
+slot axis is structural here: it is axis 0 of every per-layer cache tensor
+(K/V ring buffers, Mamba conv histories and SSM state).
 """
 from __future__ import annotations
 
@@ -64,8 +65,9 @@ class ContinuousBatcher:
         self.queue.append(Request(rid, list(prompt), max_new))
 
     def _reset_slot_state(self, slot: int) -> None:
-        """Zero a recycled slot's cache in place (the K/V ring buffers also
-        self-invalidate from the position)."""
+        """Zero a recycled slot's cache in place.  Required for Mamba layers:
+        their conv history and SSM state carry the previous request and do
+        not self-invalidate from the position (the K/V ring buffers do)."""
         for layer in self.cache["layers"]:
             for t in layer.values():
                 t[slot].zero_()

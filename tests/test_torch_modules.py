@@ -41,10 +41,11 @@ def test_configs_equal_jax(arch, smoke):
 def test_unported_archs_raise():
     with pytest.raises(NotImplementedError, match="not ported yet"):
         get_config("deepseek-v2-236b")
-    moe = dataclasses.replace(smoke_config("granite-3-8b"), num_experts=4,
-                              top_k=2)
-    with pytest.raises(NotImplementedError):
-        init_params(moe, torch.Generator(), device="cpu")
+    # the families of the remaining slices: MLA and cross-attention layers
+    for overrides in (dict(attention="mla"), dict(cross_attn_period=2)):
+        cfg = dataclasses.replace(smoke_config("granite-3-8b"), **overrides)
+        with pytest.raises(NotImplementedError, match="not ported yet"):
+            init_params(cfg, torch.Generator(), device="cpu")
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -108,7 +109,8 @@ def test_init_params_layout_matches_bridged_jax(arch):
 
     assert layout(own) == layout(bridged)
     assert len(own["layers"]) == cfg.num_layers
-    w = own["layers"][0]["mixer"]["wq"]
+    mixer = own["layers"][0]["mixer"]
+    w = mixer["wq"] if "wq" in mixer else mixer["x_proj"]
     bound = 3.0 / np.sqrt(cfg.d_model)  # truncated at 3 sigma
     assert float(w.abs().max()) <= bound + 1e-6
 

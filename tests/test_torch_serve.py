@@ -62,15 +62,16 @@ def test_prefill_matches_jax_pallas(arch, overrides, batch):
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_decode_matches_forward(arch):
-    """Port of test_decode.py::test_decode_matches_forward for the dense
-    archs: step-by-step decode reproduces the forward logits, and both
-    match the JAX forward."""
+    """Port of test_decode.py::test_decode_matches_forward: step-by-step
+    decode reproduces the forward logits, and the forward's logits and
+    summed router loss (0 without MoE) match the JAX forward's."""
     b, s = 2, 16
     cfg, params, jcfg, jp = _both(arch, 0)
     tok = _tokens(cfg, 1, (b, s))
-    full, _ = forward(cfg, params, torch.from_numpy(tok))
-    ref, _ = jax_forward(jcfg, jp, jnp.asarray(tok))
+    full, aux = forward(cfg, params, torch.from_numpy(tok))
+    ref, jaux = jax_forward(jcfg, jp, jnp.asarray(tok))
     np.testing.assert_allclose(full.numpy(), np.asarray(ref), **LOGIT_TOL)
+    np.testing.assert_allclose(float(aux), float(jaux), rtol=1e-5, atol=0)
     cache = init_cache(cfg, params, b, s)
     for t in range(s):
         logits, cache = decode_step(cfg, params, cache,
@@ -164,6 +165,61 @@ def test_staggered_requests_match_solo_and_jax():
     assert _lifecycle(done) == _lifecycle(_run(JaxBatcher, jcfg, jp, reqs, 2))
 
 
+@pytest.mark.parametrize("arch", ["mamba2-130m", "jamba-1.5-large-398b"])
+def test_staggered_ssm_requests_match_solo_and_jax(arch):
+    """Port of test_batcher.py::test_staggered_requests_match_solo for the
+    SSM and the hybrid (Mamba + attention + MoE): the third request lands
+    in a recycled slot mid-flight; token lists and lifecycle equal solo
+    runs and the JAX batcher's."""
+    cfg, params, jcfg, jp = _both(arch, 0)
+    reqs = [([1, 2, 3, 4, 5], 6), ([7, 8, 9], 6), ([11, 12, 13, 14], 6)]
+    done = _run(ContinuousBatcher, cfg, params, reqs, 2)
+    assert set(done) == {0, 1, 2}
+    assert done[2].t_admit > 0
+    for i, req in enumerate(reqs):
+        solo = _run(ContinuousBatcher, cfg, params, [req], 1)
+        assert done[i].out == solo[0].out
+    assert _lifecycle(done) == _lifecycle(_run(JaxBatcher, jcfg, jp, reqs, 2))
+
+
+def test_recycled_ssm_slot_is_zeroed(monkeypatch):
+    """A recycled Mamba slot starts from zero conv history and SSM state:
+    the second request's tokens equal a solo run's.  The reset is needed,
+    not a safeguard: without it the previous request's state leaks."""
+    cfg, params, _, _ = _both("mamba2-130m", 1)
+    solo = _run(ContinuousBatcher, cfg, params, [([3, 1, 4], 5)], 1)
+    reqs = [([9, 9, 9, 9, 9, 9], 4), ([3, 1, 4], 5)]  # pollute the slot
+    done = _run(ContinuousBatcher, cfg, params, reqs, 1)
+    assert done[1].out == solo[0].out
+
+    b = ContinuousBatcher(cfg, params, max_slots=1, max_len=64)
+    b.submit(*reqs[0], rid=0)
+    b.run()
+    assert any(float(t.abs().max()) > 0 for layer in b.cache["layers"]
+               for t in layer.values())
+    b.submit(*reqs[1], rid=1)
+    b._admit()
+    for layer in b.cache["layers"]:
+        for t in layer.values():
+            assert float(t.abs().max()) == 0.0
+
+    logits = {}
+    for reset in (True, False):
+        if not reset:
+            monkeypatch.setattr(ContinuousBatcher, "_reset_slot_state",
+                                lambda self, slot: None)
+        b = ContinuousBatcher(cfg, params, max_slots=1, max_len=64)
+        for rid, req in enumerate(reqs):
+            b.submit(*req, rid=rid)
+        while b.active:
+            b.step()
+            if b.slot_req[0] is not None and b.slot_req[0].rid == 1:
+                break
+        logits[reset] = decode_step(cfg, params, b.cache,
+                                    torch.tensor([[3]]), 0)[0]
+    assert float((logits[True] - logits[False]).abs().max()) > 1e-3
+
+
 def test_slot_recycling_isolated():
     """Port of test_batcher.py::test_slot_recycling_isolated."""
     cfg, params, jcfg, jp = _both("qwen2-0.5b", 1)
@@ -198,8 +254,9 @@ def test_long_prompt_rejected_up_front():
 
 
 def test_port_imports_no_jax():
-    """Every repro_torch module and chip_smoke.py import without jax or the
-    JAX package; run in a fresh interpreter because conftest imports jax."""
+    """Every repro_torch module (the SSM, MoE and both new kernels included)
+    and chip_smoke.py import without jax or the JAX package; run in a fresh
+    interpreter because conftest imports jax."""
     script = """
 import importlib, pkgutil, sys
 sys.path.insert(0, "src")
@@ -220,4 +277,4 @@ assert not bad, bad
     proc = subprocess.run([sys.executable, "-c", script], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert int(proc.stdout.split()[0]) >= 15, proc.stdout
+    assert int(proc.stdout.split()[0]) >= 33, proc.stdout

@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
 """Where the time of the port's serving path goes on the card.
 
-    python3 tools/torch_serving_profile.py [--steps 20]
+    python3 tools/torch_serving_profile.py [--arch qwen2-0.5b] [--steps 20]
 
-qwen2-0.5b at full width in bf16, on one card: times a prefill of
-B 4 x S 512 and the decode steps of a 4-slot ContinuousBatcher, first with
-the profiler off (host clock around synchronised work), then under
-torch.profiler.  Prints one JSON line per window: wall time, device busy
+One model at full width in bf16, on one card (dbrx-132b cut to 4 of its
+40 layers, which is what one card holds):
+times a prefill (B 4 x S 512; dbrx-132b B 2 x S 256) and the decode steps
+of a 4-slot ContinuousBatcher, first with the profiler off (host clock
+around synchronised work), then under torch.profiler.  Prints one JSON line per window: wall time, device busy
 time (the sum of kernel times; one stream, so kernels do not overlap), the
 device's idle share, kernel launches and host-side operator calls, and the
 kernels that take the most device time.
@@ -14,6 +15,7 @@ kernels that take the most device time.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import subprocess
@@ -29,7 +31,7 @@ import torch  # noqa: E402
 from torch.autograd import DeviceType  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs import ARCHS, get_config  # noqa: E402
 from repro_torch.kernels import SOURCES, _build  # noqa: E402
 from repro_torch.models import init_params  # noqa: E402
 from repro_torch.serve import make_prefill  # noqa: E402
@@ -70,24 +72,37 @@ def _window(name, fn, reps):
                         for a in top]}), flush=True)
 
 
+# depth that one card holds in bf16 where the full model does not fit
+LAYERS = {"dbrx-132b": 4}
+PREFILL_SHAPE = {"dbrx-132b": (2, 256)}  # (B, S); others B 4 x S 512
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", default="qwen2-0.5b", choices=ARCHS)
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("torch_serving_profile: needs a CUDA card")
     _build.build(list(SOURCES.values()))
-    cfg = get_config("qwen2-0.5b")
+    cfg = get_config(args.arch)
+    if args.arch in LAYERS:
+        cfg = dataclasses.replace(cfg, num_layers=LAYERS[args.arch])
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     params = init_params(cfg, gen, dtype=torch.bfloat16, device="cuda")
     rng = np.random.default_rng(args.seed)
+    print(json.dumps({"arch": args.arch, "layers": cfg.num_layers,
+                      "dtype": "bfloat16"}), flush=True)
 
     prefill = make_prefill(cfg)
+    b, s = PREFILL_SHAPE.get(args.arch, (4, 512))
     tokens = torch.from_numpy(
-        rng.integers(0, cfg.vocab_size, (4, 512))).cuda()
+        rng.integers(0, cfg.vocab_size, (b, s))).cuda()
     prefill(params, tokens)  # warm-up: cuBLAS handles, kernel load
-    _window("prefill_b4_s512", lambda: prefill(params, tokens), 3)
+    _window(f"prefill_b{b}_s{s}", lambda: prefill(params, tokens), 3)
+    del tokens
+    torch.cuda.empty_cache()
 
     # decode steps with all 4 slots busy: prompts of 8 tokens, then a long
     # generation, so the window sees the steady state of a full batch
