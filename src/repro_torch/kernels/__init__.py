@@ -1,23 +1,34 @@
 """Hand-written Hopper kernels of the port, each beside its plain version.
 
 ``WRAPPERS`` maps each kernel to its public wrapper; every wrapper carries a
-``launches`` count that it raises by one where it launches its kernel.
-``SOURCES`` maps each kernel to its CUDA source.
+``launches`` count that it raises by the number of CUDA kernels it launches,
+where it launches them.
+``SOURCES`` maps each kernel to its CUDA source (the four compression
+kernels share one).
 """
 from __future__ import annotations
 
 from typing import Dict
 
+from repro_torch.kernels.compress import ops as _cmp
 from repro_torch.kernels.flash_attention import ops as _fa
 from repro_torch.kernels.moe_gmm import ops as _gmm
 from repro_torch.kernels.ssd_scan import ops as _ssd
 
 WRAPPERS = {"flash_attention": _fa.flash_attention,
             "ssd_scan": _ssd.ssd_scan,
-            "moe_gmm": _gmm.moe_gmm}
+            "moe_gmm": _gmm.moe_gmm,
+            "quantize": _cmp.quantize_kernel,
+            "dequantize": _cmp.dequantize_kernel,
+            "sparsify": _cmp.sparsify_kernel,
+            "matmul": _cmp.matmul_kernel}
 SOURCES = {"flash_attention": _fa.SOURCE,
            "ssd_scan": _ssd.SOURCE,
-           "moe_gmm": _gmm.SOURCE}
+           "moe_gmm": _gmm.SOURCE,
+           "quantize": _cmp.SOURCE,
+           "dequantize": _cmp.SOURCE,
+           "sparsify": _cmp.SOURCE,
+           "matmul": _cmp.SOURCE}
 
 
 def reset_launch_counts() -> None:

@@ -49,6 +49,7 @@ def library_path(source: Path) -> Path:
 def build(sources: Sequence[Path]) -> Dict[Path, Path]:
     """Compile every source that is not built yet, one nvcc process per
     source, all started together.  Returns {source: library path}."""
+    sources = list(dict.fromkeys(sources))  # a source shared by kernels
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = None
     running = []

@@ -80,6 +80,19 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     return params
 
 
+
+def param_leaves(tree):
+    """The tensors of a parameter tree (nested dicts and lists, as
+    ``init_params`` builds it), in order."""
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from param_leaves(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from param_leaves(v)
+    else:
+        yield tree
+
 def _vocab_bias(cfg: ModelConfig, dtype, device) -> torch.Tensor:
     """NEG_INF on the padded vocabulary ids, so argmax never picks one."""
     v = torch.arange(cfg.padded_vocab, device=device)

@@ -1,5 +1,6 @@
-"""The port on the card: each CUDA kernel against its plain version, and
-the model's prefill on the card against the same model on the CPU.
+"""The port on the card: each CUDA kernel against its plain version, the
+model's prefill and the codecs on the card against the same on the CPU, and
+a quantized ring over gloo with CUDA tensors.
 
 Every test here is marked ``cuda`` and skips where there is no card.  The
 file imports no jax, so it also runs where jax is not installed:
@@ -10,13 +11,18 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.compress import LowRankCodec, get_codec
 from repro_torch.configs import ARCHS, smoke_config
 from repro_torch.kernels import launch_counts
+from repro_torch.kernels.compress import ops as cops
+from repro_torch.kernels.compress import ref as cref
 from repro_torch.kernels.flash_attention import attention_ref, flash_attention
 from repro_torch.kernels.moe_gmm import moe_gmm, moe_gmm_ref
 from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_ref
 from repro_torch.models import forward, init_params, prefill_launches
+from repro_torch.launch.ranks import spawn_ranks
 from repro_torch.serve import make_prefill
+from torch_ccl_ranks import compressed_ring_emulation, ring_q8_on_card
 
 pytestmark = pytest.mark.cuda
 
@@ -148,8 +154,9 @@ def test_prefill_on_card_runs_the_kernel_and_matches_cpu(cuda, arch):
     out = make_prefill(cfg)(_to(params, cuda), tok.to(cuda))
     torch.cuda.synchronize()
     after = launch_counts()
-    assert {k: after[k] - before[k] for k in after} == \
-        prefill_launches(cfg)
+    launched = {k: after[k] - before[k] for k in after}
+    assert {k: n for k, n in launched.items() if n} == \
+        {k: n for k, n in prefill_launches(cfg).items() if n}
     ref = make_prefill(cfg)(params, tok)
     np.testing.assert_allclose(out.cpu().numpy(), ref.numpy(), **LOGIT_TOL)
 
@@ -169,3 +176,136 @@ def test_router_loss_on_card_matches_cpu(cuda, arch):
     _, ref = forward(cfg, params, tok)
     assert float(ref) > 0
     np.testing.assert_allclose(float(aux), float(ref), rtol=1e-5)
+
+
+# quantize: the JAX test's shapes (tests/test_compress.py:186-188, as the
+# payload-level rows), ragged rows, the short/long boundary (4096) and long
+# rows that take the two-pass path
+Q_SHAPES = [(1, 256), (8, 256), (2, 256), (3, 100), (7, 33), (2, 4096),
+            (1, 4097), (3, 10001), (1, 1 << 20), (2, 65536 + 3)]
+
+
+@pytest.mark.parametrize("stochastic", [False, True])
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", Q_SHAPES)
+def test_quantize_kernel_matches_plain(cuda, shape, dtype, bits, stochastic):
+    """K2a and K2b against their plain versions: q, scales and the decode
+    bit-equal (the same true division and half-to-even rounding; the same
+    uint32 bits for the stochastic path)."""
+    rng = np.random.default_rng(sum(shape) + bits)
+    x = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32) * 3
+                         ).to(cuda, dtype)
+    rand = torch.from_numpy(rng.integers(0, 2 ** 32, shape, dtype=np.uint32)
+                            .view(np.int32)).to(cuda) if stochastic else None
+    before = cops.quantize_kernel.launches
+    q, s = cops.quantize_kernel(x, rand, bits=bits, stochastic=stochastic)
+    torch.cuda.synchronize()
+    assert cops.quantize_kernel.launches == \
+        before + (1 if shape[1] <= 4096 else 2)
+    q_ref, s_ref = cref.quantize_ref(x, bits, stochastic, rand, per_row=True)
+    assert torch.equal(q, q_ref) and torch.equal(s, s_ref)
+    before = cops.dequantize_kernel.launches
+    out = cops.dequantize_kernel(q, s)
+    torch.cuda.synchronize()
+    assert cops.dequantize_kernel.launches == before + 1
+    assert torch.equal(out, cref.dequantize_ref(q, s))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 256), (3, 100), (1, 513), (7, 33)])
+def test_sparsify_kernel_matches_plain(cuda, shape, dtype):
+    rng = np.random.default_rng(sum(shape))
+    x = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(
+        cuda, dtype)
+    t = torch.from_numpy(rng.uniform(0.2, 1.5, (shape[0], 1)).astype(
+        np.float32)).to(cuda)
+    before = cops.sparsify_kernel.launches
+    out = cops.sparsify_kernel(x, t)
+    torch.cuda.synchronize()
+    assert cops.sparsify_kernel.launches == before + 1
+    assert torch.equal(out, cref.sparsify_ref(x, t))
+
+
+# (m, k, n, a transposed): tests/test_compress.py:227-232, ragged, n of 5-8,
+# the transposed view of M^T @ P, k <= 8 (the decode), a general shape,
+# few rows over a long k and its decode (split over blocks: the
+# o-projection gradient as 14 x 57,344), and a skinny operand larger than
+# shared memory
+MM_SHAPES = [(128, 64, 4, False), (100, 37, 3, False), (50, 40, 6, False),
+             (64, 5000, 4, True), (33, 4, 7, True), (1000, 4, 96, False),
+             (70, 50, 40, False), (40, 30, 20, True), (4, 13000, 4, False),
+             (14, 57344, 4, False), (14, 4, 57344, False),
+             (3, 8, 7000, False)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,k,n,transposed", MM_SHAPES)
+def test_matmul_kernel_matches_plain(cuda, m, k, n, transposed, dtype):
+    """K4 against its plain version: f32 accumulation in another order
+    (bf16 inputs are exact in f32).  Within atol and rtol 1e-5 up to the
+    JAX test's k = 64 (tests/test_compress.py:227-232); beyond it the
+    difference of two summation orders grows with the terms, not with
+    their sum, so there rtol 1e-5 applies to |a| @ |b|."""
+    rng = np.random.default_rng(m + k + n)
+    a = torch.from_numpy(rng.standard_normal((k, m) if transposed else
+                                             (m, k), dtype=np.float32)
+                         ).to(cuda, dtype)
+    a = a.T if transposed else a
+    b = torch.from_numpy(rng.standard_normal((k, n), dtype=np.float32)).to(
+        cuda, dtype)
+    out = cops.matmul_kernel(a, b)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.float32 and out.shape == (m, n)
+    ref = cref.matmul_ref(a, b)
+    scale = cref.matmul_ref(a.abs(), b.abs()) if k > 64 else ref.abs()
+    err = (out - ref).abs()
+    assert bool((err <= 1e-5 + 1e-5 * scale).all()), float(err.max())
+
+
+@pytest.mark.parametrize("name", ["q8", "q4", "topk"])
+def test_codec_on_card_matches_cpu(cuda, name):
+    """The codec's wire tensors and decode on the card equal the CPU's."""
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (300, 77), dtype=np.float32))
+    codec = get_codec(name)
+    enc_c, st_c = codec.encode(x, codec.init_state(x))
+    enc_g, st_g = codec.encode(x.to(cuda), codec.init_state(x.to(cuda)))
+    for a, b in zip(enc_c.arrays, enc_g.arrays):
+        assert torch.equal(a, b.cpu())
+    assert torch.equal(codec.decode(enc_c), codec.decode(enc_g).cpu())
+
+
+def test_lowrank_codec_on_card_matches_cpu(cuda, monkeypatch):
+    """The same Q0 on both (the CPU generator's); the decode, which does
+    not depend on QR's column signs, within 1e-4 relative; K4 launched."""
+    def q0(self, n, r, device):
+        gen = torch.Generator().manual_seed(r + n % 9973)
+        return torch.randn((n, r), generator=gen).to(device)
+
+    monkeypatch.setattr(LowRankCodec, "_test_matrix", q0)
+    x = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        (500, 96), dtype=np.float32))
+    codec = get_codec("lowrank")
+    dec_c = codec.decode(codec.encode(x)[0])
+    before = cops.matmul_kernel.launches
+    dec_g = codec.decode(codec.encode(x.to(cuda))[0])
+    torch.cuda.synchronize()
+    assert cops.matmul_kernel.launches >= before + 3
+    rel = float((dec_g.cpu() - dec_c).norm() / dec_c.norm())
+    assert rel <= 1e-4, rel
+
+
+def test_ring_q8_over_gloo_with_cuda_tensors(cuda):
+    """Two ranks on the card, gloo between them: every hop through K2a/K2b,
+    both ranks hold the same result, bit-equal to the JAX package's hop
+    algebra in IEEE f32."""
+    n, seed = 1 << 16, 5
+    res = spawn_ranks(ring_q8_on_card, 2, n, seed, timeout_s=300)
+    xs = np.stack([torch.randn(n, generator=torch.Generator().manual_seed(
+        seed + r)).numpy() for r in range(2)])
+    for r in res:
+        assert r["device"].startswith("cuda")
+        assert r["quantize"] >= 2 and r["dequantize"] >= 2
+        np.testing.assert_array_equal(r["result"],
+                                      compressed_ring_emulation(xs, 8)[0])
