@@ -51,6 +51,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -168,6 +169,34 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, iters: int) -> float:
+    """Device time of one call of ``fn``: ``iters`` calls captured in one
+    CUDA graph and replayed, so that the host work of each call (the
+    wrapper's checks, the ctypes call) is not timed; where ``cuda_ms`` is
+    larger, the host sets the pace of back-to-back calls."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm up off the default stream
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(3):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (3 * iters)
+    del graph
+    return ms
+
+
 def _delta(before: dict) -> dict:
     """The kernels launched since ``before``, by name (none left out)."""
     return {k: v - before[k] for k, v in launch_counts().items()
@@ -185,6 +214,31 @@ def _release() -> None:
 # 1. build
 # --------------------------------------------------------------------------
 
+# the wgmma / TMA kernels (K1 bf16; K5 bf16 prefill and, swap-AB, decode)
+WGMMA_KERNELS = ("flash_attn_bf16_kernel<64>", "flash_attn_bf16_kernel<128>",
+                 "gmm_wgmma_kernel", "gmm_swap_kernel<8>", "gmm_swap_kernel<16>",
+                 "gmm_swap_kernel<32>", "gmm_swap_kernel<64>")
+
+
+def ptxas_summary(log: str) -> dict:
+    """nvcc's -Xptxas -v output by kernel: {name: "Used N registers, ...;
+    0 bytes stack frame, ... spill loads"}, the name demangled as far as
+    the kernel's template argument."""
+    out, name = {}, None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln or "Function properties for" in ln:
+            name = None
+            for m in re.finditer(r"(?=(\d+)([A-Za-z_]\w*))", ln):
+                n, rest = int(m.group(1)), m.group(2)  # <length><identifier>
+                if rest[:n].endswith("_kernel"):
+                    arg = re.match(r"ILi(\d+)E", rest[n:])
+                    name = rest[:n] + (f"<{arg.group(1)}>" if arg else "")
+        elif name and ("registers" in ln or "spill" in ln):
+            text = ln.split("ptxas info    :")[-1].strip()
+            out[name] = f"{out[name]}; {text}" if name in out else text
+    return out
+
+
 def phase_build() -> None:
     t0 = time.time()
     libs = _build.build(list(SOURCES.values()))
@@ -192,13 +246,15 @@ def phase_build() -> None:
     ptxas = {}
     for src, lib in libs.items():
         log = lib.with_suffix(".log")
-        lines = log.read_text().splitlines() if log.exists() else []
-        ptxas[src.name] = [ln.split("ptxas info    :")[-1].strip()
-                           for ln in lines
-                           if "registers" in ln or "spill" in ln]
+        ptxas[src.name] = ptxas_summary(log.read_text() if log.exists()
+                                        else "")
     emit({"phase": "build", "seconds": seconds,
           "libraries": [str(p.relative_to(ROOT)) for p in libs.values()],
           "ptxas": ptxas})
+    for src in ptxas.values():  # the tensor-core kernels, one line each
+        for name, info in src.items():
+            if name in WGMMA_KERNELS:
+                emit({"phase": "build", "kernel": name, "ptxas": info})
 
 
 # --------------------------------------------------------------------------
@@ -230,11 +286,15 @@ def attention_bound(b, h, kv, sq, sk, d, causal, window, dtype):
     return _bound(nbytes, flops, PEAK_BF16_FLOPS)
 
 
-def _qkv(rng, b, h, kv, sq, sk, d, dtype):
-    def mk(*shape):
-        return torch.from_numpy(
-            rng.standard_normal(shape, dtype=np.float32)).to(DEVICE).to(dtype)
-    return mk(b, h, sq, d), mk(b, kv, sk, d), mk(b, kv, sk, d)
+def _qkv(rng, b, h, kv, sq, sk, d, dtype, views=False):
+    """q, k, v in (B,H,S,D); with ``views`` as the model passes them:
+    (B,S,H,D) tensors transposed, not copied."""
+    def mk(b, n, s):
+        t = torch.from_numpy(rng.standard_normal(
+            (b, s, n, d) if views else (b, n, s, d), dtype=np.float32))
+        t = t.to(DEVICE).to(dtype)
+        return t.transpose(1, 2) if views else t
+    return mk(b, h, sq), mk(b, kv, sk), mk(b, kv, sk)
 
 
 # the sweep of tests/test_kernels.py:21-28 (both dtypes, causal / full /
@@ -245,26 +305,36 @@ _SWEEP = [(1, 2, 2, 128, 128, 64), (2, 4, 2, 256, 256, 64),
 _MASKS = [(True, None), (False, None), (True, 128)]
 PATH_SHAPE = (4, 14, 2, 512, 512, 64)   # qwen2-0.5b prefill, B 4 x S 512
 LONG_SHAPE = (1, 14, 2, 4096, 4096, 64)
+DBRX_SHAPE = (2, 48, 8, 256, 256, 128)  # dbrx-132b prefill, B 2 x S 256
 
 
 def _kernel_cases():
-    cases = [(s, c, w, dt) for dt in (torch.float32, torch.bfloat16)
+    """(shape, causal, window, dtype, views): the sweep in both dtypes, then
+    the model's transposed (B,S,H,D) views at every head dim in bf16 (the
+    tensor-core variant), ragged and Sq != Sk under both masks."""
+    cases = [(s, c, w, dt, False) for dt in (torch.float32, torch.bfloat16)
              for s in _SWEEP for c, w in _MASKS]
     for dt in (torch.float32, torch.bfloat16):
-        cases += [((1, 8, 2, 256, 256, 80), True, 128, dt),
-                  ((2, 4, 2, 200, 200, 32), True, None, dt),
-                  ((1, 14, 2, 300, 300, 64), True, 128, dt),
-                  ((1, 4, 1, 100, 300, 128), False, 64, dt),
-                  ((1, 4, 2, 300, 100, 64), True, 32, dt),
-                  (PATH_SHAPE, True, None, dt)]
-    cases.append((LONG_SHAPE, True, None, torch.bfloat16))
+        cases += [((1, 8, 2, 256, 256, 80), True, 128, dt, False),
+                  ((2, 4, 2, 200, 200, 32), True, None, dt, False),
+                  ((1, 14, 2, 300, 300, 64), True, 128, dt, False),
+                  ((1, 4, 1, 100, 300, 128), False, 64, dt, False),
+                  ((1, 4, 2, 300, 100, 64), True, 32, dt, False),
+                  (PATH_SHAPE, True, None, dt, False),
+                  (PATH_SHAPE, True, None, dt, True)]
+    cases += [((2, 4, 2, 200, 200, 32), True, None, torch.bfloat16, True),
+              ((1, 8, 2, 129, 257, 80), True, 100, torch.bfloat16, True),
+              ((1, 4, 2, 257, 129, 128), False, 64, torch.bfloat16, True),
+              (DBRX_SHAPE, True, None, torch.bfloat16, True),
+              (LONG_SHAPE, True, None, torch.bfloat16, False)]
     return cases
 
 
 def phase_kernels(rng) -> dict:
-    for shape, causal, window, dtype in _kernel_cases():
-        q, k, v = _qkv(rng, *shape, dtype)
+    for shape, causal, window, dtype, views in _kernel_cases():
+        q, k, v = _qkv(rng, *shape, dtype, views)
         out = flash_attention(q, k, v, causal=causal, window=window)
+        variant = flash_attention.last_variant
         ref = attention_ref(q, k, v, causal=causal, window=window)
         torch.cuda.synchronize()
         err = (out.float() - ref.float()).abs()
@@ -275,8 +345,12 @@ def phase_kernels(rng) -> dict:
         finite = bool(torch.isfinite(out.float()).all())
         emit({"phase": "kernel_check", "kernel": "flash_attention",
               "shape": list(shape), "dtype": str(dtype).split(".")[-1],
-              "causal": causal, "window": window, "max_abs_err": max_err,
-              "tol": tol, "mismatches": bad, "finite": finite})
+              "layout": "bshd_views" if views else "bhsd",
+              "variant": variant, "causal": causal, "window": window,
+              "max_abs_err": max_err, "tol": tol, "mismatches": bad,
+              "finite": finite})
+        check(variant == ("wgmma" if dtype == torch.bfloat16 else "f32"),
+              f"flash_attention took the {variant} variant for {dtype}")
         check(finite and bad == 0,
               f"flash_attention disagrees with attention_ref at {shape} "
               f"{dtype} causal={causal} window={window}: {bad} elements "
@@ -284,6 +358,7 @@ def phase_kernels(rng) -> dict:
 
     timings = {}
     for name, shape, iters in (("path", PATH_SHAPE, 50),
+                               ("dbrx", DBRX_SHAPE, 50),
                                ("long", LONG_SHAPE, 10)):
         q, k, v = _qkv(rng, *shape, torch.bfloat16)
         ms = cuda_ms(lambda: flash_attention(q, k, v, causal=True), iters)
@@ -292,6 +367,10 @@ def phase_kernels(rng) -> dict:
         # yardstick only: the port never calls it
         library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, is_causal=True, enable_gqa=True), iters)
+        graph = graph_ms(lambda: flash_attention(q, k, v, causal=True),
+                         iters // 2)
+        library_graph = graph_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True), iters // 2)
         lib_err = float((F.scaled_dot_product_attention(
             q, k, v, is_causal=True, enable_gqa=True).float()
             - attention_ref(q, k, v, causal=True).float()).abs().max())
@@ -301,10 +380,12 @@ def phase_kernels(rng) -> dict:
         bound_ms, bound_by = attention_bound(*shape, True, None,
                                              torch.bfloat16)
         timings[name] = {"shape": list(shape), "dtype": "bfloat16",
+                         "variant": flash_attention.last_variant,
                          "causal": True, "ms": ms, "plain_ms": plain_ms,
                          "library_ms": library_ms, "bound_ms": bound_ms,
                          "bound_by": bound_by, "max_abs_err": max_err,
-                         "library_max_abs_err": lib_err}
+                         "library_max_abs_err": lib_err, "graph_ms": graph,
+                         "library_graph_ms": library_graph}
         emit({"phase": "kernel_time", "kernel": "flash_attention",
               **timings[name]})
     return {"flash_attention": timings}
@@ -403,7 +484,14 @@ def phase_ssd_kernel(rng) -> dict:
 # the tokens expanded and down, prefill at B 2 x S 256 (C 512) and the f32
 # parity prefill at B 2 x S 128 (C 256)
 _GMM_SWEEP = [(2, 128, 256, 128, False), (4, 256, 512, 384, False),
-              (16, 128, 256, 256, False), (3, 77, 100, 60, True)]
+              (16, 128, 256, 256, False), (3, 77, 100, 60, True),
+              # C on both sides of the swap-AB threshold, d and f off the
+              # tiles, 200-byte rows (not 16-byte aligned: mma.sync)
+              (4, 64, 256, 512, True), (3, 200, 200, 1000, False),
+              (3, 200, 200, 1000, True), (2, 512, 512, 384, False),
+              (2, 63, 128, 256, False), (3, 20, 256, 1000, True)]
+_GMM_UNALIGNED = (3, 128, 100, 1000, True)
+_GMM_SWEEP.append(_GMM_UNALIGNED)
 GMM_DECODE = (16, 4, 6144, 10752, True)
 GMM_DECODE_DOWN = (16, 4, 10752, 6144, False)
 GMM_PREFILL = (16, 512, 6144, 10752, True)
@@ -449,6 +537,7 @@ def phase_gmm_kernel(rng) -> dict:
         x, w = _gmm_inputs(rng, gen, *shape, dtype,
                            d ** -0.5 if path else 0.05)
         out = moe_gmm(x, w)
+        variant = moe_gmm.last_variant
         ref = moe_gmm_ref(x, w)
         torch.cuda.synchronize()
         err = (out.float() - ref.float()).abs()
@@ -460,8 +549,16 @@ def phase_gmm_kernel(rng) -> dict:
         errs[(shape, dtype)] = max_err
         emit({"phase": "kernel_check", "kernel": "moe_gmm",
               "shape": list(shape[:4]), "x_expert_stride_0": expand,
+              "x_strides": list(x.stride()), "variant": variant,
               "dtype": str(dtype).split(".")[-1], "max_abs_err": max_err,
               "tol": tol, "mismatches": bad, "finite": finite})
+        want = {(GMM_PREFILL, torch.bfloat16): "wgmma",
+                (GMM_DECODE, torch.bfloat16): "wgmma_swap",
+                (GMM_DECODE_DOWN, torch.bfloat16): "wgmma_swap",
+                (_GMM_UNALIGNED, torch.bfloat16): "mma_sync"
+                }.get((shape, dtype))
+        check(want in (None, variant),
+              f"moe_gmm took the {variant} variant at {shape}, not {want}")
         check(finite and bad == 0,
               f"moe_gmm disagrees with moe_gmm_ref at {shape} {dtype}: "
               f"{bad} elements out of tolerance, max |err| {max_err}")
@@ -476,11 +573,15 @@ def phase_gmm_kernel(rng) -> dict:
         plain_ms = cuda_ms(lambda: moe_gmm_ref(x, w), iters)
         # yardstick only: the port never calls it
         library_ms = cuda_ms(lambda: torch.matmul(x, w), iters)
+        graph = graph_ms(lambda: moe_gmm(x, w), iters)
+        library_graph = graph_ms(lambda: torch.matmul(x, w), iters)
         bound_ms, bound_by = gmm_bound(*shape, torch.bfloat16)
         timings[name] = {"shape": list(shape[:4]), "x_expert_stride_0": True,
+                         "variant": moe_gmm.last_variant,
                          "dtype": "bfloat16", "ms": ms, "plain_ms": plain_ms,
                          "library_ms": library_ms, "bound_ms": bound_ms,
-                         "bound_by": bound_by,
+                         "bound_by": bound_by, "graph_ms": graph,
+                         "library_graph_ms": library_graph,
                          "max_abs_err": errs[(shape, torch.bfloat16)]}
         emit({"phase": "kernel_time", "kernel": "moe_gmm", **timings[name]})
         del x, w
@@ -1208,6 +1309,8 @@ def main() -> int:
                  "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                  "bound_by": t["bound_by"], "library_ms": t["library_ms"],
                  "shape": t["shape"], "dtype": t["dtype"],
+                 **{key: t[key] for key in ("variant", "graph_ms",
+                                            "library_graph_ms") if key in t},
                  "path": main_path[name],
                  "launches_by_path": {p: c[name] for p, c in paths.items()}}
         check(entry["launches"] > 0,

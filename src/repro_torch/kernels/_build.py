@@ -8,6 +8,7 @@ build raises with nvcc's error output.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -15,6 +16,8 @@ import shutil
 import subprocess
 from pathlib import Path
 from typing import Dict, Sequence
+
+import torch
 
 BUILD_DIR = (Path(__file__).resolve().parents[3] / "build"
              / "repro_torch_kernels")
@@ -35,14 +38,19 @@ def nvcc_path() -> str:
                        "toolkit is installed")
 
 
+# headers shared by the kernels (hopper.cuh), included as "../../hopper.cuh"
+SHARED_HEADERS = Path(__file__).resolve().parent
+
+
 def library_path(source: Path) -> Path:
     """Where ``source`` is built: keyed by the bytes of every file in its
-    directory (the .cu and any headers it includes) and the flags."""
+    directory (the .cu and any headers it includes), of the shared headers
+    and of the flags."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for f in sorted(source.parent.iterdir()):
-        if f.is_file():
-            h.update(f.name.encode())
-            h.update(f.read_bytes())
+    files = [f for f in sorted(source.parent.iterdir()) if f.is_file()]
+    for f in files + sorted(SHARED_HEADERS.glob("*.cuh")):
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
     return BUILD_DIR / f"{source.stem}-{h.hexdigest()[:16]}.so"
 
 
@@ -79,3 +87,19 @@ def build(sources: Sequence[Path]) -> Dict[Path, Path]:
 
 def load(source: Path) -> ctypes.CDLL:
     return ctypes.CDLL(str(build([source])[source]))
+
+
+def on_device(device: torch.device):
+    """Makes ``device`` current for a launch: a no-op where it already is
+    (the usual case, for which ``torch.cuda.device`` still switches the
+    device twice)."""
+    if torch._C._cuda_getDevice() == device.index:
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
+
+
+def raw_stream(device: torch.device) -> int:
+    """The current CUDA stream on ``device`` as the integer handle a C
+    entry point takes: PyTorch's own getter, which builds no Stream object
+    (``torch.cuda.current_stream().cuda_stream`` does, on every launch)."""
+    return torch._C._cuda_getCurrentRawStream(device.index)

@@ -6,34 +6,60 @@
 // d, written in x's dtype; f32 or bf16 inputs.
 //
 // What bounds it on this card.  The model's expert FFN (moe_dense) runs it
-// three times per MoE layer on every token for every expert.  In decode
-// (dbrx-132b, E 16, C 4 slots, d 6144, f 10752, bf16) each call streams the
-// 2.1 GB of one weight stack for 0.5 GFLOP: bound by bytes, 0.63 ms at
-// 3.35 TB/s.  In prefill (B 2 x S 256, C 512) each call does 1.08 TFLOP on
-// the same bytes: bound by operations, 1.1 ms at the bf16 tensor-core rate
-// (989 TFLOP/s).  What the design does about it: the bf16 path computes on
-// the tensor cores with mma.sync (m16n8k16, f32 accumulation), its
-// fragments read with ldmatrix from a ring of three tiles in shared memory
-// that 16-byte cp.async copies fill ahead of the compute, so the weight
-// stream stays in flight through the math and the barriers, over enough
-// blocks (1,344 at the decode shape) to cover the card; the f32 path
-// (parity runs) computes in full f32 on the CUDA cores -- no TF32, which
-// keeps ~3 decimal digits and would break the 2e-5 tolerance.  wgmma and
-// TMA are for a later version.
+// three times per MoE layer on every token for every expert.  In prefill
+// (dbrx-132b, E 16, d 6144, f 10752, B 2 x S 256: C 512, bf16) each call
+// does 1.08 TFLOP on 2.1 GB of weights: bound by operations, 1.1 ms at the
+// bf16 tensor-core rate (989 TFLOP/s), which only wgmma reaches.  In decode
+// (C = 4 slots) the same weights carry 0.5 GFLOP: bound by bytes, 0.63 ms
+// at 3.35 TB/s.
+//
+// Four variants, one function; the wrapper picks by dtype, C and layout
+// (ops.gmm_variant) and the entry point checks that the layout fits:
+//  * wgmma (bf16, C >= 64, TMA-addressable operands: 16-byte-aligned x
+//    rows and w, f % 8 == 0): the prefill design.  Persistent blocks, one
+//    per SM, walk the output tiles of 128 (C) x 256 (f) with the M tiles
+//    of one (expert, f tile) next to each other, so the blocks that share
+//    a w strip run together and read it from HBM about once (the raster
+//    order of the previous kernel sent them 84 tiles apart).  In each
+//    block one producer thread keeps a ring of 4 stages of 64-deep d
+//    slices full with TMA loads (x 128 x 64, w 64 x 256 as four 64-column
+//    boxes, 128-byte swizzle, 48 KB a stage), completing on mbarriers; two
+//    consumer warpgroups each issue wgmma m64n256k16 on 64 rows, x K-major
+//    and w MN-major as it lies (no copy of w), f32 accumulators in
+//    registers (setmaxnreg moves the producer's registers to them), one
+//    wgmma group kept in flight while the slice before it is handed back.
+//    A tile's epilogue (bf16 stores from registers, ragged rows and
+//    columns dropped) overlaps the loads of the next tile.  Ragged C, d
+//    and f: TMA fills zeros past every edge.  x's expert stride may be 0
+//    (moe_dense passes the tokens expanded over experts, 403 MB at dbrx
+//    B 4 x S 512 if materialized): TMA takes no zero stride, so x is then
+//    described as the one (C, d) matrix it is.
+//  * wgmma_swap (bf16, C < 64, the same layouts): decode, bound by the
+//    weight stream.  out^T = w^T x^T: f fills wgmma's 64 rows (w is the
+//    MN-major A operand, as it lies) and the C tokens, padded to 8, 16, 32
+//    or 64, its columns, so no 64-row tile is spent on 4 tokens.  The same
+//    persistent producer / two-consumer structure streams w in 128 (f) x
+//    64 (d) slices through an 8-stage ring (136-192 KB in flight an SM).
+//  * mma_sync (bf16 rows TMA cannot address): mma.sync m16n8k16 on
+//    fragments read with ldmatrix from a 3-stage ring that 16-byte
+//    cp.async copies fill where aligned (masked loads elsewhere), 64 x 128
+//    tiles: the previous kernel, kept for those layouts.
+//  * f32 (parity runs): full f32 on the CUDA cores -- no TF32, which keeps
+//    ~3 decimal digits and would break the 2e-5 tolerance.
 //
 // Translation from the TPU kernel.  The TPU grid (E, C/bc, f/bf, d/bd) ran
 // its last dimension in order, with the accumulator in VMEM scratch; here a
-// block owns one (C, f) tile of one expert and loops over d itself, with the
-// accumulator in registers.  Grid: (ceil(f/BN), ceil(C/BM), E).
+// block owns (C, f) tiles of one expert and loops over d itself, with the
+// accumulator in registers.
 //
 // Traps handled here:
-//  * x's expert stride may be 0: moe_dense computes every expert on every
-//    token, and the wrapper passes the tokens expanded over experts without
-//    materializing them (403 MB at dbrx B 4 x S 512).  Any row stride of x
-//    is taken; its last dimension has unit stride.
-//  * C, d and f need not divide the tiles (decode has C = number of slots):
-//    every edge is masked, loads past it read 0 and stores past it are
-//    dropped.  The TPU kernel's divisibility asserts do not carry over.
+//  * x may have any row stride and an expert stride of 0; its last
+//    dimension has unit stride.
+//  * C, d and f need not divide the tiles: every edge is masked (TMA zero
+//    fill; masked loads and stores in the other variants).  The TPU
+//    kernel's divisibility asserts do not carry over.
+#include "../../hopper.cuh"
+
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stddef.h>
@@ -100,7 +126,7 @@ gmm_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
   }
 }
 
-// ---- bf16: tensor cores (mma.sync m16n8k16, f32 accumulation) -------------
+// ---- bf16, rows TMA cannot address: mma.sync m16n8k16 from cp.async ----
 constexpr int H_BM = 64, H_BN = 128, H_BK = 32, H_THREADS = 256;
 constexpr int STAGES = 3;      // tiles in flight: the ring in shared memory
 constexpr int LDA = H_BK + 8;  // bf16 per row of the x tile: 80 bytes, so
@@ -273,26 +299,338 @@ gmm_bf16_kernel(const __nv_bfloat16* __restrict__ x,
   }
 }
 
+
+// ---- bf16: wgmma from a TMA ring, persistent -----------------------------
+constexpr int W_BM = 128, W_BN = 256, W_BK = 64, W_STAGES = 4;
+constexpr int W_THREADS = 384;  // producer warpgroup + two consumers
+constexpr int W_CONSUMER_WARPS = 8;
+constexpr int W_A_BYTES = W_BM * W_BK * 2;  // x slice: 128 rows x 128 bytes
+constexpr int W_B_SUB = W_BK * 64 * 2;      // w box: 64 d rows x 64 f
+constexpr int W_STAGE_BYTES = W_A_BYTES + 4 * W_B_SUB;  // 48 KB
+constexpr size_t W_SMEM =
+    1024 + (size_t)W_STAGES * W_STAGE_BYTES + 2 * W_STAGES * sizeof(uint64_t);
+
+__global__ void __launch_bounds__(W_THREADS, 1)
+gmm_wgmma_kernel(const __grid_constant__ CUtensorMap tmx,
+                 const __grid_constant__ CUtensorMap tmw,
+                 __nv_bfloat16* __restrict__ out, int E, int C, int D, int F,
+                 int x_per_expert) {
+  using namespace hopper;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + W_STAGES * W_STAGE_BYTES);
+  uint64_t* empty = full + W_STAGES;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < W_STAGES; ++s) {
+      mbar_init(&full[s], 1);                  // the producer's expect_tx
+      mbar_init(&empty[s], W_CONSUMER_WARPS);  // one arrival a consumer warp
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int mt = (C + W_BM - 1) / W_BM, nt = (F + W_BN - 1) / W_BN;
+  const int tiles = mt * nt * E;
+  const int nk = (D + W_BK - 1) / W_BK;
+  const int wg = threadIdx.x / 128;
+
+  if (wg == 0) {  // producer: one thread issues every load
+    regs_dec<40>();
+    if (threadIdx.x == 0) {
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+        const int m = t % mt, n = (t / mt) % nt, e = t / (mt * nt);
+        for (int kt = 0; kt < nk; ++kt) {
+          mbar_wait(&empty[stage], phase ^ 1);  // first round passes
+          mbar_expect_tx(&full[stage], W_STAGE_BYTES);
+          uint8_t* a = smem + stage * W_STAGE_BYTES;
+          uint8_t* b = a + W_A_BYTES;
+          if (x_per_expert)
+            tma_load_3d(a, &tmx, &full[stage], kt * W_BK, m * W_BM, e);
+          else
+            tma_load_2d(a, &tmx, &full[stage], kt * W_BK, m * W_BM);
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            tma_load_3d(b + j * W_B_SUB, &tmw, &full[stage],
+                        n * W_BN + 64 * j, kt * W_BK, e);
+          if (++stage == W_STAGES) { stage = 0; phase ^= 1; }
+        }
+      }
+    }
+  } else {  // consumers: warpgroup 1 rows 0-63, warpgroup 2 rows 64-127
+    regs_inc<232>();
+    const int cw = wg - 1;
+    const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+    float acc[128];
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+      const int m = t % mt, n = (t / mt) % nt, e = t / (mt * nt);
+#pragma unroll
+      for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+      int prev = -1;
+      for (int kt = 0; kt < nk; ++kt) {
+        mbar_wait(&full[stage], phase);
+        const uint8_t* a = smem + stage * W_STAGE_BYTES + cw * 64 * 128;
+        const uint8_t* b = smem + stage * W_STAGE_BYTES + W_A_BYTES;
+        wgmma_fence();
+#pragma unroll
+        for (int ks = 0; ks < W_BK / 16; ++ks)
+          wgmma_m64n256k16_ss_k_mn(acc, desc_sw128(a + 32 * ks, 16, 1024),
+                                 desc_sw128(b + 2048 * ks, W_B_SUB, 1024), 1);
+        wgmma_commit();
+        wgmma_wait<1>();  // the slice before this one is read: hand it back
+        if (prev >= 0 && lane == 0) mbar_arrive(&empty[prev]);
+        prev = stage;
+        if (++stage == W_STAGES) { stage = 0; phase ^= 1; }
+      }
+      wgmma_wait<0>();
+      fence_regs<128>(acc);
+      if (lane == 0) mbar_arrive(&empty[prev]);
+
+      // acc[4j + 2r + c]: row 16 warp + lane / 4 + 8 r, column 8 j +
+      // 2 (lane % 4) + c of this warpgroup's 64 x 256
+      __nv_bfloat16* oe = out + (size_t)e * C * F;
+      const int row0 = m * W_BM + cw * 64 + warp * 16 + lane / 4;
+      const int col0 = n * W_BN + 2 * (lane % 4);
+#pragma unroll
+      for (int j = 0; j < 32; ++j) {
+        const int col = col0 + 8 * j;
+        if (col >= F) continue;  // F % 8 == 0: both columns or neither
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int row = row0 + 8 * r;
+          if (row < C)
+            *reinterpret_cast<__nv_bfloat162*>(&oe[(size_t)row * F + col]) =
+                __floats2bfloat162_rn(acc[4 * j + 2 * r],
+                                      acc[4 * j + 2 * r + 1]);
+        }
+      }
+    }
+  }
+}
+
+// ---- bf16, C < 64: swap-AB wgmma from a TMA ring, persistent -------------
+// out[e]^T = w[e]^T x[e]^T: f fills wgmma's 64 rows (w, MN-major as it
+// lies, is the A operand) and the C tokens, padded to N of 8-64, its
+// columns (x, K-major, the B operand), so the weight stream, not a mostly
+// empty 64-row tile, sets the pace.
+constexpr int S_BM = 128, S_BK = 64, S_STAGES = 8;
+constexpr int S_A_SUB = S_BK * 64 * 2;  // w box: 64 d rows x 64 f
+
+template <int N>
+struct SwapTile {
+  static constexpr int STAGE = 2 * S_A_SUB + N * 128;  // w, then x
+  static constexpr size_t SMEM =
+      1024 + (size_t)S_STAGES * STAGE + 2 * S_STAGES * sizeof(uint64_t);
+};
+
+template <int N>
+__device__ __forceinline__ void wgmma_swap(float* acc, uint64_t a,
+                                           uint64_t b) {
+  using namespace hopper;
+  if constexpr (N == 8) wgmma_m64n8k16_ss_mn_k(acc, a, b, 1);
+  else if constexpr (N == 16) wgmma_m64n16k16_ss_mn_k(acc, a, b, 1);
+  else if constexpr (N == 32) wgmma_m64n32k16_ss_mn_k(acc, a, b, 1);
+  else wgmma_m64n64k16_ss_mn_k(acc, a, b, 1);
+}
+
+template <int N>
+__global__ void __launch_bounds__(W_THREADS, 1)
+gmm_swap_kernel(const __grid_constant__ CUtensorMap tmx,
+                const __grid_constant__ CUtensorMap tmw,
+                __nv_bfloat16* __restrict__ out, int E, int C, int D, int F,
+                int x_per_expert) {
+  using namespace hopper;
+  using ST = SwapTile<N>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + S_STAGES * ST::STAGE);
+  uint64_t* empty = full + S_STAGES;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S_STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], W_CONSUMER_WARPS);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int nt = (F + S_BM - 1) / S_BM;
+  const int tiles = nt * E;
+  const int nk = (D + S_BK - 1) / S_BK;
+  const int wg = threadIdx.x / 128;
+
+  if (wg == 0) {  // producer: one thread issues every load
+    regs_dec<40>();
+    if (threadIdx.x == 0) {
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+        const int n = t % nt, e = t / nt;
+        for (int kt = 0; kt < nk; ++kt) {
+          mbar_wait(&empty[stage], phase ^ 1);
+          mbar_expect_tx(&full[stage], ST::STAGE);
+          uint8_t* a = smem + stage * ST::STAGE;
+          uint8_t* b = a + 2 * S_A_SUB;
+          tma_load_3d(a, &tmw, &full[stage], n * S_BM, kt * S_BK, e);
+          tma_load_3d(a + S_A_SUB, &tmw, &full[stage], n * S_BM + 64,
+                      kt * S_BK, e);
+          if (x_per_expert)
+            tma_load_3d(b, &tmx, &full[stage], kt * S_BK, 0, e);
+          else
+            tma_load_2d(b, &tmx, &full[stage], kt * S_BK, 0);
+          if (++stage == S_STAGES) { stage = 0; phase ^= 1; }
+        }
+      }
+    }
+  } else {  // consumers: warpgroup 1 f 0-63 of the tile, warpgroup 2 f 64-127
+    regs_inc<232>();
+    const int cw = wg - 1;
+    const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+    float acc[N / 2];
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+      const int n = t % nt, e = t / nt;
+#pragma unroll
+      for (int i = 0; i < N / 2; ++i) acc[i] = 0.f;
+      int prev = -1;
+      for (int kt = 0; kt < nk; ++kt) {
+        mbar_wait(&full[stage], phase);
+        const uint8_t* a = smem + stage * ST::STAGE + cw * S_A_SUB;
+        const uint8_t* b = smem + stage * ST::STAGE + 2 * S_A_SUB;
+        wgmma_fence();
+#pragma unroll
+        for (int ks = 0; ks < S_BK / 16; ++ks)
+          wgmma_swap<N>(acc, desc_sw128(a + 2048 * ks, S_A_SUB, 1024),
+                        desc_sw128(b + 32 * ks, 16, 1024));
+        wgmma_commit();
+        wgmma_wait<1>();
+        if (prev >= 0 && lane == 0) mbar_arrive(&empty[prev]);
+        prev = stage;
+        if (++stage == S_STAGES) { stage = 0; phase ^= 1; }
+      }
+      wgmma_wait<0>();
+      fence_regs<N / 2>(acc);
+      if (lane == 0) mbar_arrive(&empty[prev]);
+
+      // acc[4j + 2r + c]: f row 16 warp + lane / 4 + 8 r of this
+      // warpgroup's 64, token 8 j + 2 (lane % 4) + c
+      __nv_bfloat16* oe = out + (size_t)e * C * F;
+      const int f0 = n * S_BM + cw * 64 + warp * 16 + lane / 4;
+#pragma unroll
+      for (int j = 0; j < N / 8; ++j) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const int f = f0 + 8 * r, token = 8 * j + 2 * (lane % 4) + c;
+            if (f < F && token < C)
+              oe[(size_t)token * F + f] = __float2bfloat16(acc[4 * j + 2 * r + c]);
+          }
+        }
+      }
+    }
+  }
+}
+
+// the tensor maps of x and w (both variants): x over (C, d), or (E, C, d)
+// where it has an expert stride; w over (E, d, f) in 64-column boxes
+int encode_operands(CUtensorMap* tmx, CUtensorMap* tmw, const void* x,
+                    const void* w, int E, int C, int D, int F, long long sxe,
+                    long long sxc, int x_rows, int w_rows) {
+  const cuuint64_t xdims[3] = {(cuuint64_t)D, (cuuint64_t)C, (cuuint64_t)E};
+  const cuuint64_t xstrides[2] = {(cuuint64_t)sxc * 2, (cuuint64_t)sxe * 2};
+  const cuuint32_t xbox[3] = {64, (cuuint32_t)x_rows, 1};
+  int err = hopper::encode_bf16(tmx, x, sxe ? 3 : 2, xdims, xstrides, xbox);
+  if (err) return err;
+  const cuuint64_t wdims[3] = {(cuuint64_t)F, (cuuint64_t)D, (cuuint64_t)E};
+  const cuuint64_t wstrides[2] = {(cuuint64_t)F * 2, (cuuint64_t)D * F * 2};
+  const cuuint32_t wbox[3] = {64, (cuuint32_t)w_rows, 1};
+  return hopper::encode_bf16(tmw, w, 3, wdims, wstrides, wbox);
+}
+
+template <int N>
+int launch_swap(const CUtensorMap& tmx, const CUtensorMap& tmw, void* out,
+                int E, int C, int D, int F, int x_per_expert,
+                cudaStream_t stream) {
+  constexpr size_t smem = SwapTile<N>::SMEM;
+  auto kernel = gmm_swap_kernel<N>;
+  int err = (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err) return err;
+  const int tiles = (F + S_BM - 1) / S_BM * E;
+  const int grid = tiles < hopper::sm_count() ? tiles : hopper::sm_count();
+  kernel<<<grid, W_THREADS, smem, stream>>>(
+      tmx, tmw, static_cast<__nv_bfloat16*>(out), E, C, D, F, x_per_expert);
+  return (int)cudaGetLastError();
+}
+
+// both wgmma variants: C >= 64 the 128 x 256 tiles, C < 64 swap-AB
+int launch_wgmma(const void* x, const void* w, void* out, int E, int C,
+                 int D, int F, long long sxe, long long sxc,
+                 cudaStream_t stream) {
+  // the layout the wrapper's choice promises; refuse anything else
+  if (F % 8 || sxc % 8 || sxe % 8 || reinterpret_cast<uintptr_t>(x) % 16 ||
+      reinterpret_cast<uintptr_t>(w) % 16)
+    return (int)cudaErrorInvalidValue;
+  const int x_per_expert = sxe != 0;
+  CUtensorMap tmx, tmw;
+  if (C < 64) {
+    const int n = C <= 8 ? 8 : C <= 16 ? 16 : C <= 32 ? 32 : 64;
+    int err = encode_operands(&tmx, &tmw, x, w, E, C, D, F, sxe, sxc, n,
+                              S_BK);
+    if (err) return err;
+    switch (n) {
+      case 8: return launch_swap<8>(tmx, tmw, out, E, C, D, F, x_per_expert, stream);
+      case 16: return launch_swap<16>(tmx, tmw, out, E, C, D, F, x_per_expert, stream);
+      case 32: return launch_swap<32>(tmx, tmw, out, E, C, D, F, x_per_expert, stream);
+      default: return launch_swap<64>(tmx, tmw, out, E, C, D, F, x_per_expert, stream);
+    }
+  }
+  int err = encode_operands(&tmx, &tmw, x, w, E, C, D, F, sxe, sxc, W_BM,
+                            W_BK);
+  if (err) return err;
+  err = (int)cudaFuncSetAttribute(gmm_wgmma_kernel,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  (int)W_SMEM);
+  if (err) return err;
+  const long long tiles = (long long)((C + W_BM - 1) / W_BM) *
+                          ((F + W_BN - 1) / W_BN) * E;
+  const int grid = (int)(tiles < hopper::sm_count() ? tiles
+                                                    : hopper::sm_count());
+  gmm_wgmma_kernel<<<grid, W_THREADS, W_SMEM, stream>>>(
+      tmx, tmw, static_cast<__nv_bfloat16*>(out), E, C, D, F, x_per_expert);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// dtype (of x, w and out): 0 = f32, 1 = bf16.  x: (E,C,D) with strides
-// (sxe, sxc, 1) in elements, sxe may be 0; w: (E,D,F) contiguous; out:
-// (E,C,F) contiguous.  Returns the launch's cudaGetLastError() (0 on
-// success); does not synchronise.
+// dtype (of x, w and out): 0 = f32, 1 = bf16; variant (bf16 only): 0 =
+// mma.sync, 1 = wgmma, its tiles or swap-AB by C (see the note above).  x: (E,C,D) with strides (sxe,
+// sxc, 1) in elements, sxe may be 0; w: (E,D,F) contiguous; out: (E,C,F)
+// contiguous.  Returns the launch's cudaGetLastError() (0 on success),
+// or the error that kept it from launching; does not synchronise.
 extern "C" int moe_gmm(const void* x, const void* w, void* out, int E, int C,
                        int D, int F, long long sxe, long long sxc, int dtype,
-                       void* stream) {
+                       int variant, void* stream) {
   if (E < 1 || C < 1 || D < 1 || F < 1 || sxe < 0 || sxc < 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
+  if (dtype == 0 && variant == 0) {
     const dim3 grid((F + F_BN - 1) / F_BN, (C + F_BM - 1) / F_BM, E);
     gmm_f32_kernel<<<grid, F_THREADS, 0, s>>>(
         static_cast<const float*>(x), static_cast<const float*>(w),
         static_cast<float*>(out), C, D, F, sxe, sxc);
     return (int)cudaGetLastError();
   }
-  if (dtype == 1) {
+  if (dtype == 1 && variant == 1)
+    return launch_wgmma(x, w, out, E, C, D, F, sxe, sxc, s);
+  if (dtype == 1 && variant == 0) {
     // 16-byte loads where every row start they touch is 16-byte aligned
     const int vec_x = (reinterpret_cast<uintptr_t>(x) % 16 == 0) &&
                       sxe % 8 == 0 && sxc % 8 == 0;

@@ -19,13 +19,30 @@ from repro_torch.kernels.moe_gmm.ref import moe_gmm_ref
 SOURCE = Path(__file__).resolve().parent / "csrc" / "moe_gmm.cu"
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_VARIANT_CODES = {"f32": 0, "mma_sync": 0, "wgmma": 1, "wgmma_swap": 1}
+WGMMA_MIN_C = 64  # below, a 64-row tile would be mostly padding: swap-AB
+
+
+def gmm_variant(dtype, c: int, f: int, x_strides, x_ptr: int,
+                w_ptr: int) -> str:
+    """Which of the kernel's variants a call takes (csrc/moe_gmm.cu):
+    "f32" (CUDA cores) for f32; for bf16 where TMA can address the operands
+    (16-byte-aligned bases and x row and expert strides, f a multiple of 8)
+    "wgmma" (128 x 256 tiles) from ``WGMMA_MIN_C`` tokens on and
+    "wgmma_swap" (swap-AB, decode's few slots) below; else "mma_sync"."""
+    if dtype == torch.float32:
+        return "f32"
+    sxe, sxc = x_strides[0], x_strides[1]
+    if x_ptr % 16 or w_ptr % 16 or f % 8 or sxc % 8 or sxe % 8:
+        return "mma_sync"
+    return "wgmma" if c >= WGMMA_MIN_C else "wgmma_swap"
 
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.load(SOURCE)
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.moe_gmm.argtypes = [p, p, p, i, i, i, i, ll, ll, i, p]
+    lib.moe_gmm.argtypes = [p, p, p, i, i, i, i, ll, ll, i, i, p]
     lib.moe_gmm.restype = i
     lib.moe_gmm_error_string.argtypes = [i]
     lib.moe_gmm_error_string.restype = ctypes.c_char_p
@@ -68,17 +85,22 @@ def moe_gmm(x, w):
         raise ValueError(f"no moe_gmm for device {x.device}")
     e, c, d = x.shape
     f = w.shape[2]
+    variant = gmm_variant(x.dtype, c, f, x.stride(), x.data_ptr(),
+                          w.data_ptr())
     out = torch.empty((e, c, f), dtype=x.dtype, device=x.device)
     lib = _lib()
-    with torch.cuda.device(x.device):
+    with _build.on_device(x.device):
         err = lib.moe_gmm(x.data_ptr(), w.data_ptr(), out.data_ptr(), e, c, d,
                           f, x.stride(0), x.stride(1), _DTYPE_CODES[x.dtype],
-                          torch.cuda.current_stream().cuda_stream)
+                          _VARIANT_CODES[variant],
+                          _build.raw_stream(x.device))
     if err:
-        raise RuntimeError(f"moe_gmm launch failed: CUDA error {err} "
-                           f"({lib.moe_gmm_error_string(err).decode()})")
+        raise RuntimeError(f"moe_gmm launch failed ({variant}): CUDA error "
+                           f"{err} ({lib.moe_gmm_error_string(err).decode()})")
     moe_gmm.launches += 1
+    moe_gmm.last_variant = variant
     return out
 
 
 moe_gmm.launches = 0  # kernel launches, counted only where they happen
+moe_gmm.last_variant = None  # the variant of the last launch

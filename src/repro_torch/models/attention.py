@@ -65,6 +65,15 @@ def _plain_attention(q, k, v, *, q_pos, k_pos, causal, window):
     return torch.einsum("bqkgs,bskh->bqkgh", probs.to(v.dtype), v)
 
 
+def kernel_attention(q, k, v, *, causal, window=None):
+    """q: (B,S,H,hd); k, v: (B,S,KV,hd) -> (B,S,H,hd) through the kernel,
+    which takes them as (B,H,S,D) views and reads them, and writes its
+    output, through their strides: no copies."""
+    out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                          v.transpose(1, 2), causal=causal, window=window)
+    return out.transpose(1, 2)
+
+
 def multihead_attention(q, k, v, *, q_pos, k_pos, causal, window=None):
     """q: (B,Sq,H,hd) ungrouped; k, v: (B,Sk,KV,hd).
 
@@ -73,12 +82,7 @@ def multihead_attention(q, k, v, *, q_pos, k_pos, causal, window=None):
     The kernel assumes contiguous positions 0..S-1, as prefill gives."""
     if q.is_cuda and q.shape[1] == k.shape[1] and \
             q.shape[-1] == v.shape[-1]:
-        # layout (B,S,H,D) -> the kernel's (B,H,S,D); transpose is a view,
-        # so make it contiguous before the launch
-        out = flash_attention(
-            q.transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous(),
-            v.transpose(1, 2).contiguous(), causal=causal, window=window)
-        return out.transpose(1, 2)
+        return kernel_attention(q, k, v, causal=causal, window=window)
     out = _plain_attention(_group_q(q, k.shape[2]), k, v, q_pos=q_pos,
                            k_pos=k_pos, causal=causal, window=window)
     b, s = q.shape[:2]

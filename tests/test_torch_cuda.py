@@ -76,6 +76,50 @@ def test_kernel_matches_plain(cuda, shape, causal, window, dtype):
                                ref.float().cpu().numpy(), **TOL[dtype])
 
 
+# bf16 on the tensor cores: every head dim, ragged lengths, Sq != Sk under
+# causal and window masks, and the serving paths' prefill shapes
+BF16_CASES = [((1, 4, 2, 200, 200, 32), True, None),
+              ((1, 4, 2, 330, 330, 64), True, 96),
+              ((1, 8, 2, 256, 256, 80), True, 128),
+              ((1, 4, 1, 100, 300, 128), False, 64),
+              ((1, 4, 2, 300, 100, 64), True, 32),
+              ((1, 4, 2, 129, 257, 80), True, 100),
+              ((1, 4, 2, 257, 129, 128), False, None),
+              ((4, 14, 2, 512, 512, 64), True, None),
+              ((2, 48, 8, 256, 256, 128), True, None)]
+
+
+@pytest.mark.parametrize("layout", ["bhsd", "bshd_views"])
+@pytest.mark.parametrize("shape,causal,window", BF16_CASES)
+def test_bf16_kernel_on_tensor_cores(cuda, shape, causal, window, layout):
+    """K1's wgmma variant against the plain version, on contiguous
+    (B,H,S,D) tensors and on the model's (B,S,H,D) tensors passed as
+    transposed views; the views give the contiguous inputs' result, and
+    the output keeps q's layout."""
+    b, h, kv, sq, sk, d = shape
+    rng = np.random.default_rng(sum(shape))
+    q, k, v = (torch.from_numpy(rng.standard_normal(s, dtype=np.float32))
+               .to(cuda, torch.bfloat16)
+               for s in ((b, sq, h, d), (b, sk, kv, d), (b, sk, kv, d)))
+    q, k, v = (t.transpose(1, 2) for t in (q, k, v))
+    if layout == "bhsd":
+        q, k, v = (t.contiguous() for t in (q, k, v))
+    before = flash_attention.launches
+    out = flash_attention(q, k, v, causal=causal, window=window)
+    ref = attention_ref(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert flash_attention.last_variant == "wgmma"
+    assert out.stride() == q.stride()
+    np.testing.assert_allclose(out.float().cpu().numpy(),
+                               ref.float().cpu().numpy(),
+                               **TOL[torch.bfloat16])
+    if layout == "bshd_views":
+        same = flash_attention(*(t.contiguous() for t in (q, k, v)),
+                               causal=causal, window=window)
+        assert torch.equal(out, same)
+
+
 # tests/test_kernels.py:53-58, a ragged L, and the mamba2-130m heads
 SSD_SHAPES = [(1, 2, 256, 64, 32, 64), (2, 4, 512, 64, 128, 128),
               (1, 2, 256, 128, 64, 256), (1, 3, 200, 32, 16, 256),
@@ -141,6 +185,47 @@ def test_moe_gmm_kernel_matches_plain(cuda, shape, dtype, broadcast):
     assert out.dtype == dtype and out.shape == (e, c, f)
     np.testing.assert_allclose(out.float().cpu().numpy(),
                                ref.float().cpu().numpy(), **TOL[dtype])
+
+
+# (E, C, d, f, x expanded over experts, x's row padding, variant): C on
+# both sides of the swap-AB threshold and at each of its widths (8, 16,
+# 32, 64), d and f off the tiles, unaligned row strides, decode's C = 4
+GMM_VARIANT_CASES = [
+    (4, 64, 256, 512, True, 0, "wgmma"), (4, 128, 256, 256, False, 0, "wgmma"),
+    (3, 200, 200, 1000, True, 0, "wgmma"), (3, 200, 200, 1000, False, 0, "wgmma"),
+    (2, 512, 512, 384, False, 0, "wgmma"), (16, 512, 640, 1000, True, 0, "wgmma"),
+    (2, 128, 264, 256, False, 8, "wgmma"),  # padded rows, still aligned
+    (3, 128, 100, 1000, True, 0, "mma_sync"),  # 200-byte rows
+    (2, 128, 128, 256, False, 3, "mma_sync"),  # rows 131 values apart
+    (16, 4, 640, 1000, True, 0, "wgmma_swap"),
+    (16, 4, 1000, 640, False, 0, "wgmma_swap"),
+    (2, 63, 128, 256, False, 0, "wgmma_swap"), (3, 9, 200, 1000, True, 0, "wgmma_swap"),
+    (3, 20, 264, 256, False, 8, "wgmma_swap"), (2, 1, 64, 64, False, 0, "wgmma_swap"),
+    (16, 4, 100, 1000, True, 0, "mma_sync")]
+
+
+@pytest.mark.parametrize("e,c,d,f,broadcast,pad,variant", GMM_VARIANT_CASES)
+def test_moe_gmm_bf16_variants(cuda, e, c, d, f, broadcast, pad, variant):
+    """K5 bf16 against its plain version, each case on the variant its
+    layout picks: x expanded over experts or per expert, rows padded by
+    ``pad`` values (a view of a wider tensor)."""
+    rng = np.random.default_rng(e * c + d + f + pad)
+    xs = (c, d + pad) if broadcast else (e, c, d + pad)
+    x = torch.from_numpy(rng.standard_normal(xs, dtype=np.float32)).to(
+        cuda, torch.bfloat16)[..., :d]
+    if broadcast:
+        x = x.expand(e, c, d)
+    w = torch.from_numpy(rng.standard_normal((e, d, f), dtype=np.float32)
+                         * 0.05).to(cuda, torch.bfloat16)
+    before = moe_gmm.launches
+    out = moe_gmm(x, w)
+    ref = moe_gmm_ref(x, w)
+    torch.cuda.synchronize()
+    assert moe_gmm.launches == before + 1
+    assert moe_gmm.last_variant == variant
+    np.testing.assert_allclose(out.float().cpu().numpy(),
+                               ref.float().cpu().numpy(),
+                               **TOL[torch.bfloat16])
 
 
 @pytest.mark.parametrize("arch", ARCHS)

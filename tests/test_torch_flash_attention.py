@@ -13,8 +13,11 @@ import torch
 
 from repro.kernels.flash_attention.ops import flash_attention as jax_flash
 from repro.kernels.flash_attention.ref import attention_ref as jax_ref
+from repro.models.attention import multihead_attention as jax_mha
 from repro_torch.kernels import launch_counts
 from repro_torch.kernels.flash_attention import attention_ref, flash_attention
+from repro_torch.kernels.flash_attention.ops import kernel_strides
+from repro_torch.models.attention import kernel_attention, multihead_attention
 
 # tests/test_kernels.py:15-17
 TOL = {"float32": dict(atol=2e-5, rtol=2e-5),
@@ -90,7 +93,7 @@ def test_cpu_wrapper_counts_no_launch():
 
 
 @pytest.mark.parametrize("case", ["head_dim", "dtype", "layout", "group",
-                                  "window"])
+                                  "window", "stride_alignment"])
 def test_wrapper_rejects_what_the_kernel_does_not_take(case):
     q, k, v = _torch(_inputs(0, 1, 4, 2, 64, 64, 32), "float32")
     kw = dict(causal=True)
@@ -100,11 +103,79 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(case):
     elif case == "dtype":
         q, k, v = q.half(), k.half(), v.half()
         err = TypeError
-    elif case == "layout":
-        q = q.transpose(1, 2).contiguous().transpose(1, 2)  # (B,H,S,D) view
+    elif case == "layout":  # D not the unit-stride dimension
+        q = q.transpose(2, 3).contiguous().transpose(2, 3)
+    elif case == "stride_alignment":  # rows 33 floats apart: not 16 bytes
+        buf = torch.zeros(4 * 64 * 33)
+        q = buf.as_strided((1, 4, 64, 32), (4 * 64 * 33, 64 * 33, 33, 1))
     elif case == "group":
         q, k, v = _torch(_inputs(0, 1, 3, 2, 64, 64, 32), "float32")
     else:
         kw["window"] = 0
     with pytest.raises(err):
         flash_attention(q, k, v, **kw)
+
+
+def _bshd(seed, b, h, kv, s, d, dtype):
+    """q, k, v as the model holds them, (B,S,heads,D) contiguous."""
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal((b, s, n, d),
+                                                 dtype=np.float32))
+            .to(getattr(torch, dtype)) for n in (h, kv, kv)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape,causal,window", [
+    ((2, 4, 2, 128, 64), True, None), ((1, 14, 2, 200, 64), True, 64),
+    ((1, 8, 1, 96, 128), False, None), ((2, 4, 2, 80, 80), True, 32),
+])
+def test_wrapper_takes_transposed_views(shape, causal, window, dtype):
+    """(B,S,H,D) tensors passed as (B,H,S,D) views, without a copy, give
+    the result of the same values made contiguous."""
+    b, h, kv, s, d = shape
+    q, k, v = _bshd(sum(shape), b, h, kv, s, d, dtype)
+    views = [t.transpose(1, 2) for t in (q, k, v)]
+    out = flash_attention(*views, causal=causal, window=window)
+    want = flash_attention(*[t.contiguous() for t in views], causal=causal,
+                           window=window)
+    assert out.shape == (b, h, s, d) and out.dtype == q.dtype
+    assert torch.equal(out, want)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape,window", [
+    ((2, 4, 2, 128, 64), None), ((1, 14, 2, 256, 64), 128),
+    ((1, 8, 2, 128, 128), None), ((1, 4, 2, 128, 80), 64),
+])
+def test_model_kernel_views_match_jax(shape, window, dtype):
+    """The model's kernel branch (``kernel_attention``: the (B,S,H,D)
+    tensors handed to the wrapper as transposed views) against the JAX
+    package's multihead_attention through its Pallas kernel (interpret
+    mode) and its plain path, and against the port's plain path."""
+    b, h, kv, s, d = shape
+    q, k, v = _bshd(sum(shape) + 1, b, h, kv, s, d, dtype)
+    pos = torch.arange(s)
+    port = kernel_attention(q, k, v, causal=True, window=window)
+    plain = multihead_attention(q, k, v, q_pos=pos, k_pos=pos, causal=True,
+                                window=window)
+    jq, jk, jv = (jnp.asarray(t.float().numpy()).astype(getattr(jnp, dtype))
+                  for t in (q, k, v))
+    jpos = jnp.arange(s)
+    for use_pallas in (True, False):
+        ref = jax_mha(jq, jk, jv, q_pos=jpos, k_pos=jpos, causal=True,
+                      window=window, use_pallas=use_pallas)
+        np.testing.assert_allclose(_np(port), _np(ref), **TOL[dtype])
+    np.testing.assert_allclose(_np(port), _np(plain), **TOL[dtype])
+
+
+@pytest.mark.parametrize("shape,perm,want", [
+    ((2, 4, 64, 32), (0, 1, 2, 3), (8192, 2048, 32)),   # contiguous
+    ((2, 64, 4, 32), (0, 2, 1, 3), (8192, 32, 128)),    # (B,S,H,D) view
+    ((1, 64, 4, 80), (0, 2, 1, 3), (20480, 80, 320)),   # B = 1: the span
+    ((2, 1, 64, 64), (0, 1, 2, 3), (4096, 8192, 64)),   # one head
+])
+def test_kernel_strides(shape, perm, want):
+    """Strides handed to the kernel: the tensor's own, except that a
+    dimension of size 1 (never stepped) gets the span of the others."""
+    t = torch.zeros(shape).permute(*perm)
+    assert kernel_strides(t) == want

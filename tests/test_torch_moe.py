@@ -21,7 +21,9 @@ from repro.kernels.moe_gmm.ops import moe_gmm as jax_moe_gmm
 from repro.kernels.moe_gmm.ref import moe_gmm_ref as jax_moe_gmm_ref
 from repro.models import moe as jmoe
 from repro_torch.configs import smoke_config
+from repro_torch.kernels import _build
 from repro_torch.kernels.moe_gmm import moe_gmm, moe_gmm_ref
+from repro_torch.kernels.moe_gmm.ops import gmm_variant
 from repro_torch.models import moe as tmoe
 
 TOL = {"float32": dict(atol=2e-5, rtol=2e-5),  # tests/test_kernels.py:15-17
@@ -77,6 +79,47 @@ def test_moe_gmm_wrapper_guards():
         moe_gmm(torch.zeros(2, 8, 4).transpose(1, 2), w)
     with pytest.raises(ValueError, match="contiguous"):
         moe_gmm(x, torch.zeros(2, 6, 8).transpose(1, 2))
+
+
+@pytest.mark.parametrize("dtype,c,f,strides,x_ptr,w_ptr,want", [
+    (torch.bfloat16, 512, 10752, (0, 6144, 1), 0, 256, "wgmma"),  # prefill
+    (torch.bfloat16, 512, 6144, (5505024, 10752, 1), 0, 0, "wgmma"),  # down
+    (torch.bfloat16, 64, 1000, (12800, 200, 1), 16, 32, "wgmma"),  # ragged
+    (torch.bfloat16, 4, 10752, (0, 6144, 1), 0, 0, "wgmma_swap"),  # decode
+    (torch.bfloat16, 4, 6144, (43008, 10752, 1), 0, 0, "wgmma_swap"),
+    (torch.bfloat16, 63, 256, (0, 64, 1), 0, 0, "wgmma_swap"),  # C < 64
+    (torch.bfloat16, 4, 1000, (0, 100, 1), 0, 0, "mma_sync"),
+    (torch.bfloat16, 128, 1000, (0, 100, 1), 0, 0, "mma_sync"),  # rows
+    (torch.bfloat16, 128, 1000, (12804, 100, 1), 0, 0, "mma_sync"),
+    (torch.bfloat16, 128, 60, (0, 64, 1), 0, 0, "mma_sync"),  # f % 8
+    (torch.bfloat16, 128, 256, (0, 64, 1), 8, 0, "mma_sync"),  # x base
+    (torch.bfloat16, 128, 256, (0, 64, 1), 0, 8, "mma_sync"),  # w base
+    (torch.float32, 512, 10752, (0, 6144, 1), 0, 0, "f32"),
+])
+def test_gmm_variant(dtype, c, f, strides, x_ptr, w_ptr, want):
+    """The kernel's variant from dtype, C, f, x's strides and the operands'
+    addresses: wgmma where TMA can address both operands, its 128 x 256
+    tiles from C = 64 on and swap-AB below."""
+    assert gmm_variant(dtype, c, f, strides, x_ptr, w_ptr) == want
+
+
+def test_library_path_follows_shared_header(tmp_path, monkeypatch):
+    """A kernel's library is keyed by its own directory and the kernels'
+    shared headers: editing hopper.cuh rebuilds every kernel."""
+    src = tmp_path / "csrc" / "k.cu"
+    src.parent.mkdir()
+    src.write_text("// kernel")
+    shared = tmp_path / "shared"
+    shared.mkdir()
+    (shared / "hopper.cuh").write_text("// v1")
+    monkeypatch.setattr(_build, "SHARED_HEADERS", shared)
+    first = _build.library_path(src)
+    assert _build.library_path(src) == first
+    (shared / "hopper.cuh").write_text("// v2")
+    assert _build.library_path(src) != first
+    (shared / "notes.txt").write_text("not a header")
+    second = _build.library_path(src)
+    assert second.name.startswith("k-") and second.suffix == ".so"
 
 
 def _moe_both(seed=0, **overrides):
