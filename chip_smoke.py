@@ -15,10 +15,14 @@ exits non-zero:
    (where one exists) and the bound:
    - flash attention K1, SSD scan K6, grouped expert GEMM K5;
    - quantize K2a and dequantize K2b (q and decode bit-equal, scales
-     within rtol 1e-6), sparsify K3 (bit-equal) and the PowerSGD matmul K4
-     (atol and rtol 1e-5; at the path's k up to 152,064, 1e-5 of |a|@|b|),
-     at qwen2-0.5b's whole gradient in rows of 256, a ring chunk of a
-     64 MiB bucket and the embedding gradient's three projections.
+     within rtol 1e-6; K2b also bit-equal to torch.mul on each of its
+     variants vec16 / vec4 / scalar), sparsify K3 (bit-equal) and the
+     PowerSGD matmul K4 (atol and rtol 1e-5; at the path's k up to 152,064,
+     1e-5 of |a|@|b|; every route, cols_bulk on the layouts it takes), at
+     qwen2-0.5b's whole gradient in rows of 256, a ring chunk of a 64 MiB
+     bucket and the embedding gradient's three projections; each kernel
+     timed back to back (ms) and from a CUDA graph (graph_ms), the library
+     call both ways.
 3. Three serving paths, each at full width, each first in f32 for parity
    (prefill logits through the kernels against replaying the prompt
    through decode_step, at every position, and the greedy next token),
@@ -643,7 +647,9 @@ def _check_quantize(x, bits: int, stochastic: bool, label: str):
     emit({"phase": "kernel_check", "kernel": "quantize+dequantize",
           "case": label, "shape": list(x.shape),
           "dtype": str(x.dtype).split(".")[-1], "bits": bits,
-          "stochastic": stochastic, "q_mismatches": q_bad,
+          "stochastic": stochastic,
+          "variant": cops.dequantize_kernel.last_variant,
+          "q_mismatches": q_bad,
           "scale_max_rel_err": s_rel, "dequantize_mismatches": d_bad,
           "tol": {"q": "bit-equal", "scale_rtol": 1e-6,
                   "dequantize": "bit-equal"}})
@@ -653,6 +659,33 @@ def _check_quantize(x, bits: int, stochastic: bool, label: str):
           f"scale rel err {s_rel}, {d_bad} decoded values")
     return (float((q.float() - q_ref.float()).abs().max()),
             float((out - out_ref).abs().max()))
+
+
+def _check_dequantize(q, s, label: str, want: str) -> None:
+    """K2b against its plain version and ``torch.mul``, both bit-equal, on
+    the variant the layout gives."""
+    out = cops.dequantize_kernel(q, s)
+    variant = cops.dequantize_kernel.last_variant
+    bad = int((out != cref.dequantize_ref(q, s)).sum())
+    lib_bad = int((out != torch.mul(q, s)).sum())
+    emit({"phase": "kernel_check", "kernel": "dequantize", "case": label,
+          "shape": list(q.shape), "q_address_mod_16": q.data_ptr() % 16,
+          "variant": variant, "mismatches": bad,
+          "library_mismatches": lib_bad, "tol": "bit-equal"})
+    check(variant == want, f"dequantize took {variant} at {label}, not "
+          f"{want}")
+    check(bad == 0 and lib_bad == 0, f"dequantize disagrees at {label}: "
+          f"{bad} values with dequantize_ref, {lib_bad} with torch.mul")
+
+
+def _int8_rows(m: int, n: int, offset: int, seed: int):
+    """q (m, n) int8 starting ``offset`` bytes into a fresh allocation, and
+    positive f32 scales (m, 1)."""
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    flat = torch.randint(-127, 128, (offset + m * n,), generator=gen,
+                         device=DEVICE, dtype=torch.int8)
+    s = torch.rand((m, 1), generator=gen, device=DEVICE) + 0.01
+    return flat[offset:].view(m, n), s
 
 
 def _check_sparsify(x, t, label: str) -> float:
@@ -666,12 +699,13 @@ def _check_sparsify(x, t, label: str) -> float:
     return float((out - cref.sparsify_ref(x, t)).abs().max())
 
 
-def _check_matmul(a, b, label: str, scaled: bool) -> float:
+def _check_matmul(a, b, label: str, scaled: bool, want: str) -> float:
     """K4 against its plain version: within atol and rtol 1e-5 at the JAX
     test's shapes; at the path's (k up to 151,936) the difference of two
     f32 summation orders grows with the terms, not the sum, so there it is
-    held within 1e-5 of |a| @ |b|."""
+    held within 1e-5 of |a| @ |b|.  ``want``: the route the layout gives."""
     out = cops.matmul_kernel(a, b)
+    variant = cops.matmul_kernel.last_variant
     ref = cref.matmul_ref(a, b)
     err = (out - ref).abs()
     if scaled:
@@ -685,8 +719,10 @@ def _check_matmul(a, b, label: str, scaled: bool) -> float:
     emit({"phase": "kernel_check", "kernel": "matmul", "case": label,
           "a": list(a.shape), "a_strides": list(a.stride()),
           "b": list(b.shape), "b_strides": list(b.stride()),
+          "dtype": str(a.dtype).split(".")[-1], "variant": variant,
           "max_abs_err": max_err, "ref_max_abs": float(ref.abs().max()),
           "tol": tol, "mismatches": bad})
+    check(variant == want, f"matmul took {variant} at {label}, not {want}")
     check(bad == 0 and bool(torch.isfinite(out).all()),
           f"matmul disagrees with matmul_ref at {label}: {bad} elements, "
           f"max |err| {max_err}")
@@ -696,6 +732,36 @@ def _check_matmul(a, b, label: str, scaled: bool) -> float:
 def _randn(*shape, dtype=torch.float32, seed=0):
     gen = torch.Generator(device=DEVICE).manual_seed(seed)
     return torch.randn(shape, generator=gen, device=DEVICE).to(dtype)
+
+
+def _mt_p(m: int, k: int, n: int, a_layout: str, p_layout: str, dtype,
+          seed: int):
+    """M^T (m, k) and P (k, n) as the codec lays them out: M^T a view of a
+    row-major (k, m) M ("t"), or of the first m columns of a wider one
+    ("t_slice", rows 16-byte aligned for both dtypes); P row-major or
+    column-major (QR's layout)."""
+    width = m if a_layout == "t" else (m + 8) // 8 * 8
+    a = _randn(k, width, dtype=dtype, seed=seed)[:, :m].T
+    b = (_randn(k, n, dtype=dtype, seed=seed + 1) if p_layout == "rows"
+         else _randn(n, k, dtype=dtype, seed=seed + 1).T)
+    return a, b
+
+
+# K4's streamed route on the layouts it takes, each M above the 48 MiB from
+# which the wrapper streams it: (label, m, k, n, M^T layout, P layout,
+# dtype); m = 898 leaves a ragged quad, k = 15003 a ragged last block,
+# m = 4864 (the MLP's width) five column slices
+MM_BULK_CASES = [
+    ("P column-major", 896, 15000, 4, "t", "cols", torch.float32),
+    ("P row-major", 896, 15000, 4, "t", "rows", torch.float32),
+    ("rank 8", 896, 15000, 8, "t", "cols", torch.float32),
+    ("rank 3, P row-major", 896, 15000, 3, "t", "rows", torch.float32),
+    ("m = 898 of 904", 898, 15000, 4, "t_slice", "cols", torch.float32),
+    ("k = 15003", 896, 15003, 4, "t", "cols", torch.float32),
+    ("wide M, 4864", 4864, 2700, 4, "t", "cols", torch.float32),
+    ("bf16", 896, 30000, 4, "t", "cols", torch.bfloat16),
+    ("bf16 wide ragged", 4862, 5500, 3, "t_slice", "rows", torch.bfloat16),
+]
 
 
 def phase_compress_kernels(n_values: int) -> dict:
@@ -732,68 +798,102 @@ def phase_compress_kernels(n_values: int) -> dict:
         _check_sparsify(x, torch.full((shape[0], 1), 1.0, device=DEVICE),
                         label)
 
+    for label, (m, n), offset, want in (
+            ("one row", (1, 4096), 0, "vec16"),
+            ("rows of 256", (4096, 256), 0, "vec16"),
+            ("rows of 48 (n / 16 = 3)", (1000, 48), 0, "vec16"),
+            ("ragged n", (5, 100), 0, "vec4"),
+            ("ragged n", (7, 33), 0, "scalar"),
+            ("ragged n, one row", (1, 33), 0, "scalar"),
+            ("view at 4 bytes", (4, 256), 4, "vec4"),
+            ("unaligned view", (4, 256), 1, "scalar"),
+            ("unaligned view, one row", (1, 4096), 3, "scalar")):
+        _check_dequantize(*_int8_rows(m, n, offset, m + n + offset), label,
+                          want)
+
     _check_matmul(_randn(128, 64, seed=4), _randn(64, 4, seed=5),
-                  "test (128,64)x(64,4)", scaled=False)
+                  "test (128,64)x(64,4)", scaled=False, want="rows")
     _check_matmul(_randn(100, 37, seed=6), _randn(37, 3, seed=7), "ragged",
-                  scaled=False)
+                  scaled=False, want="rows")
     _check_matmul(_randn(37, 100, seed=6).T, _randn(37, 3, seed=7),
-                  "ragged, a transposed", scaled=False)
+                  "ragged, a transposed", scaled=False, want="cols")
+    _check_matmul(_randn(896, 4864, seed=6).T,
+                  _randn(4, 896, seed=7).T, "the MLP's M^T @ P (17 MB)",
+                  scaled=True, want="cols")
     _check_matmul(_randn(70, 50, seed=8), _randn(50, 40, seed=9),
-                  "general", scaled=False)
+                  "general", scaled=False, want="tiled")
     _check_matmul(_randn(128, 64, dtype=torch.bfloat16, seed=4),
                   _randn(64, 4, dtype=torch.bfloat16, seed=5), "bf16",
-                  scaled=False)
+                  scaled=False, want="rows")
+    for i, (label, m, k, n, a_layout, p_layout, dtype) in enumerate(
+            MM_BULK_CASES):
+        a, b = _mt_p(m, k, n, a_layout, p_layout, dtype, 20 + 2 * i)
+        _check_matmul(a, b, f"M^T @ P, {label}", scaled=True,
+                      want="cols_bulk")
+    del a, b
     cfg = get_config(ARCH)
     m_rows, m_cols = cfg.padded_vocab, cfg.d_model
     mat = _randn(m_rows, m_cols, seed=10)       # the embedding gradient
     q0 = _randn(m_cols, LOWRANK_RANK, seed=11)
     p, _ = torch.linalg.qr(cref.matmul_ref(mat, q0))
     q = cref.matmul_ref(mat.T, p)
-    products = {"project": (mat, q0), "project_t": (mat.T, p),
-                "decode": (p, q.T)}
-    errs = {name: _check_matmul(a, b, f"path {name}", scaled=True)
-            for name, (a, b) in products.items()}
+    products = {"project": (mat, q0, "rows"),
+                "project_t": (mat.T, p, "cols_bulk"),  # P column-major
+                "decode": (p, q.T, "smallk")}
+    errs = {name: _check_matmul(a, b, f"path {name}", scaled=True, want=want)
+            for name, (a, b, want) in products.items()}
 
     timings = {"quantize": {}, "dequantize": {}, "sparsify": {},
                "matmul": {}}
     # K2a and K2b: "path" is the shape of their main path, the collectives
     # (one ring chunk a hop, two K2a launches); the payload-level rows of
     # the codec path are the second case.  The checked inputs, drawn again.
+    # ``graph_ms`` replays the calls from a CUDA graph (the device alone);
+    # where ``ms`` is larger, the host sets the pace of back-to-back calls.
     for key, x, iters, err in (
             ("path", _randn(1, RING_CHUNK, seed=12), 200, chunk_err),
             ("gradient_rows", grad_rows, 20, path_err[8])):
         m, n = x.shape
         q8, s8 = cops.quantize_kernel(x)
         bound_ms, bound_by = quantize_bound(m, n)
+        graph_iters = max(4, iters // 4)
         timings["quantize"][key] = {
             "shape": [m, n], "dtype": "float32", "bits": 8,
             "ms": cuda_ms(lambda: cops.quantize_kernel(x), iters),
+            "graph_ms": graph_ms(lambda: cops.quantize_kernel(x),
+                                 graph_iters),
             "plain_ms": cuda_ms(lambda: cref.quantize_ref(x, per_row=True),
                                 max(2, iters // 10)),
             # no single PyTorch call: quantize_per_tensor_dynamic scales by
             # min/max with a zero point, the other quantize calls take the
             # scale as an input
-            "library_ms": None,
+            "library_ms": None, "library_graph_ms": None,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "max_abs_err": err[0]}
         # yardstick only, the port never calls it: int8 times the f32 (m, 1)
         # scale promotes to f32 in one elementwise kernel, as dequantize_ref
         # does in two
         out = cops.dequantize_kernel(q8, s8)
+        variant = cops.dequantize_kernel.last_variant
         lib_bad = int((torch.mul(q8, s8) != out).sum())
         check(lib_bad == 0, f"torch.mul(q, scale) differs from dequantize "
               f"at {key} in {lib_bad} values")
         bound_ms, bound_by = dequantize_bound(m, n)
+        del out
         timings["dequantize"][key] = {
-            "shape": [m, n], "dtype": "int8",
+            "shape": [m, n], "dtype": "int8", "variant": variant,
             "ms": cuda_ms(lambda: cops.dequantize_kernel(q8, s8), iters),
+            "graph_ms": graph_ms(lambda: cops.dequantize_kernel(q8, s8),
+                                 graph_iters),
             "plain_ms": cuda_ms(lambda: cref.dequantize_ref(q8, s8),
                                 max(2, iters // 4)),
             "library_ms": cuda_ms(lambda: torch.mul(q8, s8), iters),
+            "library_graph_ms": graph_ms(lambda: torch.mul(q8, s8),
+                                         graph_iters),
             "library_mismatches": lib_bad,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "max_abs_err": err[1]}
-        del q8, s8, out
+        del q8, s8
     # yardstick only: with one threshold for every row, as the payload-level
     # sparsify passes it, hardshrink at the next f32 below t keeps |x| >= t
     lambd = float(torch.nextafter(t[0, 0], t.new_zeros(())))
@@ -806,19 +906,27 @@ def phase_compress_kernels(n_values: int) -> dict:
     timings["sparsify"]["path"] = {
         "shape": [m, n], "dtype": "float32", "ms": cuda_ms(
             lambda: cops.sparsify_kernel(grad_rows, t), 20),
+        "graph_ms": graph_ms(lambda: cops.sparsify_kernel(grad_rows, t), 5),
         "plain_ms": cuda_ms(lambda: cref.sparsify_ref(grad_rows, t), 5),
         "library_ms": cuda_ms(lambda: F.hardshrink(grad_rows, lambd), 20),
+        "library_graph_ms": graph_ms(
+            lambda: F.hardshrink(grad_rows, lambd), 5),
         "library_mismatches": lib_bad,
         "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": sp_err}
-    for name, (a, b) in products.items():
+    for name, (a, b, _) in products.items():
         key = "path" if name == "project" else name
         bound_ms, bound_by = matmul_bound(a.shape[0], a.shape[1], b.shape[1])
+        cops.matmul_kernel(a, b)
         timings["matmul"][key] = {
-            "shape": [list(a.shape), list(b.shape)], "dtype": "float32",
+            "shape": [list(a.shape), list(b.shape)],
+            "strides": [list(a.stride()), list(b.stride())],
+            "dtype": "float32", "variant": cops.matmul_kernel.last_variant,
             "ms": cuda_ms(lambda: cops.matmul_kernel(a, b), 20),
+            "graph_ms": graph_ms(lambda: cops.matmul_kernel(a, b), 10),
             "plain_ms": cuda_ms(lambda: cref.matmul_ref(a, b), 20),
             # yardstick only: the port never calls it
             "library_ms": cuda_ms(lambda: torch.matmul(a, b), 20),
+            "library_graph_ms": graph_ms(lambda: torch.matmul(a, b), 10),
             "bound_ms": bound_ms, "bound_by": bound_by,
             "max_abs_err": errs[name]}
     for name, t_by_key in timings.items():
@@ -1326,10 +1434,9 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()
     print(smi[0], flush=True)
-    # count: the one card this script drives
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
-                                 "count": 1}})
+                                 "count": torch.cuda.device_count()}})
     return 0
 
 

@@ -89,12 +89,15 @@ def load(source: Path) -> ctypes.CDLL:
     return ctypes.CDLL(str(build([source])[source]))
 
 
+_CURRENT = contextlib.nullcontext()  # reusable: it holds no state
+
+
 def on_device(device: torch.device):
     """Makes ``device`` current for a launch: a no-op where it already is
     (the usual case, for which ``torch.cuda.device`` still switches the
     device twice)."""
     if torch._C._cuda_getDevice() == device.index:
-        return contextlib.nullcontext()
+        return _CURRENT
     return torch.cuda.device(device)
 
 

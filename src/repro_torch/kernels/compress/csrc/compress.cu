@@ -27,6 +27,15 @@
 // grid-stride loops over enough blocks to cover the 132 SMs; nothing is
 // read twice from device memory except a short row, which the second pass
 // of quantize finds in L1.
+// Dequantize (redesigned): one item of 16 values a thread (one 16-byte
+// load of q; the warp's four float4 stores coalesced through shared
+// memory) where n % 16 == 0 and q is 16-byte aligned, else items of 4 or 1
+// (the variant is the caller's, from the layout: ``dequantize_variant`` in
+// ops.py); at most one full wave of blocks, so a ring chunk (262,144
+// items) is 1,024 blocks and no thread loops; with one row (every ring
+// hop, every per-tensor scale) the scale is read once, else a value's row
+// comes from a multiply-shift computed on the host (no integer division on
+// the card).
 //
 // Translation from the TPU kernels.  The TPU grid walked blocks of rows
 // with the whole row in VMEM.  Here quantize has two regimes:
@@ -52,15 +61,32 @@
 //    to fill the card or k too long for shared memory (the o-projection
 //    gradient as 14 x 57,344).
 //  * M^T @ P, (896, 152064) x (152064, 4), M^T a strided view (unit stride
-//    along m): only 3,584 outputs over k = 152,064.  One thread per row
-//    of a (coalesced along m), split-K over blocks to fill the card (each
-//    block's slice of P read as a broadcast).
+//    along m): only 3,584 outputs over k = 152,064.  Where M's rows are
+//    16-byte aligned and M is large (``cols_bulk``, the codec's layout for
+//    the embedding gradient): a persistent grid of one wave, a block an
+//    SM, each owning a contiguous range of M's rows
+//    (and, above 1,024 columns, a slice of them); one producer thread
+//    streams M through a ring of up to 8 stages of whole rows (~24 KB a
+//    stage) in shared memory with 1-D bulk copies (cp.async.bulk, no
+//    tensor map) completing on mbarriers, so ~170 KB of M is in flight per
+//    SM; 8 consumer warps read a row as float4s, each thread 4 columns
+//    with 4 x n sums in registers, P's value a broadcast.  P's slice is
+//    staged into shared memory once, coalesced along k for QR's
+//    column-major P (along the row for a row-major P), while the first
+//    stages of M are in flight.  The stream costs ~10 us to fill and
+//    drain, so below ~48 MiB of M (the MLP's 17 MB and every smaller
+//    gradient) and for rows of M under 512 bytes the plain route is
+//    faster.  That route (``cols``): one thread per row of a (coalesced
+//    along m), split-K over blocks to fill the card (each block's slice of
+//    P read as a broadcast).
 //  * the decode P @ Q^T, k = 4 with a 545 MB output: one warp per output
 //    row, its 4 values of P in registers, lanes along n, writes coalesced;
 //    n sliced over blocks where b exceeds shared memory.
 //  * anything else: a plain 64 x 64 tiled product on the CUDA cores.
-// Split-K partials are summed by a second pass in a fixed order
-// (deterministic, no atomicAdd).
+// The route is the caller's, from shape, strides and alignment
+// (``matmul_variant`` in ops.py); the entry point refuses a route the
+// operands do not fit.  Split-K partials are summed by a second pass in a
+// fixed order (deterministic, no atomicAdd).
 // All in full f32 on the CUDA cores: no TF32, which keeps ~3 digits and
 // would fail the 1e-5 tolerance of the JAX test.
 //
@@ -69,12 +95,18 @@
 //    division (no --use_fast_math, so -prec-div stays on), rounding is
 //    rintf (half to even, as torch.round and jnp.round), and the scale is
 //    max(absmax, 1e-30f) / qmax in f32, as the reference computes it.
-//  * rows of any length: the vector paths need n % 4 == 0 and aligned
-//    pointers, checked here; otherwise the scalar paths run.
+//  * rows of any length: the vector paths need n % 4 == 0 (16 for
+//    dequantize's) and aligned pointers, checked here; otherwise the
+//    scalar paths run.
+//  * the return code: every entry point returns the number of kernels it
+//    launched in its low four bits and the cudaError_t of a refused launch
+//    above them, so the caller counts launches without an out-parameter.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stddef.h>
 #include <stdint.h>
+
+#include "../../hopper.cuh"
 
 namespace {
 
@@ -256,24 +288,83 @@ quant_long_kernel(const T* __restrict__ x, const uint32_t* __restrict__ rnd,
 }
 
 // ---- K2b: q * scale -------------------------------------------------------
-// I: the index type; 32-bit where the payload allows (cheaper division)
-template <typename I, bool VEC>
-__global__ void __launch_bounds__(THREADS)
+
+// a / d for 0 <= a < 2^63 and a divisor d >= 1 fixed for a launch, as a
+// multiply and a shift (division by an invariant integer): mul = ceil(2^p /
+// d) with p = 63 + ceil(log2 d) fits 64 bits, and a * (mul d - 2^p) < 2^p
+// makes the quotient exact; d == 1 (mul 0) passes a through
+struct FastDiv {
+  unsigned long long mul;
+  int shift;  // p - 64
+  __device__ __forceinline__ long long operator()(long long a) const {
+    return mul ? (long long)(__umul64hi((unsigned long long)a, mul) >> shift)
+               : a;
+  }
+};
+
+FastDiv fast_div(long long d) {
+  FastDiv f{0ull, 0};
+  if (d <= 1) return f;
+  const int l = 64 - __builtin_clzll((unsigned long long)(d - 1));
+  const unsigned __int128 p2 = (unsigned __int128)1 << (63 + l);
+  f.mul = (unsigned long long)((p2 + (unsigned long long)(d - 1)) /
+                               (unsigned long long)d);
+  f.shift = l - 1;
+  return f;
+}
+
+// four int8 packed in w (lowest byte first), each times s
+__device__ __forceinline__ float4 scale4(int w, float s) {
+  return make_float4((float)(int8_t)w * s, (float)(int8_t)(w >> 8) * s,
+                     (float)(int8_t)(w >> 16) * s,
+                     (float)(int8_t)(w >> 24) * s);
+}
+
+enum DqVariant { DQ_VEC16 = 0, DQ_VEC4 = 1, DQ_SCALAR = 2 };
+
+// An item is 16 values (vec16), 4 or 1.  vec16: each thread loads one
+// 16-byte item, the warp's 32 items go through shared memory, and the
+// warp's four float4 stores each write 512 contiguous bytes (a thread's own
+// 64 bytes, stored by itself, would leave every store instruction strided:
+// 1.7x slower at the gradient rows).  The grid is at most one full wave
+// (8 blocks an SM) and loops; a ring chunk's 262,144 items take 1,024
+// blocks, one item a thread.  ONE_ROW reads the single scale once; else a
+// value's row is its 4-value word (or, scalar, the value) divided by the
+// words (values) of a row: row_of, a multiply-shift.
+template <int V, bool ONE_ROW>
+__global__ void __launch_bounds__(THREADS, 8)
 dequant_kernel(const int8_t* __restrict__ q, const float* __restrict__ scale,
-               float* __restrict__ out, I total, I n) {
-  const I stride = (I)gridDim.x * THREADS;
-  if (VEC) {
-    for (I g = (I)blockIdx.x * THREADS + threadIdx.x; g < total / 4;
-         g += stride) {
-      const float s = scale[(g * 4) / n];
-      const char4 c = reinterpret_cast<const char4*>(q)[g];
-      reinterpret_cast<float4*>(out)[g] =
-          make_float4((float)c.x * s, (float)c.y * s, (float)c.z * s,
-                      (float)c.w * s);
+               float* __restrict__ out, long long items, FastDiv row_of) {
+  __shared__ int4 stage[V == 16 ? THREADS : 1];
+  const float s1 = ONE_ROW ? __ldg(scale) : 0.f;
+  const int lane = threadIdx.x % 32, wbase = threadIdx.x - lane;
+  const long long step = (long long)gridDim.x * THREADS;
+  for (long long b0 = (long long)blockIdx.x * THREADS; b0 < items;
+       b0 += step) {
+    const long long g = b0 + threadIdx.x;
+    if (V == 16) {
+      stage[threadIdx.x] = g < items
+          ? __ldg(reinterpret_cast<const int4*>(q) + g)
+          : make_int4(0, 0, 0, 0);
+      __syncwarp();
+      const int* words = reinterpret_cast<const int*>(stage + wbase);
+      const long long w0 = 4 * (b0 + wbase), words_total = 4 * items;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const long long w = w0 + 32 * i + lane;
+        if (w < words_total)
+          reinterpret_cast<float4*>(out)[w] = scale4(
+              words[32 * i + lane], ONE_ROW ? s1 : __ldg(scale + row_of(w)));
+      }
+      __syncwarp();  // the stage is written again next step
+    } else if (V == 4) {
+      if (g < items)
+        reinterpret_cast<float4*>(out)[g] =
+            scale4(__ldg(reinterpret_cast<const int*>(q) + g),
+                   ONE_ROW ? s1 : __ldg(scale + row_of(g)));
+    } else if (g < items) {
+      out[g] = (float)__ldg(q + g) * (ONE_ROW ? s1 : __ldg(scale + row_of(g)));
     }
-  } else {
-    for (I i = (I)blockIdx.x * THREADS + threadIdx.x; i < total; i += stride)
-      out[i] = (float)q[i] * scale[i / n];
   }
 }
 
@@ -359,6 +450,137 @@ mm_cols_kernel(const T* __restrict__ a, const T* __restrict__ b,
 #pragma unroll
   for (int j = 0; j < NP; ++j)
     if (j < n) d[j] = acc[j];
+}
+
+__host__ __device__ __forceinline__ long long lmin(long long x, long long y) {
+  return x < y ? x : y;
+}
+
+constexpr int BULK_CONSUMERS = 256;  // 8 warps, 4 columns a thread
+constexpr int BULK_THREADS = BULK_CONSUMERS + 32;  // and one producer warp
+constexpr long long BULK_COLS = 4 * BULK_CONSUMERS;  // widest column slice
+
+// n <= NP, a with unit stride along m and 16-byte aligned rows (M^T as a
+// view of a row-major M): block (x, y) owns rows [x kslice, +kslice) of M
+// (k of a) and columns [y width, +width) of them.  The producer thread
+// streams M through ``stages`` slots of ``rows`` rows each (one bulk copy a
+// row; full[s] counts the bytes in, empty[s] the consumer warps done); the
+// consumers keep acc[column][j] for their 4 columns.  Columns past the
+// last 16-byte boundary of a ragged slice come from global memory.  Writes
+// partials[x][row][j], or out when there is one split.
+template <typename T, int NP>
+__global__ void __launch_bounds__(BULK_THREADS, 1)
+mm_bulk_kernel(const T* __restrict__ a, const T* __restrict__ b,
+               float* __restrict__ dst, long long m, long long k, int n,
+               long long sak, long long sbk, long long sbn, long long width,
+               long long kslice, int rows, int stages) {
+  extern __shared__ float4 bulk_smem[];
+  constexpr int QW = 16 / sizeof(T);  // columns in 16 bytes
+  T* ring = reinterpret_cast<T*>(bulk_smem);
+  float* sP = reinterpret_cast<float*>(ring + (long long)stages * rows * width);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sP + (kslice * NP + 3) / 4 * 4);
+  uint64_t* empty = full + stages;
+
+  const long long k0 = (long long)blockIdx.x * kslice;
+  const long long krows = lmin(kslice, k - k0);
+  const long long c0 = (long long)blockIdx.y * width;
+  const long long wcols = lmin(width, m - c0);
+  const long long wbulk = wcols / QW * QW;  // columns the bulk copies bring
+  const int steps = (int)((krows + rows - 1) / rows);
+  const int cwarps = (int)((wcols + 127) / 128);  // consumer warps with work
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], cwarps);
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp == BULK_CONSUMERS / 32) {  // the producer
+    if (lane == 0 && wbulk > 0) {
+      const uint32_t row_bytes = (uint32_t)(wbulk * sizeof(T));
+      for (int it = 0; it < steps; ++it) {
+        const int s = it % stages;
+        if (it >= stages) hopper::mbar_wait(&empty[s], ((it / stages) - 1) & 1);
+        const long long r0 = (long long)it * rows;
+        const int nr = (int)lmin(rows, krows - r0);
+        hopper::mbar_expect_tx(&full[s], nr * row_bytes);
+        T* slot = ring + (long long)s * rows * width;
+        const T* src = a + (k0 + r0) * sak + c0;
+        for (int r = 0; r < nr; ++r)
+          hopper::bulk_load(slot + r * width, src + r * sak, row_bytes,
+                            &full[s]);
+      }
+    }
+    return;
+  }
+
+  // P's slice as rows of NP f32 (zero-padded), while the first stages of M
+  // are in flight: along k for a column-major P (QR's output), along the
+  // row for a row-major one; coalesced either way
+  if (sbk == 1) {
+    for (int j = 0; j < NP; ++j)
+      for (long long kk = threadIdx.x; kk < krows; kk += BULK_CONSUMERS)
+        sP[kk * NP + j] = j < n ? to_f(b[k0 + kk + j * sbn]) : 0.f;
+  } else {
+    for (long long e = threadIdx.x; e < krows * NP; e += BULK_CONSUMERS) {
+      const long long kk = e / NP;
+      const int j = (int)(e % NP);
+      sP[e] = j < n ? to_f(b[(k0 + kk) * sbk + j * sbn]) : 0.f;
+    }
+  }
+  hopper::named_sync(1, BULK_CONSUMERS);
+  if (warp >= cwarps) return;
+
+  const long long col = 4LL * threadIdx.x;    // within the slice
+  const bool staged = col + 4 <= wbulk;       // all 4 in shared memory
+  const bool tail = !staged && col < wcols;   // some past the bulk copies
+  float acc[4][NP];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < NP; ++j) acc[i][j] = 0.f;
+  for (int it = 0; it < steps; ++it) {
+    const int s = it % stages;
+    const long long r0 = (long long)it * rows;
+    const int nr = (int)lmin(rows, krows - r0);
+    if (wbulk > 0) hopper::mbar_wait(&full[s], (it / stages) & 1);
+    const T* slot = ring + (long long)s * rows * width + col;
+    for (int r = 0; r < nr; ++r) {
+      float f[4] = {0.f, 0.f, 0.f, 0.f};
+      if (staged) {
+        load4(slot + r * width, f);
+      } else if (tail) {
+        const T* g = a + (k0 + r0 + r) * sak + c0 + col;
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          if (col + i < wcols) f[i] = to_f(g[i]);
+      }
+      const float4* p = reinterpret_cast<const float4*>(sP + (r0 + r) * NP);
+#pragma unroll
+      for (int jq = 0; jq < NP / 4; ++jq) {
+        const float4 v = p[jq];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          acc[i][4 * jq + 0] = fmaf(f[i], v.x, acc[i][4 * jq + 0]);
+          acc[i][4 * jq + 1] = fmaf(f[i], v.y, acc[i][4 * jq + 1]);
+          acc[i][4 * jq + 2] = fmaf(f[i], v.z, acc[i][4 * jq + 2]);
+          acc[i][4 * jq + 3] = fmaf(f[i], v.w, acc[i][4 * jq + 3]);
+        }
+      }
+    }
+    __syncwarp();
+    if (wbulk > 0 && lane == 0) hopper::mbar_arrive(&empty[s]);
+  }
+  float* d = dst + ((long long)blockIdx.x * m + c0 + col) * n;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    if (col + i < wcols)
+#pragma unroll
+      for (int j = 0; j < NP; ++j)
+        if (j < n) d[i * n + j] = acc[i][j];
 }
 
 // n <= NP, a with unit stride along k: one warp per row of a over one
@@ -506,6 +728,16 @@ bool aligned(const void* p, size_t bytes) {
   return reinterpret_cast<uintptr_t>(p) % bytes == 0;
 }
 
+// the return code of the entry points: the kernels launched in the low four
+// bits, the cudaError_t of a refused launch above them (0 on success).  The
+// last of ``launched`` launches is the one cudaGetLastError speaks for.
+constexpr int INVALID = (int)cudaErrorInvalidValue << 4;
+
+int done(int launched) {
+  const cudaError_t err = cudaGetLastError();
+  return err == cudaSuccess ? launched : ((int)err << 4) | (launched - 1);
+}
+
 // blocks per row and values per block of the long-row quantize
 void long_plan(long long n, int* bpr, long long* slice) {
   long long b = (n + LONG_SLICE - 1) / LONG_SLICE;
@@ -521,7 +753,7 @@ int row_grid(long long m) { return (int)(m < 65535 ? m : 65535); }
 template <typename T, bool STOCH>
 int quantize_t(const T* x, const uint32_t* rnd, int8_t* q, float* scale,
                float* partial, long long m, long long n, float qmax,
-               int* launches, cudaStream_t st) {
+               cudaStream_t st) {
   const bool vec = n % 4 == 0 && aligned(x, 4 * sizeof(T)) &&
                    aligned(q, 4) && (!STOCH || aligned(rnd, 16));
   if (n <= SHORT_ROW) {
@@ -533,8 +765,7 @@ int quantize_t(const T* x, const uint32_t* rnd, int8_t* q, float* scale,
     else
       quant_rows_kernel<T, STOCH, false><<<grid, THREADS, 0, st>>>(
           x, rnd, q, scale, m, n, qmax);
-    *launches = 1;
-    return (int)cudaGetLastError();
+    return done(1);
   }
   int bpr;
   long long slice;
@@ -546,17 +777,31 @@ int quantize_t(const T* x, const uint32_t* rnd, int8_t* q, float* scale,
   else
     absmax_partial_kernel<T, false><<<grid, THREADS, 0, st>>>(x, partial, m,
                                                               n, slice);
-  *launches = 1;
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  const int first = done(1);
+  if (first != 1) return first;
   if (vec)
     quant_long_kernel<T, STOCH, true><<<grid, THREADS, 0, st>>>(
         x, rnd, partial, q, scale, m, n, slice, qmax);
   else
     quant_long_kernel<T, STOCH, false><<<grid, THREADS, 0, st>>>(
         x, rnd, partial, q, scale, m, n, slice, qmax);
-  *launches = 2;
-  return (int)cudaGetLastError();
+  return done(2);
+}
+
+// rows are counted in 4-value words by the vector variants
+template <int V>
+void dequantize_t(const int8_t* q, const float* scale, float* out,
+                  long long m, long long n, cudaStream_t st) {
+  const long long items = m * n / V;
+  const long long wave = 8LL * hopper::sm_count();
+  const long long blocks = (items + THREADS - 1) / THREADS;
+  const unsigned grid = (unsigned)(blocks < wave ? blocks : wave);
+  if (m == 1)
+    dequant_kernel<V, true><<<grid, THREADS, 0, st>>>(q, scale, out, items,
+                                                      FastDiv{0ull, 0});
+  else
+    dequant_kernel<V, false><<<grid, THREADS, 0, st>>>(
+        q, scale, out, items, fast_div(V == 1 ? n : n / 4));
 }
 
 template <typename T, typename I>
@@ -608,6 +853,46 @@ int smallk_slices(long long m, long long n, long long k) {
   return slices(warp_row_blocks(m), n, 4 * k, 256);
 }
 
+// the streamed M^T @ P (cols_bulk): column slices of at most BULK_COLS, a
+// split of k for at most one block an SM beside them (one wave; at least
+// BULK_MIN_ROWS rows a block, P's slice within BULK_P_MAX bytes, which may
+// take more), stages of ~BULK_STAGE
+// bytes of whole rows, as many as shared memory holds up to BULK_STAGES
+// (and no more than a block's rows fill)
+constexpr long long BULK_STAGE = 24 * 1024;
+constexpr long long BULK_STAGES = 8;
+constexpr long long BULK_MIN_ROWS = 16;
+constexpr long long BULK_P_MAX = 64 * 1024;
+
+struct BulkPlan {
+  int ksplits, mslices, rows, stages;
+  long long kslice, width, smem;
+};
+
+BulkPlan bulk_plan(long long m, long long n, long long k, int esize) {
+  BulkPlan p;
+  const long long qw = 16 / esize;
+  p.mslices = ceil_div(m, BULK_COLS);
+  p.width = (ceil_div(m, p.mslices) + qw - 1) / qw * qw;
+  const long long np = padded_n(n);
+  long long s = hopper::sm_count() / p.mslices;  // one wave
+  s = lmin(s, ceil_div(k, BULK_MIN_ROWS));
+  const long long least = ceil_div(k * np * 4, BULK_P_MAX);
+  if (s < least) s = least;
+  p.kslice = (k + s - 1) / s;
+  p.ksplits = ceil_div(k, p.kslice);  // no block without rows
+  const long long row_bytes = p.width * esize;
+  const long long rows = lmin(BULK_STAGE / row_bytes > 1
+                                  ? BULK_STAGE / row_bytes : 1, p.kslice);
+  p.rows = (int)rows;
+  const long long pbytes = (p.kslice * np + 3) / 4 * 16;
+  p.stages = (int)lmin(lmin(BULK_STAGES, ceil_div(p.kslice, rows)),
+                       (SMEM_MAX - pbytes - 16 * BULK_STAGES) /
+                           (rows * row_bytes));
+  p.smem = p.stages * rows * row_bytes + pbytes + 16LL * p.stages;
+  return p;
+}
+
 // launch with `bytes` of dynamic shared memory, opting in above 48 KB
 template <typename K>
 cudaError_t allow_smem(K kernel, long long bytes) {
@@ -617,26 +902,57 @@ cudaError_t allow_smem(K kernel, long long bytes) {
                               (int)bytes);
 }
 
-enum Route { ROWS = 0, COLS = 1, SMALLK = 2, TILED = 3 };
+// the routes of ops.py's matmul_variant, in its order
+enum Route { ROWS = 0, COLS = 1, SMALLK = 2, TILED = 3, COLS_BULK = 4 };
 
-Route mm_route(long long n, long long k, long long sam, long long sak) {
-  if (n <= SMALL && sak == 1) return ROWS;
-  if (n <= SMALL && sam == 1) return COLS;
-  if (k <= SMALL) return SMALLK;
-  return TILED;
+// whether the operands fit the route's kernel
+bool route_fits(int route, const void* a, int esize, long long n, long long k,
+                long long sam, long long sak) {
+  switch (route) {
+    case ROWS: return n <= SMALL && sak == 1;
+    case COLS: return n <= SMALL && sam == 1;
+    case COLS_BULK:
+      return n <= SMALL && sam == 1 && aligned(a, 16) &&
+             (sak * esize) % 16 == 0;
+    case SMALLK: return k <= SMALL;
+    case TILED: return true;
+  }
+  return false;
+}
+
+// split-K slices of a route (1: no partials)
+int route_splits(int route, long long m, long long n, long long k, int esize) {
+  switch (route) {
+    case ROWS: return rows_splits(m, n, k);
+    case COLS: return cols_splits(m, n, k);
+    case COLS_BULK: return bulk_plan(m, n, k, esize).ksplits;
+  }
+  return 1;
+}
+
+template <typename T, int NP>
+int launch_bulk(const T* a, const T* b, float* dst, long long m, long long n,
+                long long k, long long sak, long long sbk, long long sbn,
+                const BulkPlan& p, cudaStream_t st) {
+  const cudaError_t err = allow_smem(mm_bulk_kernel<T, NP>, p.smem);
+  if (err != cudaSuccess) return (int)err << 4;
+  mm_bulk_kernel<T, NP><<<dim3(p.ksplits, p.mslices), BULK_THREADS, p.smem,
+                          st>>>(a, b, dst, m, k, (int)n, sak, sbk, sbn,
+                                p.width, p.kslice, p.rows, p.stages);
+  return done(1);
 }
 
 template <typename T>
 int matmul_t(const T* a, const T* b, float* out, float* partial, long long m,
              long long n, long long k, long long sam, long long sak,
-             long long sbk, long long sbn, int* launches, cudaStream_t st) {
-  *launches = 1;
+             long long sbk, long long sbn, int route, cudaStream_t st) {
   const int np = padded_n(n);
-  switch (mm_route(n, k, sam, sak)) {
+  int s = 1, rc = 1;
+  switch (route) {
     case ROWS:
     case COLS: {
-      const bool rows = mm_route(n, k, sam, sak) == ROWS;
-      const int s = rows ? rows_splits(m, n, k) : cols_splits(m, n, k);
+      const bool rows = route == ROWS;
+      s = rows ? rows_splits(m, n, k) : cols_splits(m, n, k);
       const long long kslice = (k + s - 1) / s;
       const long long bytes = 4 * kslice * np;
       const dim3 grid(rows ? warp_row_blocks(m) : ceil_div(m, THREADS), s);
@@ -663,42 +979,50 @@ int matmul_t(const T* a, const T* b, float* out, float* partial, long long m,
           mm_cols_kernel<T, 8><<<grid, THREADS, bytes, st>>>(
               a, b, dst, m, k, (int)n, sak, sbk, sbn, kslice);
       }
-      if (err != cudaSuccess) return (int)err;
-      if (s > 1) {
-        err = cudaGetLastError();
-        if (err != cudaSuccess) return (int)err;
-        splitk_reduce_kernel<<<grid_for(m * n), THREADS, 0, st>>>(
-            partial, out, m * n, s);
-        *launches = 2;
-      }
+      if (err != cudaSuccess) return (int)err << 4;
+      rc = done(1);
+      break;
+    }
+    case COLS_BULK: {
+      const BulkPlan p = bulk_plan(m, n, k, sizeof(T));
+      s = p.ksplits;
+      float* dst = s > 1 ? partial : out;
+      rc = np == 4
+               ? launch_bulk<T, 4>(a, b, dst, m, n, k, sak, sbk, sbn, p, st)
+               : launch_bulk<T, 8>(a, b, dst, m, n, k, sak, sbk, sbn, p, st);
       break;
     }
     case SMALLK: {
-      const int s = smallk_slices(m, n, k);
-      const long long nslice = (n + s - 1) / s;
+      const int ns = smallk_slices(m, n, k);
+      const long long nslice = (n + ns - 1) / ns;
       const long long bytes = 4 * k * nslice;
-      const dim3 grid(warp_row_blocks(m), s);
-      cudaError_t err = allow_smem(mm_smallk_kernel<T>, bytes);
-      if (err != cudaSuccess) return (int)err;
+      const dim3 grid(warp_row_blocks(m), ns);
+      const cudaError_t err = allow_smem(mm_smallk_kernel<T>, bytes);
+      if (err != cudaSuccess) return (int)err << 4;
       mm_smallk_kernel<T><<<grid, THREADS, bytes, st>>>(
           a, b, out, m, n, (int)k, sam, sak, sbk, sbn, nslice);
-      break;
+      return done(1);
     }
-    case TILED: {
+    default: {  // TILED
       const dim3 grid((unsigned)((n + TN - 1) / TN),
                       (unsigned)((m + TM - 1) / TM));
       mm_tiled_kernel<T><<<grid, THREADS, 0, st>>>(a, b, out, m, n, k, sam,
                                                    sak, sbk, sbn);
-      break;
+      return done(1);
     }
   }
-  return (int)cudaGetLastError();
+  if (rc != 1 || s == 1) return rc;
+  splitk_reduce_kernel<<<grid_for(m * n), THREADS, 0, st>>>(partial, out,
+                                                            m * n, s);
+  return done(2);
 }
 
 }  // namespace
 
-// dtype codes: 0 f32, 1 bf16.  Each function returns a cudaError_t (0 on
-// success) and writes the number of kernels it launched to *launches.
+// dtype codes: 0 f32, 1 bf16.  Each function returns the number of kernels
+// it launched in its low four bits and, above them, the cudaError_t of a
+// refused launch or cudaErrorInvalidValue for operands it does not take (0
+// on success).
 
 // f32 values of workspace compress_quantize needs for an (m, n) input
 extern "C" long long compress_quantize_workspace(long long m, long long n) {
@@ -712,11 +1036,9 @@ extern "C" long long compress_quantize_workspace(long long m, long long n) {
 extern "C" int compress_quantize(const void* x, int dtype, const void* rnd,
                                  void* q, void* scale, void* workspace,
                                  long long m, long long n, int bits,
-                                 int stochastic, int* launches,
-                                 void* stream) {
-  *launches = 0;
+                                 int stochastic, void* stream) {
   if (m < 1 || n < 1 || (bits != 8 && bits != 4) || dtype < 0 || dtype > 1)
-    return (int)cudaErrorInvalidValue;
+    return INVALID;
   const float qmax = (float)((1 << (bits - 1)) - 1);
   auto st = static_cast<cudaStream_t>(stream);
   auto* r = static_cast<const uint32_t*>(rnd);
@@ -726,54 +1048,42 @@ extern "C" int compress_quantize(const void* x, int dtype, const void* rnd,
   if (dtype == 0) {
     auto* xx = static_cast<const float*>(x);
     return stochastic
-        ? quantize_t<float, true>(xx, r, qq, s, w, m, n, qmax, launches, st)
-        : quantize_t<float, false>(xx, r, qq, s, w, m, n, qmax, launches, st);
+        ? quantize_t<float, true>(xx, r, qq, s, w, m, n, qmax, st)
+        : quantize_t<float, false>(xx, r, qq, s, w, m, n, qmax, st);
   }
   auto* xx = static_cast<const __nv_bfloat16*>(x);
   return stochastic
-      ? quantize_t<__nv_bfloat16, true>(xx, r, qq, s, w, m, n, qmax, launches,
-                                        st)
-      : quantize_t<__nv_bfloat16, false>(xx, r, qq, s, w, m, n, qmax,
-                                         launches, st);
+      ? quantize_t<__nv_bfloat16, true>(xx, r, qq, s, w, m, n, qmax, st)
+      : quantize_t<__nv_bfloat16, false>(xx, r, qq, s, w, m, n, qmax, st);
 }
 
+// variant: a DqVariant, which the layout must allow (16 or 4 values an
+// item need n a multiple of it and q aligned to it)
 extern "C" int compress_dequantize(const void* q, const void* scale, void* out,
-                                   long long m, long long n, int* launches,
+                                   long long m, long long n, int variant,
                                    void* stream) {
-  *launches = 0;
-  if (m < 1 || n < 1) return (int)cudaErrorInvalidValue;
+  const int v = variant == DQ_VEC16 ? 16 : variant == DQ_VEC4 ? 4
+                : variant == DQ_SCALAR ? 1 : 0;
+  if (m < 1 || n < 1 || v == 0 || n % v || !aligned(q, v) ||
+      !aligned(out, v == 1 ? 4 : 16))
+    return INVALID;
   auto st = static_cast<cudaStream_t>(stream);
   auto* qq = static_cast<const int8_t*>(q);
   auto* s = static_cast<const float*>(scale);
   auto* o = static_cast<float*>(out);
-  const long long total = m * n;
-  const bool vec = n % 4 == 0 && aligned(q, 4) && aligned(out, 16);
-  const int grid = grid_for(vec ? total / 4 : total);
-  if (total < (1LL << 31)) {
-    if (vec)
-      dequant_kernel<unsigned, true><<<grid, THREADS, 0, st>>>(
-          qq, s, o, (unsigned)total, (unsigned)n);
-    else
-      dequant_kernel<unsigned, false><<<grid, THREADS, 0, st>>>(
-          qq, s, o, (unsigned)total, (unsigned)n);
-  } else {
-    if (vec)
-      dequant_kernel<unsigned long long, true><<<grid, THREADS, 0, st>>>(
-          qq, s, o, (unsigned long long)total, (unsigned long long)n);
-    else
-      dequant_kernel<unsigned long long, false><<<grid, THREADS, 0, st>>>(
-          qq, s, o, (unsigned long long)total, (unsigned long long)n);
-  }
-  *launches = 1;
-  return (int)cudaGetLastError();
+  if (v == 16)
+    dequantize_t<16>(qq, s, o, m, n, st);
+  else if (v == 4)
+    dequantize_t<4>(qq, s, o, m, n, st);
+  else
+    dequantize_t<1>(qq, s, o, m, n, st);
+  return done(1);
 }
 
 extern "C" int compress_sparsify(const void* x, int dtype, const void* thresh,
                                  void* out, long long m, long long n,
-                                 int* launches, void* stream) {
-  *launches = 0;
-  if (m < 1 || n < 1 || dtype < 0 || dtype > 1)
-    return (int)cudaErrorInvalidValue;
+                                 void* stream) {
+  if (m < 1 || n < 1 || dtype < 0 || dtype > 1) return INVALID;
   auto st = static_cast<cudaStream_t>(stream);
   auto* t = static_cast<const float*>(thresh);
   auto* o = static_cast<float*>(out);
@@ -789,37 +1099,36 @@ extern "C" int compress_sparsify(const void* x, int dtype, const void* thresh,
           : sparsify_t<__nv_bfloat16, unsigned long long>(xx, t, o, total, n,
                                                           st);
   }
-  *launches = 1;
-  return (int)cudaGetLastError();
+  return done(1);
 }
 
-// f32 values of workspace compress_matmul needs (the split-K partials)
+// f32 values of workspace compress_matmul needs on a route (the split-K
+// partials)
 extern "C" long long compress_matmul_workspace(long long m, long long n,
-                                               long long k, long long sam,
-                                               long long sak) {
-  const Route route = mm_route(n, k, sam, sak);
-  if (route != ROWS && route != COLS) return 0;
-  const int s = route == ROWS ? rows_splits(m, n, k) : cols_splits(m, n, k);
+                                               long long k, int route,
+                                               int dtype) {
+  const int s = route_splits(route, m, n, k, dtype == 0 ? 4 : 2);
   return s > 1 ? (long long)s * m * n : 0;
 }
 
+// route: a Route that the operands fit (route_fits)
 extern "C" int compress_matmul(const void* a, const void* b, void* out,
                                void* workspace, long long m, long long n,
                                long long k, long long sam, long long sak,
                                long long sbk, long long sbn, int dtype,
-                               int* launches, void* stream) {
-  *launches = 0;
-  if (m < 1 || n < 1 || k < 1 || dtype < 0 || dtype > 1)
-    return (int)cudaErrorInvalidValue;
+                               int route, void* stream) {
+  if (m < 1 || n < 1 || k < 1 || dtype < 0 || dtype > 1 ||
+      !route_fits(route, a, dtype == 0 ? 4 : 2, n, k, sam, sak))
+    return INVALID;
   auto st = static_cast<cudaStream_t>(stream);
   auto* o = static_cast<float*>(out);
   auto* w = static_cast<float*>(workspace);
   if (dtype == 0)
     return matmul_t(static_cast<const float*>(a), static_cast<const float*>(b),
-                    o, w, m, n, k, sam, sak, sbk, sbn, launches, st);
+                    o, w, m, n, k, sam, sak, sbk, sbn, route, st);
   return matmul_t(static_cast<const __nv_bfloat16*>(a),
                   static_cast<const __nv_bfloat16*>(b), o, w, m, n, k, sam,
-                  sak, sbk, sbn, launches, st);
+                  sak, sbk, sbn, route, st);
 }
 
 extern "C" const char* compress_error_string(int err) {

@@ -1,6 +1,7 @@
-// Hopper (sm_90a) building blocks shared by the port's tensor-core kernels
-// (K1 flash_attention, K5 moe_gmm): mbarriers, TMA tile loads and their
-// tensor maps, wgmma shared-memory descriptors and instructions, and
+// Hopper (sm_90a) building blocks shared by the port's kernels (K1
+// flash_attention, K5 moe_gmm, K4's streamed product in compress):
+// mbarriers, TMA tile loads and their tensor maps, 1-D bulk copies, named
+// barriers, wgmma shared-memory descriptors and instructions, and
 // setmaxnreg.  Raw PTX, no CUTLASS: nvcc builds each kernel in seconds.
 //
 // The operand layout throughout is the one TMA writes with 128-byte
@@ -60,6 +61,26 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
         "selp.u32 %0, 1, 0, p;\n}\n"
         : "=r"(done) : "r"(addr), "r"(parity) : "memory");
   } while (!done);
+}
+
+// ---- 1-D bulk copies and named barriers ---------------------------------
+
+// ``bytes`` contiguous bytes from global memory into shared memory by the
+// TMA unit, completing on ``bar``'s transaction count: no tensor map.
+// ``dst`` and ``src`` 16-byte aligned, ``bytes`` a multiple of 16.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n"
+      :: "r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// barrier ``id`` (1-15; 0 is __syncthreads) over ``threads`` threads, a
+// multiple of 32: the warps of one role wait for each other alone
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
 }
 
 // ---- TMA tile loads (complete on ``bar``'s transaction count) ------------

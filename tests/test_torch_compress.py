@@ -413,6 +413,17 @@ def test_lowrank_project_matches_jax(m, k, n):
         _normal((m, n), 5)))
     np.testing.assert_allclose(_np(at), a.T @ _normal((m, n), 5), rtol=1e-5,
                                atol=1e-5)
+    # ... with P from QR, column-major, as LowRankCodec passes it
+    p, _ = torch.linalg.qr(out)
+    if p.shape[1] > 1:
+        assert p.stride(0) == 1, p.stride()
+    pt = ops.lowrank_project(torch.from_numpy(a).T, p)
+    jp = jnp.asarray(_np(p))
+    np.testing.assert_allclose(_np(pt), np.asarray(jref.matmul_ref(
+        jnp.asarray(a).T, jp)), rtol=1e-5, atol=1e-5)
+    if k % 8 == 0:  # the JAX kernel tiles the rows of M^T exactly
+        np.testing.assert_allclose(_np(pt), np.asarray(jax_lowrank_project(
+            jnp.asarray(a).T, jp)), rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.parametrize("bits", [8, 4])
@@ -459,6 +470,71 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
         ops.matmul_kernel(x, torch.randn(8, 2, dtype=torch.bfloat16))
     with pytest.raises(ValueError):
         ops.matmul_kernel(torch.randn(0, 8), torch.randn(8, 2))
+
+
+def _view(shape, strides, offset_bytes, dtype=torch.float32):
+    """A view with the given strides starting ``offset_bytes`` into a
+    fresh (64-byte aligned) CPU allocation."""
+    size = torch.tensor([], dtype=dtype).element_size()
+    span = 1 + sum((d - 1) * st for d, st in zip(shape, strides))
+    base = torch.empty(offset_bytes // size + span + 16, dtype=dtype)
+    start = (-base.data_ptr() % 64 + offset_bytes) // size
+    return base.as_strided(shape, strides, start)
+
+
+# (a shape, a strides, a offset in bytes, a dtype, n, K4's route): M^T @ P
+# streamed from 48 MiB of M with 16-byte aligned rows of 512 bytes or more
+MM_ROUTE_CASES = [
+    ((128, 64), (64, 1), 0, torch.float32, 4, "rows"),
+    ((896, 15000), (1, 896), 0, torch.float32, 4, "cols_bulk"),
+    ((896, 30000), (1, 896), 0, torch.bfloat16, 8, "cols_bulk"),
+    ((898, 15000), (1, 904), 0, torch.float32, 4, "cols_bulk"),
+    ((4864, 2700), (1, 4864), 0, torch.float32, 4, "cols_bulk"),
+    ((896, 15000), (1, 896), 0, torch.bfloat16, 4, "cols"),   # 27 MB
+    ((4864, 896), (1, 4864), 0, torch.float32, 4, "cols"),    # 17 MB
+    ((896, 15000), (1, 896), 4, torch.float32, 4, "cols"),    # base off 16
+    ((64, 300000), (1, 64), 0, torch.float32, 4, "cols"),     # 256-byte rows
+    ((33, 4), (1, 33), 0, torch.float32, 7, "cols"),          # rows off 16
+    ((37, 300), (1, 37), 0, torch.bfloat16, 3, "cols"),
+    ((100, 4), (4, 1), 0, torch.float32, 96, "smallk"),
+    ((70, 50), (50, 1), 0, torch.float32, 40, "tiled"),
+    ((40, 30), (1, 40), 0, torch.float32, 20, "tiled"),
+]
+
+
+@pytest.mark.parametrize("shape,strides,offset,dtype,n,route",
+                         MM_ROUTE_CASES)
+def test_matmul_variant_from_layout(shape, strides, offset, dtype, n, route):
+    """K4's route from shape, strides and alignment, as on the card."""
+    a = _view(shape, strides, offset, dtype)
+    assert a.stride() == strides and a.data_ptr() % 64 == offset
+    assert ops.matmul_variant(a, torch.empty(shape[1], n, dtype=dtype)) \
+        == route
+
+
+@pytest.mark.parametrize("rows,cols,route", [(152064, 896, "cols_bulk"),
+                                             (896, 4864, "cols")])
+def test_matmul_variant_of_the_codec_products(rows, cols, route):
+    """LowRankCodec's three products on qwen2-0.5b's embedding gradient
+    and an MLP gradient: M @ Q0 on rows, M^T @ P (P column-major, as QR
+    gives it) streamed only for the embedding, the decode on the small-k
+    route.  Nothing is computed: the memory is never touched."""
+    mat = torch.empty(rows, cols)
+    p = torch.empty(4, rows).T
+    q = torch.empty(cols, 4)
+    assert ops.matmul_variant(mat, q) == "rows"
+    assert ops.matmul_variant(mat.T, p) == route
+    assert ops.matmul_variant(p, q.T) == "smallk"
+
+
+@pytest.mark.parametrize("n,offset,variant", [
+    (256, 0, "vec16"), (4194304, 0, "vec16"), (48, 0, "vec16"),
+    (100, 0, "vec4"), (256, 4, "vec4"), (256, 8, "vec4"),
+    (33, 0, "scalar"), (256, 1, "scalar"), (4096, 3, "scalar")])
+def test_dequantize_variant_from_layout(n, offset, variant):
+    """K2b's variant from the row length and q's alignment."""
+    q = _view((2, n), (n, 1), offset, torch.int8)
+    assert ops.dequantize_variant(n, q.data_ptr()) == variant
 
 
 def test_wrappers_count_no_launch_on_cpu():

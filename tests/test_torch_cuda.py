@@ -297,6 +297,36 @@ def test_quantize_kernel_matches_plain(cuda, shape, dtype, bits, stochastic):
     assert torch.equal(out, cref.dequantize_ref(q, s))
 
 
+# (m, n, byte offset of q in its allocation, K2b's variant): one row (a
+# ring hop) and rows of 256 (the payload), a row index by multiply-shift
+# through a divisor that is no power of two (n / 16 = 3, 257), ragged n,
+# and views at 4 and 1 bytes off 16
+DQ_CASES = [(1, 4096, 0, "vec16"), (1, 1 << 22, 0, "vec16"),
+            (64, 256, 0, "vec16"), (1000, 48, 0, "vec16"),
+            (3, 4112, 0, "vec16"), (5, 100, 0, "vec4"), (1, 100, 0, "vec4"),
+            (7, 33, 0, "scalar"), (1, 33, 0, "scalar"),
+            (4, 256, 4, "vec4"), (4, 256, 1, "scalar"),
+            (1, 4096, 3, "scalar")]
+
+
+@pytest.mark.parametrize("m,n,offset,variant", DQ_CASES)
+def test_dequantize_kernel_variants(cuda, m, n, offset, variant):
+    """K2b on each variant: bit-equal to dequantize_ref and torch.mul."""
+    rng = np.random.default_rng(m + n + offset)
+    flat = torch.from_numpy(rng.integers(-127, 128, offset + m * n,
+                                         dtype=np.int8)).to(cuda)
+    q = flat[offset:].view(m, n)
+    s = torch.from_numpy(rng.uniform(0.01, 2.0, (m, 1)).astype(
+        np.float32)).to(cuda)
+    before = cops.dequantize_kernel.launches
+    out = cops.dequantize_kernel(q, s)
+    torch.cuda.synchronize()
+    assert cops.dequantize_kernel.last_variant == variant
+    assert cops.dequantize_kernel.launches == before + 1
+    assert torch.equal(out, cref.dequantize_ref(q, s))
+    assert torch.equal(out, torch.mul(q, s))
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(2, 256), (3, 100), (1, 513), (7, 33)])
 def test_sparsify_kernel_matches_plain(cuda, shape, dtype):
@@ -312,35 +342,71 @@ def test_sparsify_kernel_matches_plain(cuda, shape, dtype):
     assert torch.equal(out, cref.sparsify_ref(x, t))
 
 
-# (m, k, n, a transposed): tests/test_compress.py:227-232, ragged, n of 5-8,
-# the transposed view of M^T @ P, k <= 8 (the decode), a general shape,
-# few rows over a long k and its decode (split over blocks: the
-# o-projection gradient as 14 x 57,344), and a skinny operand larger than
-# shared memory
-MM_SHAPES = [(128, 64, 4, False), (100, 37, 3, False), (50, 40, 6, False),
-             (64, 5000, 4, True), (33, 4, 7, True), (1000, 4, 96, False),
-             (70, 50, 40, False), (40, 30, 20, True), (4, 13000, 4, False),
-             (14, 57344, 4, False), (14, 4, 57344, False),
-             (3, 8, 7000, False)]
+# (m, k, n, layout of a, layout of b, route in f32, route in bf16):
+# tests/test_compress.py:227-232, ragged, n of 5-8, the transposed view of
+# M^T @ P, k <= 8 (the decode), a general shape, few rows over a long k and
+# its decode (split over blocks: the o-projection gradient as 14 x 57,344),
+# a skinny operand larger than shared memory, and the layouts of M^T @ P,
+# streamed from 48 MiB of M: P column-major (QR's) and row-major, a ragged
+# last quad (898 of 904 columns), a ragged last block (k = 15003), five
+# column slices (the MLP's 4,864 columns), rank 8; the MLP's 17 MB below
+# the line.  a: "rows" row-major, "t" a row-major M transposed, "t_slice"
+# the first m columns of a wider M transposed.
+MM_SHAPES = [(128, 64, 4, "rows", "rows", "rows", "rows"),
+             (100, 37, 3, "rows", "rows", "rows", "rows"),
+             (50, 40, 6, "rows", "rows", "rows", "rows"),
+             (64, 5000, 4, "t", "rows", "cols", "cols"),
+             (33, 4, 7, "t", "rows", "cols", "cols"),
+             (1000, 4, 96, "rows", "rows", "smallk", "smallk"),
+             (70, 50, 40, "rows", "rows", "tiled", "tiled"),
+             (40, 30, 20, "t", "rows", "tiled", "tiled"),
+             (4, 13000, 4, "rows", "rows", "rows", "rows"),
+             (14, 57344, 4, "rows", "rows", "rows", "rows"),
+             (14, 4, 57344, "rows", "rows", "smallk", "smallk"),
+             (3, 8, 7000, "rows", "rows", "smallk", "smallk"),
+             (4864, 896, 4, "t", "cols", "cols", "cols"),
+             (896, 15000, 4, "t", "cols", "cols_bulk", "cols"),
+             (896, 15000, 4, "t", "rows", "cols_bulk", "cols"),
+             (896, 15000, 8, "t", "cols", "cols_bulk", "cols"),
+             (898, 15000, 4, "t_slice", "cols", "cols_bulk", "cols"),
+             (896, 15003, 4, "t", "cols", "cols_bulk", "cols"),
+             (4864, 2700, 4, "t", "cols", "cols_bulk", "cols"),
+             (896, 30000, 4, "t", "cols", "cols_bulk", "cols_bulk"),
+             (4862, 5500, 3, "t_slice", "rows", "cols_bulk", "cols_bulk")]
+
+
+def _mm_operands(m, k, n, a_layout, b_layout, dtype, device):
+    rng = np.random.default_rng(m + k + n)
+
+    def mk(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)
+                                ).to(device, dtype)
+    if a_layout == "rows":
+        a = mk(m, k)
+    elif a_layout == "t":
+        a = mk(k, m).T
+    else:  # rows of the wider M 16-byte aligned for both dtypes
+        a = mk(k, (m + 8) // 8 * 8)[:, :m].T
+    b = mk(k, n) if b_layout == "rows" else mk(n, k).T
+    return a, b
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("m,k,n,transposed", MM_SHAPES)
-def test_matmul_kernel_matches_plain(cuda, m, k, n, transposed, dtype):
-    """K4 against its plain version: f32 accumulation in another order
-    (bf16 inputs are exact in f32).  Within atol and rtol 1e-5 up to the
-    JAX test's k = 64 (tests/test_compress.py:227-232); beyond it the
-    difference of two summation orders grows with the terms, not with
-    their sum, so there rtol 1e-5 applies to |a| @ |b|."""
-    rng = np.random.default_rng(m + k + n)
-    a = torch.from_numpy(rng.standard_normal((k, m) if transposed else
-                                             (m, k), dtype=np.float32)
-                         ).to(cuda, dtype)
-    a = a.T if transposed else a
-    b = torch.from_numpy(rng.standard_normal((k, n), dtype=np.float32)).to(
-        cuda, dtype)
+@pytest.mark.parametrize("m,k,n,a_layout,b_layout,f32_route,bf16_route",
+                         MM_SHAPES)
+def test_matmul_kernel_matches_plain(cuda, m, k, n, a_layout, b_layout,
+                                     f32_route, bf16_route, dtype):
+    """K4 against its plain version, on the route the layout gives: f32
+    accumulation in another order (bf16 inputs are exact in f32).  Within
+    atol and rtol 1e-5 up to the JAX test's k = 64
+    (tests/test_compress.py:227-232); beyond it the difference of two
+    summation orders grows with the terms, not with their sum, so there
+    rtol 1e-5 applies to |a| @ |b|."""
+    a, b = _mm_operands(m, k, n, a_layout, b_layout, dtype, cuda)
     out = cops.matmul_kernel(a, b)
     torch.cuda.synchronize()
+    assert cops.matmul_kernel.last_variant == (
+        f32_route if dtype == torch.float32 else bf16_route)
     assert out.dtype == torch.float32 and out.shape == (m, n)
     ref = cref.matmul_ref(a, b)
     scale = cref.matmul_ref(a.abs(), b.abs()) if k > 64 else ref.abs()

@@ -60,7 +60,7 @@ def _window(name, fn, reps):
     host_ops = sum(a.count for a in prof.key_averages()
                    if a.device_type == DeviceType.CPU
                    and a.key.startswith("aten::"))
-    top = sorted(kernels, key=lambda a: -a.self_device_time_total)[:8]
+    top = sorted(kernels, key=lambda a: -a.self_device_time_total)[:12]
     print(json.dumps({
         "window": name, "reps": reps, "wall_ms": wall_ms,
         "profiled_wall_ms": prof_wall_ms, "device_busy_ms": busy_ms,
