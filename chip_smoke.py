@@ -13,16 +13,20 @@ exits non-zero:
    the JAX kernel tests' shapes, ragged ones and the paths' own; times at
    the paths' shapes beside the plain version, one PyTorch library call
    (where one exists) and the bound:
-   - flash attention K1, SSD scan K6, grouped expert GEMM K5;
+   - flash attention K1, SSD scan K6 (also at a long and a ragged L;
+     timed with its launches a call, each of its three stages' device time
+     from torch.profiler, and its bound on the tensor cores in 3xTF32
+     beside the f32 one), grouped expert GEMM K5;
    - quantize K2a and dequantize K2b (q and decode bit-equal, scales
      within rtol 1e-6; K2b also bit-equal to torch.mul on each of its
      variants vec16 / vec4 / scalar), sparsify K3 (bit-equal) and the
      PowerSGD matmul K4 (atol and rtol 1e-5; at the path's k up to 152,064,
      1e-5 of |a|@|b|; every route, cols_bulk on the layouts it takes), at
      qwen2-0.5b's whole gradient in rows of 256, a ring chunk of a 64 MiB
-     bucket and the embedding gradient's three projections; each kernel
-     timed back to back (ms) and from a CUDA graph (graph_ms), the library
-     call both ways.
+     bucket and the embedding gradient's three projections (K3 also as
+     the one row the payload-level sparsify passes); each kernel timed
+     back to back (ms) and from a CUDA graph (graph_ms), the library call
+     both ways.
 3. Three serving paths, each at full width, each first in f32 for parity
    (prefill logits through the kernels against replaying the prompt
    through decode_step, at every position, and the greedy next token),
@@ -40,7 +44,9 @@ exits non-zero:
    topk and lowrank codecs over two error-feedback steps, held to the JAX
    tests' error regime, the specs' wire ratio and the plain versions;
    then the payload-level quantize/dequantize/sparsify over the flattened
-   gradient and the projection of every matrix.
+   gradient and the projection of every matrix; then the payload-level
+   sparsify as one row against the zero-padded rows of 256 it replaced,
+   in turns, device ms and peak memory.
 5. collectives (K2a, K2b): four gloo ranks share the card, each syncing
    its own stand-in gradient in 64 MiB buckets through ring_q8, ring_q4,
    ring and bidir_ring, and two buckets through the ATP schedule with and
@@ -173,17 +179,9 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def graph_ms(fn, iters: int) -> float:
-    """Device time of one call of ``fn``: ``iters`` calls captured in one
-    CUDA graph and replayed, so that the host work of each call (the
-    wrapper's checks, the ctypes call) is not timed; where ``cuda_ms`` is
-    larger, the host sets the pace of back-to-back calls."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):  # warm up off the default stream
-        for _ in range(3):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
+def graph_capture_ms(fn, iters: int) -> float:
+    """Device time of one call of ``fn`` from one CUDA graph of ``iters``
+    calls, replayed (``fn`` warmed up before)."""
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         for _ in range(iters):
@@ -199,6 +197,24 @@ def graph_ms(fn, iters: int) -> float:
     ms = start.elapsed_time(end) / (3 * iters)
     del graph
     return ms
+
+
+def graph_ms(fn, iters: int) -> float:
+    """Device time of one call of ``fn``: ``iters`` calls captured in one
+    CUDA graph and replayed, so that the host work of each call (the
+    wrapper's checks, the ctypes call) is not timed; where ``cuda_ms`` is
+    larger, the host sets the pace of back-to-back calls.  The calls are
+    captured twice and the second graph is timed: the first capture after
+    the allocations change can replay several percent slower, whichever
+    kernel it holds (``tools/graph_capture_check.py``)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm up off the default stream
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph_capture_ms(fn, iters)
+    return graph_capture_ms(fn, iters)
 
 
 def _delta(before: dict) -> dict:
@@ -399,11 +415,19 @@ def phase_kernels(rng) -> dict:
 # 2b. SSD scan (K6) against its plain version
 # --------------------------------------------------------------------------
 
-# tests/test_kernels.py:53-58, a ragged L, and mamba2-130m prefill at
-# B 4 x S 512 (H 24, P 64, N 128, f32, the model's chunk 256)
+# tests/test_kernels.py:53-58, a ragged L, a long scan (64 of the kernel's
+# chunks of 64 to carry), an L ragged against the kernel's chunk, and
+# mamba2-130m prefill at B 4 x S 512 (H 24, P 64, N 128, f32, the model's
+# chunk 256)
+SSD_LONG_SHAPE = (1, 4, 4096, 64, 128, 256)  # timed too
 _SSD_SWEEP = [(1, 2, 256, 64, 32, 64), (2, 4, 512, 64, 128, 128),
-              (1, 2, 256, 128, 64, 256), (1, 3, 200, 32, 16, 256)]
+              (1, 2, 256, 128, 64, 256), (1, 3, 200, 32, 16, 256),
+              SSD_LONG_SHAPE, (2, 3, 1000, 64, 64, 200)]
 SSD_PATH_SHAPE = (4, 24, 512, 64, 128, 256)
+SSD_KERNEL_CHUNK = 64  # Q of csrc/ssd_scan_fwd.cu
+PEAK_TF32_FLOPS = 495e12  # tensor cores, dense
+# the kernel's three stages, by the names the profiler gives them
+SSD_STAGES = ("chunk_state_kernel", "state_pass_kernel", "chunk_out_kernel")
 
 
 def _ssd_inputs(rng, b, h, l, p, n, dtype, model_decay):
@@ -431,6 +455,41 @@ def ssd_bound(b, h, l, p, n):
     flops = b * h * l * 2 * (n + p + 2 * p * n)
     nbytes = 4 * (2 * b * h * l * p + b * h * l + 2 * b * l * n + h)
     return _bound(nbytes, flops, PEAK_F32_FLOPS)
+
+
+def ssd_tc_bound(b, h, l, p, n, q=SSD_KERNEL_CHUNK):
+    """Least time (ms) of the kernel's own design: the dual form's least
+    operations at its chunk q (G x on and below the diagonal, q (q + 1) / 2
+    terms a chunk; C h^T and the state, 2PN each a row; C B^T once per
+    batch row, on and below the diagonal), three times over for 3xTF32, at
+    the dense TF32 peak of the tensor cores, against the same bytes."""
+    flops = 3 * (b * h * l * 2 * (p * (q + 1) / 2 + 2 * p * n)
+                 + b * l * 2 * n * (q + 1) / 2)
+    nbytes = 4 * (2 * b * h * l * p + b * h * l + 2 * b * l * n + h)
+    return _bound(nbytes, flops, PEAK_TF32_FLOPS)
+
+
+def stage_ms(fn, iters: int, names) -> dict:
+    """Device ms a call of each kernel whose name holds one of ``names``,
+    from torch.profiler over ``iters`` calls of ``fn`` (empty where the
+    profiler records no device time)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        for name in names:
+            if name in ev.key:
+                out[name] = out.get(name, 0.0) + \
+                    ev.self_device_time_total / 1e3 / iters
+    return out
 
 
 def phase_ssd_kernel(rng) -> dict:
@@ -468,15 +527,41 @@ def phase_ssd_kernel(rng) -> dict:
 
     b, h, l, p, n, chunk = SSD_PATH_SHAPE
     args = _ssd_inputs(rng, b, h, l, p, n, torch.float32, True)
+    before = ssd_scan.launches
+    ssd_scan(*args, chunk=chunk)
+    per_call = ssd_scan.launches - before
     ms = cuda_ms(lambda: ssd_scan(*args, chunk=chunk), 50)
+    graph = graph_ms(lambda: ssd_scan(*args, chunk=chunk), 25)
     plain_ms = cuda_ms(lambda: ssd_scan_ref(*args, chunk=chunk), 10)
+    stages = stage_ms(lambda: ssd_scan(*args, chunk=chunk), 20, SSD_STAGES)
+    # bound_ms at the f32 rate of the CUDA cores (the function's floor on
+    # any design); bound_tc_ms is this design's own, in 3xTF32
     bound_ms, bound_by = ssd_bound(*SSD_PATH_SHAPE[:5])
+    bound_tc_ms, bound_tc_by = ssd_tc_bound(*SSD_PATH_SHAPE[:5])
     timing = {"shape": list(SSD_PATH_SHAPE), "dtype": "float32", "ms": ms,
+              "graph_ms": graph, "launches_per_call": per_call,
+              "stage_ms": stages,
               "plain_ms": plain_ms, "library_ms": None,  # no single call
               "bound_ms": bound_ms, "bound_by": bound_by,
+              "bound_tc_ms": bound_tc_ms, "bound_tc_by": bound_tc_by,
               "max_abs_err": path_err}
     emit({"phase": "kernel_time", "kernel": "ssd_scan", **timing})
-    return {"path": timing}
+    check(per_call == 3, f"ssd_scan launched {per_call} kernels a call, "
+          f"not its three stages")
+    b, h, l, p, n, chunk = SSD_LONG_SHAPE
+    args = _ssd_inputs(rng, b, h, l, p, n, torch.float32, True)
+    long_timing = {
+        "shape": list(SSD_LONG_SHAPE), "dtype": "float32",
+        "ms": cuda_ms(lambda: ssd_scan(*args, chunk=chunk), 20),
+        "graph_ms": graph_ms(lambda: ssd_scan(*args, chunk=chunk), 10),
+        "stage_ms": stage_ms(lambda: ssd_scan(*args, chunk=chunk), 10,
+                             SSD_STAGES),
+        "plain_ms": cuda_ms(lambda: ssd_scan_ref(*args, chunk=chunk), 3),
+        "bound_ms": ssd_bound(*SSD_LONG_SHAPE[:5])[0],
+        "bound_tc_ms": ssd_tc_bound(*SSD_LONG_SHAPE[:5])[0]}
+    emit({"phase": "kernel_time", "kernel": "ssd_scan", "case": "long",
+          **long_timing})
+    return {"path": timing, "long": long_timing}
 
 
 # --------------------------------------------------------------------------
@@ -913,6 +998,21 @@ def phase_compress_kernels(n_values: int) -> dict:
             lambda: F.hardshrink(grad_rows, lambd), 5),
         "library_mismatches": lib_bad,
         "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": sp_err}
+    # the same values as one row with one threshold, as the payload-level
+    # sparsify passes them (the codec path's launch)
+    one_row = grad_rows.view(1, -1)
+    t1 = t[:1]
+    bad = int((cops.sparsify_kernel(one_row, t1)
+               != cref.sparsify_ref(one_row, t1)).sum())
+    check(bad == 0, f"sparsify disagrees with sparsify_ref on one row: "
+          f"{bad}")
+    timings["sparsify"]["one_row"] = {
+        "shape": list(one_row.shape), "dtype": "float32", "ms": cuda_ms(
+            lambda: cops.sparsify_kernel(one_row, t1), 20),
+        "graph_ms": graph_ms(lambda: cops.sparsify_kernel(one_row, t1), 5),
+        "library_graph_ms": graph_ms(
+            lambda: F.hardshrink(one_row, lambd), 5),
+        "bound_ms": bound_ms, "bound_by": bound_by, "mismatches": bad}
     for name, (a, b, _) in products.items():
         key = "path" if name == "project" else name
         bound_ms, bound_by = matmul_bound(a.shape[0], a.shape[1], b.shape[1])
@@ -932,7 +1032,7 @@ def phase_compress_kernels(n_values: int) -> dict:
     for name, t_by_key in timings.items():
         for key, t in t_by_key.items():
             emit({"phase": "kernel_time", "kernel": name, "case": key, **t})
-    del grad_rows, mat, q0, p, q, products, t
+    del grad_rows, one_row, t1, mat, q0, p, q, products, t
     _release()
     return timings
 
@@ -1028,6 +1128,45 @@ def _run_codec(name: str, grads) -> dict:
     return result
 
 
+def _padded_rows_sparsify(flat, thresh):
+    """The payload-level sparsify through the JAX package's layout: the
+    payload zero-padded to rows of 256 (a copy), one threshold a row, then
+    cut back."""
+    rows, n = cops._as_rows(flat, ROW_LEN)
+    t = torch.full((rows.shape[0], 1), float(thresh), dtype=torch.float32,
+                   device=rows.device)
+    return cops.sparsify_kernel(rows, t).reshape(-1)[:n].reshape(flat.shape)
+
+
+def _payload_sparsify_routes(flat, thresh) -> None:
+    """The payload-level sparsify over the flattened gradient: padded rows
+    against the one row ``cops.sparsify`` passes, in turns; device ms back
+    to back and the peak memory a call allocates beyond what was held."""
+    def new():
+        return cops.sparsify(flat, thresh, row_len=ROW_LEN)
+
+    def old():
+        return _padded_rows_sparsify(flat, thresh)
+
+    bad = int((new() != old()).sum())
+    check(bad == 0, f"one-row sparsify differs from padded rows in {bad}")
+    runs = []
+    for name, fn in (("padded_rows", old), ("one_row", new),
+                     ("one_row", new), ("padded_rows", old)):
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = fn()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - held
+        del out
+        runs.append({"route": name, "ms": cuda_ms(fn, 5),
+                     "peak_bytes": peak})
+    emit({"phase": "payload_sparsify", "values": flat.numel(),
+          "mismatches": bad, "runs": runs})
+    _release()
+
+
 def phase_codecs(seed: int) -> dict:
     """The codec path at full width and depth: one stand-in gradient tensor
     per parameter of qwen2-0.5b (seeded normal values; the training step
@@ -1087,7 +1226,9 @@ def phase_codecs(seed: int) -> dict:
     for name in ("quantize", "dequantize", "sparsify", "matmul"):
         check(counts[name] > 0, f"kernel {name} not launched on the codec "
               f"path")
-    del params, grads, flat, q, scales, dec, kept, sample
+    del q, scales, dec, kept, sample
+    _payload_sparsify_routes(flat, thresh)
+    del params, grads, flat
     _release()
     return {"counts": counts, "values": n_values,
             "ms": {k: [s["ms"] for s in v["steps"]]
@@ -1417,8 +1558,10 @@ def main() -> int:
                  "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                  "bound_by": t["bound_by"], "library_ms": t["library_ms"],
                  "shape": t["shape"], "dtype": t["dtype"],
-                 **{key: t[key] for key in ("variant", "graph_ms",
-                                            "library_graph_ms") if key in t},
+                 **{key: t[key] for key in (
+                     "variant", "graph_ms", "library_graph_ms",
+                     "launches_per_call", "stage_ms", "bound_tc_ms",
+                     "bound_tc_by") if key in t},
                  "path": main_path[name],
                  "launches_by_path": {p: c[name] for p, c in paths.items()}}
         check(entry["launches"] > 0,

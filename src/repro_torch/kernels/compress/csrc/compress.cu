@@ -36,6 +36,14 @@
 // hop, every per-tensor scale) the scale is read once, else a value's row
 // comes from a multiply-shift computed on the host (no integer division on
 // the card).
+// Sparsify (redesigned): items of 4 values (a 16-byte load of f32, 8 bytes
+// of bf16, so that every warp's float4 store stays 512 contiguous bytes)
+// where n % 4 == 0 and x is aligned, else single values; one item a
+// thread and no loop (tools/sparsify_bench.py at 494M values on the card:
+// 1.296 ms; two or four items a thread 1.300 and 1.304, a one-wave grid
+// looping over the payload 1.368, the streaming cache hints no gain); the
+// payload-level op passes one row with one threshold, other callers' rows
+// come from the same multiply-shift as dequantize's.
 //
 // Translation from the TPU kernels.  The TPU grid walked blocks of rows
 // with the whole row in VMEM.  Here quantize has two regimes:
@@ -373,24 +381,37 @@ __device__ __forceinline__ float keep(float v, float t) {
   return fabsf(v) >= t ? v : 0.f;
 }
 
-template <typename T, typename I, bool VEC>
+// Vector variant: an item is 4 values (n % 4 == 0, x aligned to them): a
+// 16-byte load of f32, 8 bytes of bf16, so that every warp's float4 store
+// writes 512 contiguous bytes; one item a thread, a block of consecutive
+// items, no loop.  ONE_ROW reads the threshold once; else an item's row
+// is its index over the items of a row, a multiply-shift (no integer
+// division on the card).
+template <typename T, bool ONE_ROW>
 __global__ void __launch_bounds__(THREADS)
-sparsify_kernel(const T* __restrict__ x, const float* __restrict__ thresh,
-                float* __restrict__ out, I total, I n) {
-  const I stride = (I)gridDim.x * THREADS;
-  if (VEC) {
-    for (I g = (I)blockIdx.x * THREADS + threadIdx.x; g < total / 4;
-         g += stride) {
-      const float t = thresh[(g * 4) / n];
-      float f[4];
-      load4(x + g * 4, f);
-      reinterpret_cast<float4*>(out)[g] = make_float4(
-          keep(f[0], t), keep(f[1], t), keep(f[2], t), keep(f[3], t));
-    }
-  } else {
-    for (I i = (I)blockIdx.x * THREADS + threadIdx.x; i < total; i += stride)
-      out[i] = keep(to_f(x[i]), thresh[i / n]);
-  }
+sparsify_vec_kernel(const T* __restrict__ x, const float* __restrict__ thresh,
+                    float* __restrict__ out, long long items,
+                    FastDiv row_of) {
+  const long long g = (long long)blockIdx.x * THREADS + threadIdx.x;
+  if (g >= items) return;
+  float f[4];
+  load4(x + 4 * g, f);
+  const float t = __ldg(thresh + (ONE_ROW ? 0 : row_of(g)));
+  reinterpret_cast<float4*>(out)[g] = make_float4(
+      keep(f[0], t), keep(f[1], t), keep(f[2], t), keep(f[3], t));
+}
+
+// Scalar variant (n % 4 != 0 or x misaligned): one value an item, one item
+// a thread.
+template <typename T, bool ONE_ROW>
+__global__ void __launch_bounds__(THREADS)
+sparsify_scalar_kernel(const T* __restrict__ x,
+                       const float* __restrict__ thresh,
+                       float* __restrict__ out, long long total,
+                       FastDiv row_of) {
+  const long long i = (long long)blockIdx.x * THREADS + threadIdx.x;
+  if (i < total)
+    out[i] = keep(to_f(x[i]), __ldg(thresh + (ONE_ROW ? 0 : row_of(i))));
 }
 
 // ---- K4: (m,k) x (k,n) -> f32 (m,n), out contiguous -----------------------
@@ -804,17 +825,28 @@ void dequantize_t(const int8_t* q, const float* scale, float* out,
         q, scale, out, items, fast_div(V == 1 ? n : n / 4));
 }
 
-template <typename T, typename I>
-void sparsify_t(const T* x, const float* t, float* out, long long total,
+// rows are counted in items (4 values or 1)
+template <typename T>
+void sparsify_t(const T* x, const float* t, float* out, long long m,
                 long long n, cudaStream_t st) {
-  const bool vec = n % 4 == 0 && aligned(x, 4 * sizeof(T)) && aligned(out, 16);
-  const int grid = grid_for(vec ? total / 4 : total);
-  if (vec)
-    sparsify_kernel<T, I, true><<<grid, THREADS, 0, st>>>(x, t, out, (I)total,
-                                                          (I)n);
+  const bool vec =
+      n % 4 == 0 && aligned(x, 4 * sizeof(T)) && aligned(out, 16);
+  const long long items = vec ? m * n / 4 : m * n;
+  const unsigned grid = (unsigned)((items + THREADS - 1) / THREADS);
+  const FastDiv row_of = m == 1 ? FastDiv{0ull, 0}
+                                : fast_div(vec ? n / 4 : n);
+  if (vec && m == 1)
+    sparsify_vec_kernel<T, true><<<grid, THREADS, 0, st>>>(x, t, out, items,
+                                                           row_of);
+  else if (vec)
+    sparsify_vec_kernel<T, false><<<grid, THREADS, 0, st>>>(x, t, out, items,
+                                                            row_of);
+  else if (m == 1)
+    sparsify_scalar_kernel<T, true><<<grid, THREADS, 0, st>>>(x, t, out,
+                                                              items, row_of);
   else
-    sparsify_kernel<T, I, false><<<grid, THREADS, 0, st>>>(x, t, out,
-                                                           (I)total, (I)n);
+    sparsify_scalar_kernel<T, false><<<grid, THREADS, 0, st>>>(x, t, out,
+                                                               items, row_of);
 }
 
 constexpr long long SMEM_MAX = 200 * 1024;  // of the 227 KB a block may use
@@ -1087,18 +1119,10 @@ extern "C" int compress_sparsify(const void* x, int dtype, const void* thresh,
   auto st = static_cast<cudaStream_t>(stream);
   auto* t = static_cast<const float*>(thresh);
   auto* o = static_cast<float*>(out);
-  const long long total = m * n;
-  const bool small = total < (1LL << 31);
-  if (dtype == 0) {
-    auto* xx = static_cast<const float*>(x);
-    small ? sparsify_t<float, unsigned>(xx, t, o, total, n, st)
-          : sparsify_t<float, unsigned long long>(xx, t, o, total, n, st);
-  } else {
-    auto* xx = static_cast<const __nv_bfloat16*>(x);
-    small ? sparsify_t<__nv_bfloat16, unsigned>(xx, t, o, total, n, st)
-          : sparsify_t<__nv_bfloat16, unsigned long long>(xx, t, o, total, n,
-                                                          st);
-  }
+  if (dtype == 0)
+    sparsify_t(static_cast<const float*>(x), t, o, m, n, st);
+  else
+    sparsify_t(static_cast<const __nv_bfloat16*>(x), t, o, m, n, st);
   return done(1);
 }
 

@@ -14,11 +14,12 @@ which refuses one the operands do not fit, and record it in
 no device switch where the device is current, the raw stream handle, the
 checks the kernels need and no more, workspace sizes cached by shape.
 
-The payload-level ops (``quantize``, ``dequantize``, ``sparsify``,
-``lowrank_project``) flatten a payload of any shape to rows of
-``row_len`` with per-row scales or thresholds, the layout of the JAX
-package's ``repro.kernels.compress.ops``; ``wire_codec`` is the
-encode/decode of the quantizing collectives, through the kernels.
+The payload-level ops (``quantize``, ``dequantize``, ``lowrank_project``)
+flatten a payload of any shape to rows of ``row_len`` with per-row
+scales, the layout of the JAX package's ``repro.kernels.compress.ops``;
+``sparsify``, whose one threshold makes it elementwise, passes the
+payload as one row; ``wire_codec`` is the encode/decode of the
+quantizing collectives, through the kernels.
 """
 from __future__ import annotations
 
@@ -348,12 +349,16 @@ def dequantize(q: torch.Tensor, scales: torch.Tensor, shape,
 
 
 def sparsify(x: torch.Tensor, thresh, *, row_len: int = 256) -> torch.Tensor:
-    """Zero entries of ``x`` below the (scalar) magnitude threshold."""
-    rows, n = _as_rows(x, row_len)
-    t = torch.full((rows.shape[0], 1), float(thresh), dtype=torch.float32,
-                   device=rows.device)
-    out = sparsify_kernel(rows, t)
-    return out.reshape(-1)[:n].reshape(x.shape)
+    """Zero entries of ``x`` below the (scalar) magnitude threshold.
+
+    With one threshold for every value the op is elementwise, so ``x`` goes
+    to the kernel as one row (a view where ``x`` is contiguous) with a
+    (1, 1) threshold: no zero-padded copy, no threshold per row.  The
+    result equals the JAX package's rows of ``row_len`` bit for bit;
+    ``row_len`` is kept for its signature and does not change it."""
+    t = torch.full((1, 1), float(thresh), dtype=torch.float32,
+                   device=x.device)
+    return sparsify_kernel(x.reshape(1, -1), t).reshape(x.shape)
 
 
 def lowrank_project(m: torch.Tensor, q: torch.Tensor) -> torch.Tensor:

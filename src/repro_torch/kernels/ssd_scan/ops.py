@@ -1,9 +1,10 @@
 """Public wrapper of the SSD chunked-scan kernel.
 
 On CUDA tensors it launches the hand-written Hopper kernel
-(``csrc/ssd_scan_fwd.cu``) or raises; on CPU tensors it computes the plain
-PyTorch version (``ref.ssd_scan_ref``).  The device of the tensors decides:
-there is no flag and no fallback.
+(``csrc/ssd_scan_fwd.cu``: three launches, chunk states, the carry, the
+chunks' outputs, through an f32 workspace allocated here) or raises; on
+CPU tensors it computes the plain PyTorch version (``ref.ssd_scan_ref``).
+The device of the tensors decides: there is no flag and no fallback.
 """
 from __future__ import annotations
 
@@ -21,18 +22,26 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "ssd_scan_fwd.cu"
 HEAD_DIMS = (32, 64, 128)      # P, instantiated in the kernel
 STATE_DIMS = (16, 32, 64, 128)  # N
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+LAUNCHES_PER_CALL = 3  # chunk states, the carry, the outputs
 
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.load(SOURCE)
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.ssd_scan_fwd.argtypes = [p, p, p, p, p, p, i, i, i, i, i,
+    lib.ssd_scan_workspace.argtypes = [i, i, i, i, i]
+    lib.ssd_scan_workspace.restype = ll
+    lib.ssd_scan_fwd.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i,
                                  ll, ll, ll, ll, ll, ll, i, p]
     lib.ssd_scan_fwd.restype = i
     lib.ssd_scan_error_string.argtypes = [i]
     lib.ssd_scan_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@functools.lru_cache(maxsize=256)
+def _workspace(b: int, h: int, l: int, p: int, n: int) -> int:
+    return _lib().ssd_scan_workspace(b, h, l, p, n)
 
 
 def _check(x, dt, a, b, c) -> None:
@@ -84,20 +93,24 @@ def ssd_scan(x, dt, a, b, c, *, chunk: int = 128):
     if x.device.type != "cuda":
         raise ValueError(f"no ssd_scan for device {x.device}")
     bsz, h, l, p = x.shape
-    y = torch.empty((bsz, h, l, p), dtype=x.dtype, device=x.device)
+    n = b.shape[2]
+    dev = x.device
+    y = torch.empty(bsz, h, l, p, dtype=x.dtype, device=dev)
+    work = torch.empty(_workspace(bsz, h, l, p, n), dtype=torch.float32,
+                       device=dev)
     lib = _lib()
-    with torch.cuda.device(x.device):
-        err = lib.ssd_scan_fwd(
+    with _build.on_device(dev):
+        rc = lib.ssd_scan_fwd(
             x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(),
-            c.data_ptr(), y.data_ptr(), bsz, h, l, p, b.shape[2],
+            c.data_ptr(), y.data_ptr(), work.data_ptr(), bsz, h, l, p, n,
             x.stride(0), x.stride(1), x.stride(2),
             dt.stride(0), dt.stride(1), dt.stride(2), _DTYPE_CODES[x.dtype],
-            torch.cuda.current_stream().cuda_stream)
-    if err:
+            _build.raw_stream(dev))
+    ssd_scan.launches += rc & 15
+    if rc >> 4:
         raise RuntimeError(
-            f"ssd_scan_fwd launch failed: CUDA error {err} "
-            f"({lib.ssd_scan_error_string(err).decode()})")
-    ssd_scan.launches += 1
+            f"ssd_scan_fwd launch failed: CUDA error {rc >> 4} "
+            f"({lib.ssd_scan_error_string(rc >> 4).decode()})")
     return y
 
 

@@ -5,13 +5,25 @@ of Mamba2's SSD, arXiv:2405.21060 Sec. 6) and of
 ``repro.kernels.ssd_scan.ref.ssd_scan_ref`` (the same scan re-laid out to the
 kernel's (B,H,L,P)).  ``ssd_chunked`` lives here rather than in
 ``repro_torch.models.ssm`` (which re-exports it) so that the kernel's wrapper
-can use it without importing the model package.
+can use it without importing the model package.  ``_segsum`` sums each
+segment on its own, the stable form of the JAX package's cumsum
+difference (same function, closer to exact in f32).
+
+``ssd_scan_staged`` mirrors the Hopper kernel's three stages in plain
+PyTorch (chunk states, the carry across chunks, the chunks' outputs), with
+its chunk of ``KERNEL_CHUNK`` rows, its zero padding of a ragged last
+chunk, and its products either in f32 or as the tensor cores compute them
+(``tf32_round``: one TF32 product, or the split 3xTF32 one the kernel
+uses), so that the CPU tests pin the kernel's arithmetic.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
 DEFAULT_CHUNK = 256
+KERNEL_CHUNK = 64  # rows of a chunk in csrc/ssd_scan_fwd.cu
 
 
 def check_chunk(length: int, chunk: int) -> int:
@@ -27,15 +39,25 @@ def check_chunk(length: int, chunk: int) -> int:
 
 def _segsum(dac: torch.Tensor) -> torch.Tensor:
     """dac: (..., Q) log-decay per step. Returns (..., Q, Q) with
-    out[i, j] = sum_{j < m <= i} dac[m]  (-inf above the diagonal)."""
+    out[i, j] = sum_{j < m <= i} dac[m]  (-inf above the diagonal).
+
+    Each segment is summed on its own (a cumsum down the columns of the
+    masked terms), not taken as cs_i - cs_j of one cumsum: at the model's
+    decays cs falls to -1e3 and below over a chunk of 256, and the
+    difference of two such sums loses their ulp in each factor
+    exp(cs_i - cs_j) next to the diagonal (up to 2.9e-5 of the scan's
+    scale against an f64 recurrence, tools/ssd_scan_accuracy.py: as much
+    as the kernel tolerance)."""
     q = dac.shape[-1]
-    cs = torch.cumsum(dac, dim=-1)
-    diff = cs[..., :, None] - cs[..., None, :]  # [i,j] = cs_i - cs_j
-    mask = torch.tril(torch.ones((q, q), dtype=torch.bool,
-                                 device=dac.device))
-    # -inf before the exp: above the diagonal cs_i - cs_j > 0 can reach
-    # +1e3, and exp would overflow to inf (inf * 0 = NaN)
-    return torch.where(mask, diff, torch.full_like(diff, -torch.inf))
+    ones = torch.ones((q, q), dtype=torch.bool, device=dac.device)
+    # terms[m, j] = dac[m] for m > j; their cumsum over m is the segment sum
+    terms = torch.where(torch.tril(ones, -1), dac[..., :, None],
+                        torch.zeros((), dtype=dac.dtype, device=dac.device))
+    seg = torch.cumsum(terms, dim=-2)
+    # -inf above the diagonal, before the exp: there the sum is empty, but
+    # exp must give 0 (the difference form gave +1e3 there, and inf * 0 =
+    # NaN)
+    return torch.where(torch.tril(ones), seg, torch.full_like(seg, -torch.inf))
 
 
 def ssd_chunked(x, dt, a, b, c, *, chunk: int = DEFAULT_CHUNK, h0=None):
@@ -94,3 +116,90 @@ def ssd_scan_ref(x, dt, a, b, c, *, chunk: int = 128):
     y, _ = ssd_chunked(x.movedim(1, 2).float(), dt.movedim(1, 2).float(),
                        a.float(), b.float(), c.float(), chunk=chunk)
     return y.movedim(2, 1).to(x.dtype)
+
+
+def tf32_round(v: torch.Tensor) -> torch.Tensor:
+    """f32 ``v`` rounded to TF32 (10 mantissa bits), half away from zero,
+    as ``cvt.rna.tf32.f32`` does: add half of the dropped 13 bits, then
+    mask them (what the kernel does in two integer operations)."""
+    bits = v.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def tf32_trunc(v: torch.Tensor) -> torch.Tensor:
+    """f32 ``v`` cut to TF32: what the tensor cores read of an f32 operand
+    (its low 13 bits are ignored)."""
+    return (v.contiguous().view(torch.int32) & -0x2000).view(torch.float32)
+
+
+def _product(a: torch.Tensor, b: torch.Tensor, product: str) -> torch.Tensor:
+    """a @ b with the kernel's products: "f32" (exact products, f32 sums),
+    "tf32" (one TF32 product) or "3xtf32" (hi*lo + lo*hi + hi*hi with hi =
+    tf32_round(v) and lo = v - hi, which the tensor cores cut to TF32; f32
+    sums).  A product of two TF32 values is exact in f32, so f32 matmuls of
+    rounded operands emulate the tensor cores up to the order of the
+    sums."""
+    if product == "f32":
+        return a @ b
+    ah, bh = tf32_round(a), tf32_round(b)
+    if product == "tf32":
+        return ah @ bh
+    if product != "3xtf32":
+        raise ValueError(f"unknown product {product!r}")
+    al, bl = tf32_trunc(a - ah), tf32_trunc(b - bh)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def ssd_scan_staged(x, dt, a, b, c, *, q: int = KERNEL_CHUNK,
+                    product: str = "f32"):
+    """The kernel's staged scan.  x (B,H,L,P), dt (B,H,L), a (H,), b, c
+    (B,L,N) -> y (B,H,L,P) in x's dtype, computed in f32 (or in x's dtype
+    where that is f64).  L is cut into chunks of ``q`` rows, the last one
+    zero-padded (x, dt, b, c = 0: no decay, no state, never returned); per
+    chunk cs = cumsum(dt a):
+      (i)   S_c = (x_c o w)^T B_c, w = exp(cs_Q - cs) dt; CB_c = C_c B_c^T
+            (once per batch row and chunk, shared by the heads);
+      (ii)  h_c = h_{c-1} exp(cs_Q) + S_c, h_{-1} = 0;
+      (iii) y_c = G_c x_c + exp(cs) o (C_c h_{c-1}^T), G_c[i, j] =
+            CB_c[i, j] exp(cs_i - cs_j) dt_j for j <= i, else 0."""
+    work = torch.float64 if x.dtype == torch.float64 else torch.float32
+    bsz, h, l, p = x.shape
+    n = b.shape[-1]
+    nc = math.ceil(l / q)
+    pad = nc * q - l
+
+    def chunks(t, axis):  # zero-pad L to nc * q, split it into (nc, q)
+        t = t.to(work)
+        t = torch.cat([t, t.new_zeros(*t.shape[:axis], pad,
+                                      *t.shape[axis + 1:])], axis)
+        return t.reshape(*t.shape[:axis], nc, q, *t.shape[axis + 1:])
+
+    xs, dts = chunks(x, 2), chunks(dt, 2)        # (B,H,nc,Q,P), (B,H,nc,Q)
+    bs, cs_mat = chunks(b, 1), chunks(c, 1)      # (B,nc,Q,N)
+    cs = torch.cumsum(dts * a.to(work)[:, None, None], dim=-1)
+    cs_last = cs[..., -1]                        # (B,H,nc)
+
+    # (i) chunk states and C B^T
+    w = torch.exp(cs_last[..., None] - cs) * dts
+    states = _product((xs * w[..., None]).transpose(-1, -2), bs[:, None],
+                      product)                   # (B,H,nc,P,N)
+    cb = _product(cs_mat, bs.transpose(-1, -2), product)  # (B,nc,Q,Q)
+
+    # (ii) the carry: the state before each chunk
+    hcur = states.new_zeros(bsz, h, p, n)
+    before = []
+    for ci in range(nc):
+        before.append(hcur)
+        hcur = hcur * torch.exp(cs_last[:, :, ci])[..., None, None] \
+            + states[:, :, ci]
+    before = torch.stack(before, dim=2)          # (B,H,nc,P,N)
+
+    # (iii) outputs; exp only on and below the diagonal
+    tril = torch.tril(torch.ones(q, q, dtype=torch.bool, device=x.device))
+    diff = torch.where(tril, cs[..., :, None] - cs[..., None, :],
+                       torch.full((), -torch.inf, dtype=work,
+                                  device=x.device))
+    g = cb[:, None] * torch.exp(diff) * dts[..., None, :]
+    y = _product(g, xs, product) + torch.exp(cs)[..., None] * _product(
+        cs_mat[:, None], before.transpose(-1, -2), product)
+    return y.reshape(bsz, h, nc * q, p)[:, :, :l].to(x.dtype)

@@ -17,6 +17,7 @@ import torch
 
 from repro_torch.core.device import resolve_device
 from repro_torch.core.types import LayerSpec, ModelConfig
+from repro_torch.kernels.ssd_scan.ops import LAUNCHES_PER_CALL as SSD_LAUNCHES
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm
@@ -37,11 +38,12 @@ def check_ported(cfg: ModelConfig) -> None:
 def prefill_launches(cfg: ModelConfig) -> dict:
     """Kernel launches of one ``forward`` on CUDA tensors, by the names of
     ``repro_torch.kernels.WRAPPERS``: flash attention once per attention
-    layer, the SSD scan once per Mamba layer, the grouped expert GEMM three
-    times (gate, up, down) per MoE layer."""
+    layer, the SSD scan's three stages once per Mamba layer, the grouped
+    expert GEMM three times (gate, up, down) per MoE layer."""
     specs = cfg.layer_specs()
     return {"flash_attention": sum(s.mixer == "attn" for s in specs),
-            "ssd_scan": sum(s.mixer == "mamba" for s in specs),
+            "ssd_scan": SSD_LAUNCHES * sum(s.mixer == "mamba"
+                                           for s in specs),
             "moe_gmm": 3 * sum(s.ffn == "moe" for s in specs)}
 
 

@@ -398,6 +398,44 @@ def test_sparsify_matches_jax(shape):
     assert 0 < int((out != 0).sum()) < x.size
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(1000,), (3, 333), (2, 5, 77), (257,)])
+def test_sparsify_one_row_equals_padded_rows_and_jax(shape, dtype):
+    """The payload-level sparsify passes x as one row with one threshold;
+    at sizes that are no multiple of 256 it equals the zero-padded rows of
+    256 (the JAX package's layout) bit for bit, and the JAX op with its
+    Pallas kernel in interpret mode."""
+    x = _normal(shape, sum(shape))
+    thresh = float(np.quantile(np.abs(x), 0.8))
+    tx = torch.from_numpy(x).to(getattr(torch, dtype))
+    out = ops.sparsify(tx, thresh)
+    assert out.dtype == torch.float32 and tuple(out.shape) == shape
+    rows, n = ops._as_rows(tx)
+    padded = ops.sparsify_kernel(rows, torch.full((rows.shape[0], 1), thresh))
+    assert torch.equal(out, padded.reshape(-1)[:n].reshape(shape))
+    np.testing.assert_array_equal(_np(out), np.asarray(jax_sparsify(
+        jnp.asarray(x).astype(dtype), thresh, interpret=True)))
+    assert 0 < int((out != 0).sum()) < x.size
+
+
+def test_sparsify_hands_the_kernel_one_row_view(monkeypatch):
+    """No padded copy and no threshold per row: the kernel gets the
+    payload's own storage as (1, numel) and a (1, 1) threshold."""
+    seen = []
+
+    def spy(x, t):
+        seen.append((x, t))
+        return ref.sparsify_ref(x, t)
+
+    monkeypatch.setattr(ops, "sparsify_kernel", spy)
+    x = torch.from_numpy(_normal((7, 301), 9))
+    ops.sparsify(x, 0.5)
+    (rows, t), = seen
+    assert tuple(rows.shape) == (1, x.numel())
+    assert rows.data_ptr() == x.data_ptr()
+    assert tuple(t.shape) == (1, 1) and float(t) == 0.5
+
+
 @pytest.mark.parametrize("m,k,n", [(128, 64, 4), (100, 37, 3), (5, 4, 96)])
 def test_lowrank_project_matches_jax(m, k, n):
     a, b = _normal((m, k), 3), _normal((k, n), 4)

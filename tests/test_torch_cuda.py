@@ -19,6 +19,7 @@ from repro_torch.kernels.compress import ref as cref
 from repro_torch.kernels.flash_attention import attention_ref, flash_attention
 from repro_torch.kernels.moe_gmm import moe_gmm, moe_gmm_ref
 from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_ref
+from repro_torch.kernels.ssd_scan.ops import LAUNCHES_PER_CALL as SSD_LAUNCHES
 from repro_torch.models import forward, init_params, prefill_launches
 from repro_torch.launch.ranks import spawn_ranks
 from repro_torch.serve import make_prefill
@@ -120,10 +121,13 @@ def test_bf16_kernel_on_tensor_cores(cuda, shape, causal, window, layout):
         assert torch.equal(out, same)
 
 
-# tests/test_kernels.py:53-58, a ragged L, and the mamba2-130m heads
+# tests/test_kernels.py:53-58, a ragged L, the mamba2-130m heads, a long
+# scan (64 chunks of the kernel's 64 to carry) and an L ragged against the
+# kernel's chunk (1000 = 15 x 64 + 40, the caller's chunk 200)
 SSD_SHAPES = [(1, 2, 256, 64, 32, 64), (2, 4, 512, 64, 128, 128),
               (1, 2, 256, 128, 64, 256), (1, 3, 200, 32, 16, 256),
-              (2, 24, 256, 64, 128, 256)]
+              (2, 24, 256, 64, 128, 256), (1, 4, 4096, 64, 128, 256),
+              (2, 3, 1000, 64, 64, 200)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -148,7 +152,8 @@ def test_ssd_scan_kernel_matches_plain(cuda, shape, dtype):
     out = ssd_scan(x, dt, a, bb, cc, chunk=chunk)
     ref = ssd_scan_ref(x, dt, a, bb, cc, chunk=chunk)
     torch.cuda.synchronize()
-    assert ssd_scan.launches == before + 1
+    # three stages: chunk states, the carry, the outputs
+    assert ssd_scan.launches == before + SSD_LAUNCHES == before + 3
     assert out.dtype == dtype and bool(torch.isfinite(out.float()).all())
     scale = max(float(ref.float().abs().max()), 1.0)
     np.testing.assert_allclose(
@@ -327,8 +332,14 @@ def test_dequantize_kernel_variants(cuda, m, n, offset, variant):
     assert torch.equal(out, torch.mul(q, s))
 
 
+# rows of 256, 100 and 33 (vector items, a row index through a divisor
+# that is no power of two, scalar), one row of 513 values (scalar), the
+# unrolled loop's tail over many rows (5 x 4124: 5,155 items of 4) and one
+# long row on both variants (1,000,004 and 1,000,003 values)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [(2, 256), (3, 100), (1, 513), (7, 33)])
+@pytest.mark.parametrize("shape", [(2, 256), (3, 100), (1, 513), (7, 33),
+                                   (5, 4 * 1031), (1, 1_000_003),
+                                   (1, 1_000_004)])
 def test_sparsify_kernel_matches_plain(cuda, shape, dtype):
     rng = np.random.default_rng(sum(shape))
     x = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(
@@ -340,6 +351,24 @@ def test_sparsify_kernel_matches_plain(cuda, shape, dtype):
     torch.cuda.synchronize()
     assert cops.sparsify_kernel.launches == before + 1
     assert torch.equal(out, cref.sparsify_ref(x, t))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_payload_sparsify_on_card_matches_cpu(cuda, dtype):
+    """The payload-level sparsify (one row, one threshold) on the card:
+    one launch, bit-equal to the CPU's and to the zero-padded rows of 256
+    on the card."""
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (3, 333_333), dtype=np.float32)).to(dtype)
+    before = cops.sparsify_kernel.launches
+    out = cops.sparsify(x.to(cuda), 1.0)
+    torch.cuda.synchronize()
+    assert cops.sparsify_kernel.launches == before + 1
+    assert torch.equal(out.cpu(), cops.sparsify(x, 1.0))
+    rows, n = cops._as_rows(x.to(cuda))
+    padded = cops.sparsify_kernel(rows, torch.ones(rows.shape[0], 1,
+                                                   device=cuda))
+    assert torch.equal(out, padded.reshape(-1)[:n].reshape(x.shape))
 
 
 # (m, k, n, layout of a, layout of b, route in f32, route in bf16):

@@ -15,6 +15,8 @@ from repro.kernels.ssd_scan.ref import ssd_scan_ref as jax_ssd_scan_ref
 from repro.models import ssm as jssm
 from repro_torch.configs import smoke_config
 from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_ref
+from repro_torch.kernels.ssd_scan.ref import (KERNEL_CHUNK, ssd_scan_staged,
+                                              tf32_round)
 from repro_torch.models import ssm as tssm
 
 # tests/test_kernels.py:53-58
@@ -22,12 +24,15 @@ SWEEP = [(1, 2, 256, 64, 32, 64), (2, 4, 512, 64, 128, 128),
          (1, 2, 256, 128, 64, 256)]
 
 
-def _inputs(b, h, l, p, n, seed=0):
-    """The distributions of tests/test_kernels.py:60-68, drawn with numpy."""
+def _inputs(b, h, l, p, n, seed=0, model_decay=False):
+    """The distributions of tests/test_kernels.py:60-68, drawn with numpy;
+    with ``model_decay`` the decays of mamba2 (a = -linspace(1, 16, H))."""
     rng = np.random.default_rng(seed)
     x = rng.standard_normal((b, h, l, p), dtype=np.float32) * 0.5
     dt = np.log1p(np.exp(rng.standard_normal((b, h, l), dtype=np.float32)))
     a = -np.exp(rng.standard_normal(h, dtype=np.float32))
+    if model_decay:
+        a = -np.linspace(1.0, 16.0, h, dtype=np.float32)
     bb = rng.standard_normal((b, l, n), dtype=np.float32) * 0.3
     cc = rng.standard_normal((b, l, n), dtype=np.float32) * 0.3
     return x, dt.astype(np.float32), a, bb, cc
@@ -60,6 +65,95 @@ def test_ssd_scan_plain_matches_jax(b, h, l, p, n, chunk, dtype):
         jx, jdt, ja, jb, jc, chunk=chunk), dtype)
     _assert_scaled_close(out.float(), jax_ssd_scan(
         jx, jdt, ja, jb, jc, chunk=chunk, interpret=True), dtype)
+
+
+# the sweep, a ragged L (200: one short chunk of the kernel's 64; 1000
+# against the caller's chunk of 200), and a long scan of 32 chunks of 64
+STAGED = [(1, 2, 256, 64, 32, 64), (2, 4, 512, 64, 128, 128),
+          (1, 2, 256, 128, 64, 256), (1, 3, 200, 32, 16, 256),
+          (2, 3, 1000, 64, 64, 200), (1, 2, 2048, 32, 16, 256)]
+
+
+@pytest.mark.parametrize("product", ["f32", "3xtf32"])
+@pytest.mark.parametrize("model_decay", [False, True])
+@pytest.mark.parametrize("b,h,l,p,n,chunk", STAGED)
+def test_ssd_scan_staged_matches_jax(b, h, l, p, n, chunk, model_decay,
+                                     product):
+    """The kernel's three stages in plain PyTorch (chunks of 64 whatever
+    the caller's chunk; products in f32 or split 3xTF32 as on the tensor
+    cores) against the JAX oracle and the interpret-mode Pallas kernel at
+    the caller's chunk, within the f32 scaled tolerance."""
+    x, dt, a, bb, cc = _inputs(b, h, l, p, n, seed=l + p + n,
+                               model_decay=model_decay)
+    out = ssd_scan_staged(*(torch.from_numpy(v) for v in (x, dt, a, bb, cc)),
+                          product=product)
+    assert out.dtype == torch.float32 and out.shape == x.shape
+    assert bool(torch.isfinite(out).all())
+    jargs = [jnp.asarray(v) for v in (x, dt, a, bb, cc)]
+    _assert_scaled_close(out, jax_ssd_scan_ref(*jargs, chunk=chunk),
+                         "float32")
+    _assert_scaled_close(out, jax_ssd_scan(*jargs, chunk=chunk,
+                                           interpret=True), "float32")
+
+
+def _recurrence_f64(x, dt, a, b, c):
+    """y_t = C_t h_t with h_t = h_{t-1} exp(dt_t a) + x_t (dt_t B_t), one row
+    at a time in f64: the scan without chunks."""
+    x, dt, a, b, c = (torch.from_numpy(v).double() for v in (x, dt, a, b, c))
+    bsz, h, l, p = x.shape
+    state = torch.zeros(bsz, h, p, b.shape[-1], dtype=torch.float64)
+    ys = []
+    for t in range(l):
+        decay = torch.exp(dt[:, :, t] * a)[..., None, None]
+        state = state * decay + x[:, :, t, :, None] * \
+            (dt[:, :, t, None, None] * b[:, None, t, None, :])
+        ys.append(torch.einsum("bhpn,bn->bhp", state, c[:, t]))
+    return torch.stack(ys, dim=2)
+
+
+def test_ssd_scan_ref_stays_near_f64():
+    """The plain version, the yardstick of the kernel on the card, at the
+    model's decays and chunk 256 is within 3e-6 of the scan's scale of an
+    f64 recurrence (its segment sums are taken one by one; as differences
+    of one cumsum they lose up to 2.9e-5, tools/ssd_scan_accuracy.py), so
+    that the kernel's 3e-5 tolerance measures the kernel."""
+    x, dt, a, bb, cc = _inputs(1, 6, 512, 64, 128, seed=11, model_decay=True)
+    ref = _recurrence_f64(x, dt, a, bb, cc)
+    out = ssd_scan_ref(*(torch.from_numpy(v) for v in (x, dt, a, bb, cc)),
+                       chunk=256)
+    err = float((out.double() - ref).abs().max()) / max(
+        float(ref.abs().max()), 1.0)
+    assert err <= 3e-6, err
+
+
+def test_tf32_round_masks_thirteen_bits():
+    v = torch.tensor([1.0, 1.0 + 2 ** -11, 1.0 + 2 ** -10, -1.0 - 2 ** -11,
+                      0.1, 1e-30])
+    r = tf32_round(v)
+    assert bool(((r.view(torch.int32) & 0x1FFF) == 0).all())
+    # half away from zero at the 11th bit; 10 mantissa bits kept
+    assert r.tolist()[:4] == [1.0, 1.0 + 2 ** -10, 1.0 + 2 ** -10,
+                              -1.0 - 2 ** -10]
+    assert bool(((r - v).abs() <= v.abs() * 2 ** -11).all())
+
+
+def test_split_tf32_products_keep_f32_accuracy():
+    """At a mamba2 head's shape (P 64, N 128) and the model's decays, the
+    staged scan with 3xTF32 products is within the kernel tolerance
+    (|err| / max(|ref|, 1) <= 3e-5) of an f64 recurrence, as with f32
+    products; one TF32 product is not (~5e-4), so the kernel splits every
+    product."""
+    x, dt, a, bb, cc = _inputs(1, 6, 512, 64, 128, seed=7, model_decay=True)
+    ref = _recurrence_f64(x, dt, a, bb, cc)
+    scale = max(float(ref.abs().max()), 1.0)
+    args = [torch.from_numpy(v) for v in (x, dt, a, bb, cc)]
+    err = {product: float((ssd_scan_staged(*args, q=KERNEL_CHUNK,
+                                           product=product).double()
+                           - ref).abs().max()) / scale
+           for product in ("f32", "3xtf32", "tf32")}
+    assert err["f32"] <= 3e-5 and err["3xtf32"] <= 3e-5, err
+    assert err["3xtf32"] <= 2 * err["f32"] + 1e-6, err
+    assert err["tf32"] > 1e-4, err
 
 
 def test_ssd_scan_state_continuity():
