@@ -17,6 +17,12 @@ exits non-zero:
      timed with its launches a call, each of its three stages' device time
      from torch.profiler, and its bound on the tensor cores in 3xTF32
      beside the f32 one), grouped expert GEMM K5;
+   - K1's gradient K1-bwd (three launches a call) over K1's sweep and at
+     the training shape (B 4 x S 512, qwen2-0.5b's heads, bf16): f32
+     within 2e-5 of the f64 gradient, bf16 within twice the plain
+     version's bf16 error plus 1e-3; timed beside the plain version,
+     SDPA's backward through autograd (the backend named) and its bound,
+     with K1's forward timed with and without the row statistics;
    - quantize K2a and dequantize K2b (q and decode bit-equal, scales
      within rtol 1e-6; K2b also bit-equal to torch.mul on each of its
      variants vec16 / vec4 / scalar), sparsify K3 (bit-equal) and the
@@ -39,6 +45,14 @@ exits non-zero:
    - dbrx-132b cut to 2 layers for parity and 4 for serving (MoE: K1 and
      K5).
    Each model's parameters are freed before the next model is built.
+3b. training, qwen2-0.5b at full width and depth: one f32 step (B 2 x S
+   256) through the kernels against the same step on the host CPU (loss
+   and grad_norm within rtol 1e-4, each leaf's first moment within 1e-3 of
+   its max); then bf16 training through make_batches, init_opt_state and
+   make_train_step (2 microbatches, remat, bf16 gradient cast), 20 steps
+   on one fixed batch of B 8 x S 512: losses finite and the last <= 0.9 x
+   the first; step time, tokens/s, peak memory, one profiled step, and
+   the launches of a step against train_launches.
 4. codecs (K2a, K2b, K3, K4): a stand-in gradient of qwen2-0.5b at full
    width and depth (one seeded tensor per parameter) through the q8, q4,
    topk and lowrank codecs over two error-feedback steps, held to the JAX
@@ -52,7 +66,7 @@ exits non-zero:
    ring and bidir_ring, and two buckets through the ATP schedule with and
    without q8; results against the sum of the four gradients (regenerated
    from their seeds) and across ranks.  Times are gloo over loopback.
-6. The kernels line (all seven kernels, launches from the path that runs
+6. The kernels line (all eight kernels, launches from the path that runs
    each), the card's name and power limit, and last the line
    {"ok": true, "device": {...}}.
 """
@@ -60,6 +74,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 import re
 import subprocess
@@ -87,15 +102,26 @@ try:
                                      reset_launch_counts)
     from repro_torch.kernels.compress import ops as cops
     from repro_torch.kernels.compress import ref as cref
-    from repro_torch.kernels.flash_attention import (attention_ref,
-                                                     flash_attention)
+    from repro_torch.core.types import TrainConfig
+    from repro_torch.data import make_batches
+    from repro_torch.kernels.flash_attention import (attention_bwd_ref,
+                                                     attention_lse_ref,
+                                                     attention_ref,
+                                                     flash_attention,
+                                                     flash_attention_bwd,
+                                                     flash_attention_stats)
+    from repro_torch.kernels.flash_attention.ops import \
+        LAUNCHES_PER_CALL as FA_BWD_LAUNCHES
     from repro_torch.kernels.moe_gmm import moe_gmm, moe_gmm_ref
     from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_ref
     from repro_torch.launch.ranks import spawn_ranks
     from repro_torch.models import (init_cache, init_params, param_leaves,
-                                    prefill_launches)
+                                    prefill_launches, train_launches,
+                                    tree_map)
+    from repro_torch.optim import init_opt_state
     from repro_torch.serve import make_prefill, make_serve_step
     from repro_torch.serve.batcher import ContinuousBatcher
+    from repro_torch.train import make_train_step
 except ImportError as e:  # run outside the repo, or without torch
     sys.exit(f"chip_smoke: cannot import the port ({e}); run it from the "
              f"root of the repository")
@@ -113,6 +139,9 @@ PEAK_F32_FLOPS = 67e12  # CUDA cores, outside the tensor cores
 PEAK_BYTES = 3.35e12
 KERNEL_TOL = {torch.float32: dict(atol=2e-5, rtol=2e-5),
               torch.bfloat16: dict(atol=2e-2, rtol=2e-2)}
+# K1's row statistics (f32 in both variants) against attention_lse_ref, as
+# tests/test_torch_cuda.py::test_forward_statistics_match_plain holds them
+LSE_TOL = dict(atol=2e-5, rtol=2e-5)
 # prefill vs decode replay in f32 (TF32 off): the two differ only in
 # summation order (the kernel's tiled online softmax vs one softmax; cuBLAS
 # picks other algorithms for M = 512 than for M = 2), amplified through 24
@@ -125,6 +154,14 @@ KERNEL_INFO = {
         "source": "src/repro_torch/kernels/flash_attention/csrc/"
                   "flash_attn_fwd.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:87",
+    },
+    "flash_attention_bwd": {
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                  "flash_attn_bwd.cu",
+        "replaces": "none: the TPU kernel "
+                    "src/repro/kernels/flash_attention/kernel.py:87 is "
+                    "forward-only",
     },
     "ssd_scan": {
         "route": "cuda",
@@ -409,6 +446,217 @@ def phase_kernels(rng) -> dict:
         emit({"phase": "kernel_time", "kernel": "flash_attention",
               **timings[name]})
     return {"flash_attention": timings}
+
+
+# --------------------------------------------------------------------------
+# 2a. flash-attention backward (K1-bwd) against its plain version
+# --------------------------------------------------------------------------
+
+# qwen2-0.5b's training step: B 8 x S 512 in two microbatches of 4
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICROBATCHES = 8, 512, 2
+TRAIN_SHAPE = (TRAIN_BATCH // TRAIN_MICROBATCHES, 14, 2, TRAIN_SEQ,
+               TRAIN_SEQ, 64)
+
+
+# K1-bwd's three launches (csrc/flash_attn_bwd.cu), bf16
+BWD_STAGES = ("delta_kernel", "dkdv_bf16_kernel", "dq_bf16_kernel")
+
+
+def attention_bwd_bound(b, h, kv, sq, sk, d, causal, window, dtype):
+    """Least time (ms) of the gradient: five D-deep products a kept (query,
+    key) pair (S, dP, dV, dK, dQ) at the bf16 tensor-core peak, against q,
+    k, v, o, dO and the row statistics read once and dQ, dK, dV written
+    once."""
+    flops = 10 * b * h * _attended_pairs(sq, sk, causal, window) * d
+    size = torch.tensor([], dtype=dtype).element_size()
+    nbytes = (4 * b * h * sq * d + 4 * b * kv * sk * d) * size + \
+        4 * b * h * sq
+    return _bound(nbytes, flops, PEAK_BF16_FLOPS)
+
+
+def _bwd_case(rng, shape, causal, window, dtype, views):
+    """K1's forward with statistics, then K1-bwd.  The statistics against
+    ``attention_lse_ref`` (+inf on the same rows, the others within
+    LSE_TOL); the gradient against the f64 one: f32 within KERNEL_TOL;
+    bf16 within twice the error of the plain bf16 backward (built from
+    ``attention_ref`` and ``attention_lse_ref``, nothing of the kernels')
+    plus 1e-3, FlashAttention's convention.  Returns max |kernel - plain|
+    (same dtype)."""
+    q, k, v = _qkv(rng, *shape, dtype, views)
+    do = torch.from_numpy(rng.standard_normal(q.shape, dtype=np.float32)) \
+        .to(DEVICE, dtype)
+    o, lse = flash_attention_stats(q, k, v, causal=causal, window=window)
+    n0 = flash_attention_bwd.launches
+    grads = flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
+                                window=window)
+    variant = flash_attention_bwd.last_variant
+    check(flash_attention_bwd.launches == n0 + FA_BWD_LAUNCHES,
+          "flash_attention_bwd launches a call")
+    lse_p = attention_lse_ref(q, k, causal=causal, window=window)
+    plain = attention_bwd_ref(
+        q, k, v, attention_ref(q, k, v, causal=causal, window=window), lse_p,
+        do, causal=causal, window=window)
+    q64, k64, v64, do64 = (t.double() for t in (q, k, v, do))
+    ref = attention_bwd_ref(
+        q64, k64, v64, attention_ref(q64, k64, v64, causal=causal,
+                                     window=window),
+        attention_lse_ref(q64, k64, causal=causal, window=window), do64,
+        causal=causal, window=window)
+    torch.cuda.synchronize()
+    inf_rows = torch.isinf(lse_p)
+    lse_ok = bool(torch.equal(torch.isinf(lse), inf_rows))
+    lse_err = float((lse - lse_p)[~inf_rows].abs().max()) \
+        if bool((~inf_rows).any()) else 0.0
+    lse_ok = lse_ok and bool(
+        ((lse - lse_p)[~inf_rows].abs() <= LSE_TOL["atol"] + LSE_TOL["rtol"]
+         * lse_p[~inf_rows].abs()).all())
+    errs, ok = {}, lse_ok
+    for name, g, p_, r in zip(("dq", "dk", "dv"), grads, plain, ref):
+        err = float((g.double() - r).abs().max())
+        finite = bool(torch.isfinite(g.float()).all())
+        if dtype == torch.float32:
+            tol = KERNEL_TOL[dtype]
+            good = bool(((g.double() - r).abs() <= tol["atol"] + tol["rtol"]
+                         * r.abs()).all())
+        else:
+            plain_err = float((p_.double() - r).abs().max())
+            good = err <= 2 * plain_err + 1e-3
+            errs[name + "_plain_vs_f64"] = plain_err
+        errs[name + "_vs_f64"] = err
+        ok = ok and finite and good
+    max_err = max(float((g.float() - p_.float()).abs().max())
+                  for g, p_ in zip(grads, plain))
+    emit({"phase": "kernel_check", "kernel": "flash_attention_bwd",
+          "shape": list(shape), "dtype": str(dtype).split(".")[-1],
+          "layout": "bshd_views" if views else "bhsd", "variant": variant,
+          "causal": causal, "window": window, "max_abs_err": max_err,
+          "lse_max_abs_err": lse_err, "lse_keyless_rows":
+          int(inf_rows.sum()), "lse_ok": lse_ok, **errs, "ok": ok})
+    check(variant == ("mma_sync" if dtype == torch.bfloat16 else "f32"),
+          f"flash_attention_bwd took the {variant} variant for {dtype}")
+    check(lse_ok, f"K1's row statistics disagree with attention_lse_ref at "
+                  f"{shape} {dtype} causal={causal} window={window}: "
+                  f"{lse_err}")
+    check(ok, f"flash_attention_bwd disagrees with the plain backward at "
+              f"{shape} {dtype} causal={causal} window={window}: {errs}")
+    return max_err
+
+
+def sdpa_backend(q, k, v, do) -> str:
+    """The kernel names of one SDPA backward through autograd (device
+    kernels of torch.profiler holding "flash", "fmha", "cudnn", "mem_eff"
+    or "attention"), joined; the backend that ran."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    out = F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                         enable_gqa=True)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.autograd.grad(out, (q, k, v), do)
+        torch.cuda.synchronize()
+    names = sorted({ev.key for ev in prof.key_averages()
+                    if ev.device_type == DeviceType.CUDA and any(
+                        w in ev.key.lower() for w in (
+                            "flash", "fmha", "cudnn", "mem_eff",
+                            "attention"))})
+    return "; ".join(n[:80] for n in names) or "none found"
+
+
+def autograd_graph_ms(forward, inputs, grad, iters: int) -> float:
+    """Device time of one ``torch.autograd.grad`` of ``forward(*leaves)``
+    from a CUDA graph of ``iters`` such calls, the leaves detached copies
+    of ``inputs``.  The forward runs (once, outside the graph) on the
+    capture stream, where autograd then runs its backward (its leaves are
+    made there too); captured twice, the second timed, as ``graph_ms``."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        leaves = [t.detach().requires_grad_(True) for t in inputs]
+        out = forward(*leaves)
+        for _ in range(3):
+            torch.autograd.grad(out, leaves, grad, retain_graph=True)
+    side.synchronize()
+    ms = None
+    for _ in range(2):
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side):
+            for _ in range(iters):
+                torch.autograd.grad(out, leaves, grad, retain_graph=True)
+        graph.replay()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(3):
+            graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(end) / (3 * iters)
+        del graph
+    return ms
+
+
+def phase_bwd_kernel(rng) -> dict:
+    """K1-bwd over the forward's sweep (both dtypes, without the long
+    prompt) and at the training shape; then times at the training shape:
+    the kernel, its plain version, SDPA's backward through autograd, the
+    bound, and K1's forward with and without the statistics."""
+    for shape, causal, window, dtype, views in _kernel_cases():
+        if shape == LONG_SHAPE:
+            continue
+        _bwd_case(rng, shape, causal, window, dtype, views)
+    max_err = _bwd_case(rng, TRAIN_SHAPE, True, None, torch.bfloat16, True)
+
+    shape, iters = TRAIN_SHAPE, 30
+    q, k, v = _qkv(rng, *shape, torch.bfloat16, views=True)
+    do = torch.from_numpy(rng.standard_normal(q.shape, dtype=np.float32)) \
+        .to(DEVICE, torch.bfloat16)
+    o, lse = flash_attention_stats(q, k, v, causal=True)
+
+    def bwd():
+        return flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+    ms = cuda_ms(bwd, iters)
+    graph = graph_ms(bwd, iters // 2)
+    plain_ms = cuda_ms(lambda: attention_bwd_ref(q, k, v, o, lse, do,
+                                                 causal=True), 5)
+    # yardstick only: the port never calls it
+    ql, kl, vl = (t.detach().requires_grad_(True) for t in (q, k, v))
+
+    def sdpa(q_, k_, v_):
+        return F.scaled_dot_product_attention(q_, k_, v_, is_causal=True,
+                                              enable_gqa=True)
+    out_l = sdpa(ql, kl, vl)
+    library_ms = cuda_ms(lambda: torch.autograd.grad(
+        out_l, (ql, kl, vl), do, retain_graph=True), iters)
+    del out_l
+    backend = sdpa_backend(ql, kl, vl, do)
+    library_graph = autograd_graph_ms(sdpa, (q, k, v), do, iters // 2)
+    with torch.no_grad():
+        fwd_ms = cuda_ms(lambda: flash_attention(q, k, v, causal=True), iters)
+        fwd_graph = graph_ms(lambda: flash_attention(q, k, v, causal=True),
+                             iters // 2)
+    fwd_stats_ms = cuda_ms(lambda: flash_attention_stats(q, k, v,
+                                                         causal=True), iters)
+    fwd_stats_graph = graph_ms(lambda: flash_attention_stats(q, k, v,
+                                                             causal=True),
+                               iters // 2)
+    stages = stage_ms(bwd, iters, BWD_STAGES)
+    check(not stages or len(stages) == len(BWD_STAGES),
+          f"K1-bwd's launches seen by the profiler: {stages}")
+    bound_ms, bound_by = attention_bwd_bound(*shape, True, None,
+                                             torch.bfloat16)
+    path = {"shape": list(shape), "dtype": "bfloat16", "causal": True,
+            "layout": "bshd_views", "variant":
+            flash_attention_bwd.last_variant,
+            "launches_per_call": FA_BWD_LAUNCHES, "stage_ms": stages,
+            "ms": ms,
+            "graph_ms": graph, "plain_ms": plain_ms,
+            "library_ms": library_ms, "library_graph_ms": library_graph,
+            "library_backend": backend, "bound_ms": bound_ms,
+            "bound_by": bound_by, "max_abs_err": max_err,
+            "forward_ms": fwd_ms, "forward_graph_ms": fwd_graph,
+            "forward_with_stats_ms": fwd_stats_ms,
+            "forward_with_stats_graph_ms": fwd_stats_graph}
+    emit({"phase": "kernel_time", "kernel": "flash_attention_bwd", **path})
+    return {"path": path}
 
 
 # --------------------------------------------------------------------------
@@ -1495,6 +1743,178 @@ def phase_serving(rng, cfg, *, prefill_batch: int, prefill_lens,
     return counts
 
 
+# --------------------------------------------------------------------------
+# 4b. training (qwen2-0.5b, full width and depth)
+# --------------------------------------------------------------------------
+
+TRAIN_PARITY_BATCH, TRAIN_PARITY_SEQ = 2, 256
+TRAIN_STEPS = 20
+# overfitting one fixed batch in 20 steps: warmup over the first 5
+TRAIN_TCFG = dict(learning_rate=1e-3, warmup_steps=5, total_steps=20,
+                  microbatches=TRAIN_MICROBATCHES, remat=True,
+                  grad_dtype="bf16")
+
+
+def phase_train_parity(cfg, seed: int) -> None:
+    """One f32 step (microbatches 1, no remat) through the kernels on the
+    card against the same step through the port's plain path on the host
+    CPU (which the CPU tests hold to the JAX package), from the same
+    params, batch and optimizer state: loss and grad_norm within rtol
+    1e-4, each leaf's first moment m (0.1 x the clipped gradient after
+    step 1) within 1e-3 of the leaf's max |m|."""
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    params = init_params(cfg, gen, dtype=torch.float32, device=DEVICE)
+    host = tree_map(lambda t: t.to("cpu", copy=True), params)
+    batch = next(make_batches(cfg, TRAIN_PARITY_BATCH, TRAIN_PARITY_SEQ,
+                              seed=seed))
+    step = make_train_step(cfg, TrainConfig(microbatches=1, remat=False))
+    n0 = launch_counts()
+    t0 = time.perf_counter()
+    params, opt, m = step(params, init_opt_state(params), batch)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    launched = _delta(n0)
+    want = train_launches(cfg, 1, False)
+    check(launched == want, f"f32 training step launched {launched}, want "
+                            f"{want}")
+    t0 = time.perf_counter()
+    host, host_opt, host_m = step(host, init_opt_state(host), batch)
+    host_s = time.perf_counter() - t0
+    rel = {k: abs(float(m[k]) - float(host_m[k])) / abs(float(host_m[k]))
+           for k in ("loss", "grad_norm")}
+    moments = list(param_leaves(host_opt["m"]))
+    m_err = max(float((a.cpu() - b).abs().max()) /
+                max(float(b.abs().max()), 1e-30)
+                for a, b in zip(param_leaves(opt["m"]), moments))
+    # why optim.global_norm sums in f64: PyTorch's f32 norm on this host's
+    # CPU against the f64 one, over the host step's first moments
+    f32 = [float(torch.linalg.vector_norm(t)) for t in moments]
+    f64 = [float(torch.linalg.vector_norm(t, dtype=torch.float64))
+           for t in moments]
+    norm_drift = {
+        "leaf_max_rel": max(abs(a - b) / b for a, b in zip(f32, f64) if b),
+        "global_rel": abs(math.hypot(*f32) - math.hypot(*f64))
+        / math.hypot(*f64)}
+    emit({"phase": "train_parity", "arch": cfg.name, "dtype": "float32",
+          "layers": cfg.num_layers, "batch": TRAIN_PARITY_BATCH,
+          "seq": TRAIN_PARITY_SEQ, "microbatches": 1, "remat": False,
+          "loss": float(m["loss"]), "host_loss": float(host_m["loss"]),
+          "grad_norm": float(m["grad_norm"]),
+          "host_grad_norm": float(host_m["grad_norm"]), "rel_err": rel,
+          "m_max_err_over_leaf_max": m_err,
+          "host_cpu_f32_norm_drift": norm_drift, "kernel_launches": launched,
+          "card_step_s": card_s, "host_step_s": host_s,
+          "peak_memory_bytes": torch.cuda.max_memory_allocated()})
+    check(rel["loss"] <= 1e-4 and rel["grad_norm"] <= 1e-4,
+          f"f32 step: card and host disagree beyond rtol 1e-4: {rel}")
+    check(m_err <= 1e-3, f"f32 step: first moments disagree: {m_err} of "
+                         f"a leaf's max")
+
+
+def _profile_step(step, params, opt, batch) -> dict:
+    """One step under torch.profiler: device busy ms (the kernels' summed
+    device time), the profiled wall ms and the idle share, and the top
+    kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(params, opt, batch)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    kernels = [a for a in prof.key_averages()
+               if a.device_type == DeviceType.CUDA]
+    busy_ms = sum(a.self_device_time_total for a in kernels) / 1e3
+    check(busy_ms > 0, "the profiler recorded no device time")
+    top = sorted(kernels, key=lambda a: -a.self_device_time_total)[:10]
+    return {"profiled_wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "device_idle_share": 1.0 - busy_ms / wall_ms,
+            "kernel_launches": sum(a.count for a in kernels),
+            "top_kernels": [{"name": a.key[:90], "calls": a.count,
+                             "ms": a.self_device_time_total / 1e3}
+                            for a in top]}
+
+
+def phase_training(cfg, seed: int) -> dict:
+    """bf16 training through the entry points: make_batches, init_params,
+    init_opt_state, make_train_step (microbatches 2, remat, bf16 gradient
+    cast), 20 steps on one fixed batch of B 8 x S 512 (overfitting it):
+    every loss finite and the last <= 0.9 x the first; step wall time (CUDA
+    events), tokens/s, peak memory; the launches of the first step against
+    ``train_launches``; then one more step under torch.profiler.  Returns
+    the launch counts of the 20 steps (set to 0 just before)."""
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    params = init_params(cfg, gen, dtype=torch.bfloat16, device=DEVICE)
+    opt = init_opt_state(params)
+    batch = next(make_batches(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=seed))
+    tcfg = TrainConfig(**TRAIN_TCFG)
+    step = make_train_step(cfg, tcfg)
+    torch.cuda.synchronize()
+
+    reset_launch_counts()
+    losses, lrs, events = [], [], []
+    first_step = None
+    for i in range(TRAIN_STEPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        params, opt, m = step(params, opt, batch)
+        end.record()
+        events.append((start, end))
+        losses.append(m["loss"])
+        lrs.append(m["lr"])
+        if i == 0:
+            first_step = {k: n for k, n in launch_counts().items() if n}
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    step_ms = [a.elapsed_time(b) for a, b in events]
+    losses = [float(x) for x in losses]
+    want = train_launches(cfg, tcfg.microbatches, tcfg.remat)
+    profiled = _profile_step(step, params, opt, batch)
+    p50 = float(np.percentile(step_ms, 50))
+    emit({"phase": "training", "arch": cfg.name, "dtype": "bfloat16",
+          "params": sum(t.numel() for t in param_leaves(params)),
+          "layers": cfg.num_layers, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+          "microbatches": tcfg.microbatches, "remat": tcfg.remat,
+          "grad_dtype": tcfg.grad_dtype, "learning_rate": tcfg.learning_rate,
+          "warmup_steps": tcfg.warmup_steps,
+          "total_steps": tcfg.total_steps, "lr": [float(x) for x in lrs],
+          "steps": TRAIN_STEPS, "losses": losses,
+          "step_ms": step_ms, "step_ms_p50": p50,
+          "step_ms_p99": float(np.percentile(step_ms, 99)),
+          "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / (p50 / 1e3),
+          "first_step_launches": first_step, "want_launches": want,
+          "launches": counts,
+          "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+          **profiled, "seconds": time.perf_counter() - t_phase})
+    check(all(np.isfinite(losses)), f"non-finite training loss: {losses}")
+    check(losses[-1] <= 0.9 * losses[0],
+          f"training did not fit its batch: loss {losses[0]} -> "
+          f"{losses[-1]}")
+    check(first_step == want, f"a training step launched {first_step}, "
+                              f"want {want}")
+    return counts
+
+
+def run_training(seed: int) -> dict:
+    """The training path of qwen2-0.5b at full width and depth: f32 parity
+    with the host, then bf16 training; returns the launch counts of the
+    bf16 steps."""
+    t0 = time.perf_counter()
+    cfg = get_config(ARCH)
+    phase_train_parity(cfg, seed)
+    _release()
+    counts = phase_training(cfg, seed + 1)
+    _release()
+    emit({"phase": "training_total", "seconds": time.perf_counter() - t0})
+    return counts
+
+
 def run_paths(rng) -> dict:
     """The three serving paths; returns each path's launch counts."""
     paths = {}
@@ -1534,18 +1954,21 @@ def main() -> int:
     rng = np.random.default_rng(SEED)
     phase_build()
     timings = phase_kernels(rng)
+    timings["flash_attention_bwd"] = phase_bwd_kernel(rng)
     timings["ssd_scan"] = phase_ssd_kernel(rng)
     timings["moe_gmm"] = phase_gmm_kernel(rng)
     n_values = gradient_values()
     timings.update(phase_compress_kernels(n_values))
     paths = run_paths(rng)
+    paths["training"] = run_training(SEED + 8)
     codecs = phase_codecs(SEED + 6)
     check(codecs["values"] == n_values, "gradient size changed")
     paths["codecs"] = codecs["counts"]
     paths["collectives"] = phase_collectives(n_values, SEED + 7)
 
     # each kernel's launches are read from the path that runs it
-    main_path = {"flash_attention": ARCH, "ssd_scan": SSM_ARCH,
+    main_path = {"flash_attention": ARCH, "flash_attention_bwd": "training",
+                 "ssd_scan": SSM_ARCH,
                  "moe_gmm": MOE_ARCH, "quantize": "collectives",
                  "dequantize": "collectives", "sparsify": "codecs",
                  "matmul": "codecs"}
@@ -1560,8 +1983,8 @@ def main() -> int:
                  "shape": t["shape"], "dtype": t["dtype"],
                  **{key: t[key] for key in (
                      "variant", "graph_ms", "library_graph_ms",
-                     "launches_per_call", "stage_ms", "bound_tc_ms",
-                     "bound_tc_by") if key in t},
+                     "library_backend", "launches_per_call", "stage_ms",
+                     "bound_tc_ms", "bound_tc_by") if key in t},
                  "path": main_path[name],
                  "launches_by_path": {p: c[name] for p, c in paths.items()}}
         check(entry["launches"] > 0,

@@ -1,8 +1,11 @@
-"""Carries parameters of the JAX package into the port.
+"""Carries parameters and optimizer state between the JAX package and the
+port.
 
-The caller converts the JAX parameter pytree to nested dicts of numpy arrays
+The caller converts the JAX pytrees to nested dicts of numpy arrays
 (``jax.tree.map(np.asarray, params)``), so the port itself never imports
 jax.  Weights are shared by value: ``jax.random`` is not re-implemented.
+``params_to_jax_layout`` goes the other way, into numpy, so that tests
+compare updated parameters and moments leaf for leaf.
 """
 from __future__ import annotations
 
@@ -11,6 +14,7 @@ import torch
 
 from repro_torch.core.device import resolve_device
 from repro_torch.core.types import ModelConfig
+from repro_torch.core.tree import tree_map
 from repro_torch.models.transformer import check_ported
 
 
@@ -20,12 +24,6 @@ def _tensor(a, device: torch.device) -> torch.Tensor:
         return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16) \
             .to(device)
     return torch.from_numpy(a).to(device)
-
-
-def _tree(x, fn):
-    if isinstance(x, dict):
-        return {k: _tree(v, fn) for k, v in x.items()}
-    return fn(x)
 
 
 def params_from_jax(cfg: ModelConfig, tree: dict, device="cuda") -> dict:
@@ -38,8 +36,8 @@ def params_from_jax(cfg: ModelConfig, tree: dict, device="cuda") -> dict:
     check_ported(cfg)
     dev = resolve_device(device)
     params = {"embed": _tensor(tree["embed"], dev),
-              "final_norm": _tree(tree["final_norm"],
-                                  lambda a: _tensor(a, dev))}
+              "final_norm": tree_map(lambda a: _tensor(a, dev),
+                                     tree["final_norm"])}
     if "lm_head" in tree:
         params["lm_head"] = _tensor(tree["lm_head"], dev)
     layers = []
@@ -47,7 +45,48 @@ def params_from_jax(cfg: ModelConfig, tree: dict, device="cuda") -> dict:
         group = tree[f"group{gi}"]
         for r in range(repeats):
             for i in range(len(period)):
-                layers.append(_tree(group[f"pos{i}"],
-                                    lambda a, r=r: _tensor(a[r], dev)))
+                layers.append(tree_map(lambda a, r=r: _tensor(a[r], dev),
+                                       group[f"pos{i}"]))
     params["layers"] = layers
     return params
+
+
+def opt_state_from_jax(cfg: ModelConfig, state: dict, device="cuda") -> dict:
+    """JAX ``init_opt_state`` tree (as numpy) -> the port's optimizer state:
+    m and v unstacked like the parameters (``params_from_jax``), step a
+    0-d int32 tensor."""
+    dev = resolve_device(device)
+    return {"m": params_from_jax(cfg, state["m"], dev),
+            "v": params_from_jax(cfg, state["v"], dev),
+            "step": torch.tensor(int(np.asarray(state["step"])),
+                                 dtype=torch.int32, device=dev)}
+
+
+def params_to_jax_layout(cfg: ModelConfig, params: dict) -> dict:
+    """The port's parameter tree (or m or v) -> numpy in the JAX package's
+    layout: each ``group{gi}/pos{i}`` leaf stacked over the group's repeats
+    in the JAX layer order; bf16 leaves as f32 (exact)."""
+    def arr(t):
+        t = t.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+    tree = {"embed": arr(params["embed"]),
+            "final_norm": tree_map(arr, params["final_norm"])}
+    if "lm_head" in params:
+        tree["lm_head"] = arr(params["lm_head"])
+    layers = iter(params["layers"])
+    for gi, (period, repeats) in enumerate(cfg.layer_groups()):
+        reps = [[next(layers) for _ in period] for _ in range(repeats)]
+        tree[f"group{gi}"] = {
+            f"pos{i}": _stack([reps[r][i] for r in range(repeats)], arr)
+            for i in range(len(period))}
+    return tree
+
+
+def _stack(layers: list, arr) -> dict:
+    """Nested dicts of tensors, one per repeat -> the same dicts of numpy
+    arrays stacked along a new first axis."""
+    first = layers[0]
+    if isinstance(first, dict):
+        return {k: _stack([lp[k] for lp in layers], arr) for k in first}
+    return np.stack([arr(t) for t in layers])

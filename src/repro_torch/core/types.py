@@ -1,7 +1,7 @@
-"""Model configuration types of the PyTorch port.
+"""Model and training configuration types of the PyTorch port.
 
-A copy of ``LayerSpec``, ``_round_up`` and ``ModelConfig`` from
-``repro.core.types``: that module holds no JAX code, but importing anything
+A copy of ``LayerSpec``, ``_round_up``, ``ModelConfig`` and ``TrainConfig``
+from ``repro.core.types``: that module holds no JAX code, but importing anything
 under ``repro`` runs ``repro/__init__.py``, which imports jax.  The fields and
 derived properties are kept identical, so a config built here compares equal
 field by field with its JAX twin.
@@ -169,3 +169,26 @@ class ModelConfig:
                         best_period = period
                     break
         return best
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """Training hyper-parameters, field for field the JAX package's.
+    ``zero1`` and ``grad_sync`` are the planner's knobs and are not read by
+    the single-card step; it reads ``remat`` (the JAX package reads it from
+    its ``ParallelCtx``, which the port has not yet)."""
+
+    learning_rate: float = 3e-4
+    warmup_steps: int = 100
+    total_steps: int = 1_000
+    weight_decay: float = 0.1
+    beta1: float = 0.9
+    beta2: float = 0.95
+    eps: float = 1e-8
+    grad_clip: float = 1.0
+    zero1: bool = True  # shard optimizer state over the data axis
+    remat: bool = True  # activation checkpointing per layer
+    grad_sync: Literal["all_reduce", "reduce_scatter"] = "reduce_scatter"
+    microbatches: int = 1  # grad-accumulation steps (activation memory / K)
+    grad_dtype: Literal["f32", "bf16"] = "f32"  # sync precision
+    seed: int = 0

@@ -4,7 +4,8 @@
 ``launches`` count that it raises by the number of CUDA kernels it launches,
 where it launches them.
 ``SOURCES`` maps each kernel to its CUDA source (the four compression
-kernels share one).
+kernels share one).  ``flash_attention_bwd`` is K1's gradient, which the
+forward-only TPU kernel does not have.
 """
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ from repro_torch.kernels.moe_gmm import ops as _gmm
 from repro_torch.kernels.ssd_scan import ops as _ssd
 
 WRAPPERS = {"flash_attention": _fa.flash_attention,
+            "flash_attention_bwd": _fa.flash_attention_bwd,
             "ssd_scan": _ssd.ssd_scan,
             "moe_gmm": _gmm.moe_gmm,
             "quantize": _cmp.quantize_kernel,
@@ -23,6 +25,7 @@ WRAPPERS = {"flash_attention": _fa.flash_attention,
             "sparsify": _cmp.sparsify_kernel,
             "matmul": _cmp.matmul_kernel}
 SOURCES = {"flash_attention": _fa.SOURCE,
+           "flash_attention_bwd": _fa.BWD_SOURCE,
            "ssd_scan": _ssd.SOURCE,
            "moe_gmm": _gmm.SOURCE,
            "quantize": _cmp.SOURCE,

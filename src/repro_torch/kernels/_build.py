@@ -4,7 +4,9 @@ Each ``csrc/*.cu`` file exposes a plain C interface and is compiled on its
 own into a shared library under ``build/repro_torch_kernels/`` at the root
 of the checkout, named by a hash of the sources and flags, at first use.
 Only the sources in the repository are built; nothing is fetched.  A failed
-build raises with nvcc's error output.
+build raises with nvcc's error output.  Also the launch helpers the
+wrappers share: the current device and stream, and ``refuse_grad`` for the
+kernels whose gradient has no kernel yet.
 """
 from __future__ import annotations
 
@@ -106,3 +108,18 @@ def raw_stream(device: torch.device) -> int:
     entry point takes: PyTorch's own getter, which builds no Stream object
     (``torch.cuda.current_stream().cuda_stream`` does, on every launch)."""
     return torch._C._cuda_getCurrentRawStream(device.index)
+
+
+def refuse_grad(kernel: str, backward: str, *tensors) -> None:
+    """Raises NotImplementedError where autograd would record a CUDA launch
+    of ``kernel``, whose gradient has no kernel yet: its wrapper returns a
+    tensor without a grad_fn, which would cut the graph silently.  Serving
+    (no_grad or inference_mode, or inputs that need no gradient) and the
+    codecs (detached gradients) pass."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            f"{kernel} on CUDA tensors that require grad: {backward} has no "
+            f"kernel yet, and the wrapper would cut the autograd graph; run "
+            f"under torch.no_grad() or on CPU tensors (the plain version, "
+            f"which autograd differentiates)")

@@ -147,6 +147,7 @@ def quantize_kernel(x: torch.Tensor, rand_bits: Optional[torch.Tensor] = None,
             raise ValueError(f"operands on {dev} and {rand_bits.device}")
     if _cpu(dev):
         return quantize_ref(x, bits, stochastic, rand_bits, per_row=True)
+    _build.refuse_grad("quantize_kernel", "quantize's backward", x)
     q = torch.empty(m, n, dtype=torch.int8, device=dev)
     scale = torch.empty(m, 1, dtype=_F32, device=dev)
     ws = _quantize_workspace(m, n)  # the long-row pass's partial maxima
@@ -189,6 +190,7 @@ def dequantize_kernel(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     _col(scale, m, dev, "scale")
     if _cpu(dev):
         return dequantize_ref(q, scale)
+    _build.refuse_grad("dequantize_kernel", "dequantize's backward", scale)
     qp = q.data_ptr()
     variant = dequantize_variant(n, qp)
     out = torch.empty(m, n, dtype=_F32, device=dev)
@@ -213,6 +215,7 @@ def sparsify_kernel(x: torch.Tensor, thresh: torch.Tensor) -> torch.Tensor:
     _col(thresh, m, dev, "thresh")
     if _cpu(dev):
         return sparsify_ref(x, thresh)
+    _build.refuse_grad("sparsify_kernel", "sparsify's backward", x, thresh)
     out = torch.empty(m, n, dtype=_F32, device=dev)
     with _build.on_device(dev):
         rc = _lib().compress_sparsify(x.data_ptr(), _DTYPE_CODES[x.dtype],
@@ -281,6 +284,8 @@ def matmul_kernel(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"operands on {dev} and {b.device}")
     if _cpu(dev):
         return matmul_ref(a, b)
+    _build.refuse_grad("matmul_kernel", "the PowerSGD matmul's backward", a,
+                       b)
     variant = matmul_variant(a, b)
     route, code = _ROUTE_CODES[variant], _DTYPE_CODES[dtype]
     out = torch.empty(m, n, dtype=_F32, device=dev)

@@ -60,6 +60,15 @@
 //    rows past Sq are not stored, keys past Sk get p = 0 (they are absent,
 //    not masked).
 //  * Finalize with acc / max(l, 1e-30), as the TPU kernel does.
+//
+// Row statistics for the backward (flash_attn_bwd.cu), both variants: with a
+// non-null ``lse``, each query row's natural-log log-sum-exp of its scaled,
+// masked scores, m + log(l), goes to lse[(b * H + h) * Sq + row] (f32); the
+// bf16 variant converts its base-2 m + log2(l) with ln 2.  A row that keeps
+// no key (m stays NEG_INF; only with a window and Sq > Sk) gets +inf: its
+// output averages every key, and -1e30 + log(l) would round to -1e30, from
+// which the backward could not recompute P = 1/Sk.  With a null pointer
+// nothing more is written.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stddef.h>
@@ -69,6 +78,7 @@
 namespace {
 
 constexpr float NEG_INF = -1e30f;
+constexpr float LN2 = 0.6931471805599453f;
 
 // first K/V tile and the end of the tiles a block of rows q0..q0+bq-1 reads
 __device__ __forceinline__ void tile_range(int q0, int bq, int bk, int Sq,
@@ -105,9 +115,9 @@ template <int D>
 __global__ void __launch_bounds__(THREADS)
 flash_attn_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                       const float* __restrict__ v, float* __restrict__ o,
-                      Strides sq_, Strides sk_, Strides sv_, Strides so_,
-                      int group, int Sq, int Sk, int causal, int window,
-                      float scale) {
+                      float* __restrict__ lse, Strides sq_, Strides sk_,
+                      Strides sv_, Strides so_, int group, int Sq, int Sk,
+                      int causal, int window, float scale) {
   static_assert(D % 16 == 0, "each of the 16 column threads owns D/16 outputs");
   constexpr int DPT = D / 16;
   extern __shared__ __align__(16) float smem[];
@@ -236,6 +246,9 @@ flash_attn_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       l_row += __shfl_xor_sync(0xffffffffu, l_row, off);
     const float denom = fmaxf(l_row, 1e-30f);
     const int row = q0 + 4 * ty + i;
+    if (lse && tx == 0 && row < Sq)
+      lse[((long long)b * gridDim.y + h) * Sq + row] =
+          m[i] == NEG_INF ? INFINITY : m[i] + logf(l_row);
     if (row < Sq) {
 #pragma unroll
       for (int dd = 0; dd < DPT; ++dd)
@@ -246,7 +259,8 @@ flash_attn_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 template <int D>
 cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
-                       int B, int H, int KV, int Sq, int Sk, Strides sq,
+                       float* lse, int B, int H, int KV, int Sq, int Sk,
+                       Strides sq,
                        Strides sk, Strides sv, Strides so, int causal,
                        int window, float scale, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D>();
@@ -258,8 +272,8 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
   const dim3 grid((Sq + BQ - 1) / BQ, H, B);
   kernel<<<grid, THREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), sq, sk, sv, so,
-      H / KV, Sq, Sk, causal, window, scale);
+      static_cast<const float*>(v), static_cast<float*>(o), lse, sq, sk, sv,
+      so, H / KV, Sq, Sk, causal, window, scale);
   return cudaGetLastError();
 }
 
@@ -366,8 +380,9 @@ __global__ void __launch_bounds__(T_THREADS, 1)
 flash_attn_bf16_kernel(const __grid_constant__ CUtensorMap tmq,
                        const __grid_constant__ CUtensorMap tmk,
                        const __grid_constant__ CUtensorMap tmv,
-                       __nv_bfloat16* __restrict__ out, Strides so, int D,
-                       int group, int Sq, int Sk, int causal, int window,
+                       __nv_bfloat16* __restrict__ out,
+                       float* __restrict__ lse, Strides so, int D, int group,
+                       int Sq, int Sk, int causal, int window,
                        float scale_log2) {
   using namespace hopper;
   using TB = TileBytes<DP>;
@@ -520,6 +535,9 @@ flash_attn_bf16_kernel(const __grid_constant__ CUtensorMap tmq,
       const float inv = 1.f / fmaxf(lr, 1e-30f);
       const int row = row0 + 8 * r;
       if (row >= Sq) continue;
+      if (lse && quad == 0)
+        lse[((long long)b * gridDim.y + h) * Sq + row] =
+            m[r] == NEG_INF ? INFINITY : (m[r] + log2f(lr)) * LN2;
       __nv_bfloat16* orow = out + b * so.b + h * so.h + row * so.s;
 #pragma unroll
       for (int j = 0; j < DP / 8; ++j) {
@@ -545,8 +563,9 @@ int encode_bhsd(CUtensorMap* map, const void* base, int B, int heads, int S,
 }
 
 template <int DP>
-int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
-                int H, int KV, int Sq, int Sk, int D, Strides sq, Strides sk,
+int launch_bf16(const void* q, const void* k, const void* v, void* o,
+                float* lse, int B, int H, int KV, int Sq, int Sk, int D,
+                Strides sq, Strides sk,
                 Strides sv, Strides so, int causal, int window, float scale,
                 cudaStream_t stream) {
   CUtensorMap tmq, tmk, tmv;
@@ -561,7 +580,8 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
   if (err) return err;
   const dim3 grid((Sq + T_BQ - 1) / T_BQ, H, B);
   kernel<<<grid, T_THREADS, smem, stream>>>(
-      tmq, tmk, tmv, static_cast<__nv_bfloat16*>(o), so, D, H / KV, Sq, Sk,
+      tmq, tmk, tmv, static_cast<__nv_bfloat16*>(o), lse, so, D, H / KV, Sq,
+      Sk,
       causal, window, scale * 1.4426950408889634f);  // log2(e)
   return (int)cudaGetLastError();
 }
@@ -575,7 +595,8 @@ bool aligned16(const void* p, Strides st) {
 
 // dtype: 0 = f32, 1 = bf16.  window <= 0: no window.  Strides in elements
 // (D has unit stride): q and o over (B, H, Sq), k and v over (B, KV, Sk);
-// bf16 needs them, and the pointers, 16-byte aligned.  Returns the
+// bf16 needs them, and the pointers, 16-byte aligned.  lse: null, or f32
+// (B, H, Sq) contiguous for the row statistics.  Returns the
 // launch's cudaGetLastError() (0 on success), or the error that kept it
 // from launching; does not synchronise.
 extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,
@@ -585,7 +606,8 @@ extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,
                               long long kss, long long vsb, long long vsh,
                               long long vss, long long osb, long long osh,
                               long long oss, int causal, int window,
-                              int dtype, float scale, void* stream) {
+                              int dtype, float scale, float* lse,
+                              void* stream) {
   if (B < 1 || H < 1 || KV < 1 || H % KV || Sq < 1 || Sk < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -594,10 +616,10 @@ extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,
   if (dtype == 0) {
     cudaError_t err;
     switch (D) {
-      case 32: err = launch_f32<32>(q, k, v, o, B, H, KV, Sq, Sk, sq, sk, sv, so, causal, window, scale, s); break;
-      case 64: err = launch_f32<64>(q, k, v, o, B, H, KV, Sq, Sk, sq, sk, sv, so, causal, window, scale, s); break;
-      case 80: err = launch_f32<80>(q, k, v, o, B, H, KV, Sq, Sk, sq, sk, sv, so, causal, window, scale, s); break;
-      case 128: err = launch_f32<128>(q, k, v, o, B, H, KV, Sq, Sk, sq, sk, sv, so, causal, window, scale, s); break;
+      case 32: err = launch_f32<32>(q, k, v, o, lse, B, H, KV, Sq, Sk, sq, sk, sv, so, causal, window, scale, s); break;
+      case 64: err = launch_f32<64>(q, k, v, o, lse, B, H, KV, Sq, Sk, sq, sk, sv, so, causal, window, scale, s); break;
+      case 80: err = launch_f32<80>(q, k, v, o, lse, B, H, KV, Sq, Sk, sq, sk, sv, so, causal, window, scale, s); break;
+      case 128: err = launch_f32<128>(q, k, v, o, lse, B, H, KV, Sq, Sk, sq, sk, sv, so, causal, window, scale, s); break;
       default: err = cudaErrorInvalidValue;
     }
     return (int)err;
@@ -609,10 +631,10 @@ extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,
     switch (D) {  // padded to whole 64-column sub-tiles
       case 32:
       case 64:
-        return launch_bf16<64>(q, k, v, o, B, H, KV, Sq, Sk, D, sq, sk, sv, so, causal, window, scale, s);
+        return launch_bf16<64>(q, k, v, o, lse, B, H, KV, Sq, Sk, D, sq, sk, sv, so, causal, window, scale, s);
       case 80:
       case 128:
-        return launch_bf16<128>(q, k, v, o, B, H, KV, Sq, Sk, D, sq, sk, sv, so, causal, window, scale, s);
+        return launch_bf16<128>(q, k, v, o, lse, B, H, KV, Sq, Sk, D, sq, sk, sv, so, causal, window, scale, s);
       default:
         return (int)cudaErrorInvalidValue;
     }

@@ -1,9 +1,14 @@
-"""Public wrapper of the flash-attention forward kernel.
+"""Public wrappers of the flash-attention kernels, forward and backward.
 
-On CUDA tensors it launches the hand-written Hopper kernel
-(``csrc/flash_attn_fwd.cu``) or raises; on CPU tensors it computes the plain
-PyTorch version (``ref.attention_ref``).  The device of the tensors decides:
-there is no flag and no fallback.
+On CUDA tensors they launch the hand-written Hopper kernels
+(``csrc/flash_attn_fwd.cu``; its gradient ``csrc/flash_attn_bwd.cu``) or
+raise; on CPU tensors they compute the plain PyTorch versions
+(``ref.attention_ref``, which autograd differentiates, and
+``ref.attention_bwd_ref``).  The device of the tensors decides: there is
+no flag and no fallback.  Where autograd needs the gradient of a CUDA call,
+``flash_attention`` goes through ``FlashAttention``, a
+``torch.autograd.Function`` whose forward also writes the row statistics
+and whose backward is the backward kernel.
 """
 from __future__ import annotations
 
@@ -15,14 +20,19 @@ from pathlib import Path
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
+                                                     attention_lse_ref,
+                                                     attention_ref)
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attn_fwd.cu"
+BWD_SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attn_bwd.cu"
 
-HEAD_DIMS = (32, 64, 80, 128)  # instantiated in the kernel
+HEAD_DIMS = (32, 64, 80, 128)  # instantiated in the kernels
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-# the kernel's variant for each dtype (csrc/flash_attn_fwd.cu)
+# the kernels' variant for each dtype (csrc/flash_attn_fwd.cu, _bwd.cu)
 VARIANTS = {torch.float32: "f32", torch.bfloat16: "wgmma"}
+BWD_VARIANTS = {torch.float32: "f32", torch.bfloat16: "mma_sync"}
+LAUNCHES_PER_CALL = 3  # backward: D = rowsum(dO o O), dK and dV, dQ
 
 
 @functools.cache
@@ -31,10 +41,22 @@ def _lib() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     ll = ctypes.c_longlong
     lib.flash_attn_fwd.argtypes = [p, p, p, p, i, i, i, i, i, i,
-                                   *[ll] * 12, i, i, i, ctypes.c_float, p]
+                                   *[ll] * 12, i, i, i, ctypes.c_float, p, p]
     lib.flash_attn_fwd.restype = i
     lib.flash_attn_error_string.argtypes = [i]
     lib.flash_attn_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+@functools.cache
+def _bwd_lib() -> ctypes.CDLL:
+    lib = _build.load(BWD_SOURCE)
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.flash_attn_bwd.argtypes = [*[p] * 10, *[i] * 6, *[ll] * 24, i, i, i,
+                                   ctypes.c_float, p]
+    lib.flash_attn_bwd.restype = i
+    lib.flash_attn_bwd_error_string.argtypes = [i]
+    lib.flash_attn_bwd_error_string.restype = ctypes.c_char_p
     return lib
 
 
@@ -88,6 +110,57 @@ def _check(q, k, v, window) -> tuple:
     return strides
 
 
+def _launch_fwd(q, k, v, strides, causal, window, stats: bool):
+    """K1 on CUDA tensors: (out, row statistics or None)."""
+    device = q.device
+    if device.type != "cuda":
+        raise ValueError(f"no flash_attention for device {device}")
+    b, h, sq, d = q.shape
+    kv, sk = k.shape[1], k.shape[2]
+    out = torch.empty_like(q)  # q's layout where q is dense
+    lse = torch.empty(b, h, sq, dtype=torch.float32, device=device) \
+        if stats else None
+    with _build.on_device(device):
+        err = _lib().flash_attn_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            b, h, kv, sq, sk, d, *strides, *kernel_strides(out),
+            1 if causal else 0, -1 if window is None else int(window),
+            _DTYPE_CODES[q.dtype], 1.0 / math.sqrt(d),
+            lse.data_ptr() if stats else None, _build.raw_stream(device))
+    if err:  # among them: bf16 operands off 16-byte boundaries
+        raise RuntimeError(
+            f"flash_attn_fwd launch failed ({VARIANTS[q.dtype]}): CUDA "
+            f"error {err} ({_lib().flash_attn_error_string(err).decode()})")
+    flash_attention.launches += 1
+    flash_attention.last_variant = VARIANTS[q.dtype]
+    return out, lse
+
+
+class FlashAttention(torch.autograd.Function):
+    """K1 with its gradient: the forward writes the row statistics beside
+    the output and saves (q, k, v, o, statistics); the backward is
+    ``flash_attention_bwd``.  On CUDA tensors both are kernels (this is
+    what ``flash_attention`` records there); on CPU tensors both are the
+    plain versions, which the CPU tests hold against autograd.  Under
+    ``torch.utils.checkpoint`` the forward runs again in the backward, and
+    the statistics read are those of that run."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        out, lse = flash_attention_stats(q, k, v, causal=causal,
+                                         window=window)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.window = causal, window
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout,
+                                         causal=ctx.causal, window=ctx.window)
+        return dq, dk, dv, None, None
+
+
 def flash_attention(q, k, v, *, causal: bool = True, window=None):
     """Flash attention forward with GQA, causal and sliding-window masks.
 
@@ -97,32 +170,92 @@ def flash_attention(q, k, v, *, causal: bool = True, window=None):
     transposed, without a copy); bf16 tensors on the card start on 16-byte
     boundaries.  Returns (B, H, Sq, D) in q's dtype and, where q is dense,
     in q's memory layout.  The causal mask is top-left aligned (qpos >=
-    kpos from 0); the window keeps qpos - kpos < window.
+    kpos from 0); the window keeps qpos - kpos < window.  Differentiable:
+    on CUDA tensors through ``FlashAttention`` where autograd records.
     """
     strides = _check(q, k, v, window)
-    device = q.device
-    if device.type == "cpu":
+    if q.device.type == "cpu":
         return attention_ref(q, k, v, causal=causal, window=window)
-    if device.type != "cuda":
-        raise ValueError(f"no flash_attention for device {device}")
-    b, h, sq, d = q.shape
-    kv, sk = k.shape[1], k.shape[2]
-    out = torch.empty_like(q)  # q's layout where q is dense
-    with _build.on_device(device):
-        err = _lib().flash_attn_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            b, h, kv, sq, sk, d, *strides, *kernel_strides(out),
-            1 if causal else 0, -1 if window is None else int(window),
-            _DTYPE_CODES[q.dtype], 1.0 / math.sqrt(d),
-            _build.raw_stream(device))
-    if err:  # among them: bf16 operands off 16-byte boundaries
-        raise RuntimeError(
-            f"flash_attn_fwd launch failed ({VARIANTS[q.dtype]}): CUDA "
-            f"error {err} ({_lib().flash_attn_error_string(err).decode()})")
-    flash_attention.launches += 1
-    flash_attention.last_variant = VARIANTS[q.dtype]
-    return out
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or
+                                    v.requires_grad):
+        return FlashAttention.apply(q, k, v, causal, window)
+    return _launch_fwd(q, k, v, strides, causal, window, stats=False)[0]
 
 
 flash_attention.launches = 0  # kernel launches, counted only where they happen
 flash_attention.last_variant = None  # the variant of the last launch
+
+
+def flash_attention_stats(q, k, v, *, causal: bool = True, window=None):
+    """The forward with its row statistics, not recorded by autograd: (out,
+    lse), lse (B, H, Sq) f32 as ``ref.attention_lse_ref`` defines it (+inf
+    for a row that keeps no key).  On CUDA tensors one launch of K1."""
+    strides = _check(q, k, v, window)
+    if q.device.type == "cpu":
+        return (attention_ref(q, k, v, causal=causal, window=window),
+                attention_lse_ref(q, k, causal=causal, window=window))
+    return _launch_fwd(q, k, v, strides, causal, window, stats=True)
+
+
+def _taken(t) -> bool:
+    """The backward kernel reads ``t`` through its strides: unit stride
+    along D, the others and the address 16-byte aligned."""
+    size = t.element_size()
+    return t.stride(3) == 1 and t.data_ptr() % 16 == 0 and all(
+        s * size % 16 == 0 for s in kernel_strides(t))
+
+
+def flash_attention_bwd(q, k, v, o, lse, dout, *, causal: bool = True,
+                        window=None):
+    """Gradient of ``flash_attention``: (dq, dk, dv) in the inputs' dtype
+    and, where they are dense, in their memory layout, accumulated in f32.
+
+    q, k, v as the forward took them; o its output; lse its row statistics
+    (``flash_attention_stats``); dout the output's gradient, copied where
+    the kernel does not take its strides.  On CUDA tensors three launches
+    (``LAUNCHES_PER_CALL``); on CPU tensors ``ref.attention_bwd_ref``."""
+    _check(q, k, v, window)
+    if o.shape != q.shape or dout.shape != q.shape:
+        raise ValueError(f"o {tuple(o.shape)} and dout {tuple(dout.shape)} "
+                         f"must have q's shape {tuple(q.shape)}")
+    if o.dtype != q.dtype or dout.dtype != q.dtype:
+        raise TypeError(f"o and dout must have q's dtype {q.dtype}; got "
+                        f"{o.dtype}, {dout.dtype}")
+    b, h, sq, d = q.shape
+    if lse.shape != (b, h, sq) or lse.dtype != torch.float32 or \
+            not lse.is_contiguous():
+        raise ValueError(f"lse must be contiguous f32 {(b, h, sq)}; got "
+                         f"{lse.dtype} {tuple(lse.shape)}")
+    if q.device.type == "cpu":
+        return attention_bwd_ref(q, k, v, o, lse, dout, causal=causal,
+                                 window=window)
+    device = q.device
+    if device.type != "cuda":
+        raise ValueError(f"no flash_attention_bwd for device {device}")
+    q, k, v, o, dout = (t if _taken(t) else t.contiguous()
+                        for t in (q, k, v, o, dout))
+    kv, sk = k.shape[1], k.shape[2]
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty(b, h, sq, dtype=torch.float32, device=device)
+    strides = [s for t in (q, k, v, o, dout, dq, dk, dv)
+               for s in kernel_strides(t)]
+    with _build.on_device(device):
+        err = _bwd_lib().flash_attn_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), b, h, kv, sq, sk, d, *strides,
+            1 if causal else 0, -1 if window is None else int(window),
+            _DTYPE_CODES[q.dtype], 1.0 / math.sqrt(d),
+            _build.raw_stream(device))
+    if err:
+        raise RuntimeError(
+            f"flash_attn_bwd launch failed ({BWD_VARIANTS[q.dtype]}): CUDA "
+            f"error {err} "
+            f"({_bwd_lib().flash_attn_bwd_error_string(err).decode()})")
+    flash_attention_bwd.launches += LAUNCHES_PER_CALL
+    flash_attention_bwd.last_variant = BWD_VARIANTS[q.dtype]
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0  # kernel launches, where they happen
+flash_attention_bwd.last_variant = None  # the variant of the last launch

@@ -92,6 +92,8 @@ def ssd_scan(x, dt, a, b, c, *, chunk: int = 128):
         return ssd_scan_ref(x, dt, a, b, c, chunk=chunk)
     if x.device.type != "cuda":
         raise ValueError(f"no ssd_scan for device {x.device}")
+    _build.refuse_grad("ssd_scan", "the SSD scan's backward (dx, ddt, da, "
+                       "db, dc)", x, dt, a, b, c)
     bsz, h, l, p = x.shape
     n = b.shape[2]
     dev = x.device

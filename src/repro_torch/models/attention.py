@@ -1,9 +1,11 @@
 """GQA self-attention (+RoPE, QKV bias, sliding window) for prefill and decode.
 
-Port of the GQA part of ``repro.models.attention``.  Prefill attention on a
-CUDA tensor goes to the hand-written flash-attention kernel whenever
-Sq == Sk and the q and v head dims agree; on the CPU it takes the plain
-einsum path.  The device decides; there is no flag.
+Port of the GQA part of ``repro.models.attention``.  Prefill and training
+attention on a CUDA tensor goes to the hand-written flash-attention kernel
+whenever Sq == Sk and the q and v head dims agree (its gradient to the
+backward kernel); on the CPU it takes the plain einsum path up to
+``_PLAIN_ATTN_MAX_SEQ ** 2`` scores and the chunked online-softmax path
+above, as the JAX package does.  The device decides; there is no flag.
 
 Decode attends one new token against a KV cache; sliding-window caches are
 ring buffers of ``window`` slots.  Unlike the JAX package, the cache is
@@ -20,6 +22,9 @@ from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models.modules import apply_rope, dense_init
 
 NEG_INF = -1e30  # finite: fully masked rows stay finite (never -inf)
+_PLAIN_ATTN_MAX_SEQ = 2048  # above 2048^2 scores the CPU path goes chunked
+_Q_CHUNK = 1024
+_KV_CHUNK = 1024
 
 
 def init_gqa(cfg: ModelConfig, dtype, device,
@@ -65,6 +70,66 @@ def _plain_attention(q, k, v, *, q_pos, k_pos, causal, window):
     return torch.einsum("bqkgs,bskh->bqkgh", probs.to(v.dtype), v)
 
 
+def _flash_attention_chunked(q, k, v, *, q_pos, k_pos, causal, window,
+                             q_chunk=_Q_CHUNK, kv_chunk=_KV_CHUNK):
+    """Flash-style online-softmax attention in plain PyTorch: port of the
+    JAX package's ``_flash_attention_jnp`` in its default form (a uniform
+    double loop over q and kv chunks, so every chunk pair is computed, as
+    the double ``lax.scan``; ``causal_skip`` and ``unroll`` are the
+    planner's and the dry-run's and are not ported).
+
+    q: (B,Sq,KV,G,hd); k, v: (B,Sk,KV,hd); q_pos (Sq,), k_pos (Sk,).
+    Ragged tails are padded: padded keys get the largest int32 position
+    (the causal mask drops them) and a validity mask (for the other masks);
+    padded queries are cut from the output.  Scores and the running max,
+    sum and accumulator are f32; the output takes q's dtype."""
+    b, sq, nkv, g, hd = q.shape
+    sk = k.shape[1]
+    vd = v.shape[-1]
+    q_chunk = min(q_chunk, sq)
+    kv_chunk = min(kv_chunk, sk)
+    sq_pad = (-sq) % q_chunk
+    sk_pad = (-sk) % kv_chunk
+    if sq_pad:
+        q = torch.nn.functional.pad(q, (0, 0, 0, 0, 0, 0, 0, sq_pad))
+        q_pos = torch.nn.functional.pad(q_pos, (0, sq_pad))
+    if sk_pad:
+        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, sk_pad))
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, sk_pad))
+        k_pos = torch.nn.functional.pad(k_pos, (0, sk_pad),
+                                        value=torch.iinfo(torch.int32).max)
+    k_valid = torch.arange(sk + sk_pad, device=q.device) < sk
+    scale = 1.0 / math.sqrt(hd)
+    outs = []
+    for i in range(0, sq + sq_pad, q_chunk):
+        q_blk, qp = q[:, i:i + q_chunk].float(), q_pos[i:i + q_chunk]
+        m = torch.full((b, q_chunk, nkv, g), NEG_INF, device=q.device)
+        l = torch.zeros((b, q_chunk, nkv, g), device=q.device)
+        acc = torch.zeros((b, q_chunk, nkv, g, vd), device=q.device)
+        for j in range(0, sk + sk_pad, kv_chunk):
+            kp = k_pos[j:j + kv_chunk]
+            s = torch.einsum("bqkgh,bskh->bqkgs", q_blk,
+                             k[:, j:j + kv_chunk].float()) * scale
+            mask = k_valid[None, j:j + kv_chunk].expand(q_chunk, kv_chunk)
+            if causal:
+                mask = mask & (qp[:, None] >= kp[None, :])
+            if window is not None:
+                mask = mask & (qp[:, None] - kp[None, :] < window)
+            s = torch.where(mask[None, :, None, None, :], s,
+                            torch.full_like(s, NEG_INF))
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            v_blk = v[:, j:j + kv_chunk]
+            acc = acc * corr[..., None] + torch.einsum(
+                "bqkgs,bskh->bqkgh", p.to(v_blk.dtype).float(),
+                v_blk.float())
+            m = m_new
+        outs.append((acc / l.clamp(min=1e-30)[..., None]).to(q.dtype))
+    return torch.cat(outs, dim=1)[:, :sq]
+
+
 def kernel_attention(q, k, v, *, causal, window=None):
     """q: (B,S,H,hd); k, v: (B,S,KV,hd) -> (B,S,H,hd) through the kernel,
     which takes them as (B,H,S,D) views and reads them, and writes its
@@ -77,14 +142,20 @@ def kernel_attention(q, k, v, *, causal, window=None):
 def multihead_attention(q, k, v, *, q_pos, k_pos, causal, window=None):
     """q: (B,Sq,H,hd) ungrouped; k, v: (B,Sk,KV,hd).
 
-    Dispatch rule of repro/models/attention.py:228-229 minus the TPU's
-    Sq % 128 tiling condition: the CUDA kernel masks its own ragged edge.
-    The kernel assumes contiguous positions 0..S-1, as prefill gives."""
+    Dispatch rule of repro/models/attention.py:228-243 minus the TPU's
+    Sq % 128 tiling condition (the CUDA kernel masks its own ragged edge),
+    with the device in place of ``use_pallas``.  The kernel assumes
+    contiguous positions 0..S-1, as prefill and training give."""
     if q.is_cuda and q.shape[1] == k.shape[1] and \
             q.shape[-1] == v.shape[-1]:
         return kernel_attention(q, k, v, causal=causal, window=window)
-    out = _plain_attention(_group_q(q, k.shape[2]), k, v, q_pos=q_pos,
-                           k_pos=k_pos, causal=causal, window=window)
+    qg = _group_q(q, k.shape[2])
+    if q.shape[1] * k.shape[1] <= _PLAIN_ATTN_MAX_SEQ ** 2:
+        out = _plain_attention(qg, k, v, q_pos=q_pos, k_pos=k_pos,
+                               causal=causal, window=window)
+    else:
+        out = _flash_attention_chunked(qg, k, v, q_pos=q_pos, k_pos=k_pos,
+                                       causal=causal, window=window)
     b, s = q.shape[:2]
     return out.reshape(b, s, q.shape[2], v.shape[-1])
 

@@ -14,9 +14,12 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.device import resolve_device
 from repro_torch.core.types import LayerSpec, ModelConfig
+from repro_torch.kernels.flash_attention.ops import \
+    LAUNCHES_PER_CALL as FA_BWD_LAUNCHES
 from repro_torch.kernels.ssd_scan.ops import LAUNCHES_PER_CALL as SSD_LAUNCHES
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
@@ -45,6 +48,20 @@ def prefill_launches(cfg: ModelConfig) -> dict:
             "ssd_scan": SSD_LAUNCHES * sum(s.mixer == "mamba"
                                            for s in specs),
             "moe_gmm": 3 * sum(s.ffn == "moe" for s in specs)}
+
+
+def train_launches(cfg: ModelConfig, microbatches: int = 1,
+                   remat: bool = False) -> dict:
+    """Flash-attention launches of one training step on CUDA tensors
+    (``repro_torch.train.make_train_step``): the forward once per attention
+    layer and microbatch, twice with ``remat`` (the checkpointed layer runs
+    again in the backward), and the backward kernel's
+    ``LAUNCHES_PER_CALL`` per attention layer and microbatch.  (Training a
+    Mamba or MoE layer on the card raises until K6 and K5 have backward
+    kernels.)"""
+    n_attn = sum(s.mixer == "attn" for s in cfg.layer_specs())
+    return {"flash_attention": n_attn * microbatches * (2 if remat else 1),
+            "flash_attention_bwd": n_attn * microbatches * FA_BWD_LAUNCHES}
 
 
 def _init_layer(cfg: ModelConfig, spec: LayerSpec, dtype, device,
@@ -81,19 +98,6 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
                         for spec in cfg.layer_specs()]
     return params
 
-
-
-def param_leaves(tree):
-    """The tensors of a parameter tree (nested dicts and lists, as
-    ``init_params`` builds it), in order."""
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from param_leaves(v)
-    elif isinstance(tree, list):
-        for v in tree:
-            yield from param_leaves(v)
-    else:
-        yield tree
 
 def _vocab_bias(cfg: ModelConfig, dtype, device) -> torch.Tensor:
     """NEG_INF on the padded vocabulary ids, so argmax never picks one."""
@@ -133,18 +137,25 @@ def _apply_layer(lp: dict, spec: LayerSpec, cfg: ModelConfig, x,
 
 
 def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
-            window: Optional[int] = None
+            window: Optional[int] = None, remat: bool = False
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens: (B, S) int. Returns (logits (B,S,V_pad), aux_loss): the sum
     of the MoE layers' router losses (0 without MoE).
 
-    ``window`` overrides cfg.sliding_window."""
+    ``window`` overrides cfg.sliding_window.  ``remat``: each layer under
+    ``torch.utils.checkpoint`` (non-reentrant), its activations recomputed
+    in the backward, as the JAX package's ``jax.checkpoint`` of each layer
+    group's scan body under ``ctx.remat``."""
     x = params["embed"][tokens]
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     win = window if window is not None else cfg.sliding_window
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for spec, lp in zip(cfg.layer_specs(), params["layers"]):
-        x, a = _apply_layer(lp, spec, cfg, x, positions, win)
+        if remat:
+            x, a = checkpoint(_apply_layer, lp, spec, cfg, x, positions, win,
+                              use_reentrant=False)
+        else:
+            x, a = _apply_layer(lp, spec, cfg, x, positions, win)
         if a is not None:
             aux = aux + a
     return _lm_head(cfg, params, x), aux

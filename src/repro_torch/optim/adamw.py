@@ -1,0 +1,85 @@
+"""AdamW with global-norm clipping, on the port's parameter layout.
+
+Port of ``repro.optim.adamw``: the optimizer state is {"m", "v", "step"},
+m and v f32 trees shaped like the parameters (nested dicts and the
+``params["layers"]`` list), step a 0-d int32 tensor.  Written as plain
+functions (not ``torch.optim.AdamW``, and not ``clip_grad_norm_``, which
+divides by norm + 1e-6): the clip scale is min(1, clip / max(|g|, 1e-9)),
+the bias corrections use the incremented step, the update reads p as f32
+and casts back to p's dtype.  Unlike the JAX package, parameters and
+moments are updated in place (at full width that saves a copy of every
+parameter and both moments); the functions still return them.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Sequence, Tuple
+
+import torch
+
+from repro_torch.core.types import TrainConfig
+from repro_torch.core.tree import param_leaves, tree_map
+
+
+def init_opt_state(params: Any) -> Dict[str, Any]:
+    """Zero moments in f32 on each parameter's device, step 0."""
+    def zeros(p):
+        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    device = next(param_leaves(params)).device
+    return {"m": tree_map(zeros, params), "v": tree_map(zeros, params),
+            "step": torch.zeros((), dtype=torch.int32, device=device)}
+
+
+def global_norm(tree, *, acc: torch.dtype = torch.float64) -> torch.Tensor:
+    """sqrt of the sum of squares of every leaf, returned in f32.  Each
+    leaf's norm accumulates in ``acc``, f64 by default: a departure from
+    the JAX package, whose norm is f32 throughout.  PyTorch's f32 norm on
+    the CPU drifts with the leaf's size (about 2e-4 on the 4.4M-value MLP
+    matrices of a qwen2-0.5b step's first moments, 1e-4 in their global
+    norm; ``chip_smoke.py``'s ``train_parity`` line measures it on the
+    host), where the card's reductions stay within a few ulps, so the same
+    step on the card and on the host would clip differently.  At the
+    sizes of the JAX comparisons both accumulations agree with JAX's f32
+    norm within 1e-5 (``tests/test_torch_train.py``)."""
+    leaves = tree if isinstance(tree, list) else param_leaves(tree)
+    norms = torch.stack([torch.linalg.vector_norm(t, dtype=acc)
+                         for t in leaves])
+    return norms.square().sum().sqrt().to(torch.float32)
+
+
+def adamw_update(params: Any, grads: Any, state: Dict[str, Any],
+                 tcfg: TrainConfig, lr: torch.Tensor
+                 ) -> Tuple[Any, Dict[str, Any], Dict[str, torch.Tensor]]:
+    """One clipped AdamW step.  ``grads``: a tree like ``params``, or the
+    list of its leaves in order.  Updates params, m and v in place and
+    returns (params, state, {"grad_norm": the norm before clipping})."""
+    flat_p = list(param_leaves(params))
+    flat_g: Sequence[torch.Tensor] = grads if isinstance(grads, list) \
+        else list(param_leaves(grads))
+    m, v = list(param_leaves(state["m"])), list(param_leaves(state["v"]))
+    gnorm = global_norm(flat_g)
+    scale = torch.clamp(tcfg.grad_clip / torch.clamp(gnorm, min=1e-9),
+                        max=1.0)
+    step = state["step"] + 1
+    b1, b2 = tcfg.beta1, tcfg.beta2
+    bc1 = 1.0 - b1 ** step.to(torch.float32)
+    bc2 = 1.0 - b2 ** step.to(torch.float32)
+    with torch.no_grad():
+        g = torch._foreach_mul([t.float() for t in flat_g], scale)
+        torch._foreach_mul_(m, b1)
+        torch._foreach_add_(m, g, alpha=1 - b1)
+        torch._foreach_mul_(v, b2)
+        torch._foreach_addcmul_(v, g, g, value=1 - b2)
+        del g
+        den = torch._foreach_div(v, bc2)
+        torch._foreach_sqrt_(den)
+        torch._foreach_add_(den, tcfg.eps)
+        update = torch._foreach_div(m, bc1)
+        torch._foreach_div_(update, den)
+        del den
+        p32 = [p.float() for p in flat_p]
+        torch._foreach_add_(update, p32, alpha=tcfg.weight_decay)
+        torch._foreach_mul_(update, lr)
+        for p, p_f, u in zip(flat_p, p32, update):
+            p.copy_(p_f - u)  # cast back to p's dtype
+    new_state = {"m": state["m"], "v": state["v"], "step": step}
+    return params, new_state, {"grad_norm": gnorm}

@@ -1,0 +1,22 @@
+"""Cross-entropy over the padded-vocab logits.
+
+Port of ``repro.train.loss``: logsumexp in f32 over the padded vocabulary
+(whose extra ids carry the LM head's -1e30 bias, so they add nothing),
+labels taken at max(label, 0), and the mean over the tokens whose label is
+not ``ignore_index``."""
+from __future__ import annotations
+
+import torch
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  ignore_index: int = -1) -> torch.Tensor:
+    """logits: (B, S, V_pad); labels: (B, S) int.  Returns the mean NLL over
+    the non-ignored tokens, f32."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    true_logit = torch.take_along_dim(
+        logits, labels.clamp(min=0).long()[..., None], dim=-1)[..., 0]
+    nll = lse - true_logit
+    mask = (labels != ignore_index).float()
+    return (nll * mask).sum() / mask.sum().clamp(min=1.0)

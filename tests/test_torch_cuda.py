@@ -16,11 +16,20 @@ from repro_torch.configs import ARCHS, smoke_config
 from repro_torch.kernels import launch_counts
 from repro_torch.kernels.compress import ops as cops
 from repro_torch.kernels.compress import ref as cref
-from repro_torch.kernels.flash_attention import attention_ref, flash_attention
+from repro_torch.kernels.flash_attention import (
+    attention_bwd_ref, attention_lse_ref, attention_ref, flash_attention,
+    flash_attention_bwd, flash_attention_stats)
+from repro_torch.kernels.flash_attention.ops import \
+    LAUNCHES_PER_CALL as BWD_LAUNCHES
 from repro_torch.kernels.moe_gmm import moe_gmm, moe_gmm_ref
 from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_ref
 from repro_torch.kernels.ssd_scan.ops import LAUNCHES_PER_CALL as SSD_LAUNCHES
-from repro_torch.models import forward, init_params, prefill_launches
+from repro_torch.core.types import TrainConfig
+from repro_torch.data import make_batches
+from repro_torch.models import (forward, init_params, param_leaves,
+                                prefill_launches, train_launches, tree_map)
+from repro_torch.optim import init_opt_state
+from repro_torch.train import make_train_step
 from repro_torch.launch.ranks import spawn_ranks
 from repro_torch.serve import make_prefill
 from torch_ccl_ranks import compressed_ring_emulation, ring_q8_on_card
@@ -119,6 +128,126 @@ def test_bf16_kernel_on_tensor_cores(cuda, shape, causal, window, layout):
         same = flash_attention(*(t.contiguous() for t in (q, k, v)),
                                causal=causal, window=window)
         assert torch.equal(out, same)
+
+
+def _bwd_inputs(seed, shape, dtype, device, views=False):
+    """q, k, v and dO of one sweep shape, (B,H,S,D) (or, with ``views``,
+    transposed (B,S,H,D) tensors as the model passes them)."""
+    b, h, kv, sq, sk, d = shape
+    rng = np.random.default_rng(seed)
+
+    def mk(n, s):
+        if views:
+            return torch.from_numpy(rng.standard_normal(
+                (b, s, n, d), dtype=np.float32)).to(device, dtype) \
+                .transpose(1, 2)
+        return torch.from_numpy(rng.standard_normal(
+            (b, n, s, d), dtype=np.float32)).to(device, dtype)
+    return mk(h, sq), mk(kv, sk), mk(kv, sk), mk(h, sq)
+
+
+def _bwd_f64(q, k, v, do, causal, window):
+    """The gradient in f64 on the card: the reference of the kernel."""
+    q, k, v, do = (t.double() for t in (q, k, v, do))
+    o = attention_ref(q, k, v, causal=causal, window=window)
+    lse = attention_lse_ref(q, k, causal=causal, window=window)
+    return attention_bwd_ref(q, k, v, o, lse, do, causal=causal,
+                             window=window)
+
+
+def _max_err(a, b):
+    return float((a.double() - b.double()).abs().max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("causal,window", MASKS)
+def test_backward_kernel_matches_plain(cuda, shape, causal, window, dtype):
+    """K1-bwd over the forward's sweep (rows that keep no key included)
+    against the f64 gradient.  f32: within 2e-5 (TOL, the forward's f32
+    tolerance).  bf16, FlashAttention's own convention: the kernel's max
+    error is at most twice that of the plain version run in bf16 (which
+    rounds P and dS to bf16 as the kernel does) plus 1e-3."""
+    q, k, v, do = _bwd_inputs(sum(shape) + 3, shape, dtype, cuda)
+    o, lse = flash_attention_stats(q, k, v, causal=causal, window=window)
+    before = flash_attention_bwd.launches
+    grads = flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
+                                window=window)
+    torch.cuda.synchronize()
+    assert flash_attention_bwd.launches == before + BWD_LAUNCHES
+    assert flash_attention_bwd.last_variant == \
+        ("f32" if dtype == torch.float32 else "mma_sync")
+    ref = _bwd_f64(q, k, v, do, causal, window)
+    if dtype == torch.float32:
+        for got, want in zip(grads, ref):
+            assert got.dtype == dtype
+            np.testing.assert_allclose(got.cpu().numpy(),
+                                       want.float().cpu().numpy(),
+                                       **TOL[torch.float32])
+        return
+    o_p = attention_ref(q, k, v, causal=causal, window=window)
+    lse_p = attention_lse_ref(q, k, causal=causal, window=window)
+    plain = attention_bwd_ref(q, k, v, o_p, lse_p, do, causal=causal,
+                              window=window)
+    for name, got, p, want in zip("qkv", grads, plain, ref):
+        assert got.dtype == dtype and bool(torch.isfinite(got).all())
+        err, err_plain = _max_err(got, want), _max_err(p, want)
+        assert err <= 2 * err_plain + 1e-3, (name, err, err_plain)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("causal,window", MASKS)
+def test_forward_statistics_match_plain(cuda, shape, causal, window, dtype):
+    """The row statistics K1 writes for the backward against
+    ``attention_lse_ref`` (+inf on the same rows), and the output written
+    beside them equal to the output of the launch without them."""
+    q, k, v, _ = _bwd_inputs(sum(shape) + 5, shape, dtype, cuda)
+    out, lse = flash_attention_stats(q, k, v, causal=causal, window=window)
+    ref = attention_lse_ref(q, k, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert torch.equal(torch.isinf(lse), torch.isinf(ref))
+    fin = ~torch.isinf(ref)
+    np.testing.assert_allclose(lse[fin].cpu().numpy(), ref[fin].cpu().numpy(),
+                               atol=2e-5, rtol=2e-5)
+    with torch.no_grad():
+        assert torch.equal(out, flash_attention(q, k, v, causal=causal,
+                                                window=window))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,causal,window", [
+    ((2, 14, 2, 128, 128, 64), True, None), ((1, 4, 2, 200, 200, 80), True, 64),
+    ((1, 4, 2, 300, 100, 64), True, 32), ((2, 8, 1, 96, 96, 128), False, None)])
+def test_autograd_function_on_card(cuda, shape, causal, window, dtype):
+    """``flash_attention`` on the model's transposed (B,S,H,D) views with
+    requires_grad: one forward launch, three backward launches, gradients
+    in the inputs' strides, equal to autograd of ``attention_ref`` on the
+    same card (f32 within TOL; bf16 within twice the plain bf16 error of
+    the f64 gradient plus 1e-3, as above)."""
+    q, k, v, do = _bwd_inputs(sum(shape), shape, dtype, cuda, views=True)
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    n0 = launch_counts()
+    out = flash_attention(*leaves, causal=causal, window=window)
+    out.backward(do)
+    torch.cuda.synchronize()
+    n1 = launch_counts()
+    assert n1["flash_attention"] == n0["flash_attention"] + 1
+    assert n1["flash_attention_bwd"] == \
+        n0["flash_attention_bwd"] + BWD_LAUNCHES
+    for t in leaves:
+        assert t.grad.stride() == t.stride()
+    plain = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    attention_ref(*plain, causal=causal, window=window).backward(do)
+    ref = _bwd_f64(q, k, v, do, causal, window)
+    for got, p, want in zip(leaves, plain, ref):
+        if dtype == torch.float32:
+            np.testing.assert_allclose(got.grad.cpu().numpy(),
+                                       p.grad.cpu().numpy(),
+                                       **TOL[torch.float32])
+        else:
+            assert _max_err(got.grad, want) <= \
+                2 * _max_err(p.grad, want) + 1e-3
 
 
 # tests/test_kernels.py:53-58, a ragged L, the mamba2-130m heads, a long
@@ -489,3 +618,115 @@ def test_ring_q8_over_gloo_with_cuda_tensors(cuda):
         assert r["quantize"] >= 2 and r["dequantize"] >= 2
         np.testing.assert_array_equal(r["result"],
                                       compressed_ring_emulation(xs, 8)[0])
+
+
+def _refused(name, cuda):
+    """One call of the wrapper ``name`` on CUDA inputs that require grad."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+
+    def rnd(*shape, grad=True):
+        return torch.randn(*shape, device=cuda, generator=g) \
+            .requires_grad_(grad)
+    if name == "ssd_scan":
+        return ssd_scan(rnd(1, 2, 64, 64), rnd(1, 2, 64).abs(),
+                        -rnd(2).abs(), rnd(1, 64, 32), rnd(1, 64, 32),
+                        chunk=64)
+    if name == "moe_gmm":
+        return moe_gmm(rnd(2, 8, 64), rnd(2, 64, 32))
+    if name == "quantize":
+        return cops.quantize_kernel(rnd(4, 256))
+    if name == "dequantize":
+        q = torch.zeros(4, 256, dtype=torch.int8, device=cuda)
+        return cops.dequantize_kernel(q, rnd(4, 1).abs())
+    if name == "sparsify":
+        return cops.sparsify_kernel(rnd(4, 256), rnd(4, 1, grad=False).abs())
+    return cops.matmul_kernel(rnd(64, 32), rnd(32, 4))
+
+
+@pytest.mark.parametrize("name", ["ssd_scan", "moe_gmm", "quantize",
+                                  "dequantize", "sparsify", "matmul"])
+def test_kernels_without_backward_refuse_grad(cuda, name):
+    """K6, K5 and the compression kernels have no backward kernel: on CUDA
+    inputs that require grad they raise (naming the missing backward)
+    instead of returning a tensor that cuts the graph; under no_grad they
+    launch."""
+    before = launch_counts()
+    with pytest.raises(NotImplementedError, match="backward"):
+        _refused(name, cuda)
+    assert launch_counts() == before
+    with torch.no_grad():
+        _refused(name, cuda)
+    torch.cuda.synchronize()
+    assert launch_counts() != before
+
+
+@pytest.mark.parametrize("arch", ["mamba2-130m", "dbrx-132b"])
+def test_training_ssm_and_moe_on_card_raises(cuda, arch):
+    """Until K6 and K5 have backward kernels, a training step of a Mamba or
+    MoE model on the card raises (on the CPU it trains: the plain versions
+    are differentiable)."""
+    cfg = smoke_config(arch)
+    params = init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                         device=cuda)
+    batch = next(make_batches(cfg, 2, 64))
+    with pytest.raises(NotImplementedError, match="backward"):
+        make_train_step(cfg, TrainConfig(remat=False))(
+            params, init_opt_state(params), batch)
+
+
+@pytest.mark.parametrize("arch,microbatches,remat", [
+    ("qwen2-0.5b", 1, False), ("qwen2-0.5b", 2, True),
+    ("h2o-danube-1.8b", 2, False), ("granite-3-8b", 1, True)])
+def test_train_step_on_card_matches_cpu(cuda, arch, microbatches, remat):
+    """One f32 step at smoke size on the card (K1 and its backward kernel,
+    counted against ``train_launches``) against the same step on the CPU
+    (held to JAX by tests/test_torch_train.py): loss and grad_norm within
+    1e-5, params and m within TOL."""
+    cfg = smoke_config(arch)
+    params = init_params(cfg, torch.Generator().manual_seed(0),
+                         device="cpu")
+    batch = next(make_batches(cfg, 4, 128, seed=1))
+    tcfg = TrainConfig(microbatches=microbatches, remat=remat)
+    step = make_train_step(cfg, tcfg)
+    p_gpu = _to(params, cuda)
+    n0 = launch_counts()
+    p_gpu, o_gpu, m_gpu = step(p_gpu, init_opt_state(p_gpu), batch)
+    torch.cuda.synchronize()
+    n1 = launch_counts()
+    launched = {k: n1[k] - n0[k] for k in n1 if n1[k] != n0[k]}
+    assert launched == train_launches(cfg, microbatches, remat)
+    p_cpu, o_cpu, m_cpu = step(params, init_opt_state(params), batch)
+    for k in ("loss", "grad_norm"):
+        assert float(m_gpu[k]) == pytest.approx(float(m_cpu[k]), rel=1e-5)
+    for tree_g, tree_c in ((p_gpu, p_cpu), (o_gpu["m"], o_cpu["m"])):
+        for a, b in zip(param_leaves(tree_g), param_leaves(tree_c)):
+            np.testing.assert_allclose(a.cpu().numpy(), b.numpy(),
+                                       **TOL[torch.float32])
+
+
+def test_remat_on_card_matches_no_remat(cuda):
+    """forward(remat=True) on the card: K1's forward twice a layer, and the
+    gradients of the forward without remat (the recomputed statistics are
+    the first run's: the kernels are deterministic)."""
+    cfg = smoke_config("qwen2-0.5b")
+    params = init_params(cfg, torch.Generator(device=cuda).manual_seed(3),
+                         device=cuda)
+    tok = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (2, 128))).to(cuda)
+    grads, counts = [], []
+    for remat in (False, True):
+        leaves = [t.detach().requires_grad_(True)
+                  for t in param_leaves(params)]
+        it = iter(leaves)
+        p = tree_map(lambda _: next(it), params)
+        n0 = launch_counts()
+        logits, _ = forward(cfg, p, tok, remat=remat)
+        logits.float().square().mean().backward()
+        torch.cuda.synchronize()
+        n1 = launch_counts()
+        counts.append({k: n1[k] - n0[k] for k in n1 if n1[k] != n0[k]})
+        grads.append([t.grad for t in leaves])
+    assert counts[0] == train_launches(cfg, 1, False)
+    assert counts[1] == train_launches(cfg, 1, True)
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, atol=1e-7, rtol=1e-6)

@@ -15,7 +15,13 @@ from repro.kernels.flash_attention.ops import flash_attention as jax_flash
 from repro.kernels.flash_attention.ref import attention_ref as jax_ref
 from repro.models.attention import multihead_attention as jax_mha
 from repro_torch.kernels import launch_counts
-from repro_torch.kernels.flash_attention import attention_ref, flash_attention
+from repro_torch.kernels.flash_attention import (FlashAttention,
+                                                 attention_bwd_ref,
+                                                 attention_lse_ref,
+                                                 attention_ref,
+                                                 flash_attention,
+                                                 flash_attention_bwd,
+                                                 flash_attention_stats)
 from repro_torch.kernels.flash_attention.ops import kernel_strides
 from repro_torch.models.attention import kernel_attention, multihead_attention
 
@@ -179,3 +185,119 @@ def test_kernel_strides(shape, perm, want):
     dimension of size 1 (never stepped) gets the span of the others."""
     t = torch.zeros(shape).permute(*perm)
     assert kernel_strides(t) == want
+
+
+# the card tests' sweep (tests/test_torch_cuda.py:37-40): group size 7,
+# head dims 32 and 80, a ragged length, Sq > Sk with rows that keep no key
+BWD_SHAPES = [(1, 2, 2, 128, 128, 64), (2, 4, 2, 256, 256, 64),
+              (1, 8, 1, 256, 512, 128), (1, 14, 2, 128, 128, 64),
+              (1, 4, 2, 128, 128, 80), (2, 4, 2, 200, 200, 32),
+              (1, 4, 2, 300, 100, 64)]
+BWD_MASKS = [(True, None), (False, None), (True, 128), (True, 32)]
+
+
+def _f64(seed, shape):
+    q, k, v = (torch.from_numpy(a).double()
+               for a in _inputs(seed, *shape))
+    do = torch.from_numpy(np.random.default_rng(seed + 1).standard_normal(
+        q.shape))
+    return q, k, v, do
+
+
+@pytest.mark.parametrize("shape", BWD_SHAPES)
+@pytest.mark.parametrize("causal,window", BWD_MASKS)
+def test_plain_backward_matches_autograd(shape, causal, window):
+    """``attention_bwd_ref`` (P from the row statistics, keyless rows as
+    P = 1/Sk with dS = 0) and ``attention_lse_ref`` against torch.autograd
+    of ``attention_ref``, all in f64: within 1e-10.  The statistics are
+    the log-sum-exp of the masked scores, +inf exactly on the rows that
+    keep no key."""
+    q, k, v, do = _f64(sum(shape), shape)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    o = attention_ref(*leaves, causal=causal, window=window)
+    o.backward(do)
+    lse = attention_lse_ref(q, k, causal=causal, window=window)
+    grads = attention_bwd_ref(q, k, v, o.detach(), lse, do, causal=causal,
+                              window=window)
+    for got, t in zip(grads, leaves):
+        np.testing.assert_allclose(got.numpy(), t.grad.numpy(), atol=1e-10,
+                                   rtol=1e-10)
+    b, h, sq, d = q.shape
+    qpos, kpos = np.arange(sq)[:, None], np.arange(k.shape[2])[None, :]
+    keep = np.ones((sq, k.shape[2]), bool)
+    if causal:
+        keep &= qpos >= kpos
+    if window is not None:
+        keep &= qpos - kpos < window
+    keyless = ~keep.any(1)
+    assert lse.shape == (b, h, sq)
+    assert np.array_equal(np.isinf(lse.numpy()).all((0, 1)), keyless)
+    s = np.einsum("bkgqd,bksd->bkgqs",
+                  q.numpy().reshape(b, k.shape[1], -1, sq, d), k.numpy())
+    s = np.where(keep, s / np.sqrt(d), -np.inf).reshape(b, h, sq, -1)
+    want = np.log(np.exp(s).sum(-1))
+    np.testing.assert_allclose(lse.numpy()[..., ~keyless],
+                               want[..., ~keyless], atol=1e-10, rtol=1e-10)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape,causal,window", [
+    ((2, 14, 2, 64, 64, 64), True, None), ((1, 4, 2, 90, 40, 32), True, 16),
+    ((1, 8, 1, 48, 80, 128), False, 24)])
+def test_function_on_cpu_matches_plain_autograd(shape, causal, window,
+                                                dtype):
+    """``FlashAttention`` on CPU tensors (its forward the plain version
+    with statistics, its backward ``attention_bwd_ref``) on the model's
+    transposed views, directly and under torch.utils.checkpoint, against
+    autograd of ``attention_ref``; gradients in the inputs' strides."""
+    b, h, kv, sq, sk, d = shape
+    rng = np.random.default_rng(sum(shape))
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.from_numpy(rng.standard_normal(
+        (b, s, n, d), dtype=np.float32)).to(dt).transpose(1, 2)
+        for n, s in ((h, sq), (kv, sk), (kv, sk)))
+    do = torch.from_numpy(rng.standard_normal((b, h, sq, d),
+                                              dtype=np.float32)).to(dt)
+
+    def grads(fn):
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        out = fn(*leaves)
+        out.backward(do)
+        for t in leaves:  # the layout; a dimension of size 1 is not stepped
+            assert [st for st, n in zip(t.grad.stride(), t.shape) if n > 1] \
+                == [st for st, n in zip(t.stride(), t.shape) if n > 1]
+        return out.detach(), [t.grad for t in leaves]
+
+    o_ref, g_ref = grads(lambda *a: attention_ref(*a, causal=causal,
+                                                  window=window))
+    o_fn, g_fn = grads(lambda *a: FlashAttention.apply(*a, causal, window))
+    o_ck, g_ck = grads(lambda *a: torch.utils.checkpoint.checkpoint(
+        FlashAttention.apply, *a, causal, window, use_reentrant=False))
+    tol = TOL[dtype]
+    for got in (o_fn, o_ck):
+        np.testing.assert_allclose(_np(got), _np(o_ref), **tol)
+    for g in (g_fn, g_ck):
+        for got, want in zip(g, g_ref):
+            np.testing.assert_allclose(_np(got), _np(want), **tol)
+
+
+def test_stats_and_backward_wrappers_on_cpu():
+    """On CPU tensors ``flash_attention_stats`` is (attention_ref,
+    attention_lse_ref) and ``flash_attention_bwd`` is attention_bwd_ref,
+    launching nothing; a statistics tensor of the wrong shape, dtype or
+    layout, and an output gradient of another dtype, are refused."""
+    q, k, v = _torch(_inputs(3, 1, 4, 2, 64, 64, 32), "float32")
+    do = torch.ones_like(q)
+    before = launch_counts()
+    o, lse = flash_attention_stats(q, k, v, causal=True, window=16)
+    assert torch.equal(o, attention_ref(q, k, v, causal=True, window=16))
+    assert torch.equal(lse, attention_lse_ref(q, k, causal=True, window=16))
+    got = flash_attention_bwd(q, k, v, o, lse, do, causal=True, window=16)
+    want = attention_bwd_ref(q, k, v, o, lse, do, causal=True, window=16)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert launch_counts() == before
+    for bad in (lse[:, :2], lse.double(), lse.transpose(1, 2)):
+        with pytest.raises(ValueError):
+            flash_attention_bwd(q, k, v, o, bad, do, causal=True)
+    with pytest.raises(TypeError):
+        flash_attention_bwd(q, k, v, o, lse, do.bfloat16(), causal=True)

@@ -254,8 +254,9 @@ def test_long_prompt_rejected_up_front():
 
 
 def test_port_imports_no_jax():
-    """Every repro_torch module (the SSM, MoE, the codecs, the collectives
-    and every kernel included) and chip_smoke.py import without jax or the
+    """Every repro_torch module (the SSM, MoE, the codecs, the collectives,
+    the trainer, optimizer and data pipeline, and every kernel included)
+    and chip_smoke.py import without jax or the
     JAX package; run in a fresh interpreter because conftest imports
     jax."""
     script = """
@@ -273,6 +274,10 @@ bad = sorted(m for m in sys.modules
              or m == "repro" or m.startswith("repro."))
 print(len(names), bad)
 assert not bad, bad
+for name in ("repro_torch.train.step", "repro_torch.train.loss",
+             "repro_torch.optim.adamw", "repro_torch.optim.schedule",
+             "repro_torch.data.pipeline"):
+    assert name in names, name
 """
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "-c", script], cwd=REPO, env=env,
