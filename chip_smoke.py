@@ -20,9 +20,11 @@ exits non-zero:
    - K1's gradient K1-bwd (three launches a call) over K1's sweep and at
      the training shape (B 4 x S 512, qwen2-0.5b's heads, bf16): f32
      within 2e-5 of the f64 gradient, bf16 within twice the plain
-     version's bf16 error plus 1e-3; timed beside the plain version,
-     SDPA's backward through autograd (the backend named) and its bound,
-     with K1's forward timed with and without the row statistics;
+     version's bf16 error plus 1e-3; two calls bit-equal; timed at the
+     training shape and at B 1 x S 4096, each launch's device time from
+     torch.profiler, beside the plain version, SDPA's backward through
+     autograd (the backend named) and its bound, with K1's forward timed
+     with and without the row statistics;
    - quantize K2a and dequantize K2b (q and decode bit-equal, scales
      within rtol 1e-6; K2b also bit-equal to torch.mul on each of its
      variants vec16 / vec4 / scalar), sparsify K3 (bit-equal) and the
@@ -271,8 +273,11 @@ def _release() -> None:
 # 1. build
 # --------------------------------------------------------------------------
 
-# the wgmma / TMA kernels (K1 bf16; K5 bf16 prefill and, swap-AB, decode)
+# the wgmma / TMA kernels (K1 bf16 and its backward; K5 bf16 prefill and,
+# swap-AB, decode)
 WGMMA_KERNELS = ("flash_attn_bf16_kernel<64>", "flash_attn_bf16_kernel<128>",
+                 "dkdv_wgmma_kernel<64>", "dkdv_wgmma_kernel<128>",
+                 "dq_wgmma_kernel<64>", "dq_wgmma_kernel<128>",
                  "gmm_wgmma_kernel", "gmm_swap_kernel<8>", "gmm_swap_kernel<16>",
                  "gmm_swap_kernel<32>", "gmm_swap_kernel<64>")
 
@@ -458,8 +463,10 @@ TRAIN_SHAPE = (TRAIN_BATCH // TRAIN_MICROBATCHES, 14, 2, TRAIN_SEQ,
                TRAIN_SEQ, 64)
 
 
-# K1-bwd's three launches (csrc/flash_attn_bwd.cu), bf16
-BWD_STAGES = ("delta_kernel", "dkdv_bf16_kernel", "dq_bf16_kernel")
+# K1-bwd's three launches (csrc/flash_attn_bwd.cu), bf16: D and the padded
+# statistics; dK/dV per query head; dQ, whose launch also sums each KV
+# head's partial dK/dV
+BWD_STAGES = ("delta_kernel", "dkdv_wgmma_kernel", "dq_wgmma_kernel")
 
 
 def attention_bwd_bound(b, h, kv, sq, sk, d, causal, window, dtype):
@@ -532,7 +539,7 @@ def _bwd_case(rng, shape, causal, window, dtype, views):
           "causal": causal, "window": window, "max_abs_err": max_err,
           "lse_max_abs_err": lse_err, "lse_keyless_rows":
           int(inf_rows.sum()), "lse_ok": lse_ok, **errs, "ok": ok})
-    check(variant == ("mma_sync" if dtype == torch.bfloat16 else "f32"),
+    check(variant == ("wgmma" if dtype == torch.bfloat16 else "f32"),
           f"flash_attention_bwd took the {variant} variant for {dtype}")
     check(lse_ok, f"K1's row statistics disagree with attention_lse_ref at "
                   f"{shape} {dtype} causal={causal} window={window}: "
@@ -594,18 +601,12 @@ def autograd_graph_ms(forward, inputs, grad, iters: int) -> float:
     return ms
 
 
-def phase_bwd_kernel(rng) -> dict:
-    """K1-bwd over the forward's sweep (both dtypes, without the long
-    prompt) and at the training shape; then times at the training shape:
-    the kernel, its plain version, SDPA's backward through autograd, the
-    bound, and K1's forward with and without the statistics."""
-    for shape, causal, window, dtype, views in _kernel_cases():
-        if shape == LONG_SHAPE:
-            continue
-        _bwd_case(rng, shape, causal, window, dtype, views)
-    max_err = _bwd_case(rng, TRAIN_SHAPE, True, None, torch.bfloat16, True)
-
-    shape, iters = TRAIN_SHAPE, 30
+def _bwd_times(rng, shape, iters: int) -> dict:
+    """K1-bwd at ``shape`` (bf16, causal, the model's (B,S,H,D) views):
+    the kernel both ways and by launch, the host's time a call, two calls
+    bit-equal, its plain
+    version, SDPA's backward through autograd both ways, the bound.
+    Returns (those times, (q, k, v))."""
     q, k, v = _qkv(rng, *shape, torch.bfloat16, views=True)
     do = torch.from_numpy(rng.standard_normal(q.shape, dtype=np.float32)) \
         .to(DEVICE, torch.bfloat16)
@@ -613,10 +614,23 @@ def phase_bwd_kernel(rng) -> dict:
 
     def bwd():
         return flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+    first, second = bwd(), bwd()
+    check(all(torch.equal(a, b) for a, b in zip(first, second)),
+          f"flash_attention_bwd gave other bits on a second call at {shape}")
+    del first, second
+    # the host's share of a call: wrapper checks, scratch allocation, the
+    # ctypes call and three launches, enqueued without waiting for the card
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        bwd()
+    host_ms = 1e3 * (time.perf_counter() - t0) / iters
+    torch.cuda.synchronize()
     ms = cuda_ms(bwd, iters)
     graph = graph_ms(bwd, iters // 2)
     plain_ms = cuda_ms(lambda: attention_bwd_ref(q, k, v, o, lse, do,
-                                                 causal=True), 5)
+                                                 causal=True),
+                       max(2, iters // 6), warmup=1)
     # yardstick only: the port never calls it
     ql, kl, vl = (t.detach().requires_grad_(True) for t in (q, k, v))
 
@@ -629,34 +643,54 @@ def phase_bwd_kernel(rng) -> dict:
     del out_l
     backend = sdpa_backend(ql, kl, vl, do)
     library_graph = autograd_graph_ms(sdpa, (q, k, v), do, iters // 2)
-    with torch.no_grad():
-        fwd_ms = cuda_ms(lambda: flash_attention(q, k, v, causal=True), iters)
-        fwd_graph = graph_ms(lambda: flash_attention(q, k, v, causal=True),
-                             iters // 2)
-    fwd_stats_ms = cuda_ms(lambda: flash_attention_stats(q, k, v,
-                                                         causal=True), iters)
-    fwd_stats_graph = graph_ms(lambda: flash_attention_stats(q, k, v,
-                                                             causal=True),
-                               iters // 2)
     stages = stage_ms(bwd, iters, BWD_STAGES)
     check(not stages or len(stages) == len(BWD_STAGES),
           f"K1-bwd's launches seen by the profiler: {stages}")
     bound_ms, bound_by = attention_bwd_bound(*shape, True, None,
                                              torch.bfloat16)
-    path = {"shape": list(shape), "dtype": "bfloat16", "causal": True,
-            "layout": "bshd_views", "variant":
-            flash_attention_bwd.last_variant,
+    return {"shape": list(shape), "dtype": "bfloat16", "causal": True,
+            "layout": "bshd_views",
+            "variant": flash_attention_bwd.last_variant,
             "launches_per_call": FA_BWD_LAUNCHES, "stage_ms": stages,
-            "ms": ms,
-            "graph_ms": graph, "plain_ms": plain_ms,
+            "ms": ms, "graph_ms": graph, "host_ms": host_ms,
+            "plain_ms": plain_ms,
             "library_ms": library_ms, "library_graph_ms": library_graph,
             "library_backend": backend, "bound_ms": bound_ms,
-            "bound_by": bound_by, "max_abs_err": max_err,
-            "forward_ms": fwd_ms, "forward_graph_ms": fwd_graph,
-            "forward_with_stats_ms": fwd_stats_ms,
-            "forward_with_stats_graph_ms": fwd_stats_graph}
+            "bound_by": bound_by, "bit_equal_calls": True}, (q, k, v)
+
+
+def phase_bwd_kernel(rng) -> dict:
+    """K1-bwd over the forward's sweep (both dtypes; the long prompt in
+    bf16) and at the training shape; then times at the training shape and
+    at the long prompt: the kernel, its plain version, SDPA's backward
+    through autograd, the bound, and at the training shape K1's forward
+    with and without the statistics."""
+    long_err = None
+    for shape, causal, window, dtype, views in _kernel_cases():
+        err = _bwd_case(rng, shape, causal, window, dtype, views)
+        if shape == LONG_SHAPE:
+            long_err = err
+    max_err = _bwd_case(rng, TRAIN_SHAPE, True, None, torch.bfloat16, True)
+
+    iters = 30
+    path, (q, k, v) = _bwd_times(rng, TRAIN_SHAPE, iters)
+    path["max_abs_err"] = max_err
+    with torch.no_grad():
+        path["forward_ms"] = cuda_ms(
+            lambda: flash_attention(q, k, v, causal=True), iters)
+        path["forward_graph_ms"] = graph_ms(
+            lambda: flash_attention(q, k, v, causal=True), iters // 2)
+    path["forward_with_stats_ms"] = cuda_ms(
+        lambda: flash_attention_stats(q, k, v, causal=True), iters)
+    path["forward_with_stats_graph_ms"] = graph_ms(
+        lambda: flash_attention_stats(q, k, v, causal=True), iters // 2)
     emit({"phase": "kernel_time", "kernel": "flash_attention_bwd", **path})
-    return {"path": path}
+    del q, k, v
+    long, _ = _bwd_times(rng, LONG_SHAPE, 10)
+    long["max_abs_err"] = long_err
+    emit({"phase": "kernel_time", "kernel": "flash_attention_bwd", **long})
+    _release()
+    return {"path": path, "long": long}
 
 
 # --------------------------------------------------------------------------

@@ -9,7 +9,8 @@
 // ragged Sq and Sk; D in {32, 64, 80, 128}; f32 or bf16, every tensor
 // through its strides (unit stride along D, the others multiples of 16
 // bytes, pointers 16-byte aligned); dQ, dK, dV in the inputs' dtype,
-// accumulated in f32.
+// accumulated in f32.  No atomics: the result is the same bits from run to
+// run.
 //
 // Row statistics.  The forward writes, per query row, the natural-log
 // log-sum-exp L of the row's scaled, masked scores (f32, (B,H,Sq)
@@ -20,51 +21,75 @@
 // no dK: the +inf mark selects that case, since -1e30 + log(l) rounds to
 // -1e30 in f32 and could not give P = 1/Sk.
 //
-// Three launches a call (LAUNCHES_PER_CALL in ops.py):
-//   (a) delta_kernel: D_i = rowsum(dO_i o O_i), one warp a row, f32;
-//   (b) dkdv: one block per KV head and 64-key tile.  It walks the G
-//       query heads that share the KV head and the query tiles that can
-//       see the key tile (none wholly before the diagonal under causal,
-//       none wholly past the window unless it holds a keyless row),
-//       recomputes S^T and P^T, dP^T = V dO^T, dS^T = P^T o (dP^T - D),
-//       and accumulates dV += P^T dO and dK += dS^T Q in registers.  Two
-//       warpgroups take alternate steps of the walk, each on its own query
-//       tiles, and the second hands its sums to the first through shared
-//       memory at the end: the G heads sum in one block, with no atomics,
-//       in a fixed order, so the result is deterministic;
-//   (c) dq: one block per query tile and head, looping over the key tiles
-//       the forward visits, dQ += dS K, in registers.
-//   dK and dQ take the factor `scale` once, when stored.
-//
 // What bounds it on this card.  The gradient needs five D-deep products
 // per (query, key) pair kept (S, dP, dV, dK, dQ), against the forward's
-// two; this kernel does seven (S and dP in both (b) and (c)).  At
+// two, and two exponentials where the dQ pass recomputes P.  At
 // qwen2-0.5b's training shape (B 4 x S 512, H 14, KV 2, D 64, causal,
 // bf16) the five take 4.7 GFLOP, 4.8 us at the bf16 tensor-core rate,
 // against 16.9 MB of q, k, v, o, dO, the statistics, dQ, dK and dV, 5.0
-// us at 3.35 TB/s: the two bounds meet.  This first version is bound by
-// neither: (b) has B x KV x Sk / 64 blocks (64 at that shape, half the
-// SMs), the first key tile's walking G x 8 steps, and within a step the
-// loads and the products do not overlap.
+// us at 3.35 TB/s: the bounds meet, and what sets the time is how long one
+// block's chain of steps is and how many blocks share an SM.  A step is
+// two products, a pass over 4,096 scores on the CUDA cores and the special
+// function unit (16 exponentials a clock a SM: 256 clocks, half the
+// tensor cores' 512 for the step's four products), then two more
+// products, each phase waiting on the last; three blocks a SM overlap
+// their phases.  Ordering the steps inside a block so that the next
+// step's products run under this step's exponentials (four commit groups
+// a step) was slower: it only lengthens each block's chain.
 //
-// bf16: mma.sync m16n8k16 (bf16 operands, f32 accumulators), four warps a
-// warpgroup (two in (b), one in (c)), each warp owning 16 rows of the
-// block's tile.  Operands come from
-// shared memory, where each tile is stored both row-major and, where a
-// product contracts over its rows, transposed (rows padded by 8 elements so
-// that the 32-bit fragment loads of a warp hit 32 different banks).  P and
-// dS go from the accumulator layout of one product straight into the A
-// registers of the next (the m16n8 accumulator pair is the m16n8k16 A
-// fragment).  wgmma and TMA are later work.
+// bf16, three launches a call (LAUNCHES_PER_CALL in ops.py):
+//   (a) delta_kernel: D_i = rowsum(dO_i o O_i) in f32, 16-byte loads, a
+//       few lanes a row; it also writes L log2(e), both padded to whole
+//       64-row tiles (zeros past Sq), so that (b) fetches them with 1-D
+//       bulk copies.
+//   (b) dkdv_wgmma_kernel: one block per (64-key tile, query head, batch),
+//       B x H x Sk/64 blocks (448 at the training shape, three a SM at D
+//       <= 64, two at D > 64), the key tiles that walk the most query
+//       tiles under causal first.  One warpgroup a block: its thread 0
+//       loads the K and V tile once and keeps a ring of three Q and dO
+//       tiles (with their rows of L and D) full by TMA, refilling a stage
+//       once all four warps have signalled on its mbarrier that they are
+//       done with it (a producer warp would cost the registers that the
+//       third block a SM needs).  The warpgroup issues S^T = K Q^T and dP^T
+//       = V dO^T as SS-wgmma (both operands K-major, as they lie), forms
+//       P^T and dS^T = P^T o (dP^T - D) in f32 registers, and issues dV +=
+//       P^T dO and dK += dS^T Q as RS-wgmma: P^T and dS^T go from the
+//       accumulator layout straight into A registers, and dO and Q are read
+//       MN-major as they lie, so no tile is copied transposed.  The block
+//       writes its head's partial dK, dV (f32, unscaled) to a workspace
+//       (2, B, H, Sk, D) that the wrapper allocates: 14.7 MB at the
+//       training shape, which stays in L2.
+//   (c) dq_wgmma_kernel: one block per (64-query tile, head, batch), the
+//       longest walks first, loading the same way with a ring of K and V
+//       tiles: S = Q K^T, dP = dO V^T (SS), dS, dQ += dS K (RS, K read
+//       MN-major).  dQ stays a pass of its own: one pass for all three
+//       would need atomics on dQ (not deterministic) or per-key-tile
+//       partials of dQ (59 MB at the training shape), so S, dP and P are
+//       computed twice, 7 products where 5 would do.  The blocks after the
+//       dQ blocks sum each KV head's G partials of (b) in head order (a
+//       fixed order: deterministic, no float atomics), take `scale` once
+//       for dK, and write dK, dV through their strides; they run as the
+//       dQ tiles drain.
+//   D 32 and 80 run padded to 64 and 128 columns: the tensor maps read
+//   zeros past D, and only the D real columns are stored.  Query rows past
+//   Sq and keys past Sk read as zeros (Q, dO, K, V by TMA, L and D by the
+//   padding), so in (b) they add nothing without a mask; (c) masks keys
+//   past Sk, where exp(-L) alone could overflow.  Rows past Sq and keys
+//   past Sk are never stored.  Only tiles that cross the causal diagonal,
+//   and every tile under a window, apply the masks and the keyless rows.
 //
 // f32 (parity runs): full f32 on the CUDA cores, no TF32 (which keeps ~3
 // decimal digits), like the forward's f32 variant: 256 threads, each
 // owning a 4 x 4 block of a 64 x 64 score tile, operands read as float4
-// from transposed tiles in shared memory.
+// from transposed tiles in shared memory.  (b) has one block per KV head
+// and 64-key tile, which walks the G query heads itself; (c) recomputes
+// S and dP per query tile.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "../../hopper.cuh"
 
 namespace {
 
@@ -104,70 +129,42 @@ __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
 }
 
 // ---- (a) D = rowsum(dO o O) ------------------------------------------------
-template <typename T>
+// LANES threads a row, each reading 16 bytes of O and of dO at a time; rows
+// (b * H + h) * ld + s for s < ld (ld >= Sq; rows past Sq get zeros).  With
+// ``lse2``, also L log2(e) of each row there.
+template <typename T, int LANES>
 __global__ void __launch_bounds__(256)
 delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
-             float* __restrict__ delta, Strides so, Strides sd, int H, int Sq,
-             int D, long long rows) {
-  const long long row = (long long)blockIdx.x * 8 + threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  if (row >= rows) return;
-  const int s = (int)(row % Sq);
-  const long long bh = row / Sq;
-  const int h = (int)(bh % H), b = (int)(bh / H);
-  const T* orow = o + b * so.b + h * so.h + s * so.s;
-  const T* drow = dout + b * sd.b + h * sd.h + s * sd.s;
-  float acc = 0.f;
-  for (int c = lane; c < D; c += 32) acc += to_f(orow[c]) * to_f(drow[c]);
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    acc += __shfl_xor_sync(0xffffffffu, acc, off);
-  if (lane == 0) delta[row] = acc;
-}
-
-// ---- loading tiles ----------------------------------------------------------
-// One 16-byte chunk of a tile row into the row-major copy d[ROWS][ld] and
-// the transposed copy dT[D][ldt] (either may be null).
-template <typename T>
-__device__ __forceinline__ void store_chunk(T* d, T* dT, int ld, int ldt,
-                                            int r, int c, uint4 x) {
+             const float* __restrict__ lse, float* __restrict__ delta,
+             float* __restrict__ lse2, Strides so, Strides sd, int H, int Sq,
+             int ld, int D, long long rows) {
   constexpr int VEC = 16 / sizeof(T);
-  if (d) *reinterpret_cast<uint4*>(d + r * ld + c) = x;
-  if (dT) {
-    const T* e = reinterpret_cast<const T*>(&x);
+  const long long row =
+      (long long)blockIdx.x * (256 / LANES) + threadIdx.x / LANES;
+  const int sub = threadIdx.x % LANES;
+  const bool valid = row < rows;  // no early return: the shuffles below
+  const int s = valid ? (int)(row % ld) : 0;
+  const long long bh = valid ? row / ld : 0;
+  float acc = 0.f;
+  if (valid && s < Sq) {
+    const int h = (int)(bh % H), b = (int)(bh / H);
+    const T* orow = o + b * so.b + h * so.h + s * so.s;
+    const T* drow = dout + b * sd.b + h * sd.h + s * sd.s;
+    for (int c = sub * VEC; c < D; c += LANES * VEC) {
+      const uint4 x = *reinterpret_cast<const uint4*>(orow + c);
+      const uint4 y = *reinterpret_cast<const uint4*>(drow + c);
+      const T* xe = reinterpret_cast<const T*>(&x);
+      const T* ye = reinterpret_cast<const T*>(&y);
 #pragma unroll
-    for (int i = 0; i < VEC; ++i) dT[(c + i) * ldt + r] = e[i];
-  }
-}
-
-// Rows row0..row0+ROWS-1 (zeros past S) of two heads a and b of (B,heads,
-// S,D) tensors into shared memory, each row-major and/or transposed.
-// Consecutive threads take consecutive rows of one column chunk, so the
-// transposed stores of a warp hit 32 different banks (and the row-major
-// 16-byte stores, rows padded, 8 a phase); every thread issues all its
-// global loads before its first store, so they are in flight together.
-template <typename T, int D, int ROWS, int THREADS>
-__device__ __forceinline__ void load_tiles(
-    T* da, T* daT, const T* sa, long long ssa, T* db, T* dbT, const T* sb,
-    long long ssb, int ld, int ldt, int row0, int S, int tid) {
-  constexpr int VEC = 16 / sizeof(T), TOTAL = ROWS * (D / VEC);
-  constexpr int N = (TOTAL + THREADS - 1) / THREADS;
-  uint4 xa[N], xb[N];
-#pragma unroll
-  for (int i = 0; i < N; ++i) {
-    const int idx = tid + i * THREADS, r = idx % ROWS, c = idx / ROWS * VEC;
-    xa[i] = xb[i] = make_uint4(0u, 0u, 0u, 0u);
-    if (idx < TOTAL && row0 + r < S) {
-      xa[i] = *reinterpret_cast<const uint4*>(sa + (row0 + r) * ssa + c);
-      xb[i] = *reinterpret_cast<const uint4*>(sb + (row0 + r) * ssb + c);
+      for (int i = 0; i < VEC; ++i) acc += to_f(xe[i]) * to_f(ye[i]);
     }
   }
 #pragma unroll
-  for (int i = 0; i < N; ++i) {
-    const int idx = tid + i * THREADS, r = idx % ROWS, c = idx / ROWS * VEC;
-    if (idx >= TOTAL) continue;
-    store_chunk(da, daT, ld, ldt, r, c, xa[i]);
-    store_chunk(db, dbT, ld, ldt, r, c, xb[i]);
+  for (int off = LANES / 2; off > 0; off >>= 1)
+    acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (valid && sub == 0) {
+    delta[row] = acc;
+    if (lse2) lse2[row] = s < Sq ? lse[bh * Sq + s] * LOG2E : 0.f;
   }
 }
 
@@ -176,14 +173,41 @@ constexpr int FT = 64;          // keys and queries of an f32 tile
 constexpr int F_THREADS = 256;  // 16 x 16: thread (ty, tx) owns a 4 x 4 block
 constexpr int FLD = FT + 4;     // padded row (floats) of a transposed tile
 
-// two heads' tiles of FT rows, transposed into [D][FLD]
+// Rows row0..row0+FT-1 (zeros past S) of two heads a and b of (B,heads,S,D)
+// tensors into shared memory, transposed into [D][FLD].  Consecutive
+// threads take consecutive rows of one 16-byte column chunk, so the
+// transposed stores of a warp hit 32 different banks; every thread issues
+// all its global loads before its first store, so they are in flight
+// together.
 template <int D>
 __device__ __forceinline__ void load_t_f32(float* da, const float* sa,
                                            long long ssa, float* db,
                                            const float* sb, long long ssb,
                                            int row0, int S, int tid) {
-  load_tiles<float, D, FT, F_THREADS>(nullptr, da, sa, ssa, nullptr, db, sb,
-                                      ssb, 0, FLD, row0, S, tid);
+  constexpr int TOTAL = FT * (D / 4);
+  constexpr int N = (TOTAL + F_THREADS - 1) / F_THREADS;
+  float4 xa[N], xb[N];
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    const int idx = tid + i * F_THREADS, r = idx % FT, c = idx / FT * 4;
+    xa[i] = xb[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (idx < TOTAL && row0 + r < S) {
+      xa[i] = *reinterpret_cast<const float4*>(sa + (row0 + r) * ssa + c);
+      xb[i] = *reinterpret_cast<const float4*>(sb + (row0 + r) * ssb + c);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    const int idx = tid + i * F_THREADS, r = idx % FT, c = idx / FT * 4;
+    if (idx >= TOTAL) continue;
+    const float ea[4] = {xa[i].x, xa[i].y, xa[i].z, xa[i].w};
+    const float eb[4] = {xb[i].x, xb[i].y, xb[i].z, xb[i].w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      da[(c + e) * FLD + r] = ea[e];
+      db[(c + e) * FLD + r] = eb[e];
+    }
+  }
 }
 
 __device__ __forceinline__ float dot4(float4 a, float4 b) {
@@ -441,29 +465,42 @@ dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-// ---- bf16: mma.sync on the tensor cores ------------------------------------
+// ---- bf16: wgmma from TMA rings ---------------------------------------------
 typedef __nv_bfloat16 bf16;
-constexpr int B_THREADS = 128;  // four warps, 16 rows each
-constexpr int BT = 64;          // keys of a dK/dV block; queries of a dQ block
+constexpr int BT = 64;  // keys of a dK/dV block, queries of a dQ block, keys of
+                        // a dQ ring tile; L and D rows are padded to it
+constexpr int W_THREADS = 128;  // one warpgroup; its thread 0 issues the loads
+constexpr int WARPS = 4;
+constexpr int SUM_ROWS = 8;  // key rows of a block that sums the G partials
+constexpr int SUM_LOADS = 8;  // partials a thread has in flight
 
-// acc (16 x 8, f32) += A (16 x 16, bf16 pairs) B (16 x 8, bf16 pairs)
-__device__ __forceinline__ void mma16816(float* c, uint32_t a0, uint32_t a1,
-                                         uint32_t a2, uint32_t a3,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
+// DP: D padded to whole 64-column (128-byte) sub-tiles.  Every tile is a
+// stack of such sub-tiles, 128-byte swizzled by TMA (hopper.cuh).
+template <int DP>
+struct BwdTiles {
+  static constexpr int NSUB = DP / 64;
+  // queries of a dK/dV step: at DP 128 the f32 dK and dV take 128
+  // registers a thread, so S^T and dP^T are 64 x 32
+  static constexpr int BQ = DP == 64 ? 64 : 32;
+  static constexpr int KSUB = BT * 128;  // one sub-tile of a 64-row tile
+  static constexpr int QSUB = BQ * 128;  // one sub-tile of a BQ-row tile
+  static constexpr int KT = NSUB * KSUB;
+  static constexpr int QT = NSUB * QSUB;
+  static constexpr int STAGES = 3;                    // Q/dO ring of (b)
+  static constexpr int DQ_STAGES = DP == 64 ? 3 : 2;  // K/V ring of (c)
+  static constexpr size_t DKDV_SMEM =
+      1024 + 2 * KT + STAGES * (2 * QT + 2 * BQ * sizeof(float)) +
+      (1 + 2 * STAGES) * sizeof(uint64_t);
+  static constexpr size_t DQ_SMEM =
+      1024 + 2 * KT + DQ_STAGES * 2 * KT + (1 + 2 * DQ_STAGES) * sizeof(uint64_t);
+  // blocks a SM: three at DP 64 (168 registers a thread, 68 KB and 66 KB
+  // of shared memory); two at DP 128, whose dK and dV need more registers
+  static constexpr int MIN_BLOCKS = DP == 64 ? 3 : 2;
+};
 
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
+__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
+  return reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023));
 }
 
 // 2^x on the special function unit, as in the forward; -inf gives 0
@@ -473,328 +510,423 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
-// acc[n] (16 x 8 tiles, n < NT) += A B^T over KD: A (16 x KD) row-major at
-// a (row stride lda), B (NT*8 x KD) row-major at b (row stride ldb); lane
-// (g, t) = (lane / 4, lane % 4) in the m16n8k16 fragment layout
-template <int KD, int NT>
-__device__ __forceinline__ void mma_smem(float (*acc)[4], const bf16* a,
-                                         int lda, const bf16* b, int ldb,
-                                         int g, int t) {
+// acc (64 x N) = A B^T over DP: A (64 rows) and B (N rows) K-major tiles,
+// their sub-tiles a_sub and b_sub bytes apart
+template <int DP, int N>
+__device__ __forceinline__ void ss_product(float* acc, const uint8_t* a,
+                                           int a_sub, const uint8_t* b,
+                                           int b_sub) {
+  using namespace hopper;
 #pragma unroll
-  for (int kk = 0; kk < KD; kk += 16) {
-    const bf16* ar = a + g * lda + kk + 2 * t;
-    const uint32_t a0 = ld32(ar), a1 = ld32(ar + 8 * lda), a2 = ld32(ar + 8),
-                   a3 = ld32(ar + 8 * lda + 8);
+  for (int ks = 0; ks < DP / 16; ++ks) {
+    const int sub = ks / 4, off = 32 * (ks % 4);
+    const uint64_t da = desc_sw128(a + sub * a_sub + off, 16, 1024);
+    const uint64_t db = desc_sw128(b + sub * b_sub + off, 16, 1024);
+    if constexpr (N == 64)
+      wgmma_m64n64k16_ss_k_k(acc, da, db, ks > 0);
+    else
+      wgmma_m64n32k16_ss_k_k(acc, da, db, ks > 0);
+  }
+}
+
+// acc (64 x DP) += X (64 x 16 KS, bf16 A registers) B, B (16 KS x DP) the
+// rows of a tile read MN-major as they lie, its sub-tiles b_sub bytes apart
+template <int DP, int KS>
+__device__ __forceinline__ void rs_product(float* acc, uint32_t (*xa)[4],
+                                           const uint8_t* b, int b_sub) {
+  using namespace hopper;
 #pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      const bf16* br = b + (n * 8 + g) * ldb + kk + 2 * t;
-      mma16816(acc[n], a0, a1, a2, a3, ld32(br), ld32(br + 8));
+  for (int t = 0; t < KS; ++t) {
+    const uint64_t db = desc_sw128(b + 2048 * t, b_sub, 1024);
+    if constexpr (DP == 64)
+      wgmma_m64n64k16_rs_mn(acc, xa[t], db);
+    else
+      wgmma_m64n128k16_rs_mn(acc, xa[t], db);
+  }
+}
+
+// an accumulator x (64 x 16 KS, f32) as the bf16 A registers of the next
+// product: x[4j + 2r + c] is row 8r + lane / 4 of the warp's 16, column 8j
+// + 2 (lane % 4) + c, which is the A layout of columns 16t..16t+15
+template <int KS>
+__device__ __forceinline__ void to_a(const float* x, uint32_t (*xa)[4]) {
+#pragma unroll
+  for (int t = 0; t < KS; ++t)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const __nv_bfloat162 v =
+          __floats2bfloat162_rn(x[8 * t + 2 * i], x[8 * t + 2 * i + 1]);
+      xa[t][i] = *reinterpret_cast<const uint32_t*>(&v);
     }
-  }
 }
 
-// the accumulator tiles x[KQ/8][4] of one product as the A fragments of the
-// next, in bf16: pa[j] covers columns 16j..16j+15
-template <int KQ>
-__device__ __forceinline__ void to_a_frags(float (*x)[4],
-                                           uint32_t (*pa)[4]) {
-#pragma unroll
-  for (int j = 0; j < KQ / 16; ++j) {
-    pa[j][0] = pack_bf16(x[2 * j][0], x[2 * j][1]);
-    pa[j][1] = pack_bf16(x[2 * j][2], x[2 * j][3]);
-    pa[j][2] = pack_bf16(x[2 * j + 1][0], x[2 * j + 1][1]);
-    pa[j][3] = pack_bf16(x[2 * j + 1][2], x[2 * j + 1][3]);
-  }
-}
+// (b) one block: the 64 keys k0.. of KV head h / group, against the query
+// tiles of head h that see them; its partial dK (unscaled) and dV to ws
+template <int DP>
+__global__ void __launch_bounds__(W_THREADS, BwdTiles<DP>::MIN_BLOCKS)
+dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tmq,
+                  const __grid_constant__ CUtensorMap tmk,
+                  const __grid_constant__ CUtensorMap tmv,
+                  const __grid_constant__ CUtensorMap tmdo,
+                  const float* __restrict__ stats, float* __restrict__ ws,
+                  int B, int H, int group, int Sq, int Sk, int ld, int D,
+                  int causal, int window, float scale_log2) {
+  using namespace hopper;
+  using TB = BwdTiles<DP>;
+  constexpr int BQ = TB::BQ, STAGES = TB::STAGES;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sk = align1024(smem_raw);
+  uint8_t* sv = sk + TB::KT;
+  uint8_t* sqo = sv + TB::KT;  // stage s: Q at 2 QT s, dO QT after it
+  float* sl = reinterpret_cast<float*>(sqo + STAGES * 2 * TB::QT);  // [STAGES][BQ]
+  float* sd = sl + STAGES * BQ;                                       // [STAGES][BQ]
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(sd + STAGES * BQ);
+  uint64_t* full = kv_full + 1;
+  uint64_t* empty = full + STAGES;
 
-// acc[n] (16 x 8 tiles, n < NT) += A B over KQ: A from registers (pa), B^T
-// (NT*8 x KQ) row-major at b (row stride ldb)
-template <int KQ, int NT>
-__device__ __forceinline__ void mma_regs(float (*acc)[4],
-                                         uint32_t (*pa)[4],
-                                         const bf16* b, int ldb, int g,
-                                         int t) {
-#pragma unroll
-  for (int j = 0; j < KQ / 16; ++j) {
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      const bf16* br = b + (n * 8 + g) * ldb + 16 * j + 2 * t;
-      mma16816(acc[n], pa[j][0], pa[j][1], pa[j][2], pa[j][3], ld32(br),
-               ld32(br + 8));
-    }
-  }
-}
-
-// The dK/dV block: 64 keys and two warpgroups of four warps (each warp 16
-// keys) that take alternate steps of the walk over (query head, query
-// tile), BQ queries a step (32 at D > 64, where the f32 accumulators of
-// dK and dV take 128 registers), each warpgroup with its own query tiles.
-constexpr int DKDV_THREADS = 256;
-
-template <int D>
-struct DkdvTile {
-  static constexpr int BQ = D <= 64 ? 64 : 32;
-  static constexpr int LDR = D + 8;   // row-major tiles
-  static constexpr int LDT = BQ + 8;  // transposed query tiles
-  // one warpgroup's query tiles: Q and dO row-major and transposed, the
-  // statistics and D
-  static constexpr int WG_BYTES =
-      sizeof(bf16) * (2 * BQ * LDR + 2 * D * LDT) + sizeof(float) * 2 * BQ;
-  static constexpr size_t SMEM = sizeof(bf16) * 2 * BT * LDR + 2 * WG_BYTES;
-  // the second warpgroup hands dK, then dV (D / 2 floats a thread), to the
-  // first through its own tiles
-  static_assert(WG_BYTES >= B_THREADS * D / 2 * sizeof(float) &&
-                WG_BYTES % 16 == 0, "warpgroup tiles");
-};
-
-// acc of the first warpgroup's thread += acc of the second's thread of the
-// same rank, through red (the second warpgroup's tiles, free by then)
-template <int ND>
-__device__ __forceinline__ void hand_over(float (*acc)[4], float* red, int wg,
-                                          int wtid) {
-  __syncthreads();
-  if (wg == 1) {
-#pragma unroll
-    for (int n = 0; n < ND; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) red[(n * 4 + e) * 128 + wtid] = acc[n][e];
-  }
-  __syncthreads();
-  if (wg == 0) {
-#pragma unroll
-    for (int n = 0; n < ND; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[n][e] += red[(n * 4 + e) * 128 + wtid];
-  }
-}
-
-// the named barrier of one warpgroup (ids 1 and 2; __syncthreads is 0)
-__device__ __forceinline__ void wg_sync(int wg) {
-  asm volatile("bar.sync %0, 128;" ::"r"(wg + 1) : "memory");
-}
-
-template <int D>
-__global__ void __launch_bounds__(DKDV_THREADS)
-dkdv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                 const float* __restrict__ lse,
-                 const float* __restrict__ delta, bf16* __restrict__ dk,
-                 bf16* __restrict__ dv, Strides sq_, Strides sk_, Strides sv_,
-                 Strides sd_, Strides sdk, Strides sdv, int H, int group,
-                 int Sq, int Sk, int causal, int window, float scale) {
-  using TL = DkdvTile<D>;
-  constexpr int BQ = TL::BQ, LDR = TL::LDR, LDT = TL::LDT;
-  constexpr int NQ = BQ / 8, ND = D / 8;
-  extern __shared__ __align__(16) uint8_t smem_raw[];
-  bf16* sK = reinterpret_cast<bf16*>(smem_raw);  // [BT][LDR]
-  bf16* sV = sK + BT * LDR;                       // [BT][LDR]
-  const int tid = threadIdx.x, wg = tid / 128, wtid = tid % 128;
-  const int warp = wtid / 32, lane = tid % 32;  // warp within the warpgroup
-  const int g = lane / 4, t = lane % 4;
-  uint8_t* own = smem_raw + sizeof(bf16) * 2 * BT * LDR + wg * TL::WG_BYTES;
-  bf16* sQ = reinterpret_cast<bf16*>(own);        // [BQ][LDR]
-  bf16* sO = sQ + BQ * LDR;                       // [BQ][LDR] dO
-  bf16* sQt = sO + BQ * LDR;                      // [D][LDT]
-  bf16* sOt = sQt + D * LDT;                      // [D][LDT] dO, transposed
-  float* sL = reinterpret_cast<float*>(sOt + D * LDT);  // [BQ] L * log2(e)
-  float* sDl = sL + BQ;                                 // [BQ] D
-
-  const int k0 = blockIdx.x * BT, kvh = blockIdx.y, b = blockIdx.z;
-  load_tiles<bf16, D, BT, DKDV_THREADS>(
-      sK, nullptr, k + b * sk_.b + kvh * sk_.h, sk_.s, sV, nullptr,
-      v + b * sv_.b + kvh * sv_.h, sv_.s, LDR, 0, k0, Sk, tid);
-  __syncthreads();
-  const bf16* kw = sK + warp * 16 * LDR;  // this warp's 16 keys
-  const bf16* vw = sV + warp * 16 * LDR;
-
-  float dK[ND][4], dV[ND][4];
-#pragma unroll
-  for (int n = 0; n < ND; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dK[n][e] = dV[n][e] = 0.f;
-
+  // key tile 0 first: under causal it walks the most query tiles
+  const int hb = blockIdx.x % (H * B), h = hb % H, b = hb / H;
+  const int k0 = blockIdx.x / (H * B) * BT, kvh = h / group;
   const int k_last = min(k0 + BT, Sk) - 1;
-  const int t_begin = causal ? k0 / BQ : 0;
-  const int nt = max((Sq + BQ - 1) / BQ - t_begin, 0);
-  const float inv_sk = 1.f / Sk, scale_log2 = scale * LOG2E;
-  // step it: query head kvh * group + it / nt, query tile t_begin + it % nt
-  for (int it = wg; it < group * nt; it += 2) {
-    const int h = kvh * group + it / nt, q0 = (t_begin + it % nt) * BQ;
-    if (!tile_needed(q0, min(q0 + BQ, Sq) - 1, k_last, Sk, window)) continue;
-    const long long rowh = ((long long)b * H + h) * Sq;
-    // the rows' statistics (+inf stays +inf) and D, loaded with the tiles
-    const bool in = wtid < BQ && q0 + wtid < Sq;
-    const float l_row = in ? lse[rowh + q0 + wtid] * LOG2E : 0.f;
-    const float d_row = in ? delta[rowh + q0 + wtid] : 0.f;
-    wg_sync(wg);  // this warpgroup's previous tile is no longer read
-    load_tiles<bf16, D, BQ, B_THREADS>(
-        sQ, sQt, q + b * sq_.b + h * sq_.h, sq_.s, sO, sOt,
-        dout + b * sd_.b + h * sd_.h, sd_.s, LDR, LDT, q0, Sq, wtid);
-    if (wtid < BQ) {
-      sL[wtid] = l_row;
-      sDl[wtid] = d_row;
+  const int t_begin = causal ? k0 / BQ : 0, nqt = (Sq + BQ - 1) / BQ;
+  const long long row_h = ((long long)b * H + h) * ld;
+  const float* l_rows = stats + row_h;
+  const float* d_rows = stats + (long long)B * H * ld + row_h;
+  auto needed = [&](int t) {
+    return tile_needed(t * BQ, min(t * BQ + BQ, Sq) - 1, k_last, Sk, window);
+  };
+  // thread 0: the next needed query tile from t on into ``stage``;
+  // returns the tile after it (nqt: none left)
+  auto load = [&](int t, int stage) {
+    while (t < nqt && !needed(t)) ++t;
+    if (t == nqt) return nqt;
+    const int q0 = t * BQ;
+    mbar_expect_tx(&full[stage], 2 * TB::QT + 2 * BQ * (uint32_t)sizeof(float));
+    uint8_t* sq = sqo + stage * 2 * TB::QT;
+#pragma unroll
+    for (int c = 0; c < TB::NSUB; ++c) {
+      tma_load_4d(sq + c * TB::QSUB, &tmq, &full[stage], 64 * c, q0, h, b);
+      tma_load_4d(sq + TB::QT + c * TB::QSUB, &tmdo, &full[stage], 64 * c,
+                  q0, h, b);
     }
-    wg_sync(wg);
-
-    // S^T = K Q^T and dP^T = V dO^T: rows this warp's keys, columns queries
-    float s[NQ][4], dp[NQ][4];
-#pragma unroll
-    for (int n = 0; n < NQ; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
-    mma_smem<D, NQ>(s, kw, LDR, sQ, LDR, g, t);
-    mma_smem<D, NQ>(dp, vw, LDR, sO, LDR, g, t);
-
-    // P^T and dS^T in place of S^T and dP^T
-#pragma unroll
-    for (int n = 0; n < NQ; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int kpos = k0 + warp * 16 + g + (e >= 2 ? 8 : 0);
-        const int ql = n * 8 + 2 * t + (e & 1), qpos = q0 + ql;
-        float p = 0.f, ds = 0.f;
-        if (qpos < Sq && kpos < Sk) {
-          const float L2 = sL[ql];
-          if (isinf(L2)) {
-            p = inv_sk;  // a row that keeps no key: dV only
-          } else if (keeps(qpos, kpos, causal, window)) {
-            p = ex2(s[n][e] * scale_log2 - L2);
-            ds = p * (dp[n][e] - sDl[ql]);
-          }
-        }
-        s[n][e] = p;
-        dp[n][e] = ds;
-      }
-    }
-    uint32_t pa[BQ / 16][4];
-    to_a_frags<BQ>(s, pa);
-    mma_regs<BQ, ND>(dV, pa, sOt, LDT, g, t);  // dV += P^T dO
-    to_a_frags<BQ>(dp, pa);
-    mma_regs<BQ, ND>(dK, pa, sQt, LDT, g, t);  // dK += dS^T Q
-  }
-
-  // the second warpgroup's sums into the first's, dK then dV, always in
-  // this order: the result does not depend on timing
-  float* red = reinterpret_cast<float*>(smem_raw + sizeof(bf16) * 2 * BT * LDR +
-                                        TL::WG_BYTES);
-  hand_over<ND>(dK, red, wg, wtid);
-  hand_over<ND>(dV, red, wg, wtid);
-  if (wg == 1) return;
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int kpos = k0 + warp * 16 + g + 8 * r;
-    if (kpos >= Sk) continue;
-    bf16* dkr = dk + b * sdk.b + kvh * sdk.h + kpos * sdk.s;
-    bf16* dvr = dv + b * sdv.b + kvh * sdv.h + kpos * sdv.s;
-#pragma unroll
-    for (int n = 0; n < ND; ++n) {
-      const int col = n * 8 + 2 * t;
-      *reinterpret_cast<__nv_bfloat162*>(dkr + col) = __floats2bfloat162_rn(
-          dK[n][2 * r] * scale, dK[n][2 * r + 1] * scale);
-      *reinterpret_cast<__nv_bfloat162*>(dvr + col) =
-          __floats2bfloat162_rn(dV[n][2 * r], dV[n][2 * r + 1]);
-    }
-  }
-}
-
-template <int D>
-struct DqTile {
-  static constexpr int LDR = D + 8;   // row-major tiles
-  static constexpr int LDT = BT + 8;  // the transposed key tile
-  static constexpr size_t SMEM = sizeof(bf16) * (4 * BT * LDR + D * LDT);
-};
-
-template <int D>
-__global__ void __launch_bounds__(B_THREADS)
-dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-               const bf16* __restrict__ v, const bf16* __restrict__ dout,
-               const float* __restrict__ lse, const float* __restrict__ delta,
-               bf16* __restrict__ dq, Strides sq_, Strides sk_, Strides sv_,
-               Strides sd_, Strides sdq, int H, int group, int Sq, int Sk,
-               int causal, int window, float scale) {
-  using TL = DqTile<D>;
-  constexpr int LDR = TL::LDR, LDT = TL::LDT;
-  constexpr int NK = BT / 8, ND = D / 8;
-  extern __shared__ __align__(16) uint8_t smem_raw[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);  // [BT][LDR]
-  bf16* sO = sQ + BT * LDR;                       // [BT][LDR] dO
-  bf16* sK = sO + BT * LDR;                       // [BT][LDR]
-  bf16* sV = sK + BT * LDR;                       // [BT][LDR]
-  bf16* sKt = sV + BT * LDR;                      // [D][LDT]
+    bulk_load(sl + stage * BQ, l_rows + q0, BQ * sizeof(float), &full[stage]);
+    bulk_load(sd + stage * BQ, d_rows + q0, BQ * sizeof(float), &full[stage]);
+    return t + 1;
+  };
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int q0 = blockIdx.x * BT, h = blockIdx.y, b = blockIdx.z;
-  const int kvh = h / group;
-  load_tiles<bf16, D, BT, B_THREADS>(
-      sQ, nullptr, q + b * sq_.b + h * sq_.h, sq_.s, sO, nullptr,
-      dout + b * sd_.b + h * sd_.h, sd_.s, LDR, 0, q0, Sq, tid);
-  const bf16* kb = k + b * sk_.b + kvh * sk_.h;
-  const bf16* vb = v + b * sv_.b + kvh * sv_.h;
-  const bf16* qw = sQ + warp * 16 * LDR;  // this warp's 16 queries
-  const bf16* ow = sO + warp * 16 * LDR;
-  const long long rowh = ((long long)b * H + h) * Sq;
-  const float scale_log2 = scale * LOG2E;
-  float L2[2], Dl[2];
+  int t_load = t_begin;  // thread 0's cursor: the ring runs STAGES ahead
+  if (tid == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], WARPS);
+    }
+    mbar_fence_init();
+    mbar_expect_tx(kv_full, 2 * TB::KT);
+#pragma unroll
+    for (int c = 0; c < TB::NSUB; ++c) {
+      tma_load_4d(sk + c * TB::KSUB, &tmk, kv_full, 64 * c, k0, kvh, b);
+      tma_load_4d(sv + c * TB::KSUB, &tmv, kv_full, 64 * c, k0, kvh, b);
+    }
+    for (int s = 0; s < STAGES; ++s) t_load = load(t_load, s);
+  }
+  __syncthreads();
+
+  // s[4j + 2r + c] is key key0 + 8r, query q0 + 8j + 2 quad + c of the
+  // step's tile (dk, dv: key key0 + 8r, column 8j + 2 quad + c)
+  const int quad = lane % 4;
+  const int key0 = k0 + warp * 16 + lane / 4;
+  const float inv_sk = 1.f / Sk;
+  float dk[DP / 2], dv[DP / 2], s[BQ / 2], dp[BQ / 2];
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) dk[i] = dv[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < BQ / 2; ++i) s[i] = dp[i] = 0.f;
+  mbar_wait(kv_full, 0);
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int t = t_begin; t < nqt; ++t) {
+    const int q0 = t * BQ;
+    if (!needed(t)) continue;
+    mbar_wait(&full[stage], phase);
+    const uint8_t* sq = sqo + stage * 2 * TB::QT;
+    const uint8_t* so = sq + TB::QT;
+    wgmma_fence();
+    ss_product<DP, BQ>(s, sk, TB::KSUB, sq, TB::QSUB);   // S^T = K Q^T
+    ss_product<DP, BQ>(dp, sv, TB::KSUB, so, TB::QSUB);  // dP^T = V dO^T
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs<BQ / 2>(s);
+    fence_regs<BQ / 2>(dp);
+
+    // P^T and dS^T in place of S^T and dP^T; L and D are per query, i.e.
+    // per column.  Masks and keyless rows only where the tile can hold them.
+    const float* lq = sl + stage * BQ;
+    const float* dl = sd + stage * BQ;
+    const bool edge = window > 0 || (causal && k0 + BT - 1 > q0);
+#pragma unroll
+    for (int j = 0; j < BQ / 8; ++j) {
+      const float2 l2 = *reinterpret_cast<const float2*>(lq + 8 * j + 2 * quad);
+      const float2 d2 = *reinterpret_cast<const float2*>(dl + 8 * j + 2 * quad);
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const float lc = c ? l2.y : l2.x, dc = c ? d2.y : d2.x;
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int e = 4 * j + 2 * r + c;
+          float p = ex2(fmaf(s[e], scale_log2, -lc));
+          float ds = p * (dp[e] - dc);
+          if (edge) {
+            if (isinf(lc)) {  // a row that keeps no key: dV only
+              p = inv_sk;
+              ds = 0.f;
+            } else if (!keeps(q0 + 8 * j + 2 * quad + c, key0 + 8 * r, causal,
+                              window)) {
+              p = ds = 0.f;
+            }
+          }
+          s[e] = p;
+          dp[e] = ds;
+        }
+      }
+    }
+    uint32_t pa[BQ / 16][4], da[BQ / 16][4];
+    to_a<BQ / 16>(s, pa);
+    to_a<BQ / 16>(dp, da);
+    wgmma_fence();
+    rs_product<DP, BQ / 16>(dv, pa, so, TB::QSUB);  // dV += P^T dO
+    rs_product<DP, BQ / 16>(dk, da, sq, TB::QSUB);  // dK += dS^T Q
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs<DP / 2>(dv);
+    fence_regs<DP / 2>(dk);
+    fence_uregs<BQ / 4>(&pa[0][0]);
+    fence_uregs<BQ / 4>(&da[0][0]);
+    // the stage is read: every warp says so, then thread 0 refills it
+    if (lane == 0) mbar_arrive(&empty[stage]);
+    if (tid == 0 && t_load < nqt) {
+      mbar_wait(&empty[stage], phase);
+      t_load = load(t_load, stage);
+    }
+    __syncwarp();
+    if (++stage == STAGES) { stage = 0; phase ^= 1; }
+  }
+
+  // this head's partials: ws (2, B, H, Sk, D), keys past Sk not stored
+  const long long head = (long long)Sk * D;
+  float* wk = ws + ((long long)b * H + h) * head;
+  float* wv = wk + (long long)B * H * head;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int qpos = q0 + warp * 16 + g + 8 * r;
-    L2[r] = qpos < Sq ? lse[rowh + qpos] * LOG2E : INFINITY;
-    Dl[r] = qpos < Sq ? delta[rowh + qpos] : 0.f;
+    const int key = key0 + 8 * r;
+    if (key >= Sk) continue;
+#pragma unroll
+    for (int j = 0; j < DP / 8; ++j) {
+      const int col = 8 * j + 2 * quad;
+      if (col >= D) continue;  // D % 8 == 0: both columns or neither
+      *reinterpret_cast<float2*>(wk + (long long)key * D + col) =
+          make_float2(dk[4 * j + 2 * r], dk[4 * j + 2 * r + 1]);
+      *reinterpret_cast<float2*>(wv + (long long)key * D + col) =
+          make_float2(dv[4 * j + 2 * r], dv[4 * j + 2 * r + 1]);
+    }
   }
-  float dQ[ND][4];
-#pragma unroll
-  for (int n = 0; n < ND; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dQ[n][e] = 0.f;
+}
 
+// SUM_ROWS keys of one KV head: dK = scale * sum of its G heads' partials,
+// dV = their sum, added in head order, written through the strides.  A
+// thread takes 4 columns of one row and has up to SUM_LOADS partials in
+// flight at a time.
+__device__ __forceinline__ void sum_heads(const float* __restrict__ ws,
+                                          bf16* __restrict__ dk,
+                                          bf16* __restrict__ dv, Strides sdk,
+                                          Strides sdv, int B, int H, int KV,
+                                          int Sk, int D, float scale,
+                                          int blk) {
+  const int group = H / KV, nrc = (Sk + SUM_ROWS - 1) / SUM_ROWS;
+  const int r0 = blk % nrc * SUM_ROWS, kvh = blk / nrc % KV,
+            b = blk / (nrc * KV);
+  const int rows = min(SUM_ROWS, Sk - r0), c4 = D / 4, per = rows * c4;
+  const long long head = (long long)Sk * D;
+  const float* base = ws + ((long long)b * H + kvh * group) * head;
+  for (int i = threadIdx.x; i < 2 * per; i += blockDim.x) {
+    const int tsr = i / per, r = r0 + i % per / c4, c = 4 * (i % c4);
+    const float* p = base + tsr * (long long)B * H * head +
+                     (long long)r * D + c;
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int g0 = 0; g0 < group; g0 += SUM_LOADS) {
+      float4 x[SUM_LOADS];
+#pragma unroll
+      for (int g = 0; g < SUM_LOADS; ++g)
+        if (g0 + g < group)
+          x[g] = *reinterpret_cast<const float4*>(p + (g0 + g) * head);
+#pragma unroll
+      for (int g = 0; g < SUM_LOADS; ++g)
+        if (g0 + g < group) {
+          acc.x += x[g].x;
+          acc.y += x[g].y;
+          acc.z += x[g].z;
+          acc.w += x[g].w;
+        }
+    }
+    const float f = tsr == 0 ? scale : 1.f;
+    bf16* out = tsr == 0 ? dk + b * sdk.b + kvh * sdk.h + r * sdk.s
+                         : dv + b * sdv.b + kvh * sdv.h + r * sdv.s;
+    const __nv_bfloat162 lo = __floats2bfloat162_rn(acc.x * f, acc.y * f);
+    const __nv_bfloat162 hi = __floats2bfloat162_rn(acc.z * f, acc.w * f);
+    uint2 w;
+    w.x = *reinterpret_cast<const uint32_t*>(&lo);
+    w.y = *reinterpret_cast<const uint32_t*>(&hi);
+    *reinterpret_cast<uint2*>(out + c) = w;
+  }
+}
+
+// (c) blocks [0, n_dq): the 64 queries q0.. of head h against the key tiles
+// they keep, dQ through its strides; blocks from n_dq on: sum_heads
+template <int DP>
+__global__ void __launch_bounds__(W_THREADS, BwdTiles<DP>::MIN_BLOCKS)
+dq_wgmma_kernel(const __grid_constant__ CUtensorMap tmq,
+                const __grid_constant__ CUtensorMap tmk,
+                const __grid_constant__ CUtensorMap tmv,
+                const __grid_constant__ CUtensorMap tmdo,
+                const float* __restrict__ stats, const float* __restrict__ ws,
+                bf16* __restrict__ dq, bf16* __restrict__ dk,
+                bf16* __restrict__ dv, Strides sdq, Strides sdk, Strides sdv,
+                int B, int H, int KV, int Sq, int Sk, int ld, int D,
+                int causal, int window, float scale_log2, float scale,
+                int n_dq) {
+  using namespace hopper;
+  using TB = BwdTiles<DP>;
+  constexpr int STAGES = TB::DQ_STAGES;
+  if ((int)blockIdx.x >= n_dq) {
+    sum_heads(ws, dk, dv, sdk, sdv, B, H, KV, Sk, D, scale,
+              blockIdx.x - n_dq);
+    return;
+  }
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sq = align1024(smem_raw);
+  uint8_t* so = sq + TB::KT;  // dO
+  uint8_t* skv = so + TB::KT;  // stage s: K at 2 KT s, V KT after it
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(skv + STAGES * 2 * TB::KT);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + STAGES;
+
+  // under causal the last query tile keeps the most key tiles: it goes first
+  const int hb = blockIdx.x % (H * B), h = hb % H, b = hb / H;
+  const int t = blockIdx.x / (H * B), nqt = (Sq + BT - 1) / BT;
+  const int q0 = (causal ? nqt - 1 - t : t) * BT, kvh = h / (H / KV);
   int kt_begin, kt_end;
   key_tiles(q0, min(q0 + BT, Sq) - 1, BT, Sk, causal, window, &kt_begin,
             &kt_end);
+  // thread 0: K and V tile kt into ``stage``
+  auto load = [&](int kt, int stage) {
+    mbar_expect_tx(&full[stage], 2 * TB::KT);
+    uint8_t* sk = skv + stage * 2 * TB::KT;
+#pragma unroll
+    for (int c = 0; c < TB::NSUB; ++c) {
+      tma_load_4d(sk + c * TB::KSUB, &tmk, &full[stage], 64 * c, kt * BT,
+                  kvh, b);
+      tma_load_4d(sk + TB::KT + c * TB::KSUB, &tmv, &full[stage], 64 * c,
+                  kt * BT, kvh, b);
+    }
+  };
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  if (tid == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], WARPS);
+    }
+    mbar_fence_init();
+    mbar_expect_tx(q_full, 2 * TB::KT);
+#pragma unroll
+    for (int c = 0; c < TB::NSUB; ++c) {
+      tma_load_4d(sq + c * TB::KSUB, &tmq, q_full, 64 * c, q0, h, b);
+      tma_load_4d(so + c * TB::KSUB, &tmdo, q_full, 64 * c, q0, h, b);
+    }
+    for (int s = 0; s < STAGES && kt_begin + s < kt_end; ++s)
+      load(kt_begin + s, s);
+  }
+  __syncthreads();
+
+  // consumer: s[4j + 2r + c] is query row0 + 8r, key k0 + 8j + 2 quad + c
+  const int quad = lane % 4;
+  const int row0 = q0 + warp * 16 + lane / 4;
+  const long long row_h = ((long long)b * H + h) * ld;
+  float l2[2], dd[2];  // L log2(e) and D of the two rows (zeros past Sq)
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l2[r] = stats[row_h + row0 + 8 * r];
+    dd[r] = stats[(long long)B * H * ld + row_h + row0 + 8 * r];
+  }
+  float acc[DP / 2], s[32], dp[32];
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
+  mbar_wait(q_full, 0);
+  int stage = 0;
+  uint32_t phase = 0;
   for (int kt = kt_begin; kt < kt_end; ++kt) {
     const int k0 = kt * BT;
-    __syncthreads();  // the previous tile is no longer read
-    // K's transposed copy shares the loop; V needs only its rows
-    load_tiles<bf16, D, BT, B_THREADS>(sK, sKt, kb, sk_.s, sV, nullptr, vb,
-                                       sv_.s, LDR, LDT, k0, Sk, tid);
-    __syncthreads();
+    mbar_wait(&full[stage], phase);
+    const uint8_t* sk = skv + stage * 2 * TB::KT;
+    const uint8_t* sv = sk + TB::KT;
+    wgmma_fence();
+    ss_product<DP, 64>(s, sq, TB::KSUB, sk, TB::KSUB);   // S = Q K^T
+    ss_product<DP, 64>(dp, so, TB::KSUB, sv, TB::KSUB);  // dP = dO V^T
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs<32>(s);
+    fence_regs<32>(dp);
 
-    // S = Q K^T and dP = dO V^T: rows this warp's queries, columns keys
-    float s[NK][4], dp[NK][4];
+    // keys past Sk meet zero rows of K, but exp(-L) alone may overflow
+    const bool edge =
+        window > 0 || (causal && k0 + BT - 1 > q0) || k0 + BT > Sk;
 #pragma unroll
-    for (int n = 0; n < NK; ++n)
+    for (int j = 0; j < 8; ++j)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
-    mma_smem<D, NK>(s, qw, LDR, sK, LDR, g, t);
-    mma_smem<D, NK>(dp, ow, LDR, sV, LDR, g, t);
+      for (int r = 0; r < 2; ++r)
 #pragma unroll
-    for (int n = 0; n < NK; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1;
-        const int qpos = q0 + warp * 16 + g + 8 * r;
-        const int kpos = k0 + n * 8 + 2 * t + (e & 1);
-        float ds = 0.f;
-        if (kpos < Sk && keeps(qpos, kpos, causal, window) && !isinf(L2[r]))
-          ds = ex2(s[n][e] * scale_log2 - L2[r]) * (dp[n][e] - Dl[r]);
-        dp[n][e] = ds;
-      }
+        for (int c = 0; c < 2; ++c) {
+          const int e = 4 * j + 2 * r + c, kpos = k0 + 8 * j + 2 * quad + c;
+          float ds = ex2(fmaf(s[e], scale_log2, -l2[r])) * (dp[e] - dd[r]);
+          if (edge && (isinf(l2[r]) || kpos >= Sk ||
+                       !keeps(row0 + 8 * r, kpos, causal, window)))
+            ds = 0.f;  // masked, absent, or a row that keeps no key
+          dp[e] = ds;
+        }
+    uint32_t da[4][4];
+    to_a<4>(dp, da);
+    wgmma_fence();
+    rs_product<DP, 4>(acc, da, sk, TB::KSUB);  // dQ += dS K
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs<DP / 2>(acc);
+    fence_uregs<16>(&da[0][0]);
+    // the stage is read: every warp says so, then thread 0 refills it
+    if (lane == 0) mbar_arrive(&empty[stage]);
+    if (tid == 0 && kt + STAGES < kt_end) {
+      mbar_wait(&empty[stage], phase);
+      load(kt + STAGES, stage);
     }
-    uint32_t pa[BT / 16][4];
-    to_a_frags<BT>(dp, pa);
-    mma_regs<BT, ND>(dQ, pa, sKt, LDT, g, t);  // dQ += dS K
+    __syncwarp();
+    if (++stage == STAGES) { stage = 0; phase ^= 1; }
   }
 
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int qpos = q0 + warp * 16 + g + 8 * r;
-    if (qpos >= Sq) continue;
-    bf16* dqr = dq + b * sdq.b + h * sdq.h + qpos * sdq.s;
+    const int row = row0 + 8 * r;
+    if (row >= Sq) continue;
+    bf16* out = dq + b * sdq.b + h * sdq.h + row * sdq.s;
 #pragma unroll
-    for (int n = 0; n < ND; ++n)
-      *reinterpret_cast<__nv_bfloat162*>(dqr + n * 8 + 2 * t) =
-          __floats2bfloat162_rn(dQ[n][2 * r] * scale, dQ[n][2 * r + 1] * scale);
+    for (int j = 0; j < DP / 8; ++j) {
+      const int col = 8 * j + 2 * quad;
+      if (col < D)
+        *reinterpret_cast<__nv_bfloat162*>(out + col) = __floats2bfloat162_rn(
+            acc[4 * j + 2 * r] * scale, acc[4 * j + 2 * r + 1] * scale);
+    }
   }
 }
 
@@ -802,7 +934,7 @@ dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 struct Args {
   const void *q, *k, *v, *o, *dout;
   const float* lse;
-  float* delta;
+  float* scratch;
   void *dq, *dk, *dv;
   int B, H, KV, Sq, Sk, D;
   Strides sq, sk, sv, so, sd, sdq, sdk, sdv;
@@ -811,12 +943,22 @@ struct Args {
   cudaStream_t stream;
 };
 
+// D of rows (b * H + h) * ld + s into ``delta`` (and, with ``lse2``, L
+// log2(e) beside it)
 template <typename T>
-cudaError_t launch_delta(const Args& a) {
-  const long long rows = (long long)a.B * a.H * a.Sq;
-  delta_kernel<T><<<(unsigned)((rows + 7) / 8), 256, 0, a.stream>>>(
-      static_cast<const T*>(a.o), static_cast<const T*>(a.dout), a.delta,
-      a.so, a.sd, a.H, a.Sq, a.D, rows);
+cudaError_t launch_delta(const Args& a, float* delta, float* lse2, int ld) {
+  const long long rows = (long long)a.B * a.H * ld;
+  const int chunks = a.D * (int)sizeof(T) / 16;  // 16-byte loads a row
+  const int lanes = chunks <= 4 ? 4 : chunks <= 8 ? 8 : chunks <= 16 ? 16 : 32;
+  const unsigned blocks = (unsigned)((rows * lanes + 255) / 256);
+  const T* o = static_cast<const T*>(a.o);
+  const T* d = static_cast<const T*>(a.dout);
+  switch (lanes) {
+    case 4: delta_kernel<T, 4><<<blocks, 256, 0, a.stream>>>(o, d, a.lse, delta, lse2, a.so, a.sd, a.H, a.Sq, ld, a.D, rows); break;
+    case 8: delta_kernel<T, 8><<<blocks, 256, 0, a.stream>>>(o, d, a.lse, delta, lse2, a.so, a.sd, a.H, a.Sq, ld, a.D, rows); break;
+    case 16: delta_kernel<T, 16><<<blocks, 256, 0, a.stream>>>(o, d, a.lse, delta, lse2, a.so, a.sd, a.H, a.Sq, ld, a.D, rows); break;
+    default: delta_kernel<T, 32><<<blocks, 256, 0, a.stream>>>(o, d, a.lse, delta, lse2, a.so, a.sd, a.H, a.Sq, ld, a.D, rows); break;
+  }
   return cudaGetLastError();
 }
 
@@ -830,7 +972,8 @@ cudaError_t allow_smem(K kernel, size_t bytes) {
 
 template <int D>
 cudaError_t launch_f32(const Args& a) {
-  cudaError_t err = launch_delta<float>(a);
+  float* delta = a.scratch;  // (B, H, Sq)
+  cudaError_t err = launch_delta<float>(a, delta, nullptr, a.Sq);
   if (err != cudaSuccess) return err;
   const float *q = static_cast<const float*>(a.q),
               *k = static_cast<const float*>(a.k),
@@ -839,7 +982,7 @@ cudaError_t launch_f32(const Args& a) {
   auto dkdv = dkdv_f32_kernel<D>;
   if ((err = allow_smem(dkdv, f32_dkdv_smem<D>())) != cudaSuccess) return err;
   dkdv<<<dim3((a.Sk + FT - 1) / FT, a.KV, a.B), F_THREADS, f32_dkdv_smem<D>(),
-         a.stream>>>(q, k, v, d, a.lse, a.delta, static_cast<float*>(a.dk),
+         a.stream>>>(q, k, v, d, a.lse, delta, static_cast<float*>(a.dk),
                      static_cast<float*>(a.dv), a.sq, a.sk, a.sv, a.sd, a.sdk,
                      a.sdv, a.H, a.H / a.KV, a.Sq, a.Sk, a.causal, a.window,
                      a.scale);
@@ -847,35 +990,59 @@ cudaError_t launch_f32(const Args& a) {
   auto dqk = dq_f32_kernel<D>;
   if ((err = allow_smem(dqk, f32_dq_smem<D>())) != cudaSuccess) return err;
   dqk<<<dim3((a.Sq + FT - 1) / FT, a.H, a.B), F_THREADS, f32_dq_smem<D>(),
-        a.stream>>>(q, k, v, d, a.lse, a.delta, static_cast<float*>(a.dq),
+        a.stream>>>(q, k, v, d, a.lse, delta, static_cast<float*>(a.dq),
                     a.sq, a.sk, a.sv, a.sd, a.sdq, a.H, a.H / a.KV, a.Sq,
                     a.Sk, a.causal, a.window, a.scale);
   return cudaGetLastError();
 }
 
-template <int D>
+// hopper's rank-4 map over one (B, heads, S, D) tensor
+cudaError_t encode_bhsd(CUtensorMap* map, const void* base, int B, int heads,
+                        int S, int D, Strides st, int rows) {
+  return (cudaError_t)hopper::encode_bhsd(map, base, B, heads, S, D, st.b,
+                                          st.h, st.s, rows);
+}
+
+template <int DP>
 cudaError_t launch_bf16(const Args& a) {
-  cudaError_t err = launch_delta<bf16>(a);
+  using TB = BwdTiles<DP>;
+  const int ld = (a.Sq + BT - 1) / BT * BT;
+  const long long rows = (long long)a.B * a.H * ld;
+  float* stats = a.scratch;  // L log2(e) rows, then D rows, then ws
+  float* ws = a.scratch + 2 * rows;
+  cudaError_t err = launch_delta<bf16>(a, stats + rows, stats, ld);
   if (err != cudaSuccess) return err;
-  const bf16 *q = static_cast<const bf16*>(a.q),
-             *k = static_cast<const bf16*>(a.k),
-             *v = static_cast<const bf16*>(a.v),
-             *d = static_cast<const bf16*>(a.dout);
-  constexpr size_t dkdv_smem = DkdvTile<D>::SMEM, dq_smem = DqTile<D>::SMEM;
-  auto dkdv = dkdv_bf16_kernel<D>;
-  if ((err = allow_smem(dkdv, dkdv_smem)) != cudaSuccess) return err;
-  dkdv<<<dim3((a.Sk + BT - 1) / BT, a.KV, a.B), DKDV_THREADS, dkdv_smem,
-         a.stream>>>(q, k, v, d, a.lse, a.delta, static_cast<bf16*>(a.dk),
-                     static_cast<bf16*>(a.dv), a.sq, a.sk, a.sv, a.sd, a.sdk,
-                     a.sdv, a.H, a.H / a.KV, a.Sq, a.Sk, a.causal, a.window,
-                     a.scale);
+  CUtensorMap tmq, tmdo, tmk, tmv, tmq64, tmdo64;
+  if ((err = encode_bhsd(&tmq, a.q, a.B, a.H, a.Sq, a.D, a.sq, TB::BQ)) ||
+      (err = encode_bhsd(&tmdo, a.dout, a.B, a.H, a.Sq, a.D, a.sd, TB::BQ)) ||
+      (err = encode_bhsd(&tmk, a.k, a.B, a.KV, a.Sk, a.D, a.sk, BT)) ||
+      (err = encode_bhsd(&tmv, a.v, a.B, a.KV, a.Sk, a.D, a.sv, BT)))
+    return err;
+  if (TB::BQ == BT) {
+    tmq64 = tmq;
+    tmdo64 = tmdo;
+  } else if ((err = encode_bhsd(&tmq64, a.q, a.B, a.H, a.Sq, a.D, a.sq, BT)) ||
+             (err = encode_bhsd(&tmdo64, a.dout, a.B, a.H, a.Sq, a.D, a.sd,
+                                BT))) {
+    return err;
+  }
+  const float scale_log2 = a.scale * LOG2E;
+  const int nkt = (a.Sk + BT - 1) / BT, nqt = (a.Sq + BT - 1) / BT;
+  auto dkdv = dkdv_wgmma_kernel<DP>;
+  if ((err = allow_smem(dkdv, TB::DKDV_SMEM)) != cudaSuccess) return err;
+  dkdv<<<nkt * a.H * a.B, W_THREADS, TB::DKDV_SMEM, a.stream>>>(
+      tmq, tmk, tmv, tmdo, stats, ws, a.B, a.H, a.H / a.KV, a.Sq, a.Sk, ld,
+      a.D, a.causal, a.window, scale_log2);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  auto dqk = dq_bf16_kernel<D>;
-  if ((err = allow_smem(dqk, dq_smem)) != cudaSuccess) return err;
-  dqk<<<dim3((a.Sq + BT - 1) / BT, a.H, a.B), B_THREADS, dq_smem,
-        a.stream>>>(q, k, v, d, a.lse, a.delta, static_cast<bf16*>(a.dq),
-                    a.sq, a.sk, a.sv, a.sd, a.sdq, a.H, a.H / a.KV, a.Sq,
-                    a.Sk, a.causal, a.window, a.scale);
+  const int n_dq = nqt * a.H * a.B;
+  const int n_sum = a.B * a.KV * ((a.Sk + SUM_ROWS - 1) / SUM_ROWS);
+  auto dqk = dq_wgmma_kernel<DP>;
+  if ((err = allow_smem(dqk, TB::DQ_SMEM)) != cudaSuccess) return err;
+  dqk<<<n_dq + n_sum, W_THREADS, TB::DQ_SMEM, a.stream>>>(
+      tmq64, tmk, tmv, tmdo64, stats, ws, static_cast<bf16*>(a.dq),
+      static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv), a.sdq, a.sdk,
+      a.sdv, a.B, a.H, a.KV, a.Sq, a.Sk, ld, a.D, a.causal, a.window,
+      scale_log2, a.scale, n_dq);
   return cudaGetLastError();
 }
 
@@ -887,15 +1054,17 @@ bool aligned16(const void* p, Strides st, int elems16) {
 }  // namespace
 
 // dtype: 0 = f32, 1 = bf16.  window <= 0: no window.  lse: the forward's
-// row statistics, f32 (B, H, Sq) contiguous; delta: f32 scratch of the same
-// size.  Strides in elements (D has unit stride), three per tensor, in the
-// order q, k, v, o, dO, dQ, dK, dV; every pointer and stride 16-byte
-// aligned.  Launches three kernels on ``stream``; returns the first
-// launch's error (0 on success), or the error that kept it from
-// launching; does not synchronise.
+// row statistics, f32 (B, H, Sq) contiguous.  scratch: f32, 16-byte
+// aligned, of flash_attn_bwd_scratch(...) floats: f32, D (B, H, Sq); bf16,
+// L log2(e) and D (B, H, ld) each, ld = Sq rounded up to 64, then the
+// partial dK and dV (2, B, H, Sk, D).  Strides in elements (D has unit
+// stride), three per tensor, in the order q, k, v, o, dO, dQ, dK, dV;
+// every pointer and stride 16-byte aligned.  Launches three kernels on
+// ``stream``; returns the first launch's error (0 on success), or the
+// error that kept it from launching; does not synchronise.
 extern "C" int flash_attn_bwd(
     const void* q, const void* k, const void* v, const void* o,
-    const void* dout, const float* lse, float* delta, void* dq, void* dk,
+    const void* dout, const float* lse, float* scratch, void* dq, void* dk,
     void* dv, int B, int H, int KV, int Sq, int Sk, int D, long long qsb,
     long long qsh, long long qss, long long ksb, long long ksh, long long kss,
     long long vsb, long long vsh, long long vss, long long osb, long long osh,
@@ -905,8 +1074,8 @@ extern "C" int flash_attn_bwd(
     int causal, int window, int dtype, float scale, void* stream) {
   if (B < 1 || H < 1 || KV < 1 || H % KV || Sq < 1 || Sk < 1)
     return (int)cudaErrorInvalidValue;
-  const Args a{q, k, v, o, dout, lse, delta, dq, dk, dv, B, H, KV, Sq, Sk, D,
-               {qsb, qsh, qss}, {ksb, ksh, kss}, {vsb, vsh, vss},
+  const Args a{q, k, v, o, dout, lse, scratch, dq, dk, dv, B, H, KV, Sq, Sk,
+               D, {qsb, qsh, qss}, {ksb, ksh, kss}, {vsb, vsh, vss},
                {osb, osh, oss}, {dsb, dsh, dss}, {dqsb, dqsh, dqss},
                {dksb, dksh, dkss}, {dvsb, dvsh, dvss}, causal, window, scale,
                static_cast<cudaStream_t>(stream)};
@@ -914,7 +1083,8 @@ extern "C" int flash_attn_bwd(
   if (!(aligned16(q, a.sq, e16) && aligned16(k, a.sk, e16) &&
         aligned16(v, a.sv, e16) && aligned16(o, a.so, e16) &&
         aligned16(dout, a.sd, e16) && aligned16(dq, a.sdq, e16) &&
-        aligned16(dk, a.sdk, e16) && aligned16(dv, a.sdv, e16)))
+        aligned16(dk, a.sdk, e16) && aligned16(dv, a.sdv, e16) &&
+        reinterpret_cast<uintptr_t>(scratch) % 16 == 0))
     return (int)cudaErrorInvalidValue;
   cudaError_t err;
   if (dtype == 0) {
@@ -926,10 +1096,10 @@ extern "C" int flash_attn_bwd(
       default: err = cudaErrorInvalidValue;
     }
   } else if (dtype == 1) {
-    switch (D) {
-      case 32: err = launch_bf16<32>(a); break;
+    switch (D) {  // padded to whole 64-column sub-tiles
+      case 32:
       case 64: err = launch_bf16<64>(a); break;
-      case 80: err = launch_bf16<80>(a); break;
+      case 80:
       case 128: err = launch_bf16<128>(a); break;
       default: err = cudaErrorInvalidValue;
     }
@@ -937,6 +1107,14 @@ extern "C" int flash_attn_bwd(
     err = cudaErrorInvalidValue;
   }
   return (int)err;
+}
+
+// floats of the scratch buffer flash_attn_bwd takes
+extern "C" long long flash_attn_bwd_scratch(int B, int H, int Sq, int Sk,
+                                            int D, int dtype) {
+  if (dtype == 0) return (long long)B * H * Sq;
+  const long long ld = (Sq + BT - 1) / BT * BT;
+  return 2LL * B * H * ld + 2LL * B * H * Sk * D;
 }
 
 extern "C" const char* flash_attn_bwd_error_string(int err) {

@@ -551,15 +551,11 @@ flash_attn_bf16_kernel(const __grid_constant__ CUtensorMap tmq,
   }
 }
 
-// rank-4 map over one (B, heads, S, D) tensor: dims D, S, heads, B
+// hopper's rank-4 map over one (B, heads, S, D) tensor
 int encode_bhsd(CUtensorMap* map, const void* base, int B, int heads, int S,
                 int D, Strides st, int rows) {
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)S,
-                              (cuuint64_t)heads, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)st.s * 2, (cuuint64_t)st.h * 2,
-                                 (cuuint64_t)st.b * 2};
-  const cuuint32_t box[4] = {64, (cuuint32_t)rows, 1, 1};
-  return hopper::encode_bf16(map, base, 4, dims, strides, box);
+  return hopper::encode_bhsd(map, base, B, heads, S, D, st.b, st.h, st.s,
+                             rows);
 }
 
 template <int DP>

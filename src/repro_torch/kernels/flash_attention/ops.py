@@ -31,8 +31,10 @@ HEAD_DIMS = (32, 64, 80, 128)  # instantiated in the kernels
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # the kernels' variant for each dtype (csrc/flash_attn_fwd.cu, _bwd.cu)
 VARIANTS = {torch.float32: "f32", torch.bfloat16: "wgmma"}
-BWD_VARIANTS = {torch.float32: "f32", torch.bfloat16: "mma_sync"}
-LAUNCHES_PER_CALL = 3  # backward: D = rowsum(dO o O), dK and dV, dQ
+BWD_VARIANTS = {torch.float32: "f32", torch.bfloat16: "wgmma"}
+# backward: D = rowsum(dO o O); dK and dV (bf16: per query head); dQ (bf16:
+# and the sum of each KV head's partial dK, dV)
+LAUNCHES_PER_CALL = 3
 
 
 @functools.cache
@@ -55,6 +57,8 @@ def _bwd_lib() -> ctypes.CDLL:
     lib.flash_attn_bwd.argtypes = [*[p] * 10, *[i] * 6, *[ll] * 24, i, i, i,
                                    ctypes.c_float, p]
     lib.flash_attn_bwd.restype = i
+    lib.flash_attn_bwd_scratch.argtypes = [i] * 6
+    lib.flash_attn_bwd_scratch.restype = ll
     lib.flash_attn_bwd_error_string.argtypes = [i]
     lib.flash_attn_bwd_error_string.restype = ctypes.c_char_p
     return lib
@@ -213,7 +217,10 @@ def flash_attention_bwd(q, k, v, o, lse, dout, *, causal: bool = True,
     q, k, v as the forward took them; o its output; lse its row statistics
     (``flash_attention_stats``); dout the output's gradient, copied where
     the kernel does not take its strides.  On CUDA tensors three launches
-    (``LAUNCHES_PER_CALL``); on CPU tensors ``ref.attention_bwd_ref``."""
+    (``LAUNCHES_PER_CALL``) and one f32 scratch buffer: D, and for bf16 the
+    statistics padded to 64 rows and each query head's partial dK and dV,
+    (2, B, H, Sk, D), summed per KV head in a fixed order; on CPU tensors
+    ``ref.attention_bwd_ref``."""
     _check(q, k, v, window)
     if o.shape != q.shape or dout.shape != q.shape:
         raise ValueError(f"o {tuple(o.shape)} and dout {tuple(dout.shape)} "
@@ -236,17 +243,19 @@ def flash_attention_bwd(q, k, v, o, lse, dout, *, causal: bool = True,
                         for t in (q, k, v, o, dout))
     kv, sk = k.shape[1], k.shape[2]
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    delta = torch.empty(b, h, sq, dtype=torch.float32, device=device)
+    code = _DTYPE_CODES[q.dtype]
+    scratch = torch.empty(_bwd_lib().flash_attn_bwd_scratch(b, h, sq, sk, d,
+                                                            code),
+                          dtype=torch.float32, device=device)
     strides = [s for t in (q, k, v, o, dout, dq, dk, dv)
                for s in kernel_strides(t)]
     with _build.on_device(device):
         err = _bwd_lib().flash_attn_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(), scratch.data_ptr(), dq.data_ptr(),
             dk.data_ptr(), dv.data_ptr(), b, h, kv, sq, sk, d, *strides,
             1 if causal else 0, -1 if window is None else int(window),
-            _DTYPE_CODES[q.dtype], 1.0 / math.sqrt(d),
-            _build.raw_stream(device))
+            code, 1.0 / math.sqrt(d), _build.raw_stream(device))
     if err:
         raise RuntimeError(
             f"flash_attn_bwd launch failed ({BWD_VARIANTS[q.dtype]}): CUDA "

@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks shared by the port's kernels (K1
-// flash_attention, K5 moe_gmm, K4's streamed product in compress):
+// flash_attention and its backward, K5 moe_gmm, K4's streamed product in
+// compress):
 // mbarriers, TMA tile loads and their tensor maps, 1-D bulk copies, named
 // barriers, wgmma shared-memory descriptors and instructions, and
 // setmaxnreg.  Raw PTX, no CUTLASS: nvcc builds each kernel in seconds.
@@ -242,6 +243,46 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss_k_k(float* d, uint64_t a,
       : "l"(a), "l"(b), "r"(scale_d));
 }
 
+// D (64 x 64 f32, registers) += A (64 x 16, K-major) * B (16 x 64,
+// K-major), both in shared memory; scale_d = 0 overwrites D
+__device__ __forceinline__ void wgmma_m64n64k16_ss_k_k(float* d, uint64_t a,
+                                                  uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      :
+      "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+      "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+      "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+      "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+      "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+      "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// D (64 x 32 f32, registers) += A (64 x 16, K-major) * B (16 x 32,
+// K-major), both in shared memory; scale_d = 0 overwrites D
+__device__ __forceinline__ void wgmma_m64n32k16_ss_k_k(float* d, uint64_t a,
+                                                  uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      :
+      "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+      "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+      "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+      "+f"(d[15])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
 // D (64 x 8 f32, registers) += A (64 x 16, MN-major) * B (16 x 8,
 // K-major), both in shared memory; scale_d = 0 overwrites D
 __device__ __forceinline__ void wgmma_m64n8k16_ss_mn_k(float* d, uint64_t a,
@@ -403,6 +444,20 @@ inline int encode_bf16(CUtensorMap* map, const void* base, int rank,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// rank-4 map over one bf16 (B, heads, S, D) tensor (dims D, S, heads, B;
+// strides in elements, D's unit), read in boxes of 64 columns x ``rows``
+// rows.  Returns 0 or a cudaError_t.
+inline int encode_bhsd(CUtensorMap* map, const void* base, int B, int heads,
+                       int S, int D, long long sb, long long sh,
+                       long long ss, int rows) {
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)S,
+                              (cuuint64_t)heads, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)ss * 2, (cuuint64_t)sh * 2,
+                                 (cuuint64_t)sb * 2};
+  const cuuint32_t box[4] = {64, (cuuint32_t)rows, 1, 1};
+  return encode_bf16(map, base, 4, dims, strides, box);
 }
 
 inline int sm_count() {

@@ -48,6 +48,12 @@ SHAPES = [(1, 2, 2, 128, 128, 64), (2, 4, 2, 256, 256, 64),
           (1, 4, 2, 128, 128, 80), (2, 4, 2, 200, 200, 32),
           (1, 4, 2, 300, 100, 64)]
 MASKS = [(True, None), (False, None), (True, 128), (True, 32)]
+# the backward's grid over query heads at its edges: a granite-like GQA
+# shape at D 128 (several waves of blocks), H = KV (one head a KV head),
+# Sq > Sk with rows that keep no key under both windows, and a length that
+# is not a whole number of 64-row tiles
+BWD_SHAPES = SHAPES + [(2, 32, 8, 512, 512, 128), (2, 4, 4, 192, 192, 64),
+                       (1, 6, 2, 333, 150, 80), (1, 3, 3, 77, 77, 32)]
 
 
 @pytest.fixture
@@ -160,11 +166,11 @@ def _max_err(a, b):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("shape", BWD_SHAPES)
 @pytest.mark.parametrize("causal,window", MASKS)
 def test_backward_kernel_matches_plain(cuda, shape, causal, window, dtype):
     """K1-bwd over the forward's sweep (rows that keep no key included)
-    against the f64 gradient.  f32: within 2e-5 (TOL, the forward's f32
+    and the edges of its grid over query heads against the f64 gradient.  f32: within 2e-5 (TOL, the forward's f32
     tolerance).  bf16, FlashAttention's own convention: the kernel's max
     error is at most twice that of the plain version run in bf16 (which
     rounds P and dS to bf16 as the kernel does) plus 1e-3."""
@@ -176,7 +182,7 @@ def test_backward_kernel_matches_plain(cuda, shape, causal, window, dtype):
     torch.cuda.synchronize()
     assert flash_attention_bwd.launches == before + BWD_LAUNCHES
     assert flash_attention_bwd.last_variant == \
-        ("f32" if dtype == torch.float32 else "mma_sync")
+        ("f32" if dtype == torch.float32 else "wgmma")
     ref = _bwd_f64(q, k, v, do, causal, window)
     if dtype == torch.float32:
         for got, want in zip(grads, ref):
@@ -193,6 +199,26 @@ def test_backward_kernel_matches_plain(cuda, shape, causal, window, dtype):
         assert got.dtype == dtype and bool(torch.isfinite(got).all())
         err, err_plain = _max_err(got, want), _max_err(p, want)
         assert err <= 2 * err_plain + 1e-3, (name, err, err_plain)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,causal,window", [
+    ((4, 14, 2, 512, 512, 64), True, None),
+    ((2, 32, 8, 512, 512, 128), True, None),
+    ((1, 6, 2, 333, 150, 80), True, 32)])
+def test_backward_kernel_is_deterministic(cuda, shape, causal, window, dtype):
+    """K1-bwd sums the G query heads of a KV head in a fixed order and uses
+    no atomics: two calls on the same inputs give the same bits."""
+    q, k, v, do = _bwd_inputs(sum(shape) + 7, shape, dtype, cuda,
+                              views=True)
+    o, lse = flash_attention_stats(q, k, v, causal=causal, window=window)
+    first = flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
+                                window=window)
+    second = flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
+                                 window=window)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
