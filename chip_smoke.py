@@ -55,6 +55,26 @@ exits non-zero:
    on one fixed batch of B 8 x S 512: losses finite and the last <= 0.9 x
    the first; step time, tokens/s, peak memory, one profiled step, and
    the launches of a step against train_launches.
+3c. data-parallel training, qwen2-0.5b at full width and depth, 4 gloo
+   ranks sharing the card (the main process frees its tensors first):
+   dp_parity, one f32 step of ZeRO-1 and one of plain DP on ``ring`` (B 8
+   x S 256, lr 1e-3 from the first step) against the single-card step on
+   the whole batch (loss and grad_norm within rtol 1e-4; m and v within
+   1e-5 of their max; params within 1e-3 x lr of AdamW written out from
+   the run's own moments, and each leaf's update within 1e-2 of the
+   single-card step's; the ranks' parameters bit-equal); dp_training,
+   ZeRO-1 through the
+   launcher's ``run`` (``repro_torch.launch.train``: bf16 gradients, B 8
+   x S 512, 2 microbatches, remat, 5 steps on one batch, a checkpoint
+   written and restored): losses finite and the last <= 0.9 x the first,
+   the optimizer state <= 0.26 of the replicated one, each rank's K1 and
+   K1-bwd launches a step equal to ``train_launches``; step wall, compute
+   and exchange times, wire and staged bytes, peak memory a rank;
+   dp_q8, plain DP on ``ring_q8`` (3 steps): the first step's real
+   gradient, before and after the sync, synced again exactly, by
+   ``ring_q4`` and by ``ring_q8`` (bit-equal to the step's): errors against
+   the exact sum (the stand-in's regime beside them), each within its
+   collective's envelope, wire ratios.  Times are gloo over loopback.
 4. codecs (K2a, K2b, K3, K4): a stand-in gradient of qwen2-0.5b at full
    width and depth (one seeded tensor per parameter) through the q8, q4,
    topk and lowrank codecs over two error-feedback steps, held to the JAX
@@ -62,14 +82,17 @@ exits non-zero:
    then the payload-level quantize/dequantize/sparsify over the flattened
    gradient and the projection of every matrix; then the payload-level
    sparsify as one row against the zero-padded rows of 256 it replaced,
-   in turns, device ms and peak memory.
+   in turns, device ms and peak memory.  Then the four codecs over the
+   real gradient of one f32 step (the step's hook), against the plain
+   versions, their errors reported beside the stand-in's regime.
 5. collectives (K2a, K2b): four gloo ranks share the card, each syncing
    its own stand-in gradient in 64 MiB buckets through ring_q8, ring_q4,
    ring and bidir_ring, and two buckets through the ATP schedule with and
    without q8; results against the sum of the four gradients (regenerated
    from their seeds) and across ranks.  Times are gloo over loopback.
 6. The kernels line (all eight kernels, launches from the path that runs
-   each), the card's name and power limit, and last the line
+   each, and by every path, the data-parallel ones summed over the
+   ranks), the card's name and power limit, and last the line
    {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
@@ -81,6 +104,7 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 import types
 
@@ -104,7 +128,8 @@ try:
                                      reset_launch_counts)
     from repro_torch.kernels.compress import ops as cops
     from repro_torch.kernels.compress import ref as cref
-    from repro_torch.core.types import TrainConfig
+    from repro_torch.checkpoint import restore_checkpoint
+    from repro_torch.core.types import MeshConfig, TrainConfig
     from repro_torch.data import make_batches
     from repro_torch.kernels.flash_attention import (attention_bwd_ref,
                                                      attention_lse_ref,
@@ -116,11 +141,14 @@ try:
         LAUNCHES_PER_CALL as FA_BWD_LAUNCHES
     from repro_torch.kernels.moe_gmm import moe_gmm, moe_gmm_ref
     from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_ref
-    from repro_torch.launch.ranks import spawn_ranks
+    from repro_torch.launch import train as launch_train
+    from repro_torch.launch.mesh import data_group
+    from repro_torch.launch.ranks import rank_device, spawn_ranks
     from repro_torch.models import (init_cache, init_params, param_leaves,
                                     prefill_launches, train_launches,
                                     tree_map)
-    from repro_torch.optim import init_opt_state
+    from repro_torch.optim import gather_opt_state, init_opt_state
+    from repro_torch.parallel import flat_layout, make_ctx
     from repro_torch.serve import make_prefill, make_serve_step
     from repro_torch.serve.batcher import ContinuousBatcher
     from repro_torch.train import make_train_step
@@ -1340,10 +1368,11 @@ def _plain_decode(name: str, codec, g):
     return cref.matmul_ref(p, q.T).reshape(g.shape)
 
 
-def _run_codec(name: str, grads) -> dict:
+def _run_codec(name: str, grads, gradient: str = "stand-in") -> dict:
     """encode -> decode over every tensor, the error-feedback state carried
-    over two steps; checks against the regime, the spec and the plain
-    versions."""
+    over two steps; checks against the spec and the plain versions, and on
+    the stand-in (where the JAX tests define it) against the regime; on
+    the real gradient the error is reported beside the regime."""
     codec = get_codec(name)
     n0 = launch_counts()
     states = [codec.init_state(g) for g in grads]
@@ -1400,8 +1429,10 @@ def _run_codec(name: str, grads) -> dict:
         check(result["ef_invariant_rel_err"] <= 1e-5,
               f"{name}: residual != accumulated bias "
               f"({result['ef_invariant_rel_err']})")
-    emit({"phase": "codec", "arch": ARCH, **result})
-    check(steps[0]["rel_l2_err"] <= CODEC_REGIME[name],
+    result["regime"] = CODEC_REGIME[name]
+    result["within_regime"] = steps[0]["rel_l2_err"] <= CODEC_REGIME[name]
+    emit({"phase": "codec", "arch": ARCH, "gradient": gradient, **result})
+    check(result["within_regime"] or gradient != "stand-in",
           f"{name}: relative L2 error {steps[0]['rel_l2_err']} beyond "
           f"{CODEC_REGIME[name]}")
     check(result["wire_ratio"] <= 2 * codec.spec.wire_ratio,
@@ -1451,8 +1482,9 @@ def _payload_sparsify_routes(flat, thresh) -> None:
 
 def phase_codecs(seed: int) -> dict:
     """The codec path at full width and depth: one stand-in gradient tensor
-    per parameter of qwen2-0.5b (seeded normal values; the training step
-    that makes real gradients is a later slice) through q8, q4, topk and
+    per parameter of qwen2-0.5b (seeded normal values, where the JAX
+    tests' error regime is defined; ``phase_codecs_real`` takes a real
+    gradient) through q8, q4, topk and
     lowrank, then the payload-level ops over the flattened gradient and
     the projection per matrix.  Launch counts set to 0 just before, read
     just after."""
@@ -1515,6 +1547,45 @@ def phase_codecs(seed: int) -> dict:
     return {"counts": counts, "values": n_values,
             "ms": {k: [s["ms"] for s in v["steps"]]
                    for k, v in codecs.items()}}
+
+
+def phase_codecs_real(seed: int) -> dict:
+    """The codecs over the real gradient of one qwen2-0.5b step (f32, B 8 x
+    S 512 in 2 microbatches, remat), taken by the step's hook before
+    AdamW, beside the stand-in: error, wire ratio, and the kernels against
+    their plain versions.  Returns the launch counts."""
+    cfg = get_config(ARCH)
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    params = init_params(cfg, gen, dtype=torch.float32, device=DEVICE)
+    batch = next(make_batches(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=seed))
+    taken = []
+
+    def hook(stage, grads):
+        if stage == "synced":  # one card: the same list as "local"
+            taken.extend(g.detach().clone() for g in grads)
+
+    step = make_train_step(cfg, TrainConfig(**dict(TRAIN_TCFG,
+                                                   grad_dtype="f32")))
+    params, opt, m = step(params, init_opt_state(params), batch,
+                          grad_hook=hook)
+    loss = float(m["loss"])
+    del params, opt, step
+    _release()
+    reset_launch_counts()
+    codecs = {name: _run_codec(name, taken, gradient="real")
+              for name in CODEC_REGIME}
+    counts = launch_counts()
+    emit({"phase": "codec_real_gradient", "arch": ARCH, "loss": loss,
+          "values": sum(g.numel() for g in taken),
+          "rel_l2_err": {k: v["steps"][0]["rel_l2_err"]
+                         for k, v in codecs.items()},
+          "wire_ratio": {k: v["wire_ratio"] for k, v in codecs.items()},
+          "outside_regime": [k for k, v in codecs.items()
+                             if not v["within_regime"]],
+          "launches": counts})
+    del taken
+    _release()
+    return counts
 
 
 # --------------------------------------------------------------------------
@@ -1949,6 +2020,432 @@ def run_training(seed: int) -> dict:
     return counts
 
 
+# --------------------------------------------------------------------------
+# 4c. data-parallel training (qwen2-0.5b, full width and depth), 4 gloo
+# ranks sharing the card
+# --------------------------------------------------------------------------
+
+DP_PARITY_BATCH, DP_PARITY_SEQ = 8, 256
+DP_STEPS = 5
+DP_Q8_STEPS = 3
+# the f32 parity step at lr 1e-3 from the first step: AdamW's first update
+# is about lr x sign(g), a hundred times the 1e-5 bounds, so an update that
+# is skipped or wrong shows (``_update_err``)
+DP_PARITY_TCFG = dict(microbatches=1, remat=False, learning_rate=1e-3,
+                      warmup_steps=1)
+DP_Q8_TCFG = dict(TRAIN_TCFG, grad_dtype="f32", zero1=False)
+
+
+def _paths(tree, prefix=""):
+    """The leaves' paths, in ``param_leaves`` order."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _paths(v, f"{prefix}/{k}")
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            yield from _paths(v, f"{prefix}/{i}")
+    else:
+        yield prefix
+
+
+def _tree_err(got, want) -> dict:
+    """The largest |got - want| over the tree's largest |want|, and the
+    leaf with the largest error over its own max (for the record: the
+    smallest leaves, the projections' biases, sum their gradient over every
+    token of the batch, so their rounding is largest against their own
+    max)."""
+    errs = [(float((a - b).abs().max()), float(b.abs().max()), path)
+            for a, b, path in zip(param_leaves(got), param_leaves(want),
+                                  _paths(want))]
+    err, top, path = max(errs, key=lambda e: e[0] / max(e[1], 1e-30))
+    return {"err_over_max": max(e[0] for e in errs)
+            / max(e[1] for e in errs),
+            "worst_leaf": path, "worst_leaf_err": err, "worst_leaf_max": top}
+
+
+def _update_err(p0, got, want, m, v, tcfg: TrainConfig, lr: float) -> dict:
+    """The first AdamW step's parameters ``got`` held two ways, leaf by
+    leaf: "adamw", the largest |got - AdamW(p0, m, v)| over the rate, with
+    AdamW written out in f64 from the run's own moments ``m``, ``v`` (step
+    1's bias corrections, decoupled weight decay), every element: a shard's
+    update that is skipped, mis-signed or mis-corrected shows here;
+    "update", the largest ||(got - p0) - (want - p0)|| / ||want - p0|| over
+    the leaves, against the reference's parameters ``want``.  Element by
+    element the update cannot be held to a reference at a visible rate: it
+    is lr * g / (|g| + eps), which turns the rounding of a gradient near
+    eps, or a sign that rounding flips, into a change of up to 2 lr."""
+    adamw, update, worst = 0.0, 0.0, None
+    for a0, a, b, mm, vv, path in zip(
+            param_leaves(p0), param_leaves(got), param_leaves(want),
+            param_leaves(m), param_leaves(v), _paths(p0)):
+        p = a0.double()
+        ref = p - lr * ((mm.double() / (1 - tcfg.beta1))
+                        / ((vv.double() / (1 - tcfg.beta2)).sqrt()
+                           + tcfg.eps) + tcfg.weight_decay * p)
+        adamw = max(adamw, float((a.double() - ref).abs().max()) / lr)
+        del ref
+        du = float(torch.linalg.vector_norm(b.double() - p))
+        err = float(torch.linalg.vector_norm(a.double() - b.double()))
+        r = err / du if du else 0.0 if err == 0 else math.inf
+        if r >= update:
+            update, worst = r, path
+    return {"adamw_over_lr": adamw, "update_rel_err": update,
+            "worst_leaf": worst}
+
+
+def _exchange() -> tuple:
+    ex = ccl_prim._permute
+    return ex.seconds, ex.sent_bytes, ex.staged_bytes
+
+
+def _exchange_delta(before: tuple) -> dict:
+    now = _exchange()
+    return {"exchange_s": now[0] - before[0],
+            "wire_bytes": now[1] - before[1],
+            "staged_bytes": now[2] - before[2]}
+
+
+def _rank_ctx(world: int, **kw):
+    mesh_cfg = MeshConfig((world, 1))
+    return make_ctx(data_group(mesh_cfg), mesh_cfg, **kw)
+
+
+def dp_parity_rank(rank: int, world: int, seed: int) -> dict:
+    """One f32 step (TF32 off) of plain DP on ``ring`` and one of ZeRO-1,
+    each from the same parameters on the global batch; rank 0 first runs
+    the single-card step on the whole batch and holds each DP step to it:
+    loss and grad_norm within rtol 1e-4, m and v within 1e-5 of their max
+    (``_tree_err``), the parameters through their update
+    (``_update_err``)."""
+    device = rank_device(DEVICE)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_config(ARCH)
+    batch = next(make_batches(cfg, DP_PARITY_BATCH, DP_PARITY_SEQ,
+                              seed=seed))
+
+    def fresh():
+        gen = torch.Generator(device=device).manual_seed(seed)
+        return init_params(cfg, gen, dtype=torch.float32, device=device)
+
+    single = p0 = None
+    if rank == 0:
+        p0 = fresh()
+        params = fresh()
+        params, opt, m = make_train_step(cfg, TrainConfig(
+            **DP_PARITY_TCFG))(params, init_opt_state(params), batch)
+        single = (params, opt, {k: float(v) for k, v in m.items()})
+        del params, opt
+    torch.cuda.synchronize()
+    dist.barrier()
+    out = {}
+    for mode in ("zero1", "ring"):
+        zero1 = mode == "zero1"
+        ctx = _rank_ctx(world, remat=False)
+        params = fresh()
+        opt = init_opt_state(params, ctx if zero1 else None)
+        step = make_train_step(cfg, TrainConfig(zero1=zero1,
+                                                **DP_PARITY_TCFG), ctx)
+        torch.cuda.synchronize()
+        dist.barrier()
+        n0, ex0, t0 = launch_counts(), _exchange(), time.perf_counter()
+        params, opt, m = step(params, opt, batch)
+        torch.cuda.synchronize()
+        res = {"seconds": time.perf_counter() - t0, **_exchange_delta(ex0),
+               "launches": _delta(n0),
+               "metrics": {k: float(v) for k, v in m.items()},
+               "opt_state_bytes": sum(
+                   t.numel() * 4 for t in param_leaves(opt["m"])) * 2}
+        full = gather_opt_state(opt, ctx, params) if zero1 else opt
+        res["checksums"] = {"params": launch_train.checksum(params),
+                            "m": launch_train.checksum(full["m"]),
+                            "v": launch_train.checksum(full["v"])}
+        if single is not None:
+            sp, so, sm = single
+            res["rel_err"] = {k: abs(res["metrics"][k] - sm[k])
+                              / abs(sm[k]) for k in ("loss", "grad_norm")}
+            res["single"] = {k: sm[k] for k in ("loss", "grad_norm")}
+            res["trees"] = {"m": _tree_err(full["m"], so["m"]),
+                            "v": _tree_err(full["v"], so["v"])}
+            res["params"] = _update_err(
+                p0, params, sp, full["m"], full["v"],
+                TrainConfig(**DP_PARITY_TCFG), res["metrics"]["lr"])
+        del params, opt, full, step
+        torch.cuda.empty_cache()
+        out[mode] = res
+    return out
+
+
+def phase_dp_parity(seed: int) -> None:
+    """DP-4 in f32 against the single-card step, both on the card."""
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(dp_parity_rank, RING_RANKS, seed, backend="gloo",
+                        timeout_s=900)
+    for mode in ("zero1", "ring"):
+        per = [r[mode] for r in ranks]
+        head = per[0]
+        same = all(p["checksums"] == head["checksums"] for p in per)
+        emit({"phase": "dp_parity", "arch": ARCH, "sync": mode,
+              "ranks": RING_RANKS, "backend": "gloo", "dtype": "float32",
+              "batch": DP_PARITY_BATCH, "seq": DP_PARITY_SEQ,
+              "metrics": head["metrics"], "single": head["single"],
+              "rel_err": head["rel_err"],
+              "trees": head["trees"], "params": head["params"],
+              "identical_on_all_ranks": same,
+              "seconds": [p["seconds"] for p in per],
+              "exchange_s": [p["exchange_s"] for p in per],
+              "wire_bytes_per_rank": head["wire_bytes"],
+              "staged_bytes_per_rank": head["staged_bytes"],
+              "opt_state_bytes_per_rank": head["opt_state_bytes"],
+              "launches_per_rank": [p["launches"] for p in per]})
+        check(same, f"dp_parity {mode}: ranks hold different parameters")
+        check(max(head["rel_err"].values()) <= 1e-4,
+              f"dp_parity {mode}: loss or grad_norm beyond rtol 1e-4 of "
+              f"the single-card step: {head['rel_err']}")
+        errs = {k: v["err_over_max"] for k, v in head["trees"].items()}
+        check(max(errs.values()) <= 1e-5,
+              f"dp_parity {mode}: moments beyond 1e-5 of their max: {errs}")
+        up = head["params"]
+        check(up["adamw_over_lr"] <= 1e-3,
+              f"dp_parity {mode}: params beyond 1e-3 x lr of AdamW on the "
+              f"run's own moments: {up}")
+        check(up["update_rel_err"] <= 1e-2,
+              f"dp_parity {mode}: a leaf's update beyond 1e-2 of the "
+              f"single-card step's: {up}")
+    emit({"phase": "dp_parity_total", "seconds": time.perf_counter() - t0})
+
+
+def phase_dp_training(seed: int) -> dict:
+    """ZeRO-1 bf16 training through the launcher's ``run``: 4 ranks share
+    the card, 5 steps on one batch of B 8 x S 512 in 2 microbatches, remat,
+    bf16 gradients; a checkpoint written under a temporary directory and
+    restored here.  Returns the launch counts of every rank's steps,
+    summed."""
+    t0 = time.perf_counter()
+    cfg = get_config(ARCH)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as tmp:
+        out = launch_train.run([
+            "--arch", ARCH, "--devices", str(RING_RANKS),
+            "--steps", str(DP_STEPS), "--batch", str(TRAIN_BATCH),
+            "--seq", str(TRAIN_SEQ), "--microbatches",
+            str(TRAIN_MICROBATCHES), "--remat", "--grad-dtype", "bf16",
+            "--fixed-batch", "--log-every", "1", "--ckpt-dir", tmp])
+        ranks = out["ranks"]
+        gen = torch.Generator(device=DEVICE).manual_seed(seed)
+        tmpl = init_params(cfg, gen, dtype=torch.float32, device=DEVICE)
+        t_restore = time.perf_counter()
+        path = out["lines"][-1].split(": ", 1)[1]
+        params, opt, step = restore_checkpoint(cfg, path, tmpl,
+                                               init_opt_state(tmpl))
+        restored = {"params": launch_train.checksum(params),
+                    "m": launch_train.checksum(opt["m"]),
+                    "v": launch_train.checksum(opt["v"])}
+        restore_s = time.perf_counter() - t_restore
+        del tmpl, params, opt
+    _release()
+    want = train_launches(cfg, TRAIN_MICROBATCHES, True)
+    losses = [s["loss"] for s in ranks[0]["steps"]]
+    per_rank = [{
+        "wall_ms": [s["wall_ms"] for s in r["steps"]],
+        "compute_ms": [s["compute_ms"] for s in r["steps"]],
+        "exchange_s": [s["exchange_s"] for s in r["steps"]],
+        "wire_bytes": [s["wire_bytes"] for s in r["steps"]],
+        "staged_bytes": [s["staged_bytes"] for s in r["steps"]],
+        "opt_state_bytes": r["opt_state_bytes"],
+        "peak_memory_bytes": r["peak_memory_bytes"],
+        "launches": [s["launches"] for s in r["steps"]]} for r in ranks]
+    share = [r["opt_state_bytes"] / r["replicated_opt_state_bytes"]
+             for r in ranks]
+    walls = [s["wall_ms"] for s in ranks[0]["steps"]]
+    same = all(r["checksums"] == ranks[0]["checksums"] for r in ranks)
+    emit({"phase": "dp_training", "arch": ARCH, "sync": "zero1",
+          "ranks": RING_RANKS, "backend": ranks[0]["backend"],
+          "devices": [r["device"] for r in ranks], "dtype": "float32",
+          "grad_dtype": "bf16", "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+          "microbatches": TRAIN_MICROBATCHES, "remat": True,
+          "steps": DP_STEPS, "params": ranks[0]["params"],
+          "losses": losses, "lines": out["lines"],
+          "step_wall_ms_p50": float(np.percentile(walls, 50)),
+          "per_rank": per_rank,
+          "opt_state_share_of_replicated": share,
+          "want_launches_per_step": want,
+          "identical_on_all_ranks": same, "checkpoint_step": step,
+          "checkpoint_restored_equal": restored == ranks[0]["checksums"],
+          "restore_s": restore_s, "seconds": time.perf_counter() - t0})
+    check(all(np.isfinite(losses)), f"non-finite DP loss: {losses}")
+    check(losses[-1] <= 0.9 * losses[0],
+          f"DP training did not fit its batch: {losses[0]} -> {losses[-1]}")
+    check(same, "DP training: ranks end with different parameters")
+    check(max(share) <= 0.26, f"ZeRO-1 optimizer state {share} of the "
+                              f"replicated one")
+    for r in per_rank:
+        check(all(n == want for n in r["launches"]),
+              f"a DP step launched {r['launches']}, want {want} a step")
+    check(restored == ranks[0]["checksums"] and step == DP_STEPS,
+          f"restored checkpoint {restored} differs from the ranks' "
+          f"{ranks[0]['checksums']}")
+    counts = {k: 0 for k in WRAPPERS}
+    for r in per_rank:
+        for n in r["launches"]:
+            for k, v in n.items():
+                counts[k] += v
+    return counts
+
+
+def _real_gradient_syncs(local, synced, ctx, world: int) -> dict:
+    """The first step's gradient synced again: ``local`` (this rank's,
+    flat) by ``ring_q8`` (bit-equal to ``synced``, the step's own sync, a
+    list of leaves), by ``ring_q4``, and exactly by ``ring``, in place
+    (the card holds four ranks' training state: one extra copy at a
+    time).  Each quantizing sync's error against the exact sum (relative
+    L2, and its worst over its envelope) and its wire bytes against
+    ``ring``'s."""
+    layout = flat_layout([local], ctx)
+    amax = [float(ccl_prim.ring_all_gather(local[lo:hi].abs().max(),
+                                           ctx.group).max())
+            for lo, hi in layout.buckets]
+
+    def sync(x, impl):
+        torch.cuda.synchronize()
+        dist.barrier()
+        ex0, t0 = _exchange(), time.perf_counter()
+        out = layout.all_reduce(x, impl, ctx.group)
+        torch.cuda.synchronize()
+        return out, {"seconds": time.perf_counter() - t0,
+                     **_exchange_delta(ex0)}
+
+    q8, info8 = sync(local.clone(), "ring_q8")
+    equal = all(torch.equal(a, b) for a, b in zip(
+        q8.split([g.numel() for g in synced]), (g.reshape(-1)
+                                                for g in synced)))
+    del q8
+    q4, info4 = sync(local.clone(), "ring_q4")
+    exact, info = sync(local, "ring")
+    n2 = sum(float(exact[lo:hi].double().square().sum())
+             for lo, hi in layout.buckets)
+    offsets = np.cumsum([0] + [g.numel() for g in synced])
+    real = {"ring": info}
+    for impl, pieces, inf, qmax in (
+            ("ring_q8", [(int(o), g.reshape(-1)) for o, g in
+                         zip(offsets, synced)], info8, 127),
+            ("ring_q4", [(0, q4)], info4, 7)):
+        # the collective's own envelope, bucket by bucket, as the
+        # stand-in's: p * absmax / qmax (tests/test_ccl_primitives.py
+        # :100-103), absmax over every rank's bucket
+        worst, e2 = 0.0, 0.0
+        for at, piece in pieces:
+            for (lo, hi), a in zip(layout.buckets, amax):
+                lo, hi = max(lo, at), min(hi, at + piece.numel())
+                if lo >= hi:
+                    continue
+                d = piece[lo - at:hi - at] - exact[lo:hi]
+                worst = max(worst, float(d.abs().max()) / (world * a / qmax))
+                e2 += float(d.double().square().sum())
+                del d
+        real[impl] = {**inf, "rel_l2_err": (e2 / n2) ** 0.5,
+                      "wire_ratio": inf["wire_bytes"] / info["wire_bytes"],
+                      "worst_err_over_envelope": worst}
+    del q4, exact
+    real["step_sync_bit_equal_to_ring_q8"] = equal
+    real["synced_checksum"] = sum(int(g.view(torch.int32).sum(
+        dtype=torch.int64)) for g in synced)
+    return real
+
+
+def dp_q8_rank(rank: int, world: int, seed: int) -> dict:
+    """Plain DP on ``ring_q8`` (K2a and K2b in every hop), 3 f32 steps on
+    one batch.  At the first step the hook takes the real gradient before
+    and after the sync, and (inside the hook, before AdamW's buffers
+    exist) syncs it again: ``_real_gradient_syncs``."""
+    device = rank_device(DEVICE)
+    cfg = get_config(ARCH)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    params = init_params(cfg, gen, dtype=torch.float32, device=device)
+    ctx = _rank_ctx(world, remat=True, grad_all_reduce="ring_q8")
+    opt = init_opt_state(params)
+    batch = next(make_batches(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=seed))
+    step = make_train_step(cfg, TrainConfig(**DP_Q8_TCFG), ctx)
+    taken = {}
+
+    def hook(stage, grads):
+        if stage == "local":
+            taken["local"] = torch.cat([g.reshape(-1) for g in grads])
+        else:
+            n0 = launch_counts()
+            taken["real"] = _real_gradient_syncs(taken.pop("local"), grads,
+                                                 ctx, world)
+            taken["launches"] = _delta(n0)
+
+    reset_launch_counts()
+    losses, steps = [], []
+    for i in range(DP_Q8_STEPS):
+        torch.cuda.synchronize()
+        n0, ex0, t0 = launch_counts(), _exchange(), time.perf_counter()
+        params, opt, m = step(params, opt, batch,
+                              grad_hook=hook if i == 0 else None)
+        losses.append(float(m["loss"]))
+        steps.append({"wall_ms": 1e3 * (time.perf_counter() - t0),
+                      **_exchange_delta(ex0), "launches": _delta(n0)})
+    counts = launch_counts()
+    # the resyncs inside the first step's hook are not the path's
+    for k, v in taken["launches"].items():
+        counts[k] -= v
+    return {"losses": losses, "steps": steps, "launches": counts,
+            "real_gradient": taken["real"],
+            "gradient_values": sum(p.numel() for p in param_leaves(params))}
+
+
+def phase_dp_q8(seed: int) -> dict:
+    """Plain DP on ring_q8 over 4 ranks; returns the kernel launches of
+    every rank's steps, summed."""
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(dp_q8_rank, RING_RANKS, seed, backend="gloo",
+                        timeout_s=900)
+    head = ranks[0]
+    counts = {k: sum(r["launches"][k] for r in ranks) for k in WRAPPERS}
+    same = len({r["real_gradient"]["synced_checksum"] for r in ranks}) == 1
+    emit({"phase": "dp_q8", "arch": ARCH, "sync": "ring_q8",
+          "ranks": RING_RANKS, "backend": "gloo", "dtype": "float32",
+          "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+          "microbatches": TRAIN_MICROBATCHES, "remat": True,
+          "losses": head["losses"],
+          "steps_per_rank": [r["steps"] for r in ranks],
+          "step_launches_note": "step 0 also times the hook's resyncs",
+          "gradient_values": head["gradient_values"],
+          "real_gradient_by_rank": [r["real_gradient"] for r in ranks],
+          "regime": CODEC_REGIME["q8"],
+          "step_sync_within_regime": [
+              r["real_gradient"]["ring_q8"]["rel_l2_err"]
+              <= CODEC_REGIME["q8"] for r in ranks],
+          "synced_identical_on_all_ranks": same,
+          "launches": counts, "seconds": time.perf_counter() - t0})
+    check(all(np.isfinite(r["losses"]).all() for r in ranks),
+          "non-finite ring_q8 DP loss")
+    check(same, "ring_q8 DP: ranks synced different gradients")
+    for r in ranks:
+        rg = r["real_gradient"]
+        check(rg["step_sync_bit_equal_to_ring_q8"],
+              "the step's ring_q8 sync differs from ring_q8 on the same "
+              "gradient")
+        for impl in ("ring_q8", "ring_q4"):
+            check(rg[impl]["worst_err_over_envelope"] <= 1.0,
+                  f"{impl} on the real gradient beyond p * absmax / qmax: "
+                  f"{rg[impl]['worst_err_over_envelope']}")
+    for name in ("quantize", "dequantize"):
+        check(all(r["launches"][name] > 0 for r in ranks),
+              f"kernel {name} not launched in every ring_q8 rank")
+    return counts
+
+
+def run_dp(seed: int) -> dict:
+    """The data-parallel path (4 gloo ranks on the card, full width and
+    depth); returns each phase's launch counts."""
+    _release()  # the ranks need the card's memory
+    phase_dp_parity(seed)
+    return {"dp_training": phase_dp_training(seed + 1),
+            "dp_q8": phase_dp_q8(seed + 2)}
+
+
 def run_paths(rng) -> dict:
     """The three serving paths; returns each path's launch counts."""
     paths = {}
@@ -1995,9 +2492,11 @@ def main() -> int:
     timings.update(phase_compress_kernels(n_values))
     paths = run_paths(rng)
     paths["training"] = run_training(SEED + 8)
+    paths.update(run_dp(SEED + 10))
     codecs = phase_codecs(SEED + 6)
     check(codecs["values"] == n_values, "gradient size changed")
     paths["codecs"] = codecs["counts"]
+    paths["codecs_real"] = phase_codecs_real(SEED + 9)
     paths["collectives"] = phase_collectives(n_values, SEED + 7)
 
     # each kernel's launches are read from the path that runs it

@@ -1,13 +1,14 @@
 """Model and training configuration types of the PyTorch port.
 
-A copy of ``LayerSpec``, ``_round_up``, ``ModelConfig`` and ``TrainConfig``
-from ``repro.core.types``: that module holds no JAX code, but importing anything
-under ``repro`` runs ``repro/__init__.py``, which imports jax.  The fields and
-derived properties are kept identical, so a config built here compares equal
-field by field with its JAX twin.
+A copy of ``LayerSpec``, ``_round_up``, ``ModelConfig``, ``TrainConfig`` and
+``MeshConfig`` from ``repro.core.types``: that module holds no JAX code, but
+importing anything under ``repro`` runs ``repro/__init__.py``, which imports
+jax.  The fields and derived properties are kept identical, so a config built
+here compares equal field by field with its JAX twin.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Literal, Optional, Tuple
 
@@ -170,13 +171,55 @@ class ModelConfig:
                     break
         return best
 
+    def param_counts(self) -> dict:
+        """Returns dict with total and active (per-token) parameter counts:
+        the JAX package's estimate (attention, Mamba and FFN matrices and
+        the embeddings; norms and biases left out), for the families the
+        port builds.  MLA, cross-attention and encoder-decoder configs
+        raise (``repro_torch.models.transformer.check_ported``)."""
+        if self.attention == "mla" or self.encoder_layers or \
+                self.cross_attn_period:
+            raise NotImplementedError(f"{self.name}: MLA, cross-attention "
+                                      f"and encoder-decoder configs are not "
+                                      f"ported")
+        d = self.d_model
+        hd = self.resolved_head_dim
+        emb = self.padded_vocab * d * (1 if self.tie_embeddings else 2)
+        attn = (2 * self.num_heads + 2 * self.num_kv_heads) * d * hd
+        din, nh, ns = self.ssm_d_inner, self.ssm_num_heads, self.ssm_state
+        # in_proj: z, x, B, C, dt; conv; A_log, D; out_proj
+        mamba = (d * (2 * din + 2 * ns + nh)
+                 + self.ssm_conv_kernel * (din + 2 * ns) + 2 * nh + din * d)
+
+        def ffn(dff: int) -> int:
+            return (3 if self.ffn_act in ("swiglu", "geglu") else 2) * d * dff
+
+        moe_ffn = ffn(self.moe_d_ff or self.d_ff)
+        total = active = emb
+        for spec in self.layer_specs():
+            mixer = attn if spec.mixer == "attn" else mamba
+            total += mixer
+            active += mixer
+            if spec.ffn == "dense":
+                total += ffn(self.d_ff)
+                active += ffn(self.d_ff)
+            elif spec.ffn == "moe":
+                shared = self.num_shared_experts * moe_ffn
+                router = d * self.num_experts
+                total += self.num_experts * moe_ffn + shared + router
+                active += self.top_k * moe_ffn + shared + router
+        return {"total": total, "active": active}
+
 
 @dataclass(frozen=True)
 class TrainConfig:
     """Training hyper-parameters, field for field the JAX package's.
-    ``zero1`` and ``grad_sync`` are the planner's knobs and are not read by
-    the single-card step; it reads ``remat`` (the JAX package reads it from
-    its ``ParallelCtx``, which the port has not yet)."""
+    ``zero1`` decides a data-parallel step's gradient sync, as the JAX
+    package's demand builder decides it: reduce-scatter of the gradient and
+    all-gather of the updated parameters under ZeRO-1, all-reduce without
+    (``repro_torch.train.make_train_step``).  ``grad_sync`` is read by
+    nothing, in the JAX package as here.  The step reads ``remat`` (the JAX
+    package reads it from its ``ParallelCtx``; the port's must agree)."""
 
     learning_rate: float = 3e-4
     warmup_steps: int = 100
@@ -192,3 +235,32 @@ class TrainConfig:
     microbatches: int = 1  # grad-accumulation steps (activation memory / K)
     grad_dtype: Literal["f32", "bf16"] = "f32"  # sync precision
     seed: int = 0
+
+
+@dataclass(frozen=True)
+class MeshConfig:
+    """How logical parallelism axes map onto the device mesh (the JAX
+    package's, field for field).  The port runs the data axes: the ranks of
+    a ``torch.distributed`` group (``repro_torch.launch.mesh``)."""
+
+    shape: Tuple[int, ...] = (16, 16)
+    axis_names: Tuple[str, ...] = ("data", "model")
+    # which mesh axes carry each parallel dimension
+    data_axes: Tuple[str, ...] = ("data",)
+    model_axes: Tuple[str, ...] = ("model",)
+    pipeline_axis: Optional[str] = None
+
+    @property
+    def num_devices(self) -> int:
+        return math.prod(self.shape)
+
+    def axis_size(self, name: str) -> int:
+        return self.shape[self.axis_names.index(name)]
+
+    @property
+    def tp(self) -> int:
+        return math.prod(self.axis_size(a) for a in self.model_axes)
+
+    @property
+    def dp(self) -> int:
+        return math.prod(self.axis_size(a) for a in self.data_axes)

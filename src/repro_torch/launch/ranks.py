@@ -12,6 +12,8 @@ concurrent runs cannot collide), calls ``fn(rank, world_size, *args)`` and
 returns the ranks' results in rank order.  ``fn`` must be importable at
 module top level, and its arguments and result picklable.  Any rank's
 failure makes ``spawn_ranks`` raise with that rank's traceback.
+
+On the card, ``build_kernels`` first, then in each rank ``rank_device``.
 """
 from __future__ import annotations
 
@@ -26,6 +28,9 @@ from typing import Any, Callable, List
 import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
+
+from repro_torch.core.device import resolve_device
+from repro_torch.kernels import SOURCES, _build
 
 
 def _rank_main(fn: Callable, rank: int, world_size: int, store: str,
@@ -98,6 +103,25 @@ def spawn_ranks(fn: Callable, world_size: int, *args: Any,
         rank, why = failed[0]
         raise RuntimeError(f"rank {rank} of {world_size} failed:\n{why}")
     return [got[r] for r in range(world_size)]
+
+
+def build_kernels() -> None:
+    """Compiles every kernel source, in this process: call it before
+    starting ranks on the card, which then load the libraries.  Ranks that
+    built at first use would each run nvcc on every source at once."""
+    _build.build(list(SOURCES.values()))
+
+
+def rank_device(device="cuda") -> torch.device:
+    """This rank's device, made current: the card ``rank % cards`` (all
+    ranks share ``cuda:0`` on one card), or the CPU where asked for.
+    Asking for CUDA where there is none raises (``resolve_device``)."""
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        dev = torch.device("cuda",
+                           dist.get_rank() % torch.cuda.device_count())
+        torch.cuda.set_device(dev)
+    return dev
 
 
 def torus_groups(rows: int, cols: int):

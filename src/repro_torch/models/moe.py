@@ -7,8 +7,11 @@ expert products (gate, up, down) run the hand-written grouped-GEMM kernel on
 CUDA tensors and the plain einsum on the CPU; the wrapper decides by device.
 
 The expert-parallel paths of the JAX package (``moe_ep_train``,
-``moe_ep_decode``, ``moe_ep_decode_ws``) need the collectives and come with
-them; ``moe_apply`` raises for a context that asks for expert parallelism.
+``moe_ep_decode``, ``moe_ep_decode_ws``) are not ported (ROADMAP item 10);
+``moe_apply`` raises for a context that asks for expert parallelism.  Under
+data parallelism (a ``ParallelCtx`` of dp > 1) each rank routes its own
+tokens and the ranks share the fractions of the load-balance loss, so that
+the ranks' losses add up to the loss of the global batch.
 """
 from __future__ import annotations
 
@@ -45,9 +48,13 @@ def init_moe(cfg: ModelConfig, dtype, device,
     return p
 
 
-def route(p: dict, cfg: ModelConfig, x: torch.Tensor):
+def route(p: dict, cfg: ModelConfig, x: torch.Tensor, ctx=None):
     """x: (..., d). Returns (ids (...,k), weights (...,k) in x's dtype,
-    aux_loss f32 scalar).
+    aux_loss f32 scalar).  With a data-parallel ``ctx`` the pick fractions
+    f are the global batch's (the mean of the ranks', which hold equal
+    token counts) and the mean router probabilities this rank's: the ranks'
+    losses average to the global batch's, and so do their gradients (f,
+    taken from top-k ids, has none).
 
     ``jax.lax.top_k`` breaks ties toward the lower index and ``torch.topk``
     promises no order; the two agree wherever the probabilities differ."""
@@ -60,6 +67,8 @@ def route(p: dict, cfg: ModelConfig, x: torch.Tensor):
     # f_e the fraction of (token, rank) picks that went to expert e
     e = cfg.num_experts
     f = F.one_hot(ids.reshape(-1, cfg.top_k), e).float().mean(dim=0).sum(0)
+    if ctx is not None and ctx.dp > 1:
+        f = ctx.allsum(f) / ctx.dp
     pbar = probs.reshape(-1, e).mean(dim=0)
     aux = e * torch.sum(f * pbar) / cfg.top_k
     return ids, weights.to(x.dtype), aux
@@ -74,11 +83,11 @@ def _expert_ffn(p: dict, cfg: ModelConfig, x_e: torch.Tensor) -> torch.Tensor:
     return moe_gmm(act(g) * u, p["w_down"])
 
 
-def moe_dense(p: dict, cfg: ModelConfig, x: torch.Tensor
+def moe_dense(p: dict, cfg: ModelConfig, x: torch.Tensor, ctx=None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Computes every expert for every token, masks by routing weight.
     Exact (no capacity drops)."""
-    ids, weights, aux = route(p, cfg, x)
+    ids, weights, aux = route(p, cfg, x, ctx)
     shp = x.shape
     xt = x.reshape(-1, shp[-1])
     e = cfg.num_experts
@@ -102,11 +111,10 @@ def _shared(p: dict, cfg: ModelConfig, xt: torch.Tensor) -> torch.Tensor:
 def moe_apply(p: dict, cfg: ModelConfig, x: torch.Tensor, *, ctx=None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Single-device MoE FFN, prefill and decode alike: (y, aux_loss).
-    ``ctx`` with a mesh and expert parallelism raises: the expert-parallel
-    paths are not ported."""
-    if ctx is not None and getattr(ctx, "mesh", None) is not None and \
-            getattr(ctx, "use_ep", False):
+    ``ctx`` asking for expert parallelism raises: the expert-parallel paths
+    are not ported (ROADMAP item 10)."""
+    if ctx is not None and getattr(ctx, "use_ep", False):
         raise NotImplementedError(
             "expert-parallel MoE (moe_ep_train / moe_ep_decode) is not "
-            "ported yet; it comes with the collectives")
-    return moe_dense(p, cfg, x)
+            "ported yet: ROADMAP item 10")
+    return moe_dense(p, cfg, x, ctx)

@@ -115,7 +115,7 @@ def _lm_head(cfg: ModelConfig, params: dict, x) -> torch.Tensor:
 
 
 def _apply_layer(lp: dict, spec: LayerSpec, cfg: ModelConfig, x,
-                 positions, window
+                 positions, window, ctx=None
                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """One decoder layer over the whole sequence; returns (x, aux_loss),
     aux_loss None without a MoE FFN."""
@@ -129,7 +129,7 @@ def _apply_layer(lp: dict, spec: LayerSpec, cfg: ModelConfig, x,
     if spec.ffn != "none":
         h2 = rms_norm(x, lp["norm2"]["scale"], cfg.norm_eps)
         if spec.ffn == "moe":
-            y, aux = moe_mod.moe_apply(lp["ffn"], cfg, h2)
+            y, aux = moe_mod.moe_apply(lp["ffn"], cfg, h2, ctx=ctx)
         else:
             y = ffn_apply(lp["ffn"], h2, cfg.ffn_act)
         x = x + y
@@ -137,7 +137,7 @@ def _apply_layer(lp: dict, spec: LayerSpec, cfg: ModelConfig, x,
 
 
 def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
-            window: Optional[int] = None, remat: bool = False
+            window: Optional[int] = None, remat: bool = False, ctx=None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens: (B, S) int. Returns (logits (B,S,V_pad), aux_loss): the sum
     of the MoE layers' router losses (0 without MoE).
@@ -145,7 +145,9 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
     ``window`` overrides cfg.sliding_window.  ``remat``: each layer under
     ``torch.utils.checkpoint`` (non-reentrant), its activations recomputed
     in the backward, as the JAX package's ``jax.checkpoint`` of each layer
-    group's scan body under ``ctx.remat``."""
+    group's scan body under ``ctx.remat``.  ``ctx``: a data-parallel
+    ``repro_torch.parallel.ParallelCtx``, whose ranks share the MoE
+    router's load statistics (``models.moe.route``)."""
     x = params["embed"][tokens]
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     win = window if window is not None else cfg.sliding_window
@@ -153,9 +155,9 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
     for spec, lp in zip(cfg.layer_specs(), params["layers"]):
         if remat:
             x, a = checkpoint(_apply_layer, lp, spec, cfg, x, positions, win,
-                              use_reentrant=False)
+                              ctx, use_reentrant=False)
         else:
-            x, a = _apply_layer(lp, spec, cfg, x, positions, win)
+            x, a = _apply_layer(lp, spec, cfg, x, positions, win, ctx)
         if a is not None:
             aux = aux + a
     return _lm_head(cfg, params, x), aux

@@ -9,27 +9,60 @@ the bias corrections use the incremented step, the update reads p as f32
 and casts back to p's dtype.  Unlike the JAX package, parameters and
 moments are updated in place (at full width that saves a copy of every
 parameter and both moments); the functions still return them.
+
+Under ZeRO-1 (``init_opt_state(params, ctx)``) m and v are flat f32 shards,
+this rank's chunks of ``repro_torch.parallel.FlatLayout``;
+``adamw_shard_update`` runs the same per-element arithmetic on a shard, and
+``gather_opt_state`` returns the full moments in the port's layout.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
 from repro_torch.core.types import TrainConfig
 from repro_torch.core.tree import param_leaves, tree_map
+from repro_torch.parallel.planner import ParallelCtx, flat_layout
 
 
-def init_opt_state(params: Any) -> Dict[str, Any]:
-    """Zero moments in f32 on each parameter's device, step 0."""
+def init_opt_state(params: Any, ctx: Optional[ParallelCtx] = None
+                   ) -> Dict[str, Any]:
+    """Zero moments in f32 on each parameter's device, step 0.  With a
+    ``ctx`` (ZeRO-1) m and v are this rank's flat shards of
+    ``flat_layout(param_leaves(params), ctx)``: 1/dp of the state."""
+    device = next(param_leaves(params)).device
+    step = torch.zeros((), dtype=torch.int32, device=device)
+    if ctx is not None:
+        n = flat_layout(list(param_leaves(params)), ctx).shard_numel
+        return {"m": torch.zeros(n, dtype=torch.float32, device=device),
+                "v": torch.zeros(n, dtype=torch.float32, device=device),
+                "step": step}
+
     def zeros(p):
         return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-    device = next(param_leaves(params)).device
     return {"m": tree_map(zeros, params), "v": tree_map(zeros, params),
-            "step": torch.zeros((), dtype=torch.int32, device=device)}
+            "step": step}
 
 
-def global_norm(tree, *, acc: torch.dtype = torch.float64) -> torch.Tensor:
+def gather_opt_state(state: Dict[str, Any], ctx: ParallelCtx, params: Any
+                     ) -> Dict[str, Any]:
+    """The full m and v of a ZeRO-1 state, gathered from every rank into
+    the port's layout (trees shaped like ``params``, which give the
+    layout): for checkpoints and tests.  Every rank of the group calls it
+    and gets the same trees."""
+    leaves = list(param_leaves(params))
+    layout = flat_layout(leaves, ctx)
+    out = {"step": state["step"]}
+    for name in ("m", "v"):
+        flat = iter(layout.unflatten(layout.all_gather(state[name],
+                                                       ctx.group)))
+        out[name] = tree_map(lambda _: next(flat), params)
+    return out
+
+
+def global_norm(tree, *, acc: torch.dtype = torch.float64,
+                ctx: Optional[ParallelCtx] = None) -> torch.Tensor:
     """sqrt of the sum of squares of every leaf, returned in f32.  Each
     leaf's norm accumulates in ``acc``, f64 by default: a departure from
     the JAX package, whose norm is f32 throughout.  PyTorch's f32 norm on
@@ -43,7 +76,41 @@ def global_norm(tree, *, acc: torch.dtype = torch.float64) -> torch.Tensor:
     leaves = tree if isinstance(tree, list) else param_leaves(tree)
     norms = torch.stack([torch.linalg.vector_norm(t, dtype=acc)
                          for t in leaves])
-    return norms.square().sum().sqrt().to(torch.float32)
+    squares = norms.square().sum()
+    if ctx is not None:  # a sharded gradient: each rank's sum, then theirs
+        squares = ctx.allsum(squares)
+    return squares.sqrt().to(torch.float32)
+
+
+def _updates(flat_p: List[torch.Tensor], flat_g: Sequence[torch.Tensor],
+             m: List[torch.Tensor], v: List[torch.Tensor],
+             gnorm: torch.Tensor, step: torch.Tensor, tcfg: TrainConfig,
+             lr: torch.Tensor
+             ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
+    """Advances m and v in place and returns (p32, u): the parameters read
+    as f32 and the updates, the new parameters being p32 - u: AdamW on the
+    clipped gradient."""
+    scale = torch.clamp(tcfg.grad_clip / torch.clamp(gnorm, min=1e-9),
+                        max=1.0)
+    b1, b2 = tcfg.beta1, tcfg.beta2
+    bc1 = 1.0 - b1 ** step.to(torch.float32)
+    bc2 = 1.0 - b2 ** step.to(torch.float32)
+    g = torch._foreach_mul([t.float() for t in flat_g], scale)
+    torch._foreach_mul_(m, b1)
+    torch._foreach_add_(m, g, alpha=1 - b1)
+    torch._foreach_mul_(v, b2)
+    torch._foreach_addcmul_(v, g, g, value=1 - b2)
+    del g
+    den = torch._foreach_div(v, bc2)
+    torch._foreach_sqrt_(den)
+    torch._foreach_add_(den, tcfg.eps)
+    update = torch._foreach_div(m, bc1)
+    torch._foreach_div_(update, den)
+    del den
+    p32 = [p.float() for p in flat_p]
+    torch._foreach_add_(update, p32, alpha=tcfg.weight_decay)
+    torch._foreach_mul_(update, lr)
+    return p32, update
 
 
 def adamw_update(params: Any, grads: Any, state: Dict[str, Any],
@@ -57,29 +124,30 @@ def adamw_update(params: Any, grads: Any, state: Dict[str, Any],
         else list(param_leaves(grads))
     m, v = list(param_leaves(state["m"])), list(param_leaves(state["v"]))
     gnorm = global_norm(flat_g)
-    scale = torch.clamp(tcfg.grad_clip / torch.clamp(gnorm, min=1e-9),
-                        max=1.0)
     step = state["step"] + 1
-    b1, b2 = tcfg.beta1, tcfg.beta2
-    bc1 = 1.0 - b1 ** step.to(torch.float32)
-    bc2 = 1.0 - b2 ** step.to(torch.float32)
     with torch.no_grad():
-        g = torch._foreach_mul([t.float() for t in flat_g], scale)
-        torch._foreach_mul_(m, b1)
-        torch._foreach_add_(m, g, alpha=1 - b1)
-        torch._foreach_mul_(v, b2)
-        torch._foreach_addcmul_(v, g, g, value=1 - b2)
-        del g
-        den = torch._foreach_div(v, bc2)
-        torch._foreach_sqrt_(den)
-        torch._foreach_add_(den, tcfg.eps)
-        update = torch._foreach_div(m, bc1)
-        torch._foreach_div_(update, den)
-        del den
-        p32 = [p.float() for p in flat_p]
-        torch._foreach_add_(update, p32, alpha=tcfg.weight_decay)
-        torch._foreach_mul_(update, lr)
+        p32, update = _updates(flat_p, flat_g, m, v, gnorm, step, tcfg, lr)
         for p, p_f, u in zip(flat_p, p32, update):
             p.copy_(p_f - u)  # cast back to p's dtype
     new_state = {"m": state["m"], "v": state["v"], "step": step}
     return params, new_state, {"grad_norm": gnorm}
+
+
+def adamw_shard_update(p_shard: torch.Tensor, g_shard: torch.Tensor,
+                       state: Dict[str, Any], tcfg: TrainConfig,
+                       lr: torch.Tensor, ctx: ParallelCtx
+                       ) -> Tuple[torch.Tensor, Dict[str, Any],
+                                  Dict[str, torch.Tensor]]:
+    """One clipped AdamW step on this rank's ZeRO-1 shard: ``p_shard`` the
+    parameters' chunks as f32, ``g_shard`` the reduced gradient's, m and v
+    of ``state`` the moments' (updated in place).  The clip reads the
+    global norm, summed over the ranks.  Returns (the updated parameter
+    chunks in f32, state, {"grad_norm"})."""
+    gnorm = global_norm([g_shard], ctx=ctx)
+    step = state["step"] + 1
+    with torch.no_grad():
+        (p32,), (u,) = _updates([p_shard], [g_shard], [state["m"]],
+                                [state["v"]], gnorm, step, tcfg, lr)
+        new = p32 - u
+    new_state = {"m": state["m"], "v": state["v"], "step": step}
+    return new, new_state, {"grad_norm": gnorm}

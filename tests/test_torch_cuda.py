@@ -30,9 +30,10 @@ from repro_torch.models import (forward, init_params, param_leaves,
                                 prefill_launches, train_launches, tree_map)
 from repro_torch.optim import init_opt_state
 from repro_torch.train import make_train_step
-from repro_torch.launch.ranks import spawn_ranks
+from repro_torch.launch.ranks import build_kernels, spawn_ranks
 from repro_torch.serve import make_prefill
 from torch_ccl_ranks import compressed_ring_emulation, ring_q8_on_card
+from torch_dp_ranks import dp_on_card, update_errors
 
 pytestmark = pytest.mark.cuda
 
@@ -728,6 +729,48 @@ def test_train_step_on_card_matches_cpu(cuda, arch, microbatches, remat):
         for a, b in zip(param_leaves(tree_g), param_leaves(tree_c)):
             np.testing.assert_allclose(a.cpu().numpy(), b.numpy(),
                                        **TOL[torch.float32])
+
+
+@pytest.mark.parametrize("zero1,microbatches,remat", [
+    (True, 1, False), (False, 1, False), (True, 2, True)])
+def test_dp_on_card_matches_single_card_step(cuda, zero1, microbatches,
+                                             remat):
+    """DP-2 (2 gloo ranks sharing the card, gradients staged through the
+    host) against the single-card step on the whole batch, both through
+    the kernels, at lr 1e-3 from the first step: loss and grad_norm within
+    1e-5, m and v within TOL, the parameters within 1e-3 x lr of AdamW
+    written out from the run's own moments and each leaf's update within
+    1e-2 of the single-card step's (``update_errors``); both ranks'
+    parameters bit-equal; each rank launches the kernels of a step on its
+    half of every microbatch."""
+    arch = "qwen2-0.5b"
+    tcfg = dict(zero1=zero1, microbatches=microbatches, remat=remat,
+                learning_rate=1e-3, warmup_steps=1)
+    build_kernels()
+    ranks = spawn_ranks(dp_on_card, 2, arch, tcfg, 0, timeout_s=300)
+    cfg = smoke_config(arch)
+    params = _to(init_params(cfg, torch.Generator().manual_seed(0),
+                             device="cpu"), cuda)
+    p0 = dict(enumerate(t.cpu().numpy() for t in param_leaves(params)))
+    batch = next(make_batches(cfg, 4, 128, seed=1))
+    params, opt, m = make_train_step(cfg, TrainConfig(**tcfg))(
+        params, init_opt_state(params), batch)
+    got = ranks[0]
+    assert all(r["device"] == "cuda:0" for r in ranks)
+    assert ranks[0]["checksum"] == ranks[1]["checksum"]
+    for r in ranks:
+        assert r["launches"] == train_launches(cfg, microbatches, remat)
+    for k in ("loss", "grad_norm"):
+        assert got["metrics"][k] == pytest.approx(float(m[k]), rel=1e-5)
+    for k in ("m", "v"):
+        for a, b in zip(got[k], param_leaves(opt[k])):
+            np.testing.assert_allclose(a, b.cpu().numpy(),
+                                       **TOL[torch.float32])
+    want = dict(enumerate(t.cpu().numpy() for t in param_leaves(params)))
+    err = update_errors(p0, dict(enumerate(got["params"])), want,
+                        dict(enumerate(got["m"])), dict(enumerate(got["v"])),
+                        tcfg, got["metrics"]["lr"])
+    assert err["adamw"] <= 1e-3 and err["update"] <= 1e-2, err
 
 
 def test_remat_on_card_matches_no_remat(cuda):
