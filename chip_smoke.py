@@ -75,6 +75,23 @@ exits non-zero:
    ``ring_q4`` and by ``ring_q8`` (bit-equal to the step's): errors against
    the exact sum (the stand-in's regime beside them), each within its
    collective's envelope, wire ratios.  Times are gloo over loopback.
+3d. expert parallelism, dbrx-132b at full width, 4 gloo ranks sharing the
+   card (each phase runs the single-card dense reference first and frees
+   it): ep_parity (f32, 2 layers, mesh (1, 4)): ``moe_ep_train`` prefill
+   of B 2 x S 256 at capacity factor 16 (no drops) and 8 ``moe_ep_decode``
+   steps of 4 slots within PARITY_TOL of the dense run, and at factor 1.25
+   within PARITY_TOL of the plain emulation (``moe_ep_train_ref``), its
+   dropped share printed, then 8 ``moe_ep_decode_ws`` steps on mesh
+   (2, 2), each data rank's 2 slots within PARITY_TOL of the dense run's;
+   ep_serving (bf16, 4 layers, (1, 4)): prefill
+   through ``make_prefill(cfg, ctx)`` and 16 decode steps through
+   ``make_serve_step(cfg, ctx=ctx)``, greedy tokens equal to the dense
+   run's where its top-2 margin exceeds 8 bf16 ulps, K5 launches a rank
+   equal to ``ep_launches`` a prefill and a step, the all-to-all wire
+   bytes equal to their formula; ep_ws_decode (bf16, 4 layers, (2, 2)):
+   the same decode through ``moe_ep_decode_ws`` and ``moe_ep_decode``.
+   Prefill ms, decode step p50/p99 (CUDA events), exchange seconds, wire
+   and staged bytes and peak memory a rank; times are gloo over loopback.
 4. codecs (K2a, K2b, K3, K4): a stand-in gradient of qwen2-0.5b at full
    width and depth (one seeded tensor per parameter) through the q8, q4,
    topk and lowrank codecs over two error-feedback steps, held to the JAX
@@ -142,13 +159,14 @@ try:
     from repro_torch.kernels.moe_gmm import moe_gmm, moe_gmm_ref
     from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_ref
     from repro_torch.launch import train as launch_train
-    from repro_torch.launch.mesh import data_group
+    from repro_torch.launch.mesh import mesh_groups
     from repro_torch.launch.ranks import rank_device, spawn_ranks
-    from repro_torch.models import (init_cache, init_params, param_leaves,
-                                    prefill_launches, train_launches,
-                                    tree_map)
+    from repro_torch.models import (ep_launches, init_cache, init_params,
+                                    param_leaves, prefill_launches,
+                                    train_launches, tree_map)
+    from repro_torch.models import moe as moe_mod
     from repro_torch.optim import gather_opt_state, init_opt_state
-    from repro_torch.parallel import flat_layout, make_ctx
+    from repro_torch.parallel import expert_flags, flat_layout, make_ctx
     from repro_torch.serve import make_prefill, make_serve_step
     from repro_torch.serve.batcher import ContinuousBatcher
     from repro_torch.train import make_train_step
@@ -895,6 +913,11 @@ GMM_DECODE = (16, 4, 6144, 10752, True)
 GMM_DECODE_DOWN = (16, 4, 10752, 6144, False)
 GMM_PREFILL = (16, 512, 6144, 10752, True)
 GMM_PARITY_PREFILL = (16, 256, 6144, 10752, True)
+# expert parallelism, 4 ranks: a rank's 4 experts on tp x C = 4 x 40 rows
+# (prefill B 2 x S 256), and weight-stationary decode on (2, 2): 8 experts,
+# half the ffn dim, 4 slots
+GMM_EP_PREFILL = (4, 160, 6144, 10752, False)
+GMM_EP_WS = (8, 4, 6144, 5376, False)
 
 
 def _gmm_inputs(rng, gen, e, c, d, f, expand, dtype, w_scale):
@@ -925,12 +948,13 @@ def phase_gmm_kernel(rng) -> dict:
              for s in _GMM_SWEEP]
     cases += [(GMM_DECODE, torch.bfloat16), (GMM_DECODE_DOWN, torch.bfloat16),
               (GMM_PREFILL, torch.bfloat16), (GMM_DECODE, torch.float32),
-              (GMM_PARITY_PREFILL, torch.float32)]
+              (GMM_PARITY_PREFILL, torch.float32),
+              (GMM_EP_PREFILL, torch.bfloat16), (GMM_EP_WS, torch.bfloat16)]
     errs = {}
     for shape, dtype in cases:
         e, c, d, f, expand = shape
         path = shape in (GMM_DECODE, GMM_DECODE_DOWN, GMM_PREFILL,
-                         GMM_PARITY_PREFILL)
+                         GMM_PARITY_PREFILL, GMM_EP_PREFILL, GMM_EP_WS)
         # the path's weights have the model's scale (dense_init: 1/sqrt(d));
         # the sweep's that of tests/test_kernels.py:108
         x, w = _gmm_inputs(rng, gen, *shape, dtype,
@@ -954,6 +978,8 @@ def phase_gmm_kernel(rng) -> dict:
         want = {(GMM_PREFILL, torch.bfloat16): "wgmma",
                 (GMM_DECODE, torch.bfloat16): "wgmma_swap",
                 (GMM_DECODE_DOWN, torch.bfloat16): "wgmma_swap",
+                (GMM_EP_PREFILL, torch.bfloat16): "wgmma",
+                (GMM_EP_WS, torch.bfloat16): "wgmma_swap",
                 (_GMM_UNALIGNED, torch.bfloat16): "mma_sync"
                 }.get((shape, dtype))
         check(want in (None, variant),
@@ -965,7 +991,9 @@ def phase_gmm_kernel(rng) -> dict:
 
     timings = {}
     for name, shape, iters in (("decode", GMM_DECODE, 20),
-                               ("prefill", GMM_PREFILL, 5)):
+                               ("prefill", GMM_PREFILL, 5),
+                               ("ep_prefill", GMM_EP_PREFILL, 10),
+                               ("ep_ws_decode", GMM_EP_WS, 20)):
         x, w = _gmm_inputs(rng, gen, *shape, torch.bfloat16,
                            shape[2] ** -0.5)
         ms = cuda_ms(lambda: moe_gmm(x, w), iters)
@@ -975,7 +1003,8 @@ def phase_gmm_kernel(rng) -> dict:
         graph = graph_ms(lambda: moe_gmm(x, w), iters)
         library_graph = graph_ms(lambda: torch.matmul(x, w), iters)
         bound_ms, bound_by = gmm_bound(*shape, torch.bfloat16)
-        timings[name] = {"shape": list(shape[:4]), "x_expert_stride_0": True,
+        timings[name] = {"shape": list(shape[:4]),
+                         "x_expert_stride_0": shape[4],
                          "variant": moe_gmm.last_variant,
                          "dtype": "bfloat16", "ms": ms, "plain_ms": plain_ms,
                          "library_ms": library_ms, "bound_ms": bound_ms,
@@ -984,7 +1013,8 @@ def phase_gmm_kernel(rng) -> dict:
                          "max_abs_err": errs[(shape, torch.bfloat16)]}
         emit({"phase": "kernel_time", "kernel": "moe_gmm", **timings[name]})
         del x, w
-    return {"path": timings["decode"], "prefill": timings["prefill"]}
+    return {"path": timings["decode"],
+            **{k: v for k, v in timings.items() if k != "decode"}}
 
 
 # --------------------------------------------------------------------------
@@ -2107,7 +2137,7 @@ def _exchange_delta(before: tuple) -> dict:
 
 def _rank_ctx(world: int, **kw):
     mesh_cfg = MeshConfig((world, 1))
-    return make_ctx(data_group(mesh_cfg), mesh_cfg, **kw)
+    return make_ctx(mesh_groups(mesh_cfg)[0], mesh_cfg, **kw)
 
 
 def dp_parity_rank(rank: int, world: int, seed: int) -> dict:
@@ -2446,6 +2476,505 @@ def run_dp(seed: int) -> dict:
             "dp_q8": phase_dp_q8(seed + 2)}
 
 
+# --------------------------------------------------------------------------
+# 3d. expert parallelism (dbrx-132b, full width): 4 gloo ranks on the card
+# --------------------------------------------------------------------------
+
+EP_RANKS = 4
+EP_BATCH, EP_SEQ = 2, 256      # the prefill: B 2 x S 256
+EP_SLOTS = 4                   # decode slots
+EP_PARITY_STEPS = 8
+EP_SERVE_STEPS = 16
+EP_NO_DROP = 16.0              # capacity factor: C 512 >= the 128 tokens
+EP_TRAIN_FACTOR = 1.25         # a shard sends an expert
+EP_MARGIN_ULPS = 8             # bf16 ulps of the top logit: tokens compared
+
+
+def _ep_ctx(cfg, mesh_shape, **kw):
+    mesh_cfg = MeshConfig(tuple(mesh_shape))
+    dgroup, mgroup = mesh_groups(mesh_cfg, cfg)
+    return make_ctx(dgroup, mesh_cfg, model_group=mgroup, **kw)
+
+
+def _top2(logits, v: int):
+    """(argmax, top-1 minus top-2, top-1) over the true vocabulary."""
+    top = logits[..., :v].float().topk(2, dim=-1).values
+    return logits[..., :v].argmax(-1), top[..., 0] - top[..., 1], top[..., 0]
+
+
+def _ulps_bf16(x):
+    """One bf16 ulp at |x| (8 significant bits)."""
+    return torch.exp2(torch.floor(torch.log2(x.abs().clamp(min=1e-30))) - 7)
+
+
+def _ep_teacher_decode(cfg, params, serve, tokens, device):
+    """``tokens`` (slots, steps + 1) fed one a step from position 0 (the
+    reference's own greedy choices, so that the two runs see the same
+    inputs); returns the logits of every step (slots, steps, V_pad) and
+    each step's ms (CUDA events)."""
+    slots, steps = tokens.shape[0], tokens.shape[1] - 1
+    cache = init_cache(cfg, params, slots, steps,
+                       dtype=params["embed"].dtype)
+    out, ms = [], []
+    for t in range(steps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        _, lg, cache = serve(params, cache, tokens[:, t:t + 1].to(device), t)
+        b.record()
+        torch.cuda.synchronize()
+        ms.append(a.elapsed_time(b))
+        out.append(lg[:, 0])
+    return torch.stack(out, 1), ms
+
+
+def _ep_reference(cfg, seed: int, tokens, first, steps: int, emulate=None):
+    """The single-card dense run of ``cfg`` drawn from ``seed`` on the
+    card: prefill logits of ``tokens`` and ``steps`` greedy decode steps of
+    ``EP_SLOTS`` slots from the ``first`` tokens; with ``emulate`` (a
+    capacity factor) also the prefill through ``moe_ep_train_ref`` on
+    ``EP_RANKS`` model ranks.  Returns host tensors; frees the card."""
+    dtype = torch.float32 if emulate is not None else torch.bfloat16
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    params = init_params(cfg, gen, dtype=dtype, device=DEVICE)
+    out = {}
+    with torch.no_grad():
+        out["prefill"] = make_prefill(cfg)(params, tokens.to(DEVICE)).cpu()
+        serve = make_serve_step(cfg)
+        cache = init_cache(cfg, params, EP_SLOTS, steps, dtype=dtype)
+        tok, fed, logits = first.to(DEVICE), [first], []
+        for t in range(steps):
+            tok, lg, cache = serve(params, cache, tok, t)
+            fed.append(tok.cpu())
+            logits.append(lg[:, 0].cpu())
+        out["decode"] = torch.stack(logits, 1)
+        out["fed"] = torch.cat(fed, 1)
+        if emulate is not None:
+            dropped = []
+            real = moe_mod.moe_apply
+
+            def plain_ep(p, cfg_, x, *, ctx=None, decode=False):
+                y, aux, share = moe_mod.moe_ep_train_ref(
+                    p, cfg_, x, EP_RANKS, emulate)
+                dropped.append(share)
+                return y, aux
+
+            moe_mod.moe_apply = plain_ep
+            try:
+                out["emulated"] = make_prefill(cfg)(
+                    params, tokens.to(DEVICE)).cpu()
+            finally:
+                moe_mod.moe_apply = real
+            out["dropped_share"] = dropped
+    del params
+    _release()
+    return out
+
+
+def _ep_rank_params(cfg, seed: int, dtype, ctx, device):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return init_params(cfg, gen, dtype=dtype, device=device, ctx=ctx)
+
+
+def ep_parity_rank(rank: int, world: int, cfg, seed: int, ref_path: str,
+                   device: str) -> dict:
+    """f32 (TF32 off) on a (1, 4) mesh: this rank's expert part drawn from
+    the seed; EP prefill at capacity factor 16 against the single-card
+    dense logits, at 1.25 against the plain emulation; EP decode (teacher
+    forced) against the dense decode.  Then on a (2, 2) mesh, on the
+    parameters drawn again in the weight-stationary layout, the
+    weight-stationary decode of this data rank's slots against the same
+    rows of the dense decode.  Launches of each, and a checksum of the
+    logits (the same on every rank of a data index)."""
+    dev = rank_device(device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ref = torch.load(ref_path)
+    out = {}
+    for name, factor in (("no_drop", EP_NO_DROP), ("drop", EP_TRAIN_FACTOR)):
+        ctx = _ep_ctx(cfg, (1, world), remat=False, capacity_factor=factor)
+        if name == "no_drop":
+            params = _ep_rank_params(cfg, seed, torch.float32, ctx, dev)
+        n0 = launch_counts()
+        with torch.no_grad():
+            logits = make_prefill(cfg, ctx)(params, ref["tokens"].to(dev))
+        torch.cuda.synchronize()
+        want = ref["prefill" if name == "no_drop" else "emulated"]
+        out[name] = _logit_err(logits.cpu(), want, cfg.vocab_size)
+        out[name]["launches"] = _delta(n0)
+        out[name]["checksum"] = launch_train.checksum([logits])
+    with torch.no_grad():
+        n0 = launch_counts()
+        got, _ = _ep_teacher_decode(cfg, params, make_serve_step(cfg, ctx),
+                                    ref["fed"], dev)
+    out["decode"] = _logit_err(got.cpu(), ref["decode"], cfg.vocab_size)
+    out["decode"]["launches"] = _delta(n0)
+    out["decode"]["checksum"] = launch_train.checksum([got])
+    del params, got
+    _release()
+    ctx = _ep_ctx(cfg, (2, world // 2), remat=False,
+                  ep_weight_stationary=True)
+    params = _ep_rank_params(cfg, seed, torch.float32, ctx, dev)
+    rows = slice(ctx.rank * EP_SLOTS // ctx.dp,
+                 (ctx.rank + 1) * EP_SLOTS // ctx.dp)
+    with torch.no_grad():
+        n0 = launch_counts()
+        got, _ = _ep_teacher_decode(cfg, params, make_serve_step(cfg, ctx),
+                                    ref["fed"][rows], dev)
+    out["decode_ws"] = _logit_err(got.cpu(), ref["decode"][rows],
+                                  cfg.vocab_size)
+    out["decode_ws"]["launches"] = _delta(n0)
+    out["decode_ws"]["checksum"] = launch_train.checksum([got])
+    out["data_rank"] = ctx.rank
+    out["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    return out
+
+
+def _logit_err(got, want, v: int) -> dict:
+    err = (got[..., :v].float() - want[..., :v].float()).abs()
+    excess = err - PARITY_TOL["atol"] - PARITY_TOL["rtol"] * \
+        want[..., :v].float().abs()
+    return {"max_abs_err": float(err.max()), "excess": float(excess.max()),
+            "greedy_equal": bool(torch.equal(got[..., :v].argmax(-1),
+                                             want[..., :v].argmax(-1)))}
+
+
+def phase_ep_parity(rng, seed: int) -> dict:
+    """dbrx-132b at full width, 2 layers, f32: EP on 4 ranks (mesh (1, 4),
+    and the weight-stationary decode on (2, 2)) against the single-card
+    dense run (freed first: 31 GB) and the plain emulation."""
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config(MOE_ARCH),
+                              num_layers=MOE_PARITY_LAYERS)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                           (EP_BATCH, EP_SEQ)))
+    first = torch.from_numpy(rng.integers(0, cfg.vocab_size, (EP_SLOTS, 1)))
+    ref = _ep_reference(cfg, seed, tokens, first, EP_PARITY_STEPS,
+                        emulate=EP_TRAIN_FACTOR)
+    ref["tokens"] = tokens
+    ref_s = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory(prefix="ep_parity_") as tmp:
+        path = os.path.join(tmp, "ref.pt")
+        torch.save(ref, path)
+        ranks = spawn_ranks(ep_parity_rank, EP_RANKS, cfg, seed, path,
+                            DEVICE, backend="gloo", timeout_s=600)
+    head = ranks[0]
+    per_layer = 3 * MOE_PARITY_LAYERS
+    for name in ("no_drop", "drop", "decode", "decode_ws"):
+        ws = name == "decode_ws"
+        # ranks of one data index hold the same logits
+        same = all(len({r[name]["checksum"] for r in ranks
+                        if r["data_rank"] == d}) == 1
+                   for d in {r["data_rank"] for r in ranks}) if ws \
+            else len({r[name]["checksum"] for r in ranks}) == 1
+        emit({"phase": "ep_parity", "arch": cfg.name, "case": name,
+              "path": "moe_ep_decode_ws" if ws else {
+                  "decode": "moe_ep_decode"}.get(name, "moe_ep_train"),
+              "dtype": "float32", "layers": cfg.num_layers,
+              "mesh": [2, EP_RANKS // 2] if ws else [1, EP_RANKS],
+              "backend": "gloo",
+              "capacity_factor": {"no_drop": EP_NO_DROP,
+                                  "drop": EP_TRAIN_FACTOR}.get(
+                                      name, EP_NO_DROP),
+              "against": "plain emulation" if name == "drop" else "dense",
+              **{k: head[name][k] for k in ("max_abs_err", "excess",
+                                            "greedy_equal")},
+              "tol": PARITY_TOL, "identical_across_model_ranks": same,
+              "launches_per_rank": [r[name]["launches"] for r in ranks]})
+        check(same, f"ep_parity {name}: ranks hold different logits")
+        check(head[name]["excess"] <= 0,
+              f"ep_parity {name}: beyond {PARITY_TOL}: max |err| "
+              f"{head[name]['max_abs_err']}")
+        want = per_layer * (EP_PARITY_STEPS if name.startswith("decode")
+                            else 1)
+        check(all(r[name]["launches"].get("moe_gmm") == want for r in ranks),
+              f"ep_parity {name}: K5 launches a rank "
+              f"{[r[name]['launches'] for r in ranks]}, want {want}")
+    emit({"phase": "ep_parity_total", "seconds": time.perf_counter() - t0,
+          "reference_s": ref_s,
+          "dropped_share_at_1.25": ref["dropped_share"],
+          "peak_memory_bytes_per_rank": [r["peak_memory_bytes"]
+                                         for r in ranks]})
+    return _ep_sum([r[k]["launches"] for r in ranks
+                    for k in ("no_drop", "drop", "decode", "decode_ws")])
+
+
+def _ep_sum(deltas) -> dict:
+    total = {k: 0 for k in WRAPPERS}
+    for d in deltas:
+        for k, v in d.items():
+            total[k] += v
+    return total
+
+
+def _token_check(got_logits, ref: dict, rows, v: int) -> dict:
+    """Greedy tokens of ``got_logits`` (rows of the reference's decode)
+    against the reference's, where its top-2 margin exceeds
+    ``EP_MARGIN_ULPS`` bf16 ulps of its top logit."""
+    want, margin, top = _top2(ref["decode"][rows], v)
+    got = got_logits[..., :v].float().argmax(-1)
+    firm = margin > EP_MARGIN_ULPS * _ulps_bf16(top)
+    diff = (got_logits[..., :v].float() - ref["decode"][rows][..., :v]
+            .float()).abs()
+    return {"compared": int(firm.sum()), "of": int(firm.numel()),
+            "mismatches": int(((got != want) & firm).sum()),
+            "unforced_mismatches": int(((got != want) & ~firm).sum()),
+            "min_margin_compared": float(margin[firm].min())
+            if bool(firm.any()) else None,
+            "max_abs_logit_diff": float(diff.max())}
+
+
+def ep_serving_rank(rank: int, world: int, cfg, seed: int, ref_path: str,
+                    device: str) -> dict:
+    """bf16 on a (1, 4) mesh: prefill B 2 x S 256 through
+    ``make_prefill(cfg, ctx)`` (timed, three calls), then 16 decode steps
+    of 4 slots through ``make_serve_step(cfg, ctx=ctx)`` (teacher forced by
+    the reference's greedy tokens), with launches, exchange seconds and
+    bytes of each."""
+    dev = rank_device(device)
+    ref = torch.load(ref_path)
+    ctx = _ep_ctx(cfg, (1, world), remat=False)
+    params = _ep_rank_params(cfg, seed, torch.bfloat16, ctx, dev)
+    torch.cuda.reset_peak_memory_stats()
+    prefill = make_prefill(cfg, ctx)
+    tokens = ref["tokens"].to(dev)
+    out = {"prefill_ms": []}
+    with torch.no_grad():
+        for i in range(3):
+            dist.barrier()
+            n0, ex0 = launch_counts(), _exchange()
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            logits = prefill(params, tokens)
+            b.record()
+            torch.cuda.synchronize()
+            out["prefill_ms"].append(a.elapsed_time(b))
+            if i == 0:
+                out["prefill"] = {"launches": _delta(n0),
+                                  **_exchange_delta(ex0)}
+        arg, margin, top = _top2(logits[:, -1].cpu(), cfg.vocab_size)
+        want, wmargin, wtop = _top2(ref["prefill"][:, -1], cfg.vocab_size)
+        out["prefill_tokens"] = {"got": arg.tolist(), "want": want.tolist(),
+                                 "margin": wmargin.tolist(),
+                                 "firm": (wmargin > EP_MARGIN_ULPS
+                                          * _ulps_bf16(wtop)).tolist()}
+        del logits
+        dist.barrier()
+        n0, ex0 = launch_counts(), _exchange()
+        got, ms = _ep_teacher_decode(cfg, params,
+                                     make_serve_step(cfg, ctx=ctx),
+                                     ref["fed"], dev)
+        out["decode"] = {"launches": _delta(n0), **_exchange_delta(ex0),
+                         "step_ms": ms}
+    out["tokens"] = _token_check(got.cpu(), ref, slice(None), cfg.vocab_size)
+    out["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    out["capacity"] = {"prefill": moe_mod.capacity_for(
+        EP_BATCH * EP_SEQ // world, cfg.top_k, cfg.num_experts,
+        ctx.capacity_factor),
+        "decode": moe_mod.capacity_for(EP_SLOTS, cfg.top_k, cfg.num_experts,
+                                       ctx.decode_capacity_factor)}
+    return out
+
+
+def ep_ws_rank(rank: int, world: int, cfg, seed: int, ref_path: str,
+               device: str) -> dict:
+    """bf16 on a (2, 2) mesh, each data rank on its 2 of the 4 slots: 16
+    decode steps through ``moe_ep_decode_ws`` (experts (E/2, d, ff/2) a
+    rank), then, on parameters drawn again in the EP layout, through
+    ``moe_ep_decode``; teacher forced by the reference's tokens."""
+    dev = rank_device(device)
+    ref = torch.load(ref_path)
+    out = {}
+    for name, ws in (("ws", True), ("ep", False)):
+        ctx = _ep_ctx(cfg, (2, world // 2), remat=False,
+                      ep_weight_stationary=ws)
+        params = _ep_rank_params(cfg, seed, torch.bfloat16, ctx, dev)
+        torch.cuda.reset_peak_memory_stats()
+        rows = slice(ctx.rank * EP_SLOTS // ctx.dp,
+                     (ctx.rank + 1) * EP_SLOTS // ctx.dp)
+        with torch.no_grad():
+            dist.barrier()
+            n0, ex0 = launch_counts(), _exchange()
+            got, ms = _ep_teacher_decode(cfg, params,
+                                         make_serve_step(cfg, ctx=ctx),
+                                         ref["fed"][rows], dev)
+        out[name] = {"launches": _delta(n0), **_exchange_delta(ex0),
+                     "step_ms": ms,
+                     "tokens": _token_check(got.cpu(), ref, rows,
+                                            cfg.vocab_size),
+                     "expert_bytes": sum(
+                         t.numel() * t.element_size() for t, e in zip(
+                             param_leaves(params), expert_flags(params))
+                         if e),
+                     "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+        del params, got
+        _release()
+    return out
+
+
+def _ep_a2a_bytes(cfg, tp: int, capacity: int) -> int:
+    """Wire bytes of a rank's two all-to-alls a MoE layer (bf16):
+    2 x (tp - 1)/tp of its (tp, E/tp, C, d) buffer."""
+    e_local = cfg.num_experts // tp
+    return 2 * (tp - 1) * e_local * capacity * cfg.d_model * 2
+
+
+def _ring_ar_bytes(n: int, p: int) -> int:
+    """Wire bytes a rank of ``ring_all_reduce`` of ``n`` bf16 values over
+    ``p`` ranks: 2 (p - 1) chunks of n / p (padded)."""
+    return 2 * (p - 1) * -(-n // p) * 2 if p > 1 else 0
+
+
+def _ep_decode_bytes(cfg, dp: int, tp: int, ws: bool) -> int:
+    """Wire bytes a rank a decode step of ``EP_SLOTS`` slots (bf16) on a
+    (dp, tp) mesh, each data rank on its share of the slots: per MoE layer
+    the model-axis all-reduce of the rank's tokens; weight-stationary, the
+    one packed gather of the tokens (x, the int64 ids and the weights a
+    row) and both all-reduces over all of them.  No other exchange: the
+    router loss of decode is not summed over the data ranks."""
+    n_moe = sum(s.ffn == "moe" for s in cfg.layer_specs())
+    rows, d, k = EP_SLOTS // dp, cfg.d_model, cfg.top_k
+    if not ws:
+        return n_moe * _ring_ar_bytes(rows * d, tp)
+    gather = (dp - 1) * rows * (2 * d + 8 * k + 2 * k)
+    full = EP_SLOTS * d
+    return n_moe * (gather + _ring_ar_bytes(full, tp)
+                    + _ring_ar_bytes(full, dp))
+
+
+def phase_ep_serving(rng, seed: int) -> dict:
+    """dbrx-132b at full width, 4 layers, bf16: the single-card dense run
+    (28.6 GB, freed first), then EP serving on (1, 4) and the
+    weight-stationary and EP decode on (2, 2), 4 gloo ranks each."""
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config(MOE_ARCH),
+                              num_layers=MOE_SERVE_LAYERS)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                           (EP_BATCH, EP_SEQ)))
+    first = torch.from_numpy(rng.integers(0, cfg.vocab_size, (EP_SLOTS, 1)))
+    ref = _ep_reference(cfg, seed, tokens, first, EP_SERVE_STEPS)
+    ref["tokens"] = tokens
+    ref_s = time.perf_counter() - t0
+    n_moe = sum(s.ffn == "moe" for s in cfg.layer_specs())
+    with tempfile.TemporaryDirectory(prefix="ep_serving_") as tmp:
+        path = os.path.join(tmp, "ref.pt")
+        torch.save(ref, path)
+        t1 = time.perf_counter()
+        ranks = spawn_ranks(ep_serving_rank, EP_RANKS, cfg, seed, path,
+                            DEVICE, backend="gloo", timeout_s=600)
+        serving_s = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        ws_ranks = spawn_ranks(ep_ws_rank, EP_RANKS, cfg, seed, path,
+                               DEVICE, backend="gloo", timeout_s=600)
+        ws_s = time.perf_counter() - t1
+
+    tp = EP_RANKS
+    head = ranks[0]
+    cap = head["capacity"]
+    a2a = n_moe * _ep_a2a_bytes(cfg, tp, cap["prefill"])
+    gather = n_moe * (tp - 1) * EP_BATCH * (EP_SEQ // tp) * cfg.d_model * 2
+    decode_ms = [m for r in ranks for m in r["decode"]["step_ms"]]
+    emit({"phase": "ep_serving", "arch": cfg.name, "dtype": "bfloat16",
+          "layers": cfg.num_layers, "mesh": [1, tp], "backend": "gloo",
+          "prefill_batch": EP_BATCH, "prefill_seq": EP_SEQ,
+          "slots": EP_SLOTS, "steps": EP_SERVE_STEPS, "capacity": cap,
+          "prefill_ms": [r["prefill_ms"] for r in ranks],
+          "decode_step_ms_p50": float(np.percentile(decode_ms, 50)),
+          "decode_step_ms_p99": float(np.percentile(decode_ms, 99)),
+          "prefill_exchange_s": [r["prefill"]["exchange_s"] for r in ranks],
+          "prefill_wire_bytes": [r["prefill"]["wire_bytes"] for r in ranks],
+          "prefill_staged_bytes": [r["prefill"]["staged_bytes"]
+                                   for r in ranks],
+          "a2a_wire_bytes_formula": a2a, "seq_gather_wire_bytes": gather,
+          "decode_exchange_s": [r["decode"]["exchange_s"] for r in ranks],
+          "decode_wire_bytes_per_step": [
+              r["decode"]["wire_bytes"] / EP_SERVE_STEPS for r in ranks],
+          "decode_staged_bytes_per_step": [
+              r["decode"]["staged_bytes"] / EP_SERVE_STEPS for r in ranks],
+          "prefill_tokens": head["prefill_tokens"],
+          "tokens": [r["tokens"] for r in ranks],
+          "peak_memory_bytes_per_rank": [r["peak_memory_bytes"]
+                                         for r in ranks],
+          "launches_per_rank": {"prefill": [r["prefill"]["launches"]
+                                            for r in ranks],
+                                "decode": [r["decode"]["launches"]
+                                           for r in ranks]},
+          "reference_s": ref_s, "ranks_s": serving_s})
+    want_prefill = {k: n for k, n in {**prefill_launches(cfg),
+                                      **ep_launches(cfg)}.items() if n}
+    want_decode = {k: n * EP_SERVE_STEPS
+                   for k, n in ep_launches(cfg).items()}
+    for r in ranks:
+        check(r["prefill"]["launches"] == want_prefill,
+              f"ep_serving prefill launched {r['prefill']['launches']}, "
+              f"want {want_prefill}")
+        check(r["decode"]["launches"] == want_decode,
+              f"ep_serving decode launched {r['decode']['launches']}, "
+              f"want {want_decode}")
+        check(r["prefill"]["wire_bytes"] == a2a + gather,
+              f"ep_serving prefill wire bytes {r['prefill']['wire_bytes']}"
+              f", want all-to-all {a2a} + sequence gather {gather}")
+        want_bytes = EP_SERVE_STEPS * _ep_decode_bytes(cfg, 1, tp, False)
+        check(r["decode"]["wire_bytes"] == want_bytes,
+              f"ep_serving decode wire bytes {r['decode']['wire_bytes']}, "
+              f"want {want_bytes}")
+        check(r["tokens"]["mismatches"] == 0,
+              f"ep_serving: greedy tokens differ from the dense run where "
+              f"its margin exceeds {EP_MARGIN_ULPS} bf16 ulps: "
+              f"{r['tokens']}")
+
+    for name in ("ws", "ep"):
+        per = [r[name] for r in ws_ranks]
+        ms = [m for p in per for m in p["step_ms"]]
+        emit({"phase": "ep_ws_decode", "arch": cfg.name,
+              "path": {"ws": "moe_ep_decode_ws",
+                       "ep": "moe_ep_decode"}[name],
+              "dtype": "bfloat16", "layers": cfg.num_layers,
+              "mesh": [2, tp // 2], "backend": "gloo", "slots": EP_SLOTS,
+              "steps": EP_SERVE_STEPS,
+              "step_ms_p50": float(np.percentile(ms, 50)),
+              "step_ms_p99": float(np.percentile(ms, 99)),
+              "exchange_s": [p["exchange_s"] for p in per],
+              "wire_bytes_per_step": [p["wire_bytes"] / EP_SERVE_STEPS
+                                      for p in per],
+              "staged_bytes_per_step": [p["staged_bytes"] / EP_SERVE_STEPS
+                                        for p in per],
+              "expert_bytes_per_rank": per[0]["expert_bytes"],
+              "peak_memory_bytes_per_rank": [p["peak_memory_bytes"]
+                                             for p in per],
+              "tokens": [p["tokens"] for p in per],
+              "launches_per_rank": [p["launches"] for p in per]})
+        want_bytes = EP_SERVE_STEPS * _ep_decode_bytes(
+            cfg, 2, tp // 2, name == "ws")
+        for p in per:
+            check(p["launches"] == want_decode,
+                  f"ep_ws_decode {name} launched {p['launches']}, want "
+                  f"{want_decode}")
+            check(p["wire_bytes"] == want_bytes,
+                  f"ep_ws_decode {name} wire bytes {p['wire_bytes']}, want "
+                  f"{want_bytes}")
+            check(p["tokens"]["mismatches"] == 0,
+                  f"ep_ws_decode {name}: greedy tokens differ from the "
+                  f"dense run: {p['tokens']}")
+    emit({"phase": "ep_serving_total", "seconds": time.perf_counter() - t0,
+          "reference_s": ref_s, "serving_ranks_s": serving_s,
+          "ws_ranks_s": ws_s})
+    return {"ep_serving": _ep_sum(
+        [r[k]["launches"] for r in ranks for k in ("prefill", "decode")]),
+        "ep_ws_decode": _ep_sum([r[k]["launches"] for r in ws_ranks
+                                 for k in ("ws", "ep")])}
+
+
+def run_ep(rng, seed: int) -> dict:
+    """The expert-parallel paths (4 gloo ranks on the card, dbrx-132b at
+    full width); returns each phase's launch counts, summed over the
+    ranks."""
+    _release()
+    counts = {"ep_parity": phase_ep_parity(rng, seed)}
+    counts.update(phase_ep_serving(rng, seed + 1))
+    return counts
+
+
 def run_paths(rng) -> dict:
     """The three serving paths; returns each path's launch counts."""
     paths = {}
@@ -2493,6 +3022,7 @@ def main() -> int:
     paths = run_paths(rng)
     paths["training"] = run_training(SEED + 8)
     paths.update(run_dp(SEED + 10))
+    paths.update(run_ep(rng, SEED + 12))
     codecs = phase_codecs(SEED + 6)
     check(codecs["values"] == n_values, "gradient size changed")
     paths["codecs"] = codecs["counts"]

@@ -5,7 +5,11 @@ The caller converts the JAX pytrees to nested dicts of numpy arrays
 (``jax.tree.map(np.asarray, params)``), so the port itself never imports
 jax.  Weights are shared by value: ``jax.random`` is not re-implemented.
 ``params_to_jax_layout`` goes the other way, into numpy, so that tests
-compare updated parameters and moments leaf for leaf.
+compare updated parameters and moments leaf for leaf.  Under expert
+parallelism a rank holds its part of each expert weight
+(``parallel.shard_params``): ``params_from_jax(..., ctx=)`` cuts it out,
+``params_to_jax_layout(..., ctx=)`` gathers the parts back (every rank
+calls it).
 """
 from __future__ import annotations
 
@@ -16,6 +20,7 @@ from repro_torch.core.device import resolve_device
 from repro_torch.core.types import ModelConfig
 from repro_torch.core.tree import tree_map
 from repro_torch.models.transformer import check_ported
+from repro_torch.parallel.planner import gather_params, shard_params
 
 
 def _tensor(a, device: torch.device) -> torch.Tensor:
@@ -26,8 +31,10 @@ def _tensor(a, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(a).to(device)
 
 
-def params_from_jax(cfg: ModelConfig, tree: dict, device="cuda") -> dict:
-    """JAX ``init_params`` tree (as numpy) -> the port's parameter dict.
+def params_from_jax(cfg: ModelConfig, tree: dict, device="cuda",
+                    ctx=None) -> dict:
+    """JAX ``init_params`` tree (as numpy) -> the port's parameter dict,
+    with an expert-parallel ``ctx`` this rank's shard of it.
 
     Each ``group{gi}/pos{i}/...`` leaf is stacked over the group's repeats
     (``jax.vmap`` in ``_init_group``); it is unstacked into per-layer
@@ -48,24 +55,29 @@ def params_from_jax(cfg: ModelConfig, tree: dict, device="cuda") -> dict:
                 layers.append(tree_map(lambda a, r=r: _tensor(a[r], dev),
                                        group[f"pos{i}"]))
     params["layers"] = layers
-    return params
+    return shard_params(params, ctx)
 
 
-def opt_state_from_jax(cfg: ModelConfig, state: dict, device="cuda") -> dict:
+def opt_state_from_jax(cfg: ModelConfig, state: dict, device="cuda",
+                       ctx=None) -> dict:
     """JAX ``init_opt_state`` tree (as numpy) -> the port's optimizer state:
-    m and v unstacked like the parameters (``params_from_jax``), step a
-    0-d int32 tensor."""
+    m and v unstacked (and sharded) like the parameters
+    (``params_from_jax``), step a 0-d int32 tensor."""
     dev = resolve_device(device)
-    return {"m": params_from_jax(cfg, state["m"], dev),
-            "v": params_from_jax(cfg, state["v"], dev),
+    return {"m": params_from_jax(cfg, state["m"], dev, ctx),
+            "v": params_from_jax(cfg, state["v"], dev, ctx),
             "step": torch.tensor(int(np.asarray(state["step"])),
                                  dtype=torch.int32, device=dev)}
 
 
-def params_to_jax_layout(cfg: ModelConfig, params: dict) -> dict:
+def params_to_jax_layout(cfg: ModelConfig, params: dict, ctx=None) -> dict:
     """The port's parameter tree (or m or v) -> numpy in the JAX package's
     layout: each ``group{gi}/pos{i}`` leaf stacked over the group's repeats
-    in the JAX layer order; bf16 leaves as f32 (exact)."""
+    in the JAX layer order; bf16 leaves as f32 (exact).  With an
+    expert-parallel ``ctx`` the tree is this rank's shard, and the expert
+    weights are gathered from the ranks first (every rank calls it)."""
+    params = gather_params(params, ctx)
+
     def arr(t):
         t = t.detach().cpu()
         return (t.float() if t.dtype == torch.bfloat16 else t).numpy()

@@ -29,6 +29,10 @@ on the wire (``sent_bytes``), the bytes it copied (``staged_bytes``) and
 the seconds its exchanges took, copies included (``seconds``).
 This copy is the transport of a gloo group, not a fallback: with NCCL the
 tensors go as they are.
+
+``all_to_all`` (with ``AllToAll``, its autograd form) is the MoE dispatch
+of expert parallelism (``repro_torch.models.moe``), built from the same
+permutes.
 """
 from __future__ import annotations
 
@@ -255,6 +259,38 @@ def latency_bound_all_reduce(x: torch.Tensor, group=None) -> torch.Tensor:
         acc = acc + _permute([acc], perm, group)[0]
         dist_ *= 2
     return acc
+
+
+def all_to_all(x: torch.Tensor, group=None) -> torch.Tensor:
+    """``lax.all_to_all(x, axis, split_axis=0, concat_axis=0,
+    tiled=False)``: x is (p, ...), chunk i goes to rank i, and chunk j of
+    the result is the one rank j sent here.  p - 1 shifted permutes (hop s
+    sends chunk me + s to rank me + s), so its bytes and seconds land in
+    ``_permute``'s counters: (p - 1)/p of x on the wire a rank."""
+    idx, p = _rank_size(group)
+    if x.shape[0] != p:
+        raise ValueError(f"all_to_all over {p} ranks needs a leading dim of "
+                         f"{p}, got {tuple(x.shape)}")
+    out = torch.empty_like(x)
+    out[idx] = x[idx]
+    for s in range(1, p):
+        out[(idx - s) % p] = _permute([x[(idx + s) % p]], _ring(p, s),
+                                      group)[0]
+    return out
+
+
+class AllToAll(torch.autograd.Function):
+    """``all_to_all`` under autograd: its transpose is itself (the
+    cotangent of chunk j of the result goes back to rank j as chunk me)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return all_to_all(x, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_to_all(grad.contiguous(), ctx.group), None
 
 
 def torus2d_all_reduce(x: torch.Tensor, row_group, col_group

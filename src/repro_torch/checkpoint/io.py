@@ -7,7 +7,11 @@ params_to_jax_layout``: each layer group's leaves stacked over its repeats)
 under its keys, ``params/<path>`` and ``opt_state/<path>`` with ``/``
 between the dict keys, so a checkpoint written by either package restores
 in the other.  bf16 leaves are written as f32 (exact) and restored in the
-template's dtype.  The manifest is encoded by ``msgpack_lite``.
+template's dtype.  The manifest is encoded by ``msgpack_lite``.  Under
+expert parallelism the checkpoint still holds every expert: the ranks
+gather their parts first (``parallel.gather_params``, and
+``optim.gather_opt_state`` under ZeRO-1), and a restore with the context
+cuts each rank's part out again.
 """
 from __future__ import annotations
 
@@ -61,7 +65,8 @@ def save_checkpoint(cfg: ModelConfig, ckpt_dir: str, step: int, params: Any,
                     opt_state: Optional[Dict[str, Any]] = None,
                     extra: Optional[Dict] = None) -> str:
     """Writes ``params`` (and the full ``opt_state``: under ZeRO-1, gather
-    it first with ``optim.gather_opt_state``) as step ``step`` under
+    it first with ``optim.gather_opt_state``, and under expert parallelism
+    both with ``parallel.gather_params``) as step ``step`` under
     ``ckpt_dir``; returns the step's directory."""
     path = os.path.join(ckpt_dir, f"step_{step:08d}")
     os.makedirs(path, exist_ok=True)
@@ -87,12 +92,14 @@ def save_checkpoint(cfg: ModelConfig, ckpt_dir: str, step: int, params: Any,
 
 
 def restore_checkpoint(cfg: ModelConfig, path: str, params_template: Any,
-                       opt_template: Optional[Dict[str, Any]] = None
+                       opt_template: Optional[Dict[str, Any]] = None,
+                       ctx=None
                        ) -> Tuple[Any, Optional[Dict[str, Any]], int]:
     """Reads the step directory ``path`` into the port's layout, each leaf
     on the device and in the dtype of its template's (the optimizer state
-    only where ``opt_template`` is given).  Returns (params, opt_state,
-    step)."""
+    only where ``opt_template`` is given); with an expert-parallel ``ctx``
+    this rank's part of the experts (the templates are its shards).
+    Returns (params, opt_state, step)."""
     with open(os.path.join(path, "manifest.msgpack"), "rb") as f:
         manifest = msgpack_lite.unpackb(f.read())
     with np.load(os.path.join(path, "arrays.npz")) as npz:
@@ -103,11 +110,11 @@ def restore_checkpoint(cfg: ModelConfig, path: str, params_template: Any,
         return tree_map(lambda t: t.to(dtype=next(it).dtype), tree)
 
     device = next(param_leaves(params_template)).device
-    params = like(params_from_jax(cfg, _nest(flat, "params"), device),
+    params = like(params_from_jax(cfg, _nest(flat, "params"), device, ctx),
                   params_template)
     opt = None
     if opt_template is not None:
-        opt = opt_state_from_jax(cfg, _nest(flat, "opt_state"), device)
+        opt = opt_state_from_jax(cfg, _nest(flat, "opt_state"), device, ctx)
         opt = {"m": like(opt["m"], opt_template["m"]),
                "v": like(opt["v"], opt_template["v"]), "step": opt["step"]}
     return params, opt, int(manifest["step"])

@@ -83,8 +83,8 @@ def moe_gmm(x, w):
         return moe_gmm_ref(x, w)
     if x.device.type != "cuda":
         raise ValueError(f"no moe_gmm for device {x.device}")
-    _build.refuse_grad("moe_gmm", "the grouped GEMM's backward (dx, dw)", x,
-                       w)
+    _build.refuse_grad("moe_gmm", "the grouped GEMM's backward (dx, dw; "
+                       "ROADMAP item 4c)", x, w)
     e, c, d = x.shape
     f = w.shape[2]
     variant = gmm_variant(x.dtype, c, f, x.stride(), x.data_ptr(),

@@ -2,33 +2,53 @@
 ``repro.launch.mesh``).
 
 The JAX package builds a ``jax.sharding.Mesh`` over devices; the port's
-ranks are the processes of an initialised ``torch.distributed`` group, and
-only the data axes run here: the data-axis group is the whole group.  A
-model axis larger than 1 (tensor parallelism, and with it pipeline and
-collective matmul) waits for ROADMAP item 8.
+ranks are the processes of an initialised ``torch.distributed`` group.  A
+``(data, model)`` mesh of ``dp x tp`` ranks puts rank ``d * tp + m`` at
+data index d and model index m, the row-major device order of
+``jax.make_mesh``.  The data axes carry data parallelism; a model axis
+larger than 1 carries expert parallelism of the MoE layers only
+(``models.moe``): tensor parallelism of the dense layers, and with it
+pipeline and collective matmul, waits for ROADMAP item 8.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch.distributed as dist
 
-from repro_torch.core.types import MeshConfig
+from repro_torch.core.types import MeshConfig, ModelConfig
+from repro_torch.launch.ranks import torus_groups
 
 
-def check_data_only(mesh_cfg: MeshConfig) -> None:
-    """Raises where the mesh has a model axis larger than 1."""
-    if mesh_cfg.tp > 1:
+def check_model_axis(mesh_cfg: MeshConfig,
+                     cfg: Optional[ModelConfig] = None) -> None:
+    """Raises where the mesh has a model axis larger than 1 and ``cfg``
+    (``None``: no config) has no MoE layer to run expert parallelism on."""
+    if mesh_cfg.tp > 1 and not (cfg is not None and cfg.is_moe):
+        what = cfg.name if cfg is not None else "a mesh without a config"
         raise NotImplementedError(
-            f"a model axis of {mesh_cfg.tp} (tensor parallelism) is not "
-            f"ported yet: ROADMAP item 8")
+            f"a model axis of {mesh_cfg.tp} for {what}: tensor "
+            f"parallelism of dense layers is not ported yet (ROADMAP item "
+            f"8); only MoE layers run on a model axis, expert-parallel")
 
 
-def data_group(mesh_cfg: MeshConfig, group=None):
-    """The process group of ``mesh_cfg``'s data axes, from ``group`` (the
-    default group when ``None``), which must hold ``mesh_cfg.num_devices``
-    ranks."""
-    check_data_only(mesh_cfg)
-    n = dist.get_world_size(group)
+def mesh_groups(mesh_cfg: MeshConfig, cfg: Optional[ModelConfig] = None):
+    """(data group, model group) of this rank on a ``(data, model)`` mesh
+    over the default group: the ranks of its model index, and the ranks of
+    its data index.  On a data-only mesh (model axis 1) both are ``None``:
+    the data axes are the default group, and nothing calls a collective
+    over the model axis.  Every rank calls it, in the same order."""
+    check_model_axis(mesh_cfg, cfg)
+    _check_size(mesh_cfg)
+    if len(mesh_cfg.shape) != 2 or mesh_cfg.tp != mesh_cfg.shape[1]:
+        raise ValueError(f"want a (data, model) mesh, got {mesh_cfg}")
+    if mesh_cfg.tp == 1:
+        return None, None
+    return torus_groups(mesh_cfg.dp, mesh_cfg.tp)
+
+
+def _check_size(mesh_cfg: MeshConfig) -> None:
+    n = dist.get_world_size()
     if n != mesh_cfg.num_devices:
         raise ValueError(f"mesh {mesh_cfg.shape} needs "
                          f"{mesh_cfg.num_devices} ranks, the group has {n}")
-    return group

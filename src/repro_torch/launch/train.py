@@ -12,8 +12,13 @@ batch's shard of its data axis; on one card they share it.  The ranks run
 ZeRO-1, ``TrainConfig.zero1``'s default: the JAX launcher passes the same
 config but places its moments like the parameters, replicated, so there
 each device holds the whole state where here a rank holds 1/N of it (the
-same per-element arithmetic).  A model axis (``--model-axis`` > 1) raises:
-ROADMAP item 8.
+same per-element arithmetic).  ``--model-axis M`` > 1 builds a (N/M, M)
+data x model mesh (``launch.mesh.mesh_groups``) whose model axis runs the
+MoE layers expert-parallel, as the JAX launcher's ``make_ctx`` does; for an
+architecture without MoE layers it raises (tensor parallelism: ROADMAP
+item 8).  Each rank then holds its part of the experts (drawn from the
+seed, ``init_params(..., ctx=)``), and a checkpoint gathers them into the
+JAX layout.
 
 ``run(argv)`` is the entry point the CLI calls; it returns rank 0's printed
 lines and every rank's measurements.
@@ -35,11 +40,11 @@ from repro_torch.core.tree import param_leaves
 from repro_torch.core.types import MeshConfig, TrainConfig
 from repro_torch.data import make_batches
 from repro_torch.kernels import launch_counts
-from repro_torch.launch.mesh import check_data_only, data_group
+from repro_torch.launch.mesh import check_model_axis, mesh_groups
 from repro_torch.launch.ranks import build_kernels, rank_device, spawn_ranks
 from repro_torch.models import init_params
 from repro_torch.optim import gather_opt_state, init_opt_state
-from repro_torch.parallel import make_ctx
+from repro_torch.parallel import expert_flags, gather_params, make_ctx
 from repro_torch.train import make_train_step
 
 
@@ -110,14 +115,19 @@ def train(rank: int, world: int, args: argparse.Namespace
     if world > 1:
         device = rank_device(args.device)
         mcfg = MeshConfig(shape=(world // args.model_axis, args.model_axis))
-        ctx = make_ctx(data_group(mcfg), mcfg, remat=tcfg.remat)
+        dgroup, mgroup = mesh_groups(mcfg, cfg)
+        ctx = make_ctx(dgroup, mcfg, model_group=mgroup, remat=tcfg.remat)
         say(f"mesh: {dict(zip(mcfg.axis_names, mcfg.shape))}")
     else:
         device = resolve_device(args.device)
     gen = torch.Generator(device=device).manual_seed(tcfg.seed)
-    params = init_params(cfg, gen, device=device)
-    opt = init_opt_state(params, ctx)  # ZeRO-1 shards with ranks
-    n_params = sum(p.numel() for p in param_leaves(params))
+    params = init_params(cfg, gen, device=device, ctx=ctx)
+    zero1 = ctx is not None and ctx.dp > 1 and tcfg.zero1
+    opt = init_opt_state(params, ctx if zero1 else None)  # ZeRO-1 shards
+    n_local = sum(p.numel() for p in param_leaves(params))
+    tp = ctx.tp if ctx is not None else 1
+    n_params = sum(p.numel() * (tp if e else 1) for p, e in
+                   zip(param_leaves(params), expert_flags(params)))
     say(f"arch={cfg.name} params={n_params/1e6:.1f}M "
         f"vocab={cfg.vocab_size} layers={cfg.num_layers}")
 
@@ -162,25 +172,28 @@ def train(rank: int, world: int, args: argparse.Namespace
                 f"ce={metrics['ce']:.4f} lr={metrics['lr']:.2e} "
                 f"gnorm={metrics['grad_norm']:.2f} "
                 f"tok/s={tokens_seen/max(dt,1e-9):,.0f}")
-    checksums = {"params": checksum(params)}
+    whole = gather_params(params, ctx)  # every expert, on every rank
+    checksums = {"params": checksum(whole)}
     if args.ckpt_dir:
-        full = gather_opt_state(opt, ctx, params) if ctx is not None \
-            else opt
+        full = gather_opt_state(opt, ctx, params) if zero1 else opt
+        full = {**full, "m": gather_params(full["m"], ctx),
+                "v": gather_params(full["v"], ctx)}
         checksums.update(m=checksum(full["m"]), v=checksum(full["v"]))
         if rank == 0:
-            path = save_checkpoint(cfg, args.ckpt_dir, args.steps, params,
+            path = save_checkpoint(cfg, args.ckpt_dir, args.steps, whole,
                                    full)
             say(f"checkpoint: {path}")
         del full
         if world > 1:
             dist.barrier()
+    del whole
     moments = [t for k in ("m", "v") for t in param_leaves(opt[k])]
     return {"lines": lines, "steps": steps, "device": str(device),
             "backend": dist.get_backend() if world > 1 else None,
             "params": n_params,
             "opt_state_bytes": sum(t.numel() * t.element_size()
                                    for t in moments),
-            "replicated_opt_state_bytes": 2 * 4 * n_params,
+            "replicated_opt_state_bytes": 2 * 4 * n_local,
             "peak_memory_bytes": torch.cuda.max_memory_allocated(device)
             if cuda else None,
             "checksums": checksums}
@@ -212,7 +225,8 @@ def run(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     else:
         mcfg = MeshConfig(shape=(args.devices // args.model_axis,
                                  args.model_axis))
-        check_data_only(mcfg)
+        check_model_axis(mcfg, smoke_config(args.arch) if args.smoke
+                         else get_config(args.arch))
         if args.devices % args.model_axis:
             raise ValueError(f"--devices {args.devices} is not a multiple "
                              f"of --model-axis {args.model_axis}")

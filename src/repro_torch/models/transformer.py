@@ -64,8 +64,16 @@ def train_launches(cfg: ModelConfig, microbatches: int = 1,
             "flash_attention_bwd": n_attn * microbatches * FA_BWD_LAUNCHES}
 
 
+def ep_launches(cfg: ModelConfig) -> dict:
+    """K5 launches of one rank in one expert-parallel forward
+    (``moe_ep_train``) or decode step (``moe_ep_decode``,
+    ``moe_ep_decode_ws``): three (gate, up, down) per MoE layer on its own
+    experts, whatever the mesh."""
+    return {"moe_gmm": 3 * sum(s.ffn == "moe" for s in cfg.layer_specs())}
+
+
 def _init_layer(cfg: ModelConfig, spec: LayerSpec, dtype, device,
-                generator: torch.Generator) -> dict:
+                generator: torch.Generator, ctx=None) -> dict:
     p = {"norm1": init_norm(cfg.d_model, dtype, device)}
     if spec.mixer == "attn":
         p["mixer"] = attn.init_gqa(cfg, dtype, device, generator)
@@ -74,16 +82,20 @@ def _init_layer(cfg: ModelConfig, spec: LayerSpec, dtype, device,
     if spec.ffn != "none":
         p["norm2"] = init_norm(cfg.d_model, dtype, device)
         if spec.ffn == "moe":
-            p["ffn"] = moe_mod.init_moe(cfg, dtype, device, generator)
+            p["ffn"] = moe_mod.init_moe(cfg, dtype, device, generator, ctx)
         else:
             p["ffn"] = init_ffn(cfg, cfg.d_ff, dtype, device, generator)
     return p
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
-                dtype=torch.float32, device="cuda") -> dict:
+                dtype=torch.float32, device="cuda", ctx=None) -> dict:
     """Random parameters in the JAX package's layout, drawn from
-    ``generator`` (which must live on ``device``)."""
+    ``generator`` (which must live on ``device``).  With an
+    expert-parallel ``ctx`` each MoE layer keeps only this rank's part of
+    its experts (``parallel.shard_params``'s layout; ``models.moe.
+    init_moe`` draws the rest and drops it), bit-equal to the same part of
+    the full draw."""
     check_ported(cfg)
     dev = resolve_device(device)
     params = {
@@ -94,7 +106,7 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     if not cfg.tie_embeddings:
         params["lm_head"] = dense_init(cfg.d_model, (cfg.padded_vocab,),
                                        dtype, dev, generator)
-    params["layers"] = [_init_layer(cfg, spec, dtype, dev, generator)
+    params["layers"] = [_init_layer(cfg, spec, dtype, dev, generator, ctx)
                         for spec in cfg.layer_specs()]
     return params
 
@@ -145,9 +157,11 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
     ``window`` overrides cfg.sliding_window.  ``remat``: each layer under
     ``torch.utils.checkpoint`` (non-reentrant), its activations recomputed
     in the backward, as the JAX package's ``jax.checkpoint`` of each layer
-    group's scan body under ``ctx.remat``.  ``ctx``: a data-parallel
-    ``repro_torch.parallel.ParallelCtx``, whose ranks share the MoE
-    router's load statistics (``models.moe.route``)."""
+    group's scan body under ``ctx.remat``.  ``ctx``: a
+    ``repro_torch.parallel.ParallelCtx``, whose data ranks share the MoE
+    router's load statistics (``models.moe.route``) and whose MoE layers
+    run expert-parallel over its model axis where ``ctx.use_ep``
+    (``models.moe.moe_ep_train``)."""
     x = params["embed"][tokens]
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     win = window if window is not None else cfg.sliding_window
@@ -185,7 +199,7 @@ def init_cache(cfg: ModelConfig, params: dict, batch: int, max_len: int,
 
 
 def _decode_layer(lp: dict, spec: LayerSpec, cfg: ModelConfig, x, lcache,
-                  pos, window) -> torch.Tensor:
+                  pos, window, ctx=None) -> torch.Tensor:
     h = rms_norm(x, lp["norm1"]["scale"], cfg.norm_eps)
     if spec.mixer == "attn":
         h, _ = attn.gqa_decode(lp["mixer"], cfg, h, lcache, pos,
@@ -196,7 +210,8 @@ def _decode_layer(lp: dict, spec: LayerSpec, cfg: ModelConfig, x, lcache,
     if spec.ffn != "none":
         h2 = rms_norm(x, lp["norm2"]["scale"], cfg.norm_eps)
         if spec.ffn == "moe":
-            y, _ = moe_mod.moe_apply(lp["ffn"], cfg, h2)
+            y, _ = moe_mod.moe_apply(lp["ffn"], cfg, h2, ctx=ctx,
+                                     decode=True)
         else:
             y = ffn_apply(lp["ffn"], h2, cfg.ffn_act)
         x = x + y
@@ -204,13 +219,16 @@ def _decode_layer(lp: dict, spec: LayerSpec, cfg: ModelConfig, x, lcache,
 
 
 def decode_step(cfg: ModelConfig, params: dict, cache: dict,
-                tokens: torch.Tensor, pos, *,
+                tokens: torch.Tensor, pos, *, ctx=None,
                 window: Optional[int] = None) -> Tuple[torch.Tensor, dict]:
     """tokens: (B, 1) int; pos: int or (B,) position(s) of the new token.
-    Returns (logits (B,1,V_pad), cache), the cache updated in place."""
+    Returns (logits (B,1,V_pad), cache), the cache updated in place.
+    ``ctx``: an expert-parallel context runs the MoE layers through
+    ``moe_ep_decode`` (or ``moe_ep_decode_ws``); tokens and cache are then
+    this rank's 1/dp of the batch."""
     win = window if window is not None else cfg.sliding_window
     x = params["embed"][tokens]
     for spec, lp, lc in zip(cfg.layer_specs(), params["layers"],
                             cache["layers"]):
-        x = _decode_layer(lp, spec, cfg, x, lc, pos, win)
+        x = _decode_layer(lp, spec, cfg, x, lc, pos, win, ctx)
     return _lm_head(cfg, params, x), cache

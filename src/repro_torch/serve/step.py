@@ -11,17 +11,20 @@ from repro_torch.core.types import ModelConfig
 from repro_torch.models.transformer import decode_step, forward
 
 
-def make_serve_step(cfg: ModelConfig, window: Optional[int] = None,
+def make_serve_step(cfg: ModelConfig, ctx=None,
+                    window: Optional[int] = None,
                     temperature: float = 0.0) -> Callable:
     """Returns step(params, cache, tokens (B,1), pos, generator) ->
     (next_tokens (B,1) int64, logits, cache).
 
     Greedy argmax at temperature 0; otherwise a sample from
-    softmax(logits / temperature) drawn with ``generator``."""
+    softmax(logits / temperature) drawn with ``generator``.  ``ctx``: an
+    expert-parallel ``parallel.ParallelCtx`` (``decode_step``): every rank
+    of its mesh calls the step on its tokens and cache."""
 
     def serve_step(params, cache, tokens, pos, generator=None):
         logits, cache = decode_step(cfg, params, cache, tokens, pos,
-                                    window=window)
+                                    ctx=ctx, window=window)
         last = logits[:, -1, :]
         if temperature > 0.0:
             probs = torch.softmax(last.float() / temperature, dim=-1)
@@ -33,15 +36,19 @@ def make_serve_step(cfg: ModelConfig, window: Optional[int] = None,
     return serve_step
 
 
-def make_prefill(cfg: ModelConfig, window: Optional[int] = None) -> Callable:
+def make_prefill(cfg: ModelConfig, ctx=None,
+                 window: Optional[int] = None) -> Callable:
     """Forward over the prompt: prefill(params, tokens (B,S)) -> logits.
 
     On the card its attention runs the flash-attention kernel, once per
     layer.  The batcher fills its cache by replaying the prompt through
-    decode_step instead (simple and cache-exact)."""
+    decode_step instead (simple and cache-exact).  ``ctx``: an
+    expert-parallel context runs the MoE layers through ``moe_ep_train``
+    (each rank its data shard of the prompts, the sequence split over the
+    model axis inside the layer)."""
 
     def prefill(params, tokens):
-        logits, _ = forward(cfg, params, tokens, window=window)
+        logits, _ = forward(cfg, params, tokens, window=window, ctx=ctx)
         return logits
 
     return prefill

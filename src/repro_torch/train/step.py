@@ -29,6 +29,15 @@ over the microbatch's global count of labels that are not -1 (the rows of
 the global batch give it on every rank), the MoE router loss over ``dp``;
 the shares, and so the gradients, add up over the ranks.  The bf16
 gradient cast comes before the sync and halves its bytes.
+
+Expert parallelism.  With a context of ``use_ep`` the MoE layers run
+``moe_ep_train`` over the model axis (``models.moe``): the ranks of one
+data index take the same rows, every one of them ends the backward with
+the same gradient of the replicated leaves and its own experts' gradient
+over those rows, so the sync runs over the data group only (plain DP or
+ZeRO-1 alike), and the norm of the clip sums the experts' squares over
+the model ranks (``optim.global_norm``).  On the card it raises until K5
+has a backward kernel (ROADMAP item 4c).
 """
 from __future__ import annotations
 
@@ -42,8 +51,8 @@ from repro_torch.core.tree import param_leaves, tree_map
 from repro_torch.models.transformer import check_ported, forward
 from repro_torch.optim.adamw import adamw_shard_update, adamw_update
 from repro_torch.optim.schedule import lr_schedule
-from repro_torch.parallel.planner import (ParallelCtx, flat_layout,
-                                          microbatch_rows)
+from repro_torch.parallel.planner import (ParallelCtx, expert_flags,
+                                          flat_layout, microbatch_rows)
 from repro_torch.train.loss import cross_entropy
 
 GradHook = Callable[[str, Any], None]
@@ -86,6 +95,7 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
     nmb = max(1, tcfg.microbatches)
     dp = ctx.dp if ctx is not None else 1
     zero1 = dp > 1 and tcfg.zero1
+    ep = ctx is not None and ctx.use_ep and ctx.tp > 1
 
     def grads_of(p, leaves, tokens, labels, count):
         logits, aux = forward(cfg, p, tokens, remat=remat, ctx=ctx)
@@ -105,6 +115,12 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
                              "the sharded state of init_opt_state(params, "
                              "ctx)")
         device = params["embed"].device
+        if ctx is not None and ctx.use_ep and device.type == "cuda":
+            raise NotImplementedError(
+                "an expert-parallel training step on the card: K5 "
+                "(moe_gmm) has no backward kernel yet (ROADMAP item 4c); "
+                "it trains on CPU tensors")
+        expert = expert_flags(params) if ep else None
         tokens, labels = _on(batch["tokens"], device), \
             _on(batch["labels"], device)
         rows = microbatch_rows(tokens.shape[0], nmb, ctx)
@@ -142,7 +158,7 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
         lr = lr_schedule(opt_state["step"], tcfg)
         if zero1:
             params, opt_state, opt_metrics = _zero1_update(
-                params, grads, opt_state, tcfg, lr, ctx, grad_hook)
+                params, grads, opt_state, tcfg, lr, ctx, grad_hook, expert)
         else:
             if dp > 1:
                 layout = flat_layout(grads, ctx)
@@ -154,7 +170,7 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
             if grad_hook is not None:
                 grad_hook("synced", grads)
             params, opt_state, opt_metrics = adamw_update(
-                params, grads, opt_state, tcfg, lr)
+                params, grads, opt_state, tcfg, lr, ctx, expert)
         metrics = {"ce": ce, "aux": aux, "loss": loss, "lr": lr,
                    **opt_metrics}
         return params, opt_state, metrics
@@ -162,9 +178,12 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
     return train_step
 
 
-def _zero1_update(params, grads, opt_state, tcfg, lr, ctx, grad_hook):
+def _zero1_update(params, grads, opt_state, tcfg, lr, ctx, grad_hook,
+                  expert=None):
     """Reduce-scatter the gradient, AdamW on this rank's shard, all-gather
-    the updated parameters into every rank's ``params`` (in place)."""
+    the updated parameters into every rank's ``params`` (in place).
+    ``expert``: the flags of this model rank's expert leaves, whose
+    squares the clip's norm sums over the model ranks."""
     flat_p = list(param_leaves(params))
     layout = flat_layout(flat_p, ctx)
     flat_g = layout.flatten(grads)
@@ -176,7 +195,8 @@ def _zero1_update(params, grads, opt_state, tcfg, lr, ctx, grad_hook):
     with torch.no_grad():
         p_shard = layout.shard(layout.flatten(flat_p, torch.float32))
     new, opt_state, opt_metrics = adamw_shard_update(
-        p_shard, g_shard, opt_state, tcfg, lr, ctx)
+        p_shard, g_shard, opt_state, tcfg, lr, ctx,
+        layout.shard_ranges(expert) if expert is not None else ())
     del p_shard, g_shard
     # the wire carries the parameters' dtype where they share one
     dtypes = {p.dtype for p in flat_p}

@@ -26,14 +26,17 @@ from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_ref
 from repro_torch.kernels.ssd_scan.ops import LAUNCHES_PER_CALL as SSD_LAUNCHES
 from repro_torch.core.types import TrainConfig
 from repro_torch.data import make_batches
-from repro_torch.models import (forward, init_params, param_leaves,
+from repro_torch.models import (decode_step, ep_launches, forward,
+                                init_cache, init_params, param_leaves,
                                 prefill_launches, train_launches, tree_map)
+from repro_torch.parallel import ParallelCtx, expert_flags
 from repro_torch.optim import init_opt_state
 from repro_torch.train import make_train_step
 from repro_torch.launch.ranks import build_kernels, spawn_ranks
 from repro_torch.serve import make_prefill
 from torch_ccl_ranks import compressed_ring_emulation, ring_q8_on_card
 from torch_dp_ranks import dp_on_card, update_errors
+from torch_ep_ranks import card_tokens, ep_on_card
 
 pytestmark = pytest.mark.cuda
 
@@ -799,3 +802,60 @@ def test_remat_on_card_matches_no_remat(cuda):
     assert counts[1] == train_launches(cfg, 1, True)
     for a, b in zip(*grads):
         torch.testing.assert_close(a, b, atol=1e-7, rtol=1e-6)
+
+
+def test_ep_on_card_matches_dense(cuda):
+    """dbrx's smoke config in f32 on two gloo ranks sharing the card, a
+    (1, 2) mesh at capacity factor 4 (no drops): each rank's experts,
+    drawn from the seed on the card, bit-equal to its half of the full
+    draw; prefill (``moe_ep_train``, two all-to-alls a layer) and decode
+    (``moe_ep_decode``) logits within LOGIT_TOL of the single-card dense
+    model's; each rank launches K1 once and K5 three times a MoE layer in
+    the prefill and K5 three times a MoE layer a decode step
+    (``ep_launches``)."""
+    steps = 4
+    build_kernels()
+    ranks = spawn_ranks(ep_on_card, 2, 0, steps, timeout_s=300)
+    cfg = smoke_config("dbrx-132b")
+    params = init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                         device=cuda)
+    tokens = card_tokens(cfg).to(cuda)
+    with torch.no_grad():
+        want, _ = forward(cfg, params, tokens)
+        cache = init_cache(cfg, params, tokens.shape[0], steps)
+        dec = [decode_step(cfg, params, cache, tokens[:, t:t + 1], t)[0][:, 0]
+               for t in range(steps)]
+    experts = [t for t, e in zip(param_leaves(params), expert_flags(params))
+               if e]
+    for m, r in enumerate(ranks):
+        assert r["device"] == "cuda:0"
+        for got, full in zip(r["experts"], experts):
+            half = full.shape[0] // 2
+            np.testing.assert_array_equal(
+                got, full[m * half:(m + 1) * half].cpu().numpy())
+        np.testing.assert_allclose(r["logits"], want.cpu().numpy(),
+                                   **LOGIT_TOL)
+        np.testing.assert_allclose(r["decode"],
+                                   torch.stack(dec, 1).cpu().numpy(),
+                                   **LOGIT_TOL)
+        assert r["prefill_launches"] == {
+            **{k: n for k, n in prefill_launches(cfg).items() if n},
+            **ep_launches(cfg)}
+        assert r["decode_launches"] == {
+            k: n * steps for k, n in ep_launches(cfg).items()}
+
+
+def test_ep_training_on_card_raises(cuda):
+    """An expert-parallel training step on the card raises, naming ROADMAP
+    item 4c (K5's backward kernel), before any kernel launches; nothing
+    trains on the CPU instead."""
+    cfg = smoke_config("dbrx-132b")
+    params = init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                         device=cuda)
+    batch = next(make_batches(cfg, 2, 64))
+    before = launch_counts()
+    with pytest.raises(NotImplementedError, match="item 4c"):
+        make_train_step(cfg, TrainConfig(remat=False),
+                        ParallelCtx(use_ep=True, remat=False))(
+            params, init_opt_state(params), batch)
+    assert launch_counts() == before

@@ -1,17 +1,27 @@
 """The port's training launcher (``python -m repro_torch.launch.train``) on
 the CPU, through ``run(argv)``: one process against 2 gloo ranks (ZeRO-1),
-the JAX launcher's line format, its checkpoint, and the
-refusals (no card for the default ``--device cuda``; a model axis)."""
+the JAX launcher's line format, its checkpoint, expert parallelism on a
+data x model mesh against the JAX package's step, and the refusals (no
+card for the default ``--device cuda``; a model axis for a dense
+architecture)."""
+import concurrent.futures
+import json
 import re
 
+import numpy as np
 import pytest
 import torch
 
+from helpers import run_multidevice
+from repro_torch.bridge import params_to_jax_layout
 from repro_torch.checkpoint import restore_checkpoint
 from repro_torch.configs import smoke_config
+from repro_torch.data import make_batches
 from repro_torch.launch.train import checksum, run
-from repro_torch.models import init_params
+from repro_torch.models import init_params, param_leaves
 from repro_torch.optim import init_opt_state
+from repro_torch.parallel import ParallelCtx, expert_flags
+from torch_dp_ranks import flatten
 
 SMOKE = ["--smoke", "--device", "cpu", "--steps", "3", "--batch", "8",
          "--seq", "32", "--log-every", "1"]
@@ -82,3 +92,101 @@ def test_default_device_needs_a_card():
 def test_model_axis_raises():
     with pytest.raises(NotImplementedError, match="item 8"):
         run(SMOKE + ["--devices", "4", "--model-axis", "2"])
+
+
+_JAX_EP_STEPS = """
+import json, sys
+import jax, jax.numpy as jnp
+import numpy as np
+from jax.sharding import AxisType, NamedSharding, PartitionSpec as P
+from repro.configs import smoke_config
+from repro.core.types import MeshConfig, TrainConfig
+from repro.optim.adamw import init_opt_state
+from repro.parallel.planner import make_ctx, param_specs
+from repro.train.step import make_train_step
+
+inputs, tcfg_json, out_path = sys.argv[1:4]
+data = np.load(inputs)
+mesh = jax.make_mesh((2, 2), ("data", "model"),
+                     axis_types=(AxisType.Auto,) * 2)
+mcfg = MeshConfig((2, 2))
+cfg = smoke_config("dbrx-132b")
+tree = {}
+for key in data.files:
+    if key.startswith("params|"):
+        *path, leaf = key.split("|", 1)[1].split("/")
+        node = tree
+        for k in path:
+            node = node.setdefault(k, {})
+        node[leaf] = jnp.asarray(data[key])
+shard = lambda sp: NamedSharding(mesh, sp)
+params = jax.device_put(tree, jax.tree.map(
+    shard, param_specs(cfg, mcfg), is_leaf=lambda x: isinstance(x, P)))
+opt = init_opt_state(params)
+step = jax.jit(make_train_step(cfg, TrainConfig(**json.loads(tcfg_json)),
+                               make_ctx(mesh, mcfg, remat=False)))
+losses = []
+for i in range(int(data["steps"])):
+    batch = jax.device_put({k: jnp.asarray(data[f"batch{i}|{k}"])
+                            for k in ("tokens", "labels")},
+                           shard(P("data", None)))
+    params, opt, m = step(params, opt, batch)
+    losses.append(float(m["loss"]))
+np.savez(out_path, losses=np.asarray(losses))
+print("OK")
+"""
+
+
+def test_model_axis_runs_expert_parallel_moe(tmp_path):
+    """dbrx's smoke config on ``--devices 4 --model-axis 2``: a (2, 2) mesh
+    whose model axis runs the MoE layers expert-parallel, two steps whose
+    losses are the JAX package's EP step's (``make_ctx`` on an Auto-axis
+    mesh, R5: the JAX launcher's own mesh fails on jax 0.9) from the same
+    parameters and batches; every rank ends with the same gathered
+    parameters; the checkpoint holds every expert in the JAX layout and
+    restores whole and into a model rank's shard."""
+    argv = SMOKE[:3] + ["--arch", "dbrx-132b", "--steps", "2", "--batch",
+                        "8", "--seq", "32", "--devices", "4",
+                        "--model-axis", "2", "--ckpt-dir", str(tmp_path)]
+    cfg = smoke_config("dbrx-132b")
+    params = init_params(cfg, torch.Generator().manual_seed(0),
+                         device="cpu")
+    data = {f"params|{k}": v for k, v in
+            flatten(params_to_jax_layout(cfg, params)).items()}
+    batches = make_batches(cfg, 8, 32, seed=0)
+    for i in range(2):
+        for k, v in next(batches).items():
+            data[f"batch{i}|{k}"] = v
+    data["steps"] = np.asarray(2)
+    np.savez(tmp_path / "inputs.npz", **data)
+    tcfg = dict(learning_rate=3e-3, warmup_steps=10, total_steps=2,
+                microbatches=1, grad_dtype="f32")
+    script = (f"import sys; sys.argv = ['', "
+              f"{str(tmp_path / 'inputs.npz')!r}, {json.dumps(tcfg)!r}, "
+              f"{str(tmp_path / 'jax.npz')!r}]\n" + _JAX_EP_STEPS)
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        jax_run = pool.submit(run_multidevice, script, num_devices=4,
+                              timeout=300)
+        got = run(argv)
+        jax_run.result()
+    want = np.load(tmp_path / "jax.npz")["losses"]
+    losses = [s["loss"] for s in got["ranks"][0]["steps"]]
+    np.testing.assert_allclose(losses, want, rtol=1e-5)
+    assert got["lines"][0] == "mesh: {'data': 2, 'model': 2}"
+    n = sum(t.numel() for t in param_leaves(params))
+    assert got["lines"][1].startswith(f"arch=dbrx-132b-smoke "
+                                      f"params={n / 1e6:.1f}M")
+    assert len({json.dumps(r["checksums"]) for r in got["ranks"]}) == 1
+
+    path = got["lines"][-1].split(": ", 1)[1]
+    whole, opt, step = restore_checkpoint(cfg, path, params,
+                                          init_opt_state(params))
+    assert step == 2
+    for name, tree in (("params", whole), ("m", opt["m"]), ("v", opt["v"])):
+        assert checksum(tree) == got["ranks"][0]["checksums"][name], name
+    ctx = ParallelCtx(use_ep=True, tp=2, model_rank=1)
+    shard, _, _ = restore_checkpoint(cfg, path, params, ctx=ctx)
+    for a, b, e in zip(param_leaves(shard), param_leaves(whole),
+                       expert_flags(whole)):
+        half = b.shape[0] // 2
+        assert torch.equal(a, b[half:] if e else b)

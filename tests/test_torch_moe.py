@@ -171,14 +171,41 @@ def test_dense_moe_is_convex_combination(seed):
 
 
 def test_moe_apply_refuses_expert_parallel_context():
+    """``moe_apply`` with an expert-parallel context refuses expert
+    weights that are not this rank's part (``parallel.shard_params``) and
+    dispatches as the JAX package does (models/moe.py:386-399): training
+    and prefill to ``moe_ep_train``, decode to ``moe_ep_decode`` or, with
+    ``ep_weight_stationary``, ``moe_ep_decode_ws``, at the context's
+    capacity factors; without ``use_ep`` to ``moe_dense``.  Stand-in
+    contexts of one rank: a model axis of 2 for the refusal (raised before
+    any communication), of 1 for the dispatch, where every path runs
+    without collectives and the factors 0.5 and 0.25 drop dispatches."""
+    from repro_torch.parallel import ParallelCtx
     cfg, _, tp, _ = _moe_both()
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (2, 16, cfg.d_model), dtype=np.float32))
+    two = ParallelCtx(use_ep=True, tp=2)
+    for decode in (False, True):
+        with pytest.raises(ValueError, match="shard_params"):
+            tmoe.moe_apply(tp, cfg, x, ctx=two, decode=decode)
 
-    class Ctx:
-        mesh = object()
-        use_ep = True
-
-    with pytest.raises(NotImplementedError, match="expert-parallel"):
-        tmoe.moe_apply(tp, cfg, torch.zeros(1, 2, cfg.d_model), ctx=Ctx())
+    ctx = ParallelCtx(use_ep=True, capacity_factor=0.25,
+                      decode_capacity_factor=0.5)
+    ws = dataclasses.replace(ctx, ep_weight_stationary=True)
+    xd = x[:, :1]
+    for got, want in (
+            (tmoe.moe_apply(tp, cfg, x, ctx=ctx),
+             tmoe.moe_ep_train(tp, cfg, x, ctx, 0.25)),
+            (tmoe.moe_apply(tp, cfg, xd, ctx=ctx, decode=True),
+             tmoe.moe_ep_decode(tp, cfg, xd, ctx, 0.5)),
+            (tmoe.moe_apply(tp, cfg, xd, ctx=ws, decode=True),
+             tmoe.moe_ep_decode_ws(tp, cfg, xd, ws, 0.5)),
+            (tmoe.moe_apply(tp, cfg, x, ctx=ParallelCtx()),
+             tmoe.moe_dense(tp, cfg, x))):
+        assert torch.equal(got[0], want[0])
+    dense, _ = tmoe.moe_dense(tp, cfg, x)
+    assert float((tmoe.moe_apply(tp, cfg, x, ctx=ctx)[0] - dense)
+                 .abs().max()) > 1e-3  # dispatches dropped
 
 
 def test_init_moe_layout_matches_jax():

@@ -29,11 +29,14 @@ from repro.models import init_params as jax_init_params
 from repro_torch.bridge import params_from_jax, params_to_jax_layout
 from repro_torch.configs import smoke_config
 from repro_torch.core.types import MeshConfig, TrainConfig
-from repro_torch.launch.mesh import data_group
+from repro_torch.launch.mesh import check_model_axis, mesh_groups
 from repro_torch.launch.ranks import spawn_ranks
 from repro_torch.optim import init_opt_state
 from repro_torch.parallel import make_ctx
+from repro_torch.parallel.planner import BUCKET_VALUES
 from repro_torch.train import make_train_step
+from torch_ccl_ranks import (compressed_ring_emulation,
+                             compressed_ring_final_scale)
 from torch_dp_ranks import dp_cases, flatten, nest, update_errors
 
 TOL = dict(atol=1e-5, rtol=1e-5)
@@ -293,19 +296,39 @@ def test_lossless_dp_equals_single_process_step(runs, name):
 
 @pytest.mark.parametrize("bits", [8, 4])
 def test_quantized_sync_matches_jax_and_its_envelope(runs, bits):
-    """``ring_q8`` / ``ring_q4``: the synced gradient the hook sees equals
-    JAX's ``make_all_reduce(impl)`` on the same per-rank gradients within
-    D1/D2 (ROADMAP: 1 ulp of a scale), is the same on every rank, and lies
-    within p * absmax / qmax of the exact sum (tests/test_ccl_primitives.py
-    :100-103)."""
+    """``ring_q8`` / ``ring_q4``: the synced gradient the hook sees is
+    bit-equal to the JAX package's hop algebra in IEEE f32
+    (``compressed_ring_emulation``, applied bucket by bucket in the step's
+    ``FlatLayout``), the same on every rank, and within p * absmax / qmax
+    of the exact sum (tests/test_ccl_primitives.py:100-103).  Against
+    JAX's jitted ``make_all_reduce(impl)`` on the same per-rank gradients:
+    within 1e-6 everywhere but at most 1e-5 of the elements, each of those
+    at most one quantization step of its bucket's final scale off.  That
+    is D1 (ROADMAP Queue 3): under jit XLA computes the scale as
+    absmax * (1/qmax), 1 ulp from the true quotient that the port and the
+    eager reference compute, so a value on a rounding boundary takes the
+    neighbouring q (at DP-2, q8: 1 of 1,115,904 elements, 1.1993e-4)."""
     n, ranks, jax_out = runs
     name = f"ring_q{bits}"
     local = np.stack([r[name]["local"] for r in ranks])
     synced = ranks[0][name]["synced"]
     for r in ranks:
         np.testing.assert_array_equal(r[name]["synced"], synced)
-    np.testing.assert_allclose(synced, jax_out[f"{name}|synced"][0],
-                               rtol=0, atol=1e-6)
+    want = np.empty_like(synced)
+    step = np.empty_like(synced)
+    for lo in range(0, synced.size, BUCKET_VALUES):
+        hi = min(lo + BUCKET_VALUES, synced.size)
+        want[lo:hi] = compressed_ring_emulation(local[:, lo:hi], bits)[0]
+        step[lo:hi] = compressed_ring_final_scale(local[:, lo:hi], bits)
+    np.testing.assert_array_equal(synced, want)
+    diff = np.abs(synced - jax_out[f"{name}|synced"][0])
+    off = diff > 1e-6
+    count = int(off.sum())
+    assert count <= 1e-5 * synced.size, \
+        f"{count} of {synced.size} elements beyond 1e-6 of JAX's"
+    assert (diff[off] <= step[off] * (1 + 1e-6)).all(), \
+        f"{count} of {synced.size} elements beyond 1e-6 of JAX's, by up " \
+        f"to {diff.max()}, beyond one quantization step"
     qmax = 2 ** (bits - 1) - 1
     bound = n * np.abs(local).max() / qmax
     assert np.abs(synced - local.sum(0)).max() <= bound
@@ -332,11 +355,18 @@ def test_ranks_identical_after_two_steps(runs, name):
 
 
 def test_model_axis_and_expert_parallel_raise():
-    """tp > 1 and use_ep=True are items 8 and 10 of the ROADMAP."""
+    """A model axis > 1 runs the MoE layers expert-parallel
+    (tests/test_torch_moe_ep.py); without them it is tensor parallelism,
+    item 8 of the ROADMAP: the groups of a (2, 2) mesh without a config, a
+    dense config's model axis and a context of a model axis without expert
+    parallelism raise."""
     with pytest.raises(NotImplementedError, match="item 8"):
-        data_group(MeshConfig((2, 2)))
-    with pytest.raises(NotImplementedError, match="item 10"):
-        make_ctx(None, MeshConfig((1, 1)), use_ep=True)
+        mesh_groups(MeshConfig((2, 2)))
+    with pytest.raises(NotImplementedError, match="item 8"):
+        check_model_axis(MeshConfig((2, 2)), smoke_config("qwen2-0.5b"))
+    with pytest.raises(NotImplementedError, match="item 8"):
+        make_ctx(None, MeshConfig((1, 2)), use_ep=False)
+    check_model_axis(MeshConfig((2, 2)), smoke_config("dbrx-132b"))
 
 
 def test_zero1_without_sharded_state_raises():

@@ -64,10 +64,10 @@ def _qdq(v, bits):
     return q.astype(np.float32) * scale
 
 
-def compressed_ring_emulation(x, bits):
-    """The JAX package's compressed ring (primitives.py:130-178), hop by
-    hop, in numpy f32: rank r's buffer after the reduce-scatter is chunk
-    r + 1, and every rank ends with chunk c decoded from rank c - 1."""
+def _ring_reduced(x, bits):
+    """The reduce-scatter of the JAX package's compressed ring in numpy
+    f32: each chunk's sum before its all-gather encode (rank r's buffer is
+    chunk r + 1; returned in chunk order), and the payload's length."""
     p = x.shape[0]
     flat = x.reshape(p, -1)
     n = flat.shape[1]
@@ -76,9 +76,27 @@ def compressed_ring_emulation(x, bits):
     for s in range(p - 1):
         buf = [_qdq(buf[(r - 1) % p], bits) + chunks[r, (r - s - 1) % p]
                for r in range(p)]
-    out = np.stack([_qdq(buf[(c - 1) % p], bits) for c in range(p)])
+    return [buf[(c - 1) % p] for c in range(p)], n
+
+
+def compressed_ring_emulation(x, bits):
+    """The JAX package's compressed ring (primitives.py:130-178), hop by
+    hop, in numpy f32: rank r's buffer after the reduce-scatter is chunk
+    r + 1, and every rank ends with chunk c decoded from rank c - 1."""
+    reduced, n = _ring_reduced(x, bits)
+    out = np.stack([_qdq(b, bits) for b in reduced])
     return np.broadcast_to(out.reshape(-1)[:n].reshape(x.shape[1:]),
                            x.shape)
+
+
+def compressed_ring_final_scale(x, bits) -> float:
+    """The largest of the scales with which the compressed ring encodes
+    its reduced chunks for the all-gather (one quantization step of the
+    result)."""
+    reduced, _ = _ring_reduced(x, bits)
+    qmax = np.float32(2 ** (bits - 1) - 1)
+    return float(max(np.maximum(np.abs(b).max(), np.float32(1e-30)) / qmax
+                     for b in reduced))
 
 
 def ring_q8_on_card(rank: int, world: int, n: int, seed: int) -> dict:

@@ -9,7 +9,7 @@ import torch
 from repro_torch.bridge import params_from_jax, params_to_jax_layout
 from repro_torch.configs import smoke_config
 from repro_torch.core.types import MeshConfig, TrainConfig
-from repro_torch.launch.mesh import data_group
+from repro_torch.launch.mesh import mesh_groups
 from repro_torch.launch.train import checksum
 from repro_torch.models import param_leaves
 from repro_torch.optim import gather_opt_state, init_opt_state
@@ -66,7 +66,7 @@ def dp_cases(rank: int, world: int, inputs_path: str, cases: dict) -> dict:
                      if k.startswith(case["arch"] + "|")})
         params = params_from_jax(cfg, tree, device="cpu")
         tcfg = TrainConfig(**case["tcfg"])
-        ctx = make_ctx(data_group(mesh_cfg), mesh_cfg, remat=tcfg.remat,
+        ctx = make_ctx(mesh_groups(mesh_cfg)[0], mesh_cfg, remat=tcfg.remat,
                        grad_all_reduce=case.get("impl", "ring"))
         opt = init_opt_state(params, ctx if tcfg.zero1 else None)
         batch = {k: data[f"batch|{case['batch']}|{k}"]
@@ -116,7 +116,7 @@ def dp_on_card(rank: int, world: int, arch: str, tcfg: dict, seed: int
     params = tree_map(lambda t: t.to(device), params)
     tcfg = TrainConfig(**tcfg)
     mesh_cfg = MeshConfig((world, 1))
-    ctx = make_ctx(data_group(mesh_cfg), mesh_cfg, remat=tcfg.remat)
+    ctx = make_ctx(mesh_groups(mesh_cfg)[0], mesh_cfg, remat=tcfg.remat)
     opt = init_opt_state(params, ctx if tcfg.zero1 else None)
     batch = next(make_batches(cfg, 4, 128, seed=1))
     n0 = launch_counts()
