@@ -16,7 +16,10 @@ exits non-zero:
    - flash attention K1, SSD scan K6 (also at a long and a ragged L;
      timed with its launches a call, each of its three stages' device time
      from torch.profiler, and its bound on the tensor cores in 3xTF32
-     beside the f32 one), grouped expert GEMM K5;
+     beside the f32 one), grouped expert GEMM K5 (K1 also at seamless's
+     B 2 x 1024 x 16 heads x 64, causal and non-causal on the model's
+     views; K5 at deepseek-v2's 160 experts of ffn 1536, prefill and
+     decode);
    - K1's gradient K1-bwd (three launches a call) over K1's sweep and at
      the training shape (B 4 x S 512, qwen2-0.5b's heads, bf16): f32
      within 2e-5 of the f64 gradient, bf16 within twice the plain
@@ -45,7 +48,19 @@ exits non-zero:
    - qwen2-0.5b, 24 layers (dense GQA: K1);
    - mamba2-130m, 24 layers (SSM: K6);
    - dbrx-132b cut to 2 layers for parity and 4 for serving (MoE: K1 and
-     K5).
+     K5);
+   - seamless-m4t-medium, 12 encoder + 12 decoder layers (the encoder over
+     the stub's B x 1024 frames: K1 causal; the decoder's cross blocks:
+     K1 non-causal where S = T = 1024, the plain path at S 128);
+   - llama-3.2-vision-90b cut to one period of 5 layers, its layer 4 the
+     cross layer over the stub's 1601 patches (K1 in the 4 self layers);
+   - deepseek-v2-236b cut to 2 layers, the dense first layer and one MoE
+     layer of 160 experts + 2 shared (MLA on the plain path, as in the JAX
+     package: q and v head dims 192 and 128; K5).
+   The last three open their cross-attention gates first (at init tanh(0)
+   = 0 takes the context off the path), check that a zeroed context moves
+   the logits beyond the tolerance, and count the prefill's launches
+   (``prefill_launches(cfg, S)`` and the encoder's ``encode_launches``).
    Each model's parameters are freed before the next model is built.
 3b. training, qwen2-0.5b at full width and depth: one f32 step (B 2 x S
    256) through the kernels against the same step on the host CPU (loss
@@ -147,7 +162,7 @@ try:
     from repro_torch.kernels.compress import ref as cref
     from repro_torch.checkpoint import restore_checkpoint
     from repro_torch.core.types import MeshConfig, TrainConfig
-    from repro_torch.data import make_batches
+    from repro_torch.data import audio_frames, make_batches, vision_patches
     from repro_torch.kernels.flash_attention import (attention_bwd_ref,
                                                      attention_lse_ref,
                                                      attention_ref,
@@ -161,9 +176,10 @@ try:
     from repro_torch.launch import train as launch_train
     from repro_torch.launch.mesh import mesh_groups
     from repro_torch.launch.ranks import rank_device, spawn_ranks
-    from repro_torch.models import (ep_launches, init_cache, init_params,
-                                    param_leaves, prefill_launches,
-                                    train_launches, tree_map)
+    from repro_torch.models import (encode, encode_launches, ep_launches,
+                                    init_cache, init_params, param_leaves,
+                                    prefill_launches, train_launches,
+                                    tree_map)
     from repro_torch.models import moe as moe_mod
     from repro_torch.optim import gather_opt_state, init_opt_state
     from repro_torch.parallel import expert_flags, flat_layout, make_ctx
@@ -180,6 +196,15 @@ SSM_ARCH = "mamba2-130m"
 MOE_ARCH = "dbrx-132b"
 MOE_PARITY_LAYERS = 2   # 31 GB in f32; all 40 layers (264 GB) fit no card
 MOE_SERVE_LAYERS = 4    # 28.6 GB in bf16
+# the families with MLA, cross-attention and an encoder (full width)
+ENC_DEC_ARCH = "seamless-m4t-medium"  # whole: 12 + 12 layers
+VISION_ARCH = "llama-3.2-vision-90b"
+VISION_LAYERS = 5       # one period, layer 4 the cross layer: 25.6 GB f32
+MLA_ARCH = "deepseek-v2-236b"
+MLA_LAYERS = 2          # the dense first layer and one of 160 experts
+# cross-attention gates start at 0 (tanh(0) = 0: the context would be off
+# the path); every run of these families opens them first
+GATE = 0.8
 DEVICE = "cuda"
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 PEAK_BF16_FLOPS = 989e12
@@ -414,6 +439,9 @@ _MASKS = [(True, None), (False, None), (True, 128)]
 PATH_SHAPE = (4, 14, 2, 512, 512, 64)   # qwen2-0.5b prefill, B 4 x S 512
 LONG_SHAPE = (1, 14, 2, 4096, 4096, 64)
 DBRX_SHAPE = (2, 48, 8, 256, 256, 128)  # dbrx-132b prefill, B 2 x S 256
+# seamless-m4t-medium: the encoder (causal) and the decoder's cross blocks
+# at S = T = 1024 (non-causal), B 2
+SEAMLESS_SHAPE = (2, 16, 16, 1024, 1024, 64)
 
 
 def _kernel_cases():
@@ -434,6 +462,8 @@ def _kernel_cases():
               ((1, 8, 2, 129, 257, 80), True, 100, torch.bfloat16, True),
               ((1, 4, 2, 257, 129, 128), False, 64, torch.bfloat16, True),
               (DBRX_SHAPE, True, None, torch.bfloat16, True),
+              (SEAMLESS_SHAPE, True, None, torch.bfloat16, True),
+              (SEAMLESS_SHAPE, False, None, torch.bfloat16, True),
               (LONG_SHAPE, True, None, torch.bfloat16, False)]
     return cases
 
@@ -465,31 +495,35 @@ def phase_kernels(rng) -> dict:
               f"out of tolerance, max |err| {max_err}")
 
     timings = {}
-    for name, shape, iters in (("path", PATH_SHAPE, 50),
-                               ("dbrx", DBRX_SHAPE, 50),
-                               ("long", LONG_SHAPE, 10)):
-        q, k, v = _qkv(rng, *shape, torch.bfloat16)
-        ms = cuda_ms(lambda: flash_attention(q, k, v, causal=True), iters)
-        plain_ms = cuda_ms(lambda: attention_ref(q, k, v, causal=True),
+    for name, shape, iters, causal, views in (
+            ("path", PATH_SHAPE, 50, True, False),
+            ("dbrx", DBRX_SHAPE, 50, True, False),
+            ("long", LONG_SHAPE, 10, True, False),
+            # seamless's cross blocks at S = T, on the model's views
+            ("seamless_cross", SEAMLESS_SHAPE, 20, False, True)):
+        q, k, v = _qkv(rng, *shape, torch.bfloat16, views)
+        ms = cuda_ms(lambda: flash_attention(q, k, v, causal=causal), iters)
+        plain_ms = cuda_ms(lambda: attention_ref(q, k, v, causal=causal),
                            max(2, iters // 5))
         # yardstick only: the port never calls it
         library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True, enable_gqa=True), iters)
-        graph = graph_ms(lambda: flash_attention(q, k, v, causal=True),
+            q, k, v, is_causal=causal, enable_gqa=True), iters)
+        graph = graph_ms(lambda: flash_attention(q, k, v, causal=causal),
                          iters // 2)
         library_graph = graph_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True, enable_gqa=True), iters // 2)
+            q, k, v, is_causal=causal, enable_gqa=True), iters // 2)
         lib_err = float((F.scaled_dot_product_attention(
-            q, k, v, is_causal=True, enable_gqa=True).float()
-            - attention_ref(q, k, v, causal=True).float()).abs().max())
-        max_err = float((flash_attention(q, k, v, causal=True).float()
-                         - attention_ref(q, k, v, causal=True).float())
+            q, k, v, is_causal=causal, enable_gqa=True).float()
+            - attention_ref(q, k, v, causal=causal).float()).abs().max())
+        max_err = float((flash_attention(q, k, v, causal=causal).float()
+                         - attention_ref(q, k, v, causal=causal).float())
                         .abs().max())
-        bound_ms, bound_by = attention_bound(*shape, True, None,
+        bound_ms, bound_by = attention_bound(*shape, causal, None,
                                              torch.bfloat16)
         timings[name] = {"shape": list(shape), "dtype": "bfloat16",
+                         "layout": "bshd_views" if views else "bhsd",
                          "variant": flash_attention.last_variant,
-                         "causal": True, "ms": ms, "plain_ms": plain_ms,
+                         "causal": causal, "ms": ms, "plain_ms": plain_ms,
                          "library_ms": library_ms, "bound_ms": bound_ms,
                          "bound_by": bound_by, "max_abs_err": max_err,
                          "library_max_abs_err": lib_err, "graph_ms": graph,
@@ -918,6 +952,12 @@ GMM_PARITY_PREFILL = (16, 256, 6144, 10752, True)
 # half the ffn dim, 4 slots
 GMM_EP_PREFILL = (4, 160, 6144, 10752, False)
 GMM_EP_WS = (8, 4, 6144, 5376, False)
+# deepseek-v2-236b's MoE layer: 160 experts of ffn 1536 reading every token
+# (moe_dense), prefill B 2 x S 256 (gate/up; and down) and 4-slot decode
+GMM_DS_PREFILL = (160, 512, 5120, 1536, True)
+GMM_DS_PREFILL_DOWN = (160, 512, 1536, 5120, False)
+GMM_DS_DECODE = (160, 4, 5120, 1536, True)
+GMM_DS_PARITY_PREFILL = (160, 256, 5120, 1536, True)
 
 
 def _gmm_inputs(rng, gen, e, c, d, f, expand, dtype, w_scale):
@@ -949,12 +989,18 @@ def phase_gmm_kernel(rng) -> dict:
     cases += [(GMM_DECODE, torch.bfloat16), (GMM_DECODE_DOWN, torch.bfloat16),
               (GMM_PREFILL, torch.bfloat16), (GMM_DECODE, torch.float32),
               (GMM_PARITY_PREFILL, torch.float32),
-              (GMM_EP_PREFILL, torch.bfloat16), (GMM_EP_WS, torch.bfloat16)]
+              (GMM_EP_PREFILL, torch.bfloat16), (GMM_EP_WS, torch.bfloat16),
+              (GMM_DS_PREFILL, torch.bfloat16),
+              (GMM_DS_PREFILL_DOWN, torch.bfloat16),
+              (GMM_DS_DECODE, torch.bfloat16),
+              (GMM_DS_PARITY_PREFILL, torch.float32)]
     errs = {}
     for shape, dtype in cases:
         e, c, d, f, expand = shape
         path = shape in (GMM_DECODE, GMM_DECODE_DOWN, GMM_PREFILL,
-                         GMM_PARITY_PREFILL, GMM_EP_PREFILL, GMM_EP_WS)
+                         GMM_PARITY_PREFILL, GMM_EP_PREFILL, GMM_EP_WS,
+                         GMM_DS_PREFILL, GMM_DS_PREFILL_DOWN, GMM_DS_DECODE,
+                         GMM_DS_PARITY_PREFILL)
         # the path's weights have the model's scale (dense_init: 1/sqrt(d));
         # the sweep's that of tests/test_kernels.py:108
         x, w = _gmm_inputs(rng, gen, *shape, dtype,
@@ -980,6 +1026,9 @@ def phase_gmm_kernel(rng) -> dict:
                 (GMM_DECODE_DOWN, torch.bfloat16): "wgmma_swap",
                 (GMM_EP_PREFILL, torch.bfloat16): "wgmma",
                 (GMM_EP_WS, torch.bfloat16): "wgmma_swap",
+                (GMM_DS_PREFILL, torch.bfloat16): "wgmma",
+                (GMM_DS_PREFILL_DOWN, torch.bfloat16): "wgmma",
+                (GMM_DS_DECODE, torch.bfloat16): "wgmma_swap",
                 (_GMM_UNALIGNED, torch.bfloat16): "mma_sync"
                 }.get((shape, dtype))
         check(want in (None, variant),
@@ -993,7 +1042,8 @@ def phase_gmm_kernel(rng) -> dict:
     for name, shape, iters in (("decode", GMM_DECODE, 20),
                                ("prefill", GMM_PREFILL, 5),
                                ("ep_prefill", GMM_EP_PREFILL, 10),
-                               ("ep_ws_decode", GMM_EP_WS, 20)):
+                               ("ep_ws_decode", GMM_EP_WS, 20),
+                               ("deepseek_prefill", GMM_DS_PREFILL, 5)):
         x, w = _gmm_inputs(rng, gen, *shape, torch.bfloat16,
                            shape[2] ** -0.5)
         ms = cuda_ms(lambda: moe_gmm(x, w), iters)
@@ -1743,24 +1793,83 @@ def phase_collectives(n_values: int, seed: int) -> dict:
 # 3. full-width parity in f32: prefill (kernels) vs decode replay
 # --------------------------------------------------------------------------
 
+def open_gates(params) -> None:
+    """Every cross-attention gate of ``params`` set to GATE, in place: at
+    init tanh(0) = 0 leaves the context (and the encoder) off the path."""
+    if isinstance(params, dict):
+        if "gate_attn" in params:
+            params["gate_attn"].fill_(GATE)
+        for v in params.values():
+            open_gates(v)
+    elif isinstance(params, list):
+        for v in params:
+            open_gates(v)
+
+
+def stub_frames(cfg, params, batch: int, seed: int):
+    """The stub frontend's frame or patch embeddings of a config that
+    takes a context, on the card in the parameters' dtype (made on the
+    host: not the port's work, and not timed); None for the others."""
+    if cfg.is_encoder_decoder:
+        frames = audio_frames(cfg, batch, seed)
+    elif cfg.cross_attn_period:
+        frames = vision_patches(cfg, batch, seed)
+    else:
+        return None
+    return torch.from_numpy(frames).to(DEVICE, params["embed"].dtype)
+
+
+def context_of(cfg, params, frames):
+    """What the caller passes as the context: the frames encoded (the
+    encoder's kernels) for the encoder-decoder, the patches as they are
+    for cross-attention."""
+    return encode(cfg, params, frames) if cfg.is_encoder_decoder \
+        else frames
+
+
+def context_launches(cfg, seq: int) -> dict:
+    """The launches of ``context_of`` and one prefill of ``seq``
+    tokens."""
+    want = dict(prefill_launches(cfg, seq))
+    want["flash_attention"] += encode_launches(cfg)["flash_attention"]
+    return {k: n for k, n in want.items() if n}
+
+
 def phase_parity(rng, cfg, b: int, s: int, seed: int):
     """Prefill logits through the kernels vs the prompt replayed through
     decode_step (which launches no K1 and no K6; K5 runs in decode too), at
-    every position, and the greedy next token."""
+    every position, and the greedy next token.  A config with a context
+    takes the stub's (encoded on the card for the encoder-decoder), its
+    gates opened, and prefill with the context zeroed must move the
+    logits beyond PARITY_TOL."""
     torch.cuda.reset_peak_memory_stats()
     gen = torch.Generator(device=DEVICE).manual_seed(seed)
     params = init_params(cfg, gen, dtype=torch.float32, device=DEVICE)
+    open_gates(params)
     tokens = torch.from_numpy(
         rng.integers(0, cfg.vocab_size, (b, s))).to(DEVICE)
 
+    frames = stub_frames(cfg, params, b, seed)
     n0 = launch_counts()
-    logits = make_prefill(cfg)(params, tokens)
+    context = context_of(cfg, params, frames)
+    logits = make_prefill(cfg)(params, tokens, context)
     torch.cuda.synchronize()
     launched = _delta(n0)
-    want = {k: n for k, n in prefill_launches(cfg).items() if n}
+    want = context_launches(cfg, s)
     check(launched == want, f"prefill launched {launched}, want {want}")
+    context_moves = None
+    if context is not None:
+        zeroed = make_prefill(cfg)(params, tokens, torch.zeros_like(context))
+        v = cfg.vocab_size
+        moved = (zeroed[..., :v] - logits[..., :v]).abs()
+        context_moves = float(moved.max())
+        check(bool((moved > PARITY_TOL["atol"] + PARITY_TOL["rtol"]
+                    * logits[..., :v].abs()).any()),
+              f"{cfg.name}: a zeroed context moves no logit beyond "
+              f"{PARITY_TOL} (max {context_moves}): it is off the path")
+        del zeroed, moved
 
-    cache = init_cache(cfg, params, b, s)
+    cache = init_cache(cfg, params, b, s, context=context)
     serve = make_serve_step(cfg)
     n0 = launch_counts()
     max_err = torch.zeros((), device=DEVICE)
@@ -1784,11 +1893,13 @@ def phase_parity(rng, cfg, b: int, s: int, seed: int):
     top2 = logits[:, -1].topk(2, dim=-1).values
     result = {"phase": "parity", "arch": cfg.name, "dtype": "float32",
               "layers": cfg.num_layers, "batch": b, "seq": s,
+              "context": None if context is None else list(context.shape),
               "kernel_launches": launched,
               "decode_kernel_launches": decode_launched,
               "max_abs_err": float(max_err), "tol": PARITY_TOL,
               "logit_max_abs": float(logits[:, :, :cfg.vocab_size].abs()
                                      .max()),
+              "zeroed_context_max_move": context_moves,
               "greedy_prefill": greedy_prefill.tolist(),
               "greedy_decode": tok[:, 0].tolist(),
               "top2_gap": (top2[:, 0] - top2[:, 1]).tolist(),
@@ -1812,6 +1923,7 @@ def phase_serving(rng, cfg, *, prefill_batch: int, prefill_lens,
     torch.cuda.reset_peak_memory_stats()
     gen = torch.Generator(device=DEVICE).manual_seed(seed)
     params = init_params(cfg, gen, dtype=torch.bfloat16, device=DEVICE)
+    open_gates(params)
     n_params = sum(t.numel() for t in param_leaves(params))
     prefill = make_prefill(cfg)
     prompts = {s: torch.from_numpy(
@@ -1819,26 +1931,39 @@ def phase_serving(rng, cfg, *, prefill_batch: int, prefill_lens,
         for s in prefill_lens}
     requests = [list(map(int, rng.integers(0, cfg.vocab_size, n)))
                 for n in rng.integers(prompt_lens[0], prompt_lens[1] + 1, 6)]
-    batcher = ContinuousBatcher(cfg, params, max_slots=4, max_len=max_len,
-                                cache_dtype=torch.bfloat16)
-    for rid, prompt in enumerate(requests):
-        batcher.submit(prompt, new_tokens, rid)
     torch.cuda.synchronize()
 
+    # the caller encodes (or passes the patches), then prefills; the
+    # batcher's context has its max_slots rows
     reset_launch_counts()
-    prefill_ms = {}
+    prefill_ms, prefill_launched = {}, {}
     for s, tokens in prompts.items():
+        frames = stub_frames(cfg, params, prefill_batch, seed)
+        torch.cuda.synchronize()
+        n0 = launch_counts()
         t0 = time.perf_counter()
-        logits = prefill(params, tokens)
+        context = context_of(cfg, params, frames)
+        logits = prefill(params, tokens, context)
         torch.cuda.synchronize()
         prefill_ms[s] = 1e3 * (time.perf_counter() - t0)
+        prefill_launched[s] = _delta(n0)
+        want = context_launches(cfg, s)
+        check(prefill_launched[s] == want,
+              f"{cfg.name} prefill of S={s} launched {prefill_launched[s]}, "
+              f"want {want}")
         check(tuple(logits.shape) == (prefill_batch, s, cfg.padded_vocab),
               f"prefill logits shape {tuple(logits.shape)}")
         check(bool(torch.isfinite(logits[..., :cfg.vocab_size].float())
                    .all()), f"non-finite prefill logits at S={s}")
         check(int(logits.argmax(-1).max()) < cfg.vocab_size,
               "prefill argmax picked a padded vocabulary id")
-        del logits
+        del logits, context, frames
+    batcher = ContinuousBatcher(
+        cfg, params, max_slots=4, max_len=max_len,
+        context=context_of(cfg, params, stub_frames(cfg, params, 4, seed)),
+        cache_dtype=torch.bfloat16)
+    for rid, prompt in enumerate(requests):
+        batcher.submit(prompt, new_tokens, rid)
     step_ms = []
     t_run = time.perf_counter()
     while batcher.active:
@@ -1866,6 +1991,7 @@ def phase_serving(rng, cfg, *, prefill_batch: int, prefill_lens,
     emit({"phase": "serving", "arch": cfg.name, "dtype": "bfloat16",
           "params": n_params, "layers": cfg.num_layers,
           "prefill_batch": prefill_batch, "prefill_ms": prefill_ms,
+          "prefill_launches": prefill_launched,
           "slots": 4, "requests": len(requests),
           "new_tokens_each": new_tokens, "prompt_tokens": ingested,
           "steps": len(step_ms), "run_s": run_s,
@@ -3000,6 +3126,31 @@ def run_paths(rng) -> dict:
     return paths
 
 
+def run_context_paths(rng) -> dict:
+    """The families with MLA, cross-attention and an encoder, at full
+    width: f32 parity, then bf16 serving; returns each path's launch
+    counts.  seamless-m4t-medium whole (prefill at S 128 and at S = T =
+    1024, where its 12 cross blocks take K1); llama-3.2-vision-90b cut to
+    one period of 5 layers (its layer 4 the cross layer, 1601 patches);
+    deepseek-v2-236b cut to 2 layers (MLA on the plain path; the MoE layer
+    of 160 experts on K5)."""
+    paths = {}
+    full = get_config(ENC_DEC_ARCH)
+    vision = dataclasses.replace(get_config(VISION_ARCH),
+                                 num_layers=VISION_LAYERS)
+    mla = dataclasses.replace(get_config(MLA_ARCH), num_layers=MLA_LAYERS)
+    for cfg, lens, seed in ((full, (128, 1024), SEED + 14),
+                            (vision, (128,), SEED + 16),
+                            (mla, (256,), SEED + 18)):
+        phase_parity(rng, cfg, 2, 128, seed)
+        _release()
+        paths[cfg.name] = phase_serving(
+            rng, cfg, prefill_batch=2, prefill_lens=lens,
+            prompt_lens=(32, 64), new_tokens=16, max_len=96, seed=seed + 1)
+        _release()
+    return paths
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script checks the "
@@ -3020,6 +3171,7 @@ def main() -> int:
     n_values = gradient_values()
     timings.update(phase_compress_kernels(n_values))
     paths = run_paths(rng)
+    paths.update(run_context_paths(rng))
     paths["training"] = run_training(SEED + 8)
     paths.update(run_dp(SEED + 10))
     paths.update(run_ep(rng, SEED + 12))

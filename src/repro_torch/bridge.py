@@ -19,7 +19,6 @@ import torch
 from repro_torch.core.device import resolve_device
 from repro_torch.core.types import ModelConfig
 from repro_torch.core.tree import tree_map
-from repro_torch.models.transformer import check_ported
 from repro_torch.parallel.planner import gather_params, shard_params
 
 
@@ -39,8 +38,9 @@ def params_from_jax(cfg: ModelConfig, tree: dict, device="cuda",
     Each ``group{gi}/pos{i}/...`` leaf is stacked over the group's repeats
     (``jax.vmap`` in ``_init_group``); it is unstacked into per-layer
     tensors in the JAX layer order: group by group, repeat by repeat,
-    period position by period position."""
-    check_ported(cfg)
+    period position by period position.  An encoder-decoder tree's
+    ``encoder/group0/pos0`` stack becomes ``encoder["layers"]`` and its
+    ``cross`` stack (one block per decoder layer) the list ``cross``."""
     dev = resolve_device(device)
     params = {"embed": _tensor(tree["embed"], dev),
               "final_norm": tree_map(lambda a: _tensor(a, dev),
@@ -52,10 +52,23 @@ def params_from_jax(cfg: ModelConfig, tree: dict, device="cuda",
         group = tree[f"group{gi}"]
         for r in range(repeats):
             for i in range(len(period)):
-                layers.append(tree_map(lambda a, r=r: _tensor(a[r], dev),
-                                       group[f"pos{i}"]))
+                layers.append(_unstack(group[f"pos{i}"], r, dev))
     params["layers"] = layers
+    if "encoder" in tree:
+        enc = tree["encoder"]
+        params["encoder"] = {
+            "layers": [_unstack(enc["group0"]["pos0"], r, dev)
+                       for r in range(cfg.encoder_layers)],
+            "final_norm": tree_map(lambda a: _tensor(a, dev),
+                                   enc["final_norm"])}
+        params["cross"] = [_unstack(tree["cross"], r, dev)
+                           for r in range(cfg.num_layers)]
     return shard_params(params, ctx)
+
+
+def _unstack(stacked: dict, r: int, dev: torch.device) -> dict:
+    """Entry ``r`` of each leaf of a tree stacked over layers."""
+    return tree_map(lambda a: _tensor(a[r], dev), stacked)
 
 
 def opt_state_from_jax(cfg: ModelConfig, state: dict, device="cuda",
@@ -73,7 +86,8 @@ def opt_state_from_jax(cfg: ModelConfig, state: dict, device="cuda",
 def params_to_jax_layout(cfg: ModelConfig, params: dict, ctx=None) -> dict:
     """The port's parameter tree (or m or v) -> numpy in the JAX package's
     layout: each ``group{gi}/pos{i}`` leaf stacked over the group's repeats
-    in the JAX layer order; bf16 leaves as f32 (exact).  With an
+    in the JAX layer order (and the encoder's layers and the cross blocks
+    over theirs); bf16 leaves as f32 (exact).  With an
     expert-parallel ``ctx`` the tree is this rank's shard, and the expert
     weights are gathered from the ranks first (every rank calls it)."""
     params = gather_params(params, ctx)
@@ -92,6 +106,11 @@ def params_to_jax_layout(cfg: ModelConfig, params: dict, ctx=None) -> dict:
         tree[f"group{gi}"] = {
             f"pos{i}": _stack([reps[r][i] for r in range(repeats)], arr)
             for i in range(len(period))}
+    if "encoder" in params:
+        tree["encoder"] = {
+            "group0": {"pos0": _stack(params["encoder"]["layers"], arr)},
+            "final_norm": tree_map(arr, params["encoder"]["final_norm"])}
+        tree["cross"] = _stack(params["cross"], arr)
     return tree
 
 

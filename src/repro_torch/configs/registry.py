@@ -1,11 +1,6 @@
-"""Architecture registry of the port: the configs ported so far.
-
-A copy of ``repro.configs.registry`` restricted to the architectures whose
-model the port can build: the dense GQA decoders, the Mamba2 SSM, the MoE
-decoder and the Mamba/attention/MoE hybrid.  The others (MLA, encoder-
-decoder, cross-attention) are known by name and raise
-``NotImplementedError`` until their slice is ported.
-"""
+"""Architecture registry of the port: a copy of ``repro.configs.registry``
+(``--arch <id>`` resolution and the reduced smoke variants), all ten
+architectures of the JAX package."""
 from __future__ import annotations
 
 import dataclasses
@@ -18,23 +13,19 @@ _MODULES: Dict[str, str] = {
     "granite-3-8b": "granite_3_8b",
     "mamba2-130m": "mamba2_130m",
     "h2o-danube-1.8b": "h2o_danube_1_8b",
+    "deepseek-v2-236b": "deepseek_v2_236b",
     "dbrx-132b": "dbrx_132b",
+    "seamless-m4t-medium": "seamless_m4t_medium",
+    "llama-3.2-vision-90b": "llama_3_2_vision_90b",
     "jamba-1.5-large-398b": "jamba_1_5_large_398b",
     "qwen2-0.5b": "qwen2_0_5b",
     "starcoder2-3b": "starcoder2_3b",
 }
 
-# architectures of the JAX package whose families (MLA, encoder-decoder,
-# cross-attention) are not ported yet
-_NOT_PORTED = ("deepseek-v2-236b", "seamless-m4t-medium",
-               "llama-3.2-vision-90b")
-
 ARCHS: List[str] = list(_MODULES)
 
 
 def get_config(arch: str) -> ModelConfig:
-    if arch in _NOT_PORTED:
-        raise NotImplementedError(f"{arch}: not ported yet")
     if arch not in _MODULES:
         raise KeyError(f"unknown arch {arch!r}; known: {ARCHS}")
     mod = importlib.import_module(f"repro_torch.configs.{_MODULES[arch]}")
@@ -43,9 +34,7 @@ def get_config(arch: str) -> ModelConfig:
 
 def smoke_config(arch: str) -> ModelConfig:
     """Reduced variant of the same family: 2 layers, d_model<=256, <=4
-    experts — field for field what ``repro.configs.smoke_config`` gives
-    (the MLA, encoder and cross-attention branches are left out with their
-    families)."""
+    experts — field for field what ``repro.configs.smoke_config`` gives."""
     cfg = get_config(arch)
     updates = dict(
         name=cfg.name + "-smoke",
@@ -63,6 +52,9 @@ def smoke_config(arch: str) -> ModelConfig:
         )
     else:
         updates.update(d_ff=0)
+    if cfg.attention == "mla":
+        updates.update(kv_lora_rank=64, q_lora_rank=96,
+                       qk_rope_head_dim=16, v_head_dim=32)
     if cfg.is_moe:
         updates.update(
             num_experts=4,
@@ -77,6 +69,10 @@ def smoke_config(arch: str) -> ModelConfig:
     if cfg.attn_period:
         # keep the hybrid character with 2 layers: attn at layer 0, mamba at 1
         updates.update(attn_period=2)
+    if cfg.encoder_layers:
+        updates.update(encoder_layers=2, num_audio_frames=64)
+    if cfg.cross_attn_period:
+        updates.update(cross_attn_period=2, num_vision_tokens=16)
     if cfg.sliding_window:
         updates.update(sliding_window=128)
     return dataclasses.replace(cfg, **updates)

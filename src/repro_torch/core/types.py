@@ -174,18 +174,23 @@ class ModelConfig:
     def param_counts(self) -> dict:
         """Returns dict with total and active (per-token) parameter counts:
         the JAX package's estimate (attention, Mamba and FFN matrices and
-        the embeddings; norms and biases left out), for the families the
-        port builds.  MLA, cross-attention and encoder-decoder configs
-        raise (``repro_torch.models.transformer.check_ported``)."""
-        if self.attention == "mla" or self.encoder_layers or \
-                self.cross_attn_period:
-            raise NotImplementedError(f"{self.name}: MLA, cross-attention "
-                                      f"and encoder-decoder configs are not "
-                                      f"ported")
+        the embeddings; norms, biases and cross-attention gates left out).
+        A cross-attention layer counts as a GQA layer; an encoder-decoder
+        config adds its encoder layers (attention and dense FFN) and one
+        cross-attention block per decoder layer."""
         d = self.d_model
         hd = self.resolved_head_dim
+        vhd = self.resolved_v_head_dim
         emb = self.padded_vocab * d * (1 if self.tie_embeddings else 2)
-        attn = (2 * self.num_heads + 2 * self.num_kv_heads) * d * hd
+        if self.attention == "mla":
+            rope = self.qk_rope_head_dim
+            attn = (d * self.q_lora_rank
+                    + (self.q_lora_rank or d) * self.num_heads * (hd + rope)
+                    + d * (self.kv_lora_rank + rope)
+                    + self.kv_lora_rank * self.num_heads * (hd + vhd)
+                    + self.num_heads * vhd * d)
+        else:
+            attn = (2 * self.num_heads + 2 * self.num_kv_heads) * d * hd
         din, nh, ns = self.ssm_d_inner, self.ssm_num_heads, self.ssm_state
         # in_proj: z, x, B, C, dt; conv; A_log, D; out_proj
         mamba = (d * (2 * din + 2 * ns + nh)
@@ -197,7 +202,7 @@ class ModelConfig:
         moe_ffn = ffn(self.moe_d_ff or self.d_ff)
         total = active = emb
         for spec in self.layer_specs():
-            mixer = attn if spec.mixer == "attn" else mamba
+            mixer = mamba if spec.mixer == "mamba" else attn
             total += mixer
             active += mixer
             if spec.ffn == "dense":
@@ -208,6 +213,11 @@ class ModelConfig:
                 router = d * self.num_experts
                 total += self.num_experts * moe_ffn + shared + router
                 active += self.top_k * moe_ffn + shared + router
+        if self.encoder_layers:
+            enc = (self.encoder_layers * (attn + ffn(self.d_ff))
+                   + self.num_layers * attn)
+            total += enc
+            active += enc
         return {"total": total, "active": active}
 
 

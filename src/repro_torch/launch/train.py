@@ -18,7 +18,9 @@ MoE layers expert-parallel, as the JAX launcher's ``make_ctx`` does; for an
 architecture without MoE layers it raises (tensor parallelism: ROADMAP
 item 8).  Each rank then holds its part of the experts (drawn from the
 seed, ``init_params(..., ctx=)``), and a checkpoint gathers them into the
-JAX layout.
+JAX layout.  The cross-attention families take their context from the
+stubs, as the JAX launcher does: every step the same ``audio_frames``
+(encoded inside the loss) or ``vision_patches`` of the batch's rows.
 
 ``run(argv)`` is the entry point the CLI calls; it returns rank 0's printed
 lines and every rank's measurements.
@@ -38,7 +40,7 @@ from repro_torch.configs import ARCHS, get_config, smoke_config
 from repro_torch.core.device import resolve_device
 from repro_torch.core.tree import param_leaves
 from repro_torch.core.types import MeshConfig, TrainConfig
-from repro_torch.data import make_batches
+from repro_torch.data import audio_frames, make_batches, vision_patches
 from repro_torch.kernels import launch_counts
 from repro_torch.launch.mesh import check_model_axis, mesh_groups
 from repro_torch.launch.ranks import build_kernels, rank_device, spawn_ranks
@@ -133,6 +135,11 @@ def train(rank: int, world: int, args: argparse.Namespace
 
     step_fn = make_train_step(cfg, tcfg, ctx)
     batches = make_batches(cfg, args.batch, args.seq, seed=tcfg.seed)
+    context = None
+    if cfg.is_encoder_decoder:
+        context = audio_frames(cfg, args.batch)
+    elif cfg.cross_attn_period:
+        context = vision_patches(cfg, args.batch)
     first = next(batches)
     cuda = device.type == "cuda"
     if cuda:
@@ -142,6 +149,8 @@ def train(rank: int, world: int, args: argparse.Namespace
     tokens_seen = 0
     for i in range(args.steps):
         batch = first if args.fixed_batch or i == 0 else next(batches)
+        if context is not None:
+            batch = {**batch, "context": context}
         marks = {}
 
         def hook(stage, grads):

@@ -1,15 +1,23 @@
-"""GQA self-attention (+RoPE, QKV bias, sliding window) for prefill and decode.
+"""Attention flavours: GQA (+RoPE, QKV bias, sliding window), MLA and
+cross-attention, for prefill and decode.
 
-Port of the GQA part of ``repro.models.attention``.  Prefill and training
-attention on a CUDA tensor goes to the hand-written flash-attention kernel
-whenever Sq == Sk and the q and v head dims agree (its gradient to the
-backward kernel); on the CPU it takes the plain einsum path up to
+Port of ``repro.models.attention``.  Prefill and training attention on a
+CUDA tensor goes to the hand-written flash-attention kernel whenever
+Sq == Sk and the q and v head dims agree (its gradient to the backward
+kernel); otherwise, and on the CPU, it takes the plain einsum path up to
 ``_PLAIN_ATTN_MAX_SEQ ** 2`` scores and the chunked online-softmax path
 above, as the JAX package does.  The device decides; there is no flag.
+So MLA (q head dim ``head_dim + qk_rope_head_dim``, v head dim
+``v_head_dim``: 192 and 128 in deepseek-v2) always takes the plain or
+chunked path, as in the JAX package, which calls no Pallas kernel for
+MLA or cross-attention; cross-attention takes the kernel (non-causal)
+only where the query and context lengths agree.
 
 Decode attends one new token against a KV cache; sliding-window caches are
-ring buffers of ``window`` slots.  Unlike the JAX package, the cache is
-updated in place (it is the largest state of a server) and returned.
+ring buffers of ``window`` slots; the MLA cache holds the compressed latent
+and the shared rope key of every position; cross-attention K/V are
+computed once from the context.  Unlike the JAX package, the caches are
+updated in place (they are the largest state of a server) and returned.
 """
 from __future__ import annotations
 
@@ -19,7 +27,8 @@ import torch
 
 from repro_torch.core.types import ModelConfig
 from repro_torch.kernels.flash_attention.ops import flash_attention
-from repro_torch.models.modules import apply_rope, dense_init
+from repro_torch.models.modules import (apply_rope, dense_init, init_norm,
+                                        rms_norm)
 
 NEG_INF = -1e30  # finite: fully masked rows stay finite (never -inf)
 _PLAIN_ATTN_MAX_SEQ = 2048  # above 2048^2 scores the CPU path goes chunked
@@ -27,8 +36,11 @@ _Q_CHUNK = 1024
 _KV_CHUNK = 1024
 
 
-def init_gqa(cfg: ModelConfig, dtype, device,
-             generator: torch.Generator) -> dict:
+def init_gqa(cfg: ModelConfig, dtype, device, generator: torch.Generator,
+             cross: bool = False) -> dict:
+    """GQA projections; ``cross``: a cross-attention block, whose output is
+    scaled by ``tanh(gate_attn)``, the gate starting at 0 (Llama-3.2-Vision's
+    gating): a fresh cross block adds nothing to the stream."""
     d = cfg.d_model
     hd = cfg.resolved_head_dim
     p = {
@@ -44,6 +56,38 @@ def init_gqa(cfg: ModelConfig, dtype, device,
                               device=device)
         p["bv"] = torch.zeros((cfg.num_kv_heads, hd), dtype=dtype,
                               device=device)
+    if cross:
+        p["gate_attn"] = torch.zeros((), dtype=dtype, device=device)
+    return p
+
+
+def init_mla(cfg: ModelConfig, dtype, device,
+             generator: torch.Generator) -> dict:
+    """DeepSeek-V2's multi-head latent attention: queries through a
+    low-rank ``w_dq`` (where ``q_lora_rank``), keys and values
+    decompressed per head from one ``kv_lora_rank`` latent, plus one rope
+    key shared by the heads."""
+    d = cfg.d_model
+    hd = cfg.resolved_head_dim  # qk nope dim
+    vhd = cfg.resolved_v_head_dim
+    rhd = cfg.qk_rope_head_dim
+    h = cfg.num_heads
+    p = {}
+    if cfg.q_lora_rank:
+        p["w_dq"] = dense_init(d, (cfg.q_lora_rank,), dtype, device,
+                               generator)
+        p["norm_q"] = init_norm(cfg.q_lora_rank, dtype, device)
+    q_in = cfg.q_lora_rank or d
+    p["w_uq"] = dense_init(q_in, (h, hd + rhd), dtype, device, generator)
+    p["w_dkv"] = dense_init(d, (cfg.kv_lora_rank + rhd,), dtype, device,
+                            generator)
+    p["norm_kv"] = init_norm(cfg.kv_lora_rank, dtype, device)
+    p["w_uk"] = dense_init(cfg.kv_lora_rank, (h, hd), dtype, device,
+                           generator)
+    p["w_uv"] = dense_init(cfg.kv_lora_rank, (h, vhd), dtype, device,
+                           generator)
+    p["wo"] = dense_init(h * vhd, (d,), dtype, device,
+                         generator).reshape(h, vhd, d)
     return p
 
 
@@ -160,10 +204,11 @@ def multihead_attention(q, k, v, *, q_pos, k_pos, causal, window=None):
     return out.reshape(b, s, q.shape[2], v.shape[-1])
 
 
-def _project_qkv(p: dict, cfg: ModelConfig, x):
+def _project_qkv(p: dict, cfg: ModelConfig, x, kv_x=None):
+    kv_x = x if kv_x is None else kv_x
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
-    k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
-    v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
+    k = torch.einsum("bsd,dhk->bshk", kv_x, p["wk"])
+    v = torch.einsum("bsd,dhk->bshk", kv_x, p["wv"])
     if cfg.qkv_bias and "bq" in p:
         q = q + p["bq"]
         k = k + p["bk"]
@@ -180,6 +225,23 @@ def gqa_forward(p: dict, cfg: ModelConfig, x, positions, *, window=None):
     out = multihead_attention(q, k, v, q_pos=positions, k_pos=positions,
                               causal=True, window=win)
     return torch.einsum("bshk,hkd->bsd", out, p["wo"])
+
+
+def _gated(p: dict, out: torch.Tensor) -> torch.Tensor:
+    if "gate_attn" in p:
+        out = out * torch.tanh(p["gate_attn"])
+    return out
+
+
+def cross_attention_forward(p: dict, cfg: ModelConfig, x, context):
+    """Cross-attention: queries from x (B,S,d), keys and values from the
+    context (B,T,d).  No RoPE, no mask (Llama-3.2-Vision / enc-dec
+    style)."""
+    q, k, v = _project_qkv(p, cfg, x, kv_x=context)
+    out = multihead_attention(
+        q, k, v, q_pos=torch.arange(x.shape[1], device=x.device),
+        k_pos=torch.arange(context.shape[1], device=x.device), causal=False)
+    return _gated(p, torch.einsum("bshk,hkd->bsd", out, p["wo"]))
 
 
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, dtype, device,
@@ -244,3 +306,109 @@ def gqa_decode(p: dict, cfg: ModelConfig, x, cache: dict, pos, *,
                        cache["v"])
     out = out.reshape(b, 1, cfg.num_heads, -1).to(x.dtype)
     return torch.einsum("bshk,hkd->bsd", out, p["wo"]), cache
+
+
+def init_cross_cache(p: dict, cfg: ModelConfig, context, dtype) -> dict:
+    """Cross-attention K/V computed once from the (encoder or vision)
+    context: (B, T, KV, hd) each, with no slot axis of their own (their
+    batch is the context's)."""
+    k = torch.einsum("btd,dhk->bthk", context, p["wk"])
+    v = torch.einsum("btd,dhk->bthk", context, p["wv"])
+    if cfg.qkv_bias and "bk" in p:
+        k = k + p["bk"]
+        v = v + p["bv"]
+    return {"k": k.to(dtype), "v": v.to(dtype)}
+
+
+def cross_attention_decode(p: dict, cfg: ModelConfig, x, cross_cache: dict):
+    """x: (B,1,d) against the precomputed K/V of ``init_cross_cache``."""
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    if cfg.qkv_bias and "bq" in p:
+        q = q + p["bq"]
+    k, v = cross_cache["k"], cross_cache["v"]
+    qg = _group_q(q, k.shape[2])
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    scores = torch.einsum("bqkgh,bskh->bqkgs", qg.float(), k.float()) * scale
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bqkgs,bskh->bqkgh", probs.to(v.dtype), v)
+    out = out.reshape(x.shape[0], x.shape[1], cfg.num_heads, -1).to(x.dtype)
+    return _gated(p, torch.einsum("bshk,hkd->bsd", out, p["wo"]))
+
+
+def _mla_q(p: dict, cfg: ModelConfig, x, positions):
+    """(q_nope (B,S,H,hd), q_rope (B,S,H,rope)), q_rope rotated."""
+    hd = cfg.resolved_head_dim
+    if cfg.q_lora_rank:
+        cq = rms_norm(x @ p["w_dq"], p["norm_q"]["scale"], cfg.norm_eps)
+        q = torch.einsum("bsr,rhk->bshk", cq, p["w_uq"])
+    else:
+        q = torch.einsum("bsd,dhk->bshk", x, p["w_uq"])
+    return q[..., :hd], apply_rope(q[..., hd:], positions, cfg.rope_theta)
+
+
+def _mla_latent(p: dict, cfg: ModelConfig, x, positions):
+    """(c (B,S,kv_lora_rank) normed, k_rope (B,S,rope) rotated)."""
+    ckv = x @ p["w_dkv"]
+    r = cfg.kv_lora_rank
+    c = rms_norm(ckv[..., :r], p["norm_kv"]["scale"], cfg.norm_eps)
+    # k_rope is shared across heads: rotated as a single head
+    k_rope = apply_rope(ckv[..., None, r:], positions,
+                        cfg.rope_theta)[..., 0, :]
+    return c, k_rope
+
+
+def mla_forward(p: dict, cfg: ModelConfig, x, positions, *, window=None):
+    """Decompressed MLA for train and prefill: per-head K/V materialized
+    from the latent, then ``multihead_attention`` (whose scale is
+    1/sqrt(head_dim + qk_rope_head_dim), the q head dim)."""
+    q_nope, q_rope = _mla_q(p, cfg, x, positions)
+    c, k_rope = _mla_latent(p, cfg, x, positions)
+    k_nope = torch.einsum("bsr,rhk->bshk", c, p["w_uk"])
+    v = torch.einsum("bsr,rhk->bshk", c, p["w_uv"])
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
+        *k_nope.shape[:3], cfg.qk_rope_head_dim)], dim=-1)
+    out = multihead_attention(q, k, v, q_pos=positions, k_pos=positions,
+                              causal=True, window=window)
+    return torch.einsum("bshk,hkd->bsd", out, p["wo"])
+
+
+def init_mla_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
+                   device) -> dict:
+    """The latent and the shared rope key of every position, slot axis
+    first: c (batch, max_len, kv_lora_rank), k_rope (batch, max_len,
+    qk_rope_head_dim)."""
+    return {"c": torch.zeros((batch, max_len, cfg.kv_lora_rank),
+                             dtype=dtype, device=device),
+            "k_rope": torch.zeros((batch, max_len, cfg.qk_rope_head_dim),
+                                  dtype=dtype, device=device)}
+
+
+def mla_decode(p: dict, cfg: ModelConfig, x, cache: dict, pos):
+    """Absorbed MLA decode: attends in the latent space (DeepSeek-V2's
+    deployment form), ``w_uk`` absorbed into the query and ``w_uv``
+    applied after the softmax.  x: (B,1,d); pos: int or (B,) positions.
+    Writes the new latent and rope key into ``cache`` in place; positions
+    above ``pos`` are masked, so a recycled slot needs no reset.  Returns
+    (out (B,1,d), cache)."""
+    b = x.shape[0]
+    pos = _pos_vec(pos, b, x.device)
+    q_nope, q_rope = _mla_q(p, cfg, x, pos[:, None])  # (B,1,H,*)
+    c_new, k_rope_new = _mla_latent(p, cfg, x, pos[:, None])
+    bi = torch.arange(b, device=x.device)
+    cache["c"][bi, pos] = c_new[:, 0].to(cache["c"].dtype)
+    cache["k_rope"][bi, pos] = k_rope_new[:, 0].to(cache["k_rope"].dtype)
+    c, k_rope = cache["c"], cache["k_rope"]
+
+    q_lat = torch.einsum("bshk,rhk->bshr", q_nope, p["w_uk"])
+    scale = 1.0 / math.sqrt(cfg.resolved_head_dim + cfg.qk_rope_head_dim)
+    scores = (torch.einsum("bshr,blr->bshl", q_lat.float(), c.float())
+              + torch.einsum("bshk,blk->bshl", q_rope.float(),
+                             k_rope.float())) * scale
+    valid = torch.arange(c.shape[1], device=x.device)[None, :] <= pos[:, None]
+    scores = torch.where(valid[:, None, None, :], scores,
+                         torch.full_like(scores, NEG_INF))
+    probs = torch.softmax(scores, dim=-1)
+    ctx_lat = torch.einsum("bshl,blr->bshr", probs.to(c.dtype), c)
+    v = torch.einsum("bshr,rhk->bshk", ctx_lat.to(x.dtype), p["w_uv"])
+    return torch.einsum("bshk,hkd->bsd", v, p["wo"]), cache

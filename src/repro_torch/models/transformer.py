@@ -1,13 +1,21 @@
 """Full-model assembly: embeddings -> decoder layers -> LM head.
 
-Port of ``repro.models.transformer`` for decoders whose layers mix GQA
-self-attention or Mamba2 (``LayerSpec.mixer``) with a dense, MoE or no FFN
-(``LayerSpec.ffn``): the dense GQA family, the SSM, MoE and the hybrid.  The
-JAX package scans over parameters stacked per layer group; here the
+Port of ``repro.models.transformer``: decoders whose layers mix GQA or MLA
+self-attention, cross-attention or Mamba2 (``LayerSpec.mixer``) with a
+dense, MoE or no FFN (``LayerSpec.ffn``), and the encoder-decoder stack.
+The JAX package scans over parameters stacked per layer group; here the
 parameters are a list of per-layer dicts (``params["layers"]``) walked by a
-Python loop, in the JAX layer order.  MLA, cross-attention and encoder
-configs raise ``NotImplementedError`` when their parameters are made
-(``init_params``, ``repro_torch.bridge.params_from_jax``).
+Python loop, in the JAX layer order.  An encoder-decoder config adds
+``params["encoder"]`` ({"layers": its causal GQA + dense FFN layers,
+"final_norm"}) and ``params["cross"]``, one cross-attention block per
+decoder layer, applied after the layer's self-attention with the layer's
+``norm1`` scale.
+
+The context (encoder output, or vision patch embeddings) is cast to the
+parameters' dtype where it enters (``encode``, ``forward``,
+``init_cache``); the JAX package promotes instead, so with bf16
+parameters and an f32 context its stream turns f32 (with f32 parameters
+the two are the same).
 """
 from __future__ import annotations
 
@@ -28,38 +36,59 @@ from repro_torch.models.modules import (dense_init, embed_init, ffn_apply,
                                         init_ffn, init_norm, rms_norm)
 
 
-def check_ported(cfg: ModelConfig) -> None:
-    """Raise for the families not ported yet: MLA, cross-attention and
-    encoder-decoder configs."""
-    if cfg.attention == "mla" or cfg.is_encoder_decoder or \
-            any(s.mixer == "cross_attn" for s in cfg.layer_specs()):
-        raise NotImplementedError(
-            f"{cfg.name}: MLA, cross-attention and encoder-decoder layers "
-            f"are not ported yet")
+ENCODER_SPEC = LayerSpec(mixer="attn", ffn="dense")
 
 
-def prefill_launches(cfg: ModelConfig) -> dict:
-    """Kernel launches of one ``forward`` on CUDA tensors, by the names of
-    ``repro_torch.kernels.WRAPPERS``: flash attention once per attention
-    layer, the SSD scan's three stages once per Mamba layer, the grouped
-    expert GEMM three times (gate, up, down) per MoE layer."""
+def _context_len(cfg: ModelConfig) -> int:
+    return cfg.num_audio_frames if cfg.is_encoder_decoder \
+        else cfg.num_vision_tokens
+
+
+def prefill_launches(cfg: ModelConfig, seq_len: Optional[int] = None
+                     ) -> dict:
+    """Kernel launches of one ``forward`` of ``seq_len`` tokens on CUDA
+    tensors, by the names of ``repro_torch.kernels.WRAPPERS``: flash
+    attention once per GQA self-attention layer (none for MLA, whose q and
+    v head dims differ), and once per cross-attention layer or interleaved
+    cross block where ``seq_len`` equals the config's context length
+    (``num_audio_frames`` or ``num_vision_tokens``; elsewhere it takes the
+    plain path); the SSD scan's three stages once per Mamba layer; the
+    grouped expert GEMM three times (gate, up, down) per MoE layer.  The
+    encoder's are counted by ``encode_launches``."""
     specs = cfg.layer_specs()
-    return {"flash_attention": sum(s.mixer == "attn" for s in specs),
+    n_self = 0 if cfg.attention == "mla" else \
+        sum(s.mixer == "attn" for s in specs)
+    n_cross = sum(s.mixer == "cross_attn" for s in specs)
+    if cfg.is_encoder_decoder:
+        n_cross += sum(s.mixer == "attn" for s in specs)
+    if seq_len is None or seq_len != _context_len(cfg):
+        n_cross = 0
+    return {"flash_attention": n_self + n_cross,
             "ssd_scan": SSD_LAUNCHES * sum(s.mixer == "mamba"
                                            for s in specs),
             "moe_gmm": 3 * sum(s.ffn == "moe" for s in specs)}
 
 
+def encode_launches(cfg: ModelConfig) -> dict:
+    """Kernel launches of one ``encode`` on CUDA tensors: flash attention
+    (causal) once per encoder layer."""
+    return {"flash_attention": cfg.encoder_layers}
+
+
 def train_launches(cfg: ModelConfig, microbatches: int = 1,
-                   remat: bool = False) -> dict:
+                   remat: bool = False, seq_len: Optional[int] = None
+                   ) -> dict:
     """Flash-attention launches of one training step on CUDA tensors
-    (``repro_torch.train.make_train_step``): the forward once per attention
-    layer and microbatch, twice with ``remat`` (the checkpointed layer runs
-    again in the backward), and the backward kernel's
-    ``LAUNCHES_PER_CALL`` per attention layer and microbatch.  (Training a
-    Mamba or MoE layer on the card raises until K6 and K5 have backward
-    kernels.)"""
-    n_attn = sum(s.mixer == "attn" for s in cfg.layer_specs())
+    (``repro_torch.train.make_train_step``) over sequences of ``seq_len``:
+    the forward once per attention that takes the kernel
+    (``prefill_launches``, and the encoder's ``encode_launches``, which
+    the step runs inside the loss) and microbatch, twice with ``remat``
+    (the checkpointed layer runs again in the backward), and the backward
+    kernel's ``LAUNCHES_PER_CALL`` per such attention and microbatch.
+    (Training a Mamba or MoE layer on the card raises until K6 and K5 have
+    backward kernels.)"""
+    n_attn = prefill_launches(cfg, seq_len)["flash_attention"] + \
+        encode_launches(cfg)["flash_attention"]
     return {"flash_attention": n_attn * microbatches * (2 if remat else 1),
             "flash_attention_bwd": n_attn * microbatches * FA_BWD_LAUNCHES}
 
@@ -75,8 +104,11 @@ def ep_launches(cfg: ModelConfig) -> dict:
 def _init_layer(cfg: ModelConfig, spec: LayerSpec, dtype, device,
                 generator: torch.Generator, ctx=None) -> dict:
     p = {"norm1": init_norm(cfg.d_model, dtype, device)}
-    if spec.mixer == "attn":
-        p["mixer"] = attn.init_gqa(cfg, dtype, device, generator)
+    if spec.mixer == "attn" and cfg.attention == "mla":
+        p["mixer"] = attn.init_mla(cfg, dtype, device, generator)
+    elif spec.mixer in ("attn", "cross_attn"):
+        p["mixer"] = attn.init_gqa(cfg, dtype, device, generator,
+                                   cross=spec.mixer == "cross_attn")
     else:
         p["mixer"] = ssm.init_mamba(cfg, dtype, device, generator)
     if spec.ffn != "none":
@@ -96,7 +128,6 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     its experts (``parallel.shard_params``'s layout; ``models.moe.
     init_moe`` draws the rest and drops it), bit-equal to the same part of
     the full draw."""
-    check_ported(cfg)
     dev = resolve_device(device)
     params = {
         "embed": embed_init(cfg.padded_vocab, cfg.d_model, dtype, dev,
@@ -108,6 +139,14 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
                                        dtype, dev, generator)
     params["layers"] = [_init_layer(cfg, spec, dtype, dev, generator, ctx)
                         for spec in cfg.layer_specs()]
+    if cfg.is_encoder_decoder:
+        params["encoder"] = {
+            "layers": [_init_layer(cfg, ENCODER_SPEC, dtype, dev, generator)
+                       for _ in range(cfg.encoder_layers)],
+            "final_norm": init_norm(cfg.d_model, dtype, dev)}
+        params["cross"] = [attn.init_gqa(cfg, dtype, dev, generator,
+                                         cross=True)
+                           for _ in range(cfg.num_layers)]
     return params
 
 
@@ -127,16 +166,24 @@ def _lm_head(cfg: ModelConfig, params: dict, x) -> torch.Tensor:
 
 
 def _apply_layer(lp: dict, spec: LayerSpec, cfg: ModelConfig, x,
-                 positions, window, ctx=None
+                 positions, window, ctx=None, context=None, cross_lp=None
                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """One decoder layer over the whole sequence; returns (x, aux_loss),
-    aux_loss None without a MoE FFN."""
+    """One decoder (or encoder) layer over the whole sequence; returns (x,
+    aux_loss), aux_loss None without a MoE FFN.  ``cross_lp``: the
+    encoder-decoder's cross block, after the self-attention."""
     h = rms_norm(x, lp["norm1"]["scale"], cfg.norm_eps)
-    if spec.mixer == "attn":
+    if spec.mixer == "attn" and cfg.attention == "mla":
+        h = attn.mla_forward(lp["mixer"], cfg, h, positions, window=window)
+    elif spec.mixer == "attn":
         h = attn.gqa_forward(lp["mixer"], cfg, h, positions, window=window)
+    elif spec.mixer == "cross_attn":
+        h = attn.cross_attention_forward(lp["mixer"], cfg, h, context)
     else:
         h = ssm.mamba_forward(lp["mixer"], cfg, h)
     x = x + h
+    if cross_lp is not None:  # norm1's scale again, as in the JAX package
+        h = rms_norm(x, lp["norm1"]["scale"], cfg.norm_eps)
+        x = x + attn.cross_attention_forward(cross_lp, cfg, h, context)
     aux = None
     if spec.ffn != "none":
         h2 = rms_norm(x, lp["norm2"]["scale"], cfg.norm_eps)
@@ -148,12 +195,35 @@ def _apply_layer(lp: dict, spec: LayerSpec, cfg: ModelConfig, x,
     return x, aux
 
 
+def _context(cfg: ModelConfig, params: dict, context):
+    """The context in the parameters' dtype; raises where the config needs
+    one and none is given."""
+    if not (cfg.is_encoder_decoder or cfg.cross_attn_period):
+        return None
+    if context is None:
+        raise ValueError(f"{cfg.name} requires a context (the encoder "
+                         f"output or the vision patch embeddings)")
+    return context.to(params["embed"].dtype)
+
+
+def _cross_blocks(cfg: ModelConfig, params: dict) -> list:
+    """The encoder-decoder's cross block of each decoder layer, None where
+    there is none (JAX: a block after every self-attention layer)."""
+    cross = params.get("cross")
+    return [cross[i] if cross is not None and spec.mixer == "attn" else None
+            for i, spec in enumerate(cfg.layer_specs())]
+
+
 def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
+            context: Optional[torch.Tensor] = None,
             window: Optional[int] = None, remat: bool = False, ctx=None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens: (B, S) int. Returns (logits (B,S,V_pad), aux_loss): the sum
     of the MoE layers' router losses (0 without MoE).
 
+    ``context`` (B, T, d): the encoder's output (``encode``; the caller
+    encodes) or the vision patch embeddings, for the configs with cross-
+    attention; ignored by the others.
     ``window`` overrides cfg.sliding_window.  ``remat``: each layer under
     ``torch.utils.checkpoint`` (non-reentrant), its activations recomputed
     in the backward, as the JAX package's ``jax.checkpoint`` of each layer
@@ -162,51 +232,95 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
     router's load statistics (``models.moe.route``) and whose MoE layers
     run expert-parallel over its model axis where ``ctx.use_ep``
     (``models.moe.moe_ep_train``)."""
+    context = _context(cfg, params, context)
     x = params["embed"][tokens]
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     win = window if window is not None else cfg.sliding_window
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for spec, lp in zip(cfg.layer_specs(), params["layers"]):
+    for spec, lp, cross_lp in zip(cfg.layer_specs(), params["layers"],
+                                  _cross_blocks(cfg, params)):
+        args = (lp, spec, cfg, x, positions, win, ctx, context, cross_lp)
         if remat:
-            x, a = checkpoint(_apply_layer, lp, spec, cfg, x, positions, win,
-                              ctx, use_reentrant=False)
+            x, a = checkpoint(_apply_layer, *args, use_reentrant=False)
         else:
-            x, a = _apply_layer(lp, spec, cfg, x, positions, win, ctx)
+            x, a = _apply_layer(*args)
         if a is not None:
             aux = aux + a
     return _lm_head(cfg, params, x), aux
 
 
-def encode(cfg: ModelConfig, params: dict, frames: torch.Tensor):
-    """Encoder stack of the encoder-decoder family: not ported yet."""
-    raise NotImplementedError(f"{cfg.name}: the encoder stack is not ported "
-                              f"yet")
+def encode(cfg: ModelConfig, params: dict, frames: torch.Tensor, *,
+           remat: bool = False) -> torch.Tensor:
+    """Encoder stack over the stub frame embeddings (B, T, d) -> the
+    context: causal GQA self-attention (``gqa_forward``, as the JAX
+    package's encoder) and a dense FFN a layer, then the encoder's final
+    norm.  ``remat``: each layer checkpointed, as ``forward``'s."""
+    enc = params["encoder"]
+    x = _context(cfg, params, frames)
+    positions = torch.arange(x.shape[1], device=x.device)
+    for lp in enc["layers"]:
+        args = (lp, ENCODER_SPEC, cfg, x, positions, cfg.sliding_window)
+        if remat:
+            x, _ = checkpoint(_apply_layer, *args, use_reentrant=False)
+        else:
+            x, _ = _apply_layer(*args)
+    return rms_norm(x, enc["final_norm"]["scale"], cfg.norm_eps)
+
+
+def _init_layer_cache(cfg: ModelConfig, spec: LayerSpec, lp: dict,
+                      batch: int, max_len: int, dtype, device, context,
+                      window) -> dict:
+    if spec.mixer == "attn" and cfg.attention == "mla":
+        return attn.init_mla_cache(cfg, batch, max_len, dtype, device)
+    if spec.mixer == "attn":
+        return attn.init_kv_cache(cfg, batch, max_len, dtype, device,
+                                  window=window)
+    if spec.mixer == "cross_attn":
+        return attn.init_cross_cache(lp["mixer"], cfg, context, dtype)
+    return ssm.init_mamba_cache(cfg, batch, dtype, device)
 
 
 def init_cache(cfg: ModelConfig, params: dict, batch: int, max_len: int,
-               dtype=torch.float32, *, window: Optional[int] = None) -> dict:
+               dtype=torch.float32, *, context=None,
+               window: Optional[int] = None) -> dict:
     """Decode cache on the parameters' device, one dict per layer, slot
-    (batch) axis first: {"k", "v"} for attention, conv histories and the
-    SSM state for Mamba.  Defaults to f32 whatever the parameters' dtype,
-    like the JAX package (the SSM state is f32 always)."""
+    (batch) axis first: {"k", "v"} for GQA attention, {"c", "k_rope"} (the
+    latent) for MLA, conv histories and the SSM state for Mamba, and for a
+    cross-attention layer its K/V over ``context`` (batch: the context's).
+    An encoder-decoder config adds ``cache["cross"]``, each decoder layer's
+    cross-block K/V over ``context`` (the encoder's output).  Defaults to
+    f32 whatever the parameters' dtype, like the JAX package (the SSM
+    state is f32 always)."""
     win = window if window is not None else cfg.sliding_window
     device = params["embed"].device
-    return {"layers": [
-        attn.init_kv_cache(cfg, batch, max_len, dtype, device, window=win)
-        if spec.mixer == "attn" else
-        ssm.init_mamba_cache(cfg, batch, dtype, device)
-        for spec in cfg.layer_specs()]}
+    context = _context(cfg, params, context)
+    cache = {"layers": [
+        _init_layer_cache(cfg, spec, lp, batch, max_len, dtype, device,
+                          context, win)
+        for spec, lp in zip(cfg.layer_specs(), params["layers"])]}
+    if cfg.is_encoder_decoder:
+        cache["cross"] = [attn.init_cross_cache(cp, cfg, context, dtype)
+                          for cp in params["cross"]]
+    return cache
 
 
 def _decode_layer(lp: dict, spec: LayerSpec, cfg: ModelConfig, x, lcache,
-                  pos, window, ctx=None) -> torch.Tensor:
+                  pos, window, ctx=None, cross_lp=None, cross_cache=None
+                  ) -> torch.Tensor:
     h = rms_norm(x, lp["norm1"]["scale"], cfg.norm_eps)
-    if spec.mixer == "attn":
+    if spec.mixer == "attn" and cfg.attention == "mla":
+        h, _ = attn.mla_decode(lp["mixer"], cfg, h, lcache, pos)
+    elif spec.mixer == "attn":
         h, _ = attn.gqa_decode(lp["mixer"], cfg, h, lcache, pos,
                                window=window)
+    elif spec.mixer == "cross_attn":
+        h = attn.cross_attention_decode(lp["mixer"], cfg, h, lcache)
     else:
         h, _ = ssm.mamba_decode(lp["mixer"], cfg, h, lcache)
     x = x + h
+    if cross_lp is not None:
+        h = rms_norm(x, lp["norm1"]["scale"], cfg.norm_eps)
+        x = x + attn.cross_attention_decode(cross_lp, cfg, h, cross_cache)
     if spec.ffn != "none":
         h2 = rms_norm(x, lp["norm2"]["scale"], cfg.norm_eps)
         if spec.ffn == "moe":
@@ -228,7 +342,9 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict,
     this rank's 1/dp of the batch."""
     win = window if window is not None else cfg.sliding_window
     x = params["embed"][tokens]
-    for spec, lp, lc in zip(cfg.layer_specs(), params["layers"],
-                            cache["layers"]):
-        x = _decode_layer(lp, spec, cfg, x, lc, pos, win, ctx)
+    cross_caches = cache.get("cross") or [None] * cfg.num_layers
+    for spec, lp, lc, cross_lp, cc in zip(
+            cfg.layer_specs(), params["layers"], cache["layers"],
+            _cross_blocks(cfg, params), cross_caches):
+        x = _decode_layer(lp, spec, cfg, x, lc, pos, win, ctx, cross_lp, cc)
     return _lm_head(cfg, params, x), cache

@@ -1,12 +1,15 @@
 """Continuous batching: slot-based serving with per-sequence positions.
 
-Port of ``repro.serve.batcher`` for every decoder the port builds (dense
-GQA, Mamba2, MoE, hybrid).  A fixed pool of ``max_slots`` cache slots, each
-with its own decode position; new requests are admitted into free slots
-mid-flight (their prompt is replayed through the same batched decode step
-while other slots keep generating) and finished slots are recycled.  The
-slot axis is structural here: it is axis 0 of every per-layer cache tensor
-(K/V ring buffers, Mamba conv histories and SSM state).
+Port of ``repro.serve.batcher`` for every model the port builds.  A fixed
+pool of ``max_slots`` cache slots, each with its own decode position; new
+requests are admitted into free slots mid-flight (their prompt is replayed
+through the same batched decode step while other slots keep generating)
+and finished slots are recycled.  The slot axis is structural here: it is
+axis 0 of every per-layer self-attention or Mamba cache tensor (K/V ring
+buffers, MLA latents, conv histories and SSM state).  Cross-attention K/V,
+precomputed from ``context`` (one shared context of ``max_slots`` rows, as
+in the JAX package: there is no per-request context), have no slot axis
+and are kept across slot reuse.
 """
 from __future__ import annotations
 
@@ -36,15 +39,15 @@ class Request:
 
 class ContinuousBatcher:
     def __init__(self, cfg: ModelConfig, params, max_slots: int,
-                 max_len: int, temperature: float = 0.0, seed: int = 0,
-                 cache_dtype=torch.float32):
+                 max_len: int, context=None, temperature: float = 0.0,
+                 seed: int = 0, cache_dtype=torch.float32):
         self.cfg = cfg
         self.params = params
         self.max_slots = max_slots
         self.max_len = max_len
         self.device = params["embed"].device
         self.cache = init_cache(cfg, params, max_slots, max_len,
-                                dtype=cache_dtype)
+                                dtype=cache_dtype, context=context)
         self.pos = np.zeros(max_slots, np.int64)  # next write position
         self.slot_req: List[Optional[Request]] = [None] * max_slots
         self.slot_pending: List[List[int]] = [[] for _ in range(max_slots)]
@@ -67,10 +70,12 @@ class ContinuousBatcher:
     def _reset_slot_state(self, slot: int) -> None:
         """Zero a recycled slot's cache in place.  Required for Mamba layers:
         their conv history and SSM state carry the previous request and do
-        not self-invalidate from the position (the K/V ring buffers do)."""
-        for layer in self.cache["layers"]:
-            for t in layer.values():
-                t[slot].zero_()
+        not self-invalidate from the position (the K/V ring buffers and MLA
+        latents do).  Cross-attention K/V (no slot axis) stay."""
+        for spec, layer in zip(self.cfg.layer_specs(), self.cache["layers"]):
+            if spec.mixer != "cross_attn":
+                for t in layer.values():
+                    t[slot].zero_()
 
     def _admit(self) -> None:
         for s in range(self.max_slots):

@@ -38,17 +38,22 @@ def make_serve_step(cfg: ModelConfig, ctx=None,
 
 def make_prefill(cfg: ModelConfig, ctx=None,
                  window: Optional[int] = None) -> Callable:
-    """Forward over the prompt: prefill(params, tokens (B,S)) -> logits.
+    """Forward over the prompt: prefill(params, tokens (B,S),
+    context=None) -> logits.  ``context``: the encoder's output (the
+    caller runs ``models.encode``) or the vision patch embeddings, for the
+    configs with cross-attention.
 
-    On the card its attention runs the flash-attention kernel, once per
-    layer.  The batcher fills its cache by replaying the prompt through
-    decode_step instead (simple and cache-exact).  ``ctx``: an
+    On the card its attention runs the flash-attention kernel where
+    ``models.prefill_launches`` says.  The batcher fills its cache by
+    replaying the prompt through decode_step instead (simple and
+    cache-exact).  ``ctx``: an
     expert-parallel context runs the MoE layers through ``moe_ep_train``
     (each rank its data shard of the prompts, the sequence split over the
     model axis inside the layer)."""
 
-    def prefill(params, tokens):
-        logits, _ = forward(cfg, params, tokens, window=window, ctx=ctx)
+    def prefill(params, tokens, context=None):
+        logits, _ = forward(cfg, params, tokens, context=context,
+                            window=window, ctx=ctx)
         return logits
 
     return prefill

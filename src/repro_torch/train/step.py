@@ -48,7 +48,7 @@ import torch
 
 from repro_torch.core.types import ModelConfig, TrainConfig
 from repro_torch.core.tree import param_leaves, tree_map
-from repro_torch.models.transformer import check_ported, forward
+from repro_torch.models.transformer import encode, forward
 from repro_torch.optim.adamw import adamw_shard_update, adamw_update
 from repro_torch.optim.schedule import lr_schedule
 from repro_torch.parallel.planner import (ParallelCtx, expert_flags,
@@ -71,7 +71,10 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
     (params, opt_state, metrics) with metrics {"ce", "aux", "loss", "lr",
     "grad_norm"} as 0-d tensors, those of the global batch.  batch:
     {"tokens", "labels"} (B, S) int, the global batch (the same on every
-    rank); B must be a multiple of ``tcfg.microbatches`` x ``ctx.dp``.
+    rank), and for the configs with cross-attention "context" (B, T, d):
+    the vision patch embeddings, or the frame embeddings that the loss
+    runs through ``encode`` for an encoder-decoder; B must be a multiple of
+    ``tcfg.microbatches`` x ``ctx.dp``.
     params and the optimizer state are updated in place; under ZeRO-1 the
     state is ``init_opt_state(params, ctx)``'s shards.
 
@@ -85,7 +88,6 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
     ``tcfg.remat``: each layer checkpointed (``forward(..., remat=True)``);
     the keyword ``remat`` and ``ctx.remat``, where given, must agree with
     it (one setting, three spellings)."""
-    check_ported(cfg)  # MLA, cross-attention and encoder-decoder raise
     for name, other in (("remat", remat),
                         ("ctx.remat", None if ctx is None else ctx.remat)):
         if other is not None and other != tcfg.remat:
@@ -97,8 +99,11 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
     zero1 = dp > 1 and tcfg.zero1
     ep = ctx is not None and ctx.use_ep and ctx.tp > 1
 
-    def grads_of(p, leaves, tokens, labels, count):
-        logits, aux = forward(cfg, p, tokens, remat=remat, ctx=ctx)
+    def grads_of(p, leaves, tokens, labels, context, count):
+        if cfg.is_encoder_decoder:
+            context = encode(cfg, p, context, remat=remat)
+        logits, aux = forward(cfg, p, tokens, context=context, remat=remat,
+                              ctx=ctx)
         ce = cross_entropy(logits, labels, count=count)
         aux = aux / dp
         loss = ce + cfg.router_aux_loss * aux
@@ -123,6 +128,9 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
         expert = expert_flags(params) if ep else None
         tokens, labels = _on(batch["tokens"], device), \
             _on(batch["labels"], device)
+        context = batch.get("context")
+        if context is not None:
+            context = _on(context, device)
         rows = microbatch_rows(tokens.shape[0], nmb, ctx)
         p = tree_map(lambda t: t.detach().requires_grad_(True), params)
         leaves = list(param_leaves(p))
@@ -130,7 +138,9 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
             # normalised by the microbatch's global count of labels that
             # are not -1: the ranks' shares add up to its mean
             count = (labels[mb_rows] != -1).sum().clamp(min=1).float()
-            return grads_of(p, leaves, tokens[mine], labels[mine], count)
+            return grads_of(p, leaves, tokens[mine], labels[mine],
+                            None if context is None else context[mine],
+                            count)
 
         if nmb == 1:
             grads, loss, ce, aux = microbatch(*rows[0])
@@ -211,13 +221,18 @@ def _zero1_update(params, grads, opt_state, tcfg, lr, ctx, grad_hook,
 
 def make_eval_step(cfg: ModelConfig) -> Callable:
     """Returns eval_step(params, batch) -> the mean cross-entropy, with no
-    graph recorded."""
-    check_ported(cfg)
+    graph recorded (batch: as ``make_train_step``'s)."""
 
     def eval_step(params, batch):
         device = params["embed"].device
+        context = batch.get("context")
         with torch.no_grad():
-            logits, _ = forward(cfg, params, _on(batch["tokens"], device))
+            if context is not None:
+                context = _on(context, device)
+                if cfg.is_encoder_decoder:
+                    context = encode(cfg, params, context)
+            logits, _ = forward(cfg, params, _on(batch["tokens"], device),
+                                context=context)
             return cross_entropy(logits, _on(batch["labels"], device))
 
     return eval_step

@@ -3,7 +3,6 @@ package's: the same layout and keys, so that a checkpoint written by either
 package restores in the other; the manifest through the port's own
 MessagePack coder, held against the ``msgpack`` package; and
 ``checkpoint_state_bytes``."""
-import dataclasses
 import jax
 import msgpack
 import numpy as np
@@ -28,16 +27,22 @@ from repro_torch.models import param_leaves, tree_map
 from repro_torch.optim import init_opt_state
 from repro_torch.parallel import ParallelCtx
 from repro_torch.train import make_train_step
+from torch_context import open_gates, stub_context
 
 
 def _trained(arch="qwen2-0.5b"):
     """The port's params and optimizer state after one step from the JAX
-    package's initial parameters (so m, v and step are not all zero)."""
+    package's initial parameters (so m, v and step are not all zero; the
+    cross-attention gates opened, and the stub context in the batch)."""
     cfg = smoke_config(arch)
     jp = jax_init_params(jax_smoke_config(arch), jax.random.PRNGKey(1))
-    params = params_from_jax(cfg, jax.tree.map(np.asarray, jp), "cpu")
+    params = params_from_jax(cfg, open_gates(jax.tree.map(np.asarray, jp)),
+                             "cpu")
     tok = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 16))
     batch = {"tokens": tok, "labels": np.roll(tok, -1, 1)}
+    context = stub_context(cfg, 2)
+    if context is not None:
+        batch["context"] = context
     params, opt, _ = make_train_step(cfg, TrainConfig(remat=False))(
         params, init_opt_state(params), batch)
     return cfg, params, opt
@@ -51,7 +56,9 @@ def _assert_trees_equal(a, b):
         assert torch.equal(x, y)
 
 
-@pytest.mark.parametrize("arch", ["qwen2-0.5b", "dbrx-132b"])
+@pytest.mark.parametrize("arch", ["qwen2-0.5b", "dbrx-132b",
+                                  "deepseek-v2-236b", "llama-3.2-vision-90b",
+                                  "seamless-m4t-medium"])
 def test_round_trip(tmp_path, arch):
     cfg, params, opt = _trained(arch)
     path = save_checkpoint(cfg, str(tmp_path), 7, params, opt,
@@ -115,6 +122,32 @@ def test_port_checkpoint_restores_in_jax(tmp_path):
     assert int(got_opt["step"]) == 1
 
 
+@pytest.mark.parametrize("arch", ["deepseek-v2-236b", "llama-3.2-vision-90b",
+                                  "seamless-m4t-medium"])
+def test_context_family_checkpoint_restores_in_jax(tmp_path, arch):
+    """A checkpoint of the port's MLA, cross-attention or encoder-decoder
+    tree restores in the JAX package's layout, the ``encoder`` and
+    ``cross`` stacks included, leaf for leaf."""
+    cfg, params, opt = _trained(arch)
+    path = save_checkpoint(cfg, str(tmp_path), 4, params, opt)
+    jp = jax_init_params(jax_smoke_config(arch), jax.random.PRNGKey(0))
+    got, got_opt, step = jax_restore(path, jp, jax_init_opt_state(jp))
+    assert step == 4
+    if cfg.is_encoder_decoder:
+        assert set(got) >= {"encoder", "cross"}
+        assert got["cross"]["gate_attn"].shape == (cfg.num_layers,)
+    for tree, want in ((got, params), (got_opt["m"], opt["m"]),
+                       (got_opt["v"], opt["v"])):
+        flat = jax.tree_util.tree_flatten_with_path(tree)[0]
+        ref = params_to_jax_layout(cfg, want)
+        assert len(flat) == len(jax.tree_util.tree_leaves(ref))
+        for kp, leaf in flat:
+            node = ref
+            for k in kp:
+                node = node[k.key]
+            np.testing.assert_array_equal(np.asarray(leaf), node)
+
+
 def test_manifest_decodes_with_msgpack(tmp_path):
     """The port writes the JAX package's manifest, byte for byte what the
     ``msgpack`` package encodes."""
@@ -165,18 +198,6 @@ def test_checkpoint_state_bytes_matches_jax(arch):
         jax_state_bytes(jax_get_config(arch), 2, 4, 1)
     assert get_config(arch).param_counts() == \
         jax_get_config(arch).param_counts()
-
-
-@pytest.mark.parametrize("change", [dict(attention="mla"),
-                                    dict(encoder_layers=2),
-                                    dict(cross_attn_period=2)],
-                         ids=["mla", "encoder_decoder", "cross_attn"])
-def test_param_counts_refuses_unported_families(change):
-    """The port counts only the families it builds; the others raise
-    rather than give a count without their own parameters."""
-    cfg = dataclasses.replace(get_config("qwen2-0.5b"), **change)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        checkpoint_state_bytes(cfg)
 
 
 def test_sharded_state_must_be_gathered_first(tmp_path):

@@ -26,9 +26,10 @@ from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_ref
 from repro_torch.kernels.ssd_scan.ops import LAUNCHES_PER_CALL as SSD_LAUNCHES
 from repro_torch.core.types import TrainConfig
 from repro_torch.data import make_batches
-from repro_torch.models import (decode_step, ep_launches, forward,
-                                init_cache, init_params, param_leaves,
-                                prefill_launches, train_launches, tree_map)
+from repro_torch.models import (decode_step, encode, encode_launches,
+                                ep_launches, forward, init_cache,
+                                init_params, param_leaves, prefill_launches,
+                                train_launches, tree_map)
 from repro_torch.parallel import ParallelCtx, expert_flags
 from repro_torch.optim import init_opt_state
 from repro_torch.train import make_train_step
@@ -37,6 +38,7 @@ from repro_torch.serve import make_prefill
 from torch_ccl_ranks import compressed_ring_emulation, ring_q8_on_card
 from torch_dp_ranks import dp_on_card, update_errors
 from torch_ep_ranks import card_tokens, ep_on_card
+from torch_context import open_gates, stub_context
 
 pytestmark = pytest.mark.cuda
 
@@ -394,19 +396,34 @@ def test_moe_gmm_bf16_variants(cuda, e, c, d, f, broadcast, pad, variant):
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_prefill_on_card_runs_the_kernel_and_matches_cpu(cuda, arch):
+    """make_prefill on the card against the CPU, the launches counted
+    against ``prefill_launches`` (and, for the encoder-decoder, the
+    encoder's ``encode_launches``); the context families with their stub
+    context and their cross-attention gates opened."""
     cfg = smoke_config(arch)
-    params = init_params(cfg, torch.Generator().manual_seed(0),
-                         device="cpu")
+    params = open_gates(init_params(cfg, torch.Generator().manual_seed(0),
+                                    device="cpu"))
     tok = torch.from_numpy(  # S 200: within the Mamba scan's chunk of 256
         np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 200)))
+    context = stub_context(cfg, 2)
+
+    def run(p, device):
+        c = None if context is None else torch.from_numpy(context).to(device)
+        if cfg.is_encoder_decoder:
+            c = encode(cfg, p, c)
+        return make_prefill(cfg)(p, tok.to(device), c)
+
+    p_gpu = _to(params, cuda)
     before = launch_counts()
-    out = make_prefill(cfg)(_to(params, cuda), tok.to(cuda))
+    out = run(p_gpu, cuda)
     torch.cuda.synchronize()
     after = launch_counts()
     launched = {k: after[k] - before[k] for k in after}
+    want = prefill_launches(cfg, 200)
+    want["flash_attention"] += encode_launches(cfg)["flash_attention"]
     assert {k: n for k, n in launched.items() if n} == \
-        {k: n for k, n in prefill_launches(cfg).items() if n}
-    ref = make_prefill(cfg)(params, tok)
+        {k: n for k, n in want.items() if n}
+    ref = run(params, "cpu")
     np.testing.assert_allclose(out.cpu().numpy(), ref.numpy(), **LOGIT_TOL)
 
 
@@ -706,16 +723,22 @@ def test_training_ssm_and_moe_on_card_raises(cuda, arch):
 
 @pytest.mark.parametrize("arch,microbatches,remat", [
     ("qwen2-0.5b", 1, False), ("qwen2-0.5b", 2, True),
-    ("h2o-danube-1.8b", 2, False), ("granite-3-8b", 1, True)])
+    ("h2o-danube-1.8b", 2, False), ("granite-3-8b", 1, True),
+    ("llama-3.2-vision-90b", 1, False), ("seamless-m4t-medium", 2, True)])
 def test_train_step_on_card_matches_cpu(cuda, arch, microbatches, remat):
     """One f32 step at smoke size on the card (K1 and its backward kernel,
-    counted against ``train_launches``) against the same step on the CPU
-    (held to JAX by tests/test_torch_train.py): loss and grad_norm within
-    1e-5, params and m within TOL."""
+    counted against ``train_launches``; the encoder's layers included)
+    against the same step on the CPU (held to JAX by
+    tests/test_torch_train.py): loss and grad_norm within 1e-5, params and
+    m within TOL.  The context families take their stub context, gates
+    open."""
     cfg = smoke_config(arch)
-    params = init_params(cfg, torch.Generator().manual_seed(0),
-                         device="cpu")
+    params = open_gates(init_params(cfg, torch.Generator().manual_seed(0),
+                                    device="cpu"))
     batch = next(make_batches(cfg, 4, 128, seed=1))
+    context = stub_context(cfg, 4, 1)
+    if context is not None:
+        batch["context"] = context
     tcfg = TrainConfig(microbatches=microbatches, remat=remat)
     step = make_train_step(cfg, tcfg)
     p_gpu = _to(params, cuda)
@@ -724,7 +747,7 @@ def test_train_step_on_card_matches_cpu(cuda, arch, microbatches, remat):
     torch.cuda.synchronize()
     n1 = launch_counts()
     launched = {k: n1[k] - n0[k] for k in n1 if n1[k] != n0[k]}
-    assert launched == train_launches(cfg, microbatches, remat)
+    assert launched == train_launches(cfg, microbatches, remat, 128)
     p_cpu, o_cpu, m_cpu = step(params, init_opt_state(params), batch)
     for k in ("loss", "grad_norm"):
         assert float(m_gpu[k]) == pytest.approx(float(m_cpu[k]), rel=1e-5)

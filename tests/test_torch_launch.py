@@ -80,6 +80,27 @@ def test_one_rank_lines(one_rank):
     assert losses[-1] < losses[0]
 
 
+def test_encoder_decoder_trains_on_two_ranks_like_one(tmp_path):
+    """``--arch seamless-m4t-medium --smoke``: the context comes from the
+    stubs (``audio_frames``, encoded inside the loss); two ZeRO-1 ranks,
+    each on its rows of tokens and frames, give one rank's losses within
+    1e-5, and rank 0's checkpoint restores with its encoder and cross
+    blocks."""
+    argv = ["--arch", "seamless-m4t-medium"] + SMOKE
+    one = run(argv)
+    two = run(argv + ["--devices", "2", "--ckpt-dir", str(tmp_path)])
+    assert one["lines"][0].startswith("arch=seamless-m4t-medium-smoke ")
+    for a, b in zip(two["ranks"][0]["steps"], one["ranks"][0]["steps"]):
+        assert a["loss"] == pytest.approx(b["loss"], rel=1e-5)
+    assert two["ranks"][0]["checksums"] == two["ranks"][1]["checksums"]
+    cfg = smoke_config("seamless-m4t-medium")
+    tmpl = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    params, _, step = restore_checkpoint(
+        cfg, two["lines"][-1].split(": ", 1)[1], tmpl)
+    assert step == 3 and len(params["cross"]) == cfg.num_layers
+    assert checksum(params) == two["ranks"][0]["checksums"]["params"]
+
+
 def test_default_device_needs_a_card():
     """``--device cuda`` (the default) where there is no card raises the
     port's device error; nothing trains on the CPU instead."""

@@ -38,16 +38,6 @@ def test_configs_equal_jax(arch, smoke):
         [(s.mixer, s.ffn) for s in ref.layer_specs()]
 
 
-def test_unported_archs_raise():
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        get_config("deepseek-v2-236b")
-    # the families of the remaining slices: MLA and cross-attention layers
-    for overrides in (dict(attention="mla"), dict(cross_attn_period=2)):
-        cfg = dataclasses.replace(smoke_config("granite-3-8b"), **overrides)
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            init_params(cfg, torch.Generator(), device="cpu")
-
-
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_rms_norm(dtype):
     x = _rng().standard_normal((2, 5, 64), dtype=np.float32) * 3
@@ -94,7 +84,8 @@ def test_ffn_apply(arch, act):
 @pytest.mark.parametrize("arch", ARCHS)
 def test_init_params_layout_matches_bridged_jax(arch):
     """The port's own init gives the tree the bridge builds from JAX's:
-    same keys, shapes and dtype, layer by layer."""
+    same keys, shapes and dtype, layer by layer (the encoder's layers and
+    the cross blocks included)."""
     cfg = smoke_config(arch)
     jp = jax_init_params(jax_smoke_config(arch), jax.random.PRNGKey(0))
     bridged = params_from_jax(cfg, _tree_np(jp), device="cpu")
@@ -109,8 +100,11 @@ def test_init_params_layout_matches_bridged_jax(arch):
 
     assert layout(own) == layout(bridged)
     assert len(own["layers"]) == cfg.num_layers
+    if cfg.is_encoder_decoder:
+        assert len(own["encoder"]["layers"]) == cfg.encoder_layers
+        assert len(own["cross"]) == cfg.num_layers
     mixer = own["layers"][0]["mixer"]
-    w = mixer["wq"] if "wq" in mixer else mixer["x_proj"]
+    w = next(mixer[k] for k in ("wq", "x_proj", "w_dq") if k in mixer)
     bound = 3.0 / np.sqrt(cfg.d_model)  # truncated at 3 sigma
     assert float(w.abs().max()) <= bound + 1e-6
 

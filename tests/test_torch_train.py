@@ -46,6 +46,7 @@ from repro_torch.optim import (adamw_update, global_norm, init_opt_state,
                                lr_schedule)
 from repro_torch.serve import make_prefill
 from repro_torch.train import cross_entropy, make_eval_step, make_train_step
+from torch_context import open_gates, stub_context
 
 # tests/test_train_features.py:28-41 (f32) and :44-56 (bf16 grads)
 TOL = dict(atol=1e-5, rtol=1e-5)
@@ -53,17 +54,26 @@ BF16_TOL = dict(atol=2e-2, rtol=2e-2)
 
 
 def _both(arch, seed=0):
+    """(port cfg, port params, JAX cfg, JAX params) sharing the weights,
+    the cross-attention gates opened (``torch_context``)."""
     cfg, jcfg = smoke_config(arch), jax_smoke_config(arch)
-    jp = jax_init_params(jcfg, jax.random.PRNGKey(seed))
-    params = params_from_jax(cfg, jax.tree.map(np.asarray, jp), device="cpu")
-    return cfg, params, jcfg, jp
+    jp = open_gates(jax.tree.map(
+        np.asarray, jax_init_params(jcfg, jax.random.PRNGKey(seed))))
+    params = params_from_jax(cfg, jp, device="cpu")
+    return cfg, params, jcfg, jax.tree.map(jnp.asarray, jp)
 
 
 def _batch(cfg, seed=0, shape=(4, 32)):
-    """tests/test_train_features.py::_setup's batch, drawn with numpy."""
+    """tests/test_train_features.py::_setup's batch, drawn with numpy, and
+    the stub context of the configs that take one (as the JAX launcher
+    and tests/test_arch_smoke.py::_batch add it)."""
     tok = np.random.default_rng(seed).integers(0, cfg.vocab_size, shape)
     tok = tok.astype(np.int32)
-    return {"tokens": tok, "labels": np.roll(tok, -1, 1)}
+    batch = {"tokens": tok, "labels": np.roll(tok, -1, 1)}
+    context = stub_context(cfg, shape[0], seed)
+    if context is not None:
+        batch["context"] = context
+    return batch
 
 
 def _leaves(tree):
@@ -250,7 +260,10 @@ def test_grad_clip_bounds_update(scale):
 # --- the step --------------------------------------------------------------
 
 # tests/test_train_features.py's cases (microbatches 1, 2, 4; bf16 grads;
-# granite with and without remat) and the SSM, MoE and hybrid families
+# granite with and without remat) and the SSM, MoE, hybrid, MLA (with MoE),
+# cross-attention and encoder-decoder families (the last also in two
+# microbatches under remat: the context split by rows, the encoder
+# checkpointed)
 STEP_CASES = [
     ("qwen2-0.5b", dict(microbatches=1), False),
     ("qwen2-0.5b", dict(microbatches=2), False),
@@ -261,6 +274,10 @@ STEP_CASES = [
     ("mamba2-130m", {}, False),
     ("dbrx-132b", {}, False),
     ("jamba-1.5-large-398b", {}, False),
+    ("deepseek-v2-236b", {}, False),
+    ("llama-3.2-vision-90b", {}, False),
+    ("seamless-m4t-medium", {}, False),
+    ("seamless-m4t-medium", dict(microbatches=2), True),
 ]
 
 
@@ -347,14 +364,6 @@ def test_batch_not_divisible_by_microbatches_raises():
         step(params, init_opt_state(params), _batch(cfg))
 
 
-def test_encoder_decoder_raises():
-    cfg = dataclasses.replace(smoke_config("qwen2-0.5b"), family="audio",
-                              encoder_layers=2)
-    assert cfg.is_encoder_decoder
-    with pytest.raises(NotImplementedError):
-        make_train_step(cfg, TrainConfig())
-
-
 def test_training_learns_synthetic_pattern():
     """Port of tests/test_system.py:24-42: 40 steps on the bigram pattern
     take the loss from near uniform to below 0.8x uniform."""
@@ -389,6 +398,22 @@ def test_train_launches(arch, microbatches, remat, want):
     got = train_launches(cfg, microbatches, remat)
     assert got == {"flash_attention": want[0],
                    "flash_attention_bwd": want[1] * LAUNCHES_PER_CALL}
+
+
+@pytest.mark.parametrize("arch,seq,want", [
+    ("deepseek-v2-236b", None, 0),  # MLA: q and v head dims differ
+    ("llama-3.2-vision-90b", 512, 80),  # self layers; cross T 1601
+    ("llama-3.2-vision-90b", 1601, 100),  # cross layers at S == T too
+    ("seamless-m4t-medium", 512, 24),  # encoder + decoder self
+    ("seamless-m4t-medium", 1024, 36)])  # + the cross blocks at S == T
+def test_train_launches_with_context(arch, seq, want):
+    """K1 launches a step of the context families at full size, one
+    microbatch: MLA none, a cross-attention layer or cross block one
+    only where the sequence is as long as the context, the encoder's
+    layers one each (the loss encodes)."""
+    got = train_launches(get_config(arch), 1, False, seq)
+    assert got == {"flash_attention": want,
+                   "flash_attention_bwd": want * LAUNCHES_PER_CALL}
 
 
 # --- the chunked CPU attention path -----------------------------------------

@@ -79,7 +79,11 @@ PREFILL_SHAPE = {"dbrx-132b": (2, 256)}  # (B, S); others B 4 x S 512
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--arch", default="qwen2-0.5b", choices=ARCHS)
+    # the families that take a context (cross-attention, encoder) are
+    # profiled by chip_smoke.py's serving phases, not here
+    ap.add_argument("--arch", default="qwen2-0.5b", choices=[
+        a for a in ARCHS if not (get_config(a).cross_attn_period
+                                 or get_config(a).is_encoder_decoder)])
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
