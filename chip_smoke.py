@@ -107,6 +107,27 @@ exits non-zero:
    the same decode through ``moe_ep_decode_ws`` and ``moe_ep_decode``.
    Prefill ms, decode step p50/p99 (CUDA events), exchange seconds, wire
    and staged bytes and peak memory a rank; times are gloo over loopback.
+3e. tensor parallelism, 4 gloo ranks sharing the card, each drawing only
+   its blocks from the seed (each phase's single-card reference run made
+   first and freed): tp_parity, granite-3-8b at full width, 2 layers, f32,
+   on (1, 4) and (2, 2): prefill B 2 x S 256 through ``make_prefill(cfg,
+   ctx)`` and 8 teacher-forced decode steps of 4 slots within PARITY_TOL
+   of the single-card run, greedy tokens equal, one training step (B 4 x S
+   256, ZeRO-1 on (2, 2)) held as dp_parity holds its own; tp_serving,
+   granite-3-8b at full width and depth (40 layers), bf16, (1, 4): prefill
+   and a 4-slot ContinuousBatcher over 6 requests (one admitted
+   mid-flight), greedy tokens equal to the single-card run's where its
+   top-2 margin exceeds 8 bf16 ulps, max |logit diff| printed; tp_mamba,
+   mamba2-130m whole on (1, 4) (6 of 24 SSD heads a rank): f32 parity,
+   then bf16 serving; tp_training, granite-3-8b at full width, 4 layers,
+   bf16, (2, 2), ZeRO-1, B 8 x S 512 in 2 microbatches, remat, 5 steps:
+   the loss falls; cmm, ``ag_matmul`` and ``matmul_rs`` at granite's FFN
+   shape against the bulk forms; pipeline, GPipe over 4 granite layers
+   and the interleaved schedule over 8 (v = 2), 8 microbatches of B 1 x S
+   256, f32, outputs and gradients against the sequential composition.
+   Every phase prints wall and device ms, wire and staged bytes (held to
+   the ring formula), peak memory and K1 / K1-bwd / K6 launches a rank
+   (held to their formulas).
 4. codecs (K2a, K2b, K3, K4): a stand-in gradient of qwen2-0.5b at full
    width and depth (one seeded tensor per parameter) through the q8, q4,
    topk and lowrank codecs over two error-feedback steps, held to the JAX
@@ -182,7 +203,9 @@ try:
                                     tree_map)
     from repro_torch.models import moe as moe_mod
     from repro_torch.optim import gather_opt_state, init_opt_state
-    from repro_torch.parallel import expert_flags, flat_layout, make_ctx
+    from repro_torch.parallel import (ParallelCtx, expert_flags,
+                                      flat_layout, make_ctx)
+    from repro_torch.parallel.planner import tp_dims, tp_layout
     from repro_torch.serve import make_prefill, make_serve_step
     from repro_torch.serve.batcher import ContinuousBatcher
     from repro_torch.train import make_train_step
@@ -2204,19 +2227,49 @@ def _paths(tree, prefix=""):
         yield prefix
 
 
+def _leaf_err(a, b, path) -> tuple:
+    """(max |a - b|, max |b|, path) of one leaf."""
+    return float((a - b).abs().max()), float(b.abs().max()), path
+
+
+def _tree_err_of(errs) -> dict:
+    """``_tree_err`` from each leaf's ``_leaf_err``."""
+    err, top, path = max(errs, key=lambda e: e[0] / max(e[1], 1e-30))
+    return {"err_over_max": max(e[0] for e in errs)
+            / max(e[1] for e in errs),
+            "worst_leaf": path, "worst_leaf_err": err, "worst_leaf_max": top}
+
+
 def _tree_err(got, want) -> dict:
     """The largest |got - want| over the tree's largest |want|, and the
     leaf with the largest error over its own max (for the record: the
     smallest leaves, the projections' biases, sum their gradient over every
     token of the batch, so their rounding is largest against their own
     max)."""
-    errs = [(float((a - b).abs().max()), float(b.abs().max()), path)
-            for a, b, path in zip(param_leaves(got), param_leaves(want),
-                                  _paths(want))]
-    err, top, path = max(errs, key=lambda e: e[0] / max(e[1], 1e-30))
-    return {"err_over_max": max(e[0] for e in errs)
-            / max(e[1] for e in errs),
-            "worst_leaf": path, "worst_leaf_err": err, "worst_leaf_max": top}
+    return _tree_err_of([_leaf_err(a, b, path) for a, b, path in zip(
+        param_leaves(got), param_leaves(want), _paths(want))])
+
+
+def _leaf_update(a0, a, b, mm, vv, path, tcfg: TrainConfig,
+                 lr: float) -> tuple:
+    """(|a - AdamW(a0, mm, vv)| max over lr, ||a - b|| / ||b - a0||, path)
+    of one leaf (``_update_err``)."""
+    p = a0.double()
+    ref = p - lr * ((mm.double() / (1 - tcfg.beta1))
+                    / ((vv.double() / (1 - tcfg.beta2)).sqrt()
+                       + tcfg.eps) + tcfg.weight_decay * p)
+    adamw = float((a.double() - ref).abs().max()) / lr
+    del ref
+    du = float(torch.linalg.vector_norm(b.double() - p))
+    err = float(torch.linalg.vector_norm(a.double() - b.double()))
+    return adamw, err / du if du else 0.0 if err == 0 else math.inf, path
+
+
+def _update_err_of(stats) -> dict:
+    """``_update_err`` from each leaf's ``_leaf_update``."""
+    worst = max(stats, key=lambda t: t[1])
+    return {"adamw_over_lr": max(t[0] for t in stats),
+            "update_rel_err": worst[1], "worst_leaf": worst[2]}
 
 
 def _update_err(p0, got, want, m, v, tcfg: TrainConfig, lr: float) -> dict:
@@ -2230,23 +2283,9 @@ def _update_err(p0, got, want, m, v, tcfg: TrainConfig, lr: float) -> dict:
     element the update cannot be held to a reference at a visible rate: it
     is lr * g / (|g| + eps), which turns the rounding of a gradient near
     eps, or a sign that rounding flips, into a change of up to 2 lr."""
-    adamw, update, worst = 0.0, 0.0, None
-    for a0, a, b, mm, vv, path in zip(
-            param_leaves(p0), param_leaves(got), param_leaves(want),
-            param_leaves(m), param_leaves(v), _paths(p0)):
-        p = a0.double()
-        ref = p - lr * ((mm.double() / (1 - tcfg.beta1))
-                        / ((vv.double() / (1 - tcfg.beta2)).sqrt()
-                           + tcfg.eps) + tcfg.weight_decay * p)
-        adamw = max(adamw, float((a.double() - ref).abs().max()) / lr)
-        del ref
-        du = float(torch.linalg.vector_norm(b.double() - p))
-        err = float(torch.linalg.vector_norm(a.double() - b.double()))
-        r = err / du if du else 0.0 if err == 0 else math.inf
-        if r >= update:
-            update, worst = r, path
-    return {"adamw_over_lr": adamw, "update_rel_err": update,
-            "worst_leaf": worst}
+    return _update_err_of([_leaf_update(*leaves, tcfg, lr) for leaves in zip(
+        param_leaves(p0), param_leaves(got), param_leaves(want),
+        param_leaves(m), param_leaves(v), _paths(p0))])
 
 
 def _exchange() -> tuple:
@@ -3101,6 +3140,992 @@ def run_ep(rng, seed: int) -> dict:
     return counts
 
 
+# --------------------------------------------------------------------------
+# 3e. tensor parallelism (granite-3-8b, full width): 4 gloo ranks on the card
+# --------------------------------------------------------------------------
+
+TP_ARCH = "granite-3-8b"
+TP_RANKS = 4
+TP_PARITY_LAYERS = 2           # f32: 3.2 GB whole, the step's state 4x that
+TP_TRAIN_LAYERS = 4            # 1.20 B parameters: AdamW's state fits
+TP_BATCH, TP_SEQ = 2, 256      # the prefill: B 2 x S 256
+TP_SLOTS = 4
+TP_PARITY_STEPS = 8
+TP_TRAIN_BATCH, TP_TRAIN_SEQ = 8, 512
+TP_TRAIN_MICROBATCHES, TP_TRAIN_STEPS = 2, 5
+# the parity step: lr 1e-3 from the first step, as DP_PARITY_TCFG
+TP_PARITY_TCFG = dict(microbatches=1, remat=False, learning_rate=1e-3,
+                      warmup_steps=1)
+# the launcher's defaults (launch.train._train_config), bf16 gradients
+TP_TRAIN_TCFG = dict(learning_rate=3e-3, warmup_steps=10,
+                     total_steps=TP_TRAIN_STEPS,
+                     microbatches=TP_TRAIN_MICROBATCHES, remat=True,
+                     grad_dtype="bf16")
+# short requests: a decode step is ~81 ring all-reduces over gloo (granite)
+TP_REQUESTS = dict(prompt_lens=(6, 12), new_tokens=6, max_len=24)
+PIPE_STAGES, PIPE_MICROBATCHES, PIPE_V = 4, 8, 2
+PIPE_MB_SHAPE = (1, 256)       # a microbatch: B 1 x S 256 of granite's d
+CMM_ROWS = 2 * 256             # x (2 x 256, 4096) against W (4096, 12800/4)
+
+
+def _tp_ctx(cfg, mesh_shape, **kw):
+    mesh_cfg = MeshConfig(tuple(mesh_shape))
+    dgroup, mgroup = mesh_groups(mesh_cfg, cfg)
+    return make_ctx(dgroup, mesh_cfg, model_group=mgroup, cfg=cfg, **kw)
+
+
+def _ring_bytes(n: int, p: int, itemsize: int) -> int:
+    """Wire bytes a rank of ``ring_all_reduce`` of n values over p ranks:
+    2 (p - 1) chunks of n / p (padded)."""
+    return 2 * (p - 1) * -(-n // p) * itemsize if p > 1 else 0
+
+
+def tp_forward_bytes(cfg, tp: int, rows: int, seq: int, itemsize: int,
+                     gather: bool = True) -> int:
+    """Wire bytes a rank of one tensor-parallel forward of ``rows`` x
+    ``seq`` tokens: the embedding's all-reduce of (rows, seq, d); per
+    layer one a row-parallel product (GQA where its heads split, the FFN,
+    the Mamba out-projection) and, for Mamba, the gated norm's mean
+    square (f32); with ``gather``, the logits' all-gather (serve)."""
+    lay = tp_layout(cfg, ParallelCtx(tp=tp, use_ep=False))
+    n = rows * seq * cfg.d_model
+    total = _ring_bytes(n, tp, itemsize)
+    for spec in cfg.layer_specs():
+        if spec.mixer == "attn" and lay.heads:
+            total += _ring_bytes(n, tp, itemsize)
+        if spec.mixer == "mamba" and lay.ssm:
+            total += _ring_bytes(n, tp, itemsize) + \
+                _ring_bytes(rows * seq, tp, 4)
+        if spec.ffn == "dense" and lay.ffn:
+            total += _ring_bytes(n, tp, itemsize)
+    if gather and lay.vocab:
+        total += (tp - 1) * rows * seq * (cfg.padded_vocab // tp) * itemsize
+    return total
+
+
+def _tp_reference(cfg, seed: int, dtype, tokens, first=None,
+                  steps: int = 0, requests=None) -> dict:
+    """The single-card run of ``cfg`` from ``seed``: prefill logits of
+    ``tokens``; with ``first``, ``steps`` greedy decode steps of
+    ``TP_SLOTS`` slots from it (the tokens fed kept, to teacher-force the
+    ranks); with ``requests`` a ``ContinuousBatcher`` run over them
+    (``tp_batcher_run``).  Host tensors; frees the card."""
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    params = init_params(cfg, gen, dtype=dtype, device=DEVICE)
+    out = {"tokens": tokens}
+    with torch.no_grad():
+        out["prefill"] = make_prefill(cfg)(params, tokens.to(DEVICE)).cpu()
+        if first is not None:
+            serve = make_serve_step(cfg)
+            cache = init_cache(cfg, params, TP_SLOTS, steps, dtype=dtype)
+            tok, fed, logits = first.to(DEVICE), [first], []
+            for t in range(steps):
+                tok, lg, cache = serve(params, cache, tok, t)
+                fed.append(tok.cpu())
+                logits.append(lg[:, 0].cpu())
+            out["decode"] = torch.stack(logits, 1)
+            out["fed"] = torch.cat(fed, 1)
+            del cache
+        if requests is not None:
+            out["batcher"] = tp_batcher_run(cfg, params, requests)
+    del params
+    _release()
+    return out
+
+
+def tp_batcher_run(cfg, params, requests, ctx=None) -> dict:
+    """A ``ContinuousBatcher`` of ``TP_SLOTS`` slots (bf16 cache) over
+    ``requests``, one of them admitted mid-flight: every emitted token
+    with the logits it was picked from (read where the batcher gathers
+    them, ``serve.step.full_logits``), each step's host ms, the launches
+    and exchanges of the run."""
+    from repro_torch.serve import batcher as batcher_mod
+    batcher = ContinuousBatcher(cfg, params, max_slots=TP_SLOTS,
+                                max_len=TP_REQUESTS["max_len"],
+                                cache_dtype=torch.bfloat16, ctx=ctx)
+    for rid, prompt in enumerate(requests):
+        batcher.submit(prompt, TP_REQUESTS["new_tokens"], rid)
+    real, seen = batcher_mod.full_logits, {}
+
+    def spy(cfg_, logits, ctx_=None):
+        seen["logits"] = real(cfg_, logits, ctx_)
+        seen["slots"] = [r.rid if r is not None else None
+                         for r in batcher.slot_req]
+        return seen["logits"]
+
+    batcher_mod.full_logits = spy
+    emitted = {rid: [] for rid in range(len(requests))}
+    step_ms = []
+    try:
+        n0, ex0 = launch_counts(), _exchange()
+        while batcher.active:
+            t0 = time.perf_counter()
+            got = batcher.step()  # ends in a host copy: synced
+            step_ms.append(1e3 * (time.perf_counter() - t0))
+            for slot, rid in enumerate(seen["slots"]):
+                if rid in got:
+                    emitted[rid].append(
+                        (got[rid], seen["logits"][slot, 0].float().cpu()))
+        launched, ex = _delta(n0), _exchange_delta(ex0)
+    finally:
+        batcher_mod.full_logits = real
+    done = {r.rid: r for r in batcher.completed}
+    return {"emitted": emitted, "step_ms": step_ms, "launches": launched,
+            **ex, "steps": len(step_ms),
+            "admitted_at": {r.rid: r.t_admit for r in done.values()},
+            "out": {r.rid: r.out for r in done.values()}}
+
+
+def _batcher_check(got: dict, ref: dict, v: int) -> dict:
+    """Each request's tokens against the single-card run's, in order,
+    until the first that differs, which must be one where the reference's
+    top-2 margin is at most ``EP_MARGIN_ULPS`` bf16 ulps of its top logit
+    (after it the request's inputs differ); the max |logit diff| over the
+    tokens compared."""
+    compared = mismatches = unforced = 0
+    diff = 0.0
+    for rid, want in ref["emitted"].items():
+        for (tok, lg), (wtok, wlg) in zip(got["emitted"][rid], want):
+            top = wlg[:v].topk(2).values
+            firm = float(top[0] - top[1]) > EP_MARGIN_ULPS * float(
+                _ulps_bf16(top[0]))
+            diff = max(diff, float((lg[:v] - wlg[:v]).abs().max()))
+            if tok != wtok:
+                mismatches += firm
+                unforced += not firm
+                break
+            compared += 1
+    return {"compared": compared,
+            "of": sum(len(e) for e in ref["emitted"].values()),
+            "mismatches": mismatches, "unforced_mismatches": unforced,
+            "max_abs_logit_diff": diff}
+
+
+def _tp_params(cfg, seed: int, dtype, ctx, device):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return init_params(cfg, gen, dtype=dtype, device=device, ctx=ctx)
+
+
+def _timed(fn):
+    """(fn(), device ms by CUDA events, wall ms) of one call."""
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    a.record()
+    out = fn()
+    b.record()
+    torch.cuda.synchronize()
+    return out, a.elapsed_time(b), 1e3 * (time.perf_counter() - t0)
+
+
+def tp_parity_rank(rank: int, world: int, cfg, seed: int, ref_path: str,
+                   device: str) -> dict:
+    """f32 (TF32 off), on a (1, 4) and a (2, 2) mesh: this rank's blocks
+    drawn from the seed; prefill of its data rank's prompts through
+    ``make_prefill(cfg, ctx)`` and 8 teacher-forced decode steps of its
+    slots through ``make_serve_step(cfg, ctx)`` against the single-card
+    logits; one training step (B 4 x S 256, ZeRO-1 where the data axis has
+    2 ranks), its parameters and moments gathered leaf by leaf and
+    checksummed.  Rank 0 first runs the single-card step on the whole batch
+    (as ``dp_parity_rank``), keeps its result on the host, and holds each
+    mesh's step to it leaf by leaf."""
+    dev = rank_device(device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ref = torch.load(ref_path)
+    batch = next(make_batches(cfg, 4, TP_SEQ, seed=seed))
+    tcfg = TrainConfig(**TP_PARITY_TCFG)
+    single = None
+    if rank == 0:  # kept on the host: the card holds the ranks' blocks
+        p0 = _tp_params(cfg, seed, torch.float32, None, dev)
+        params = _tp_params(cfg, seed, torch.float32, None, dev)
+        params, opt, m = make_train_step(cfg, tcfg)(
+            params, init_opt_state(params), batch)
+        single = ([[x.cpu() for x in param_leaves(t)]
+                   for t in (p0, params, opt["m"], opt["v"])],
+                  {k: float(v) for k, v in m.items()})
+        del p0, params, opt
+        _release()
+    dist.barrier()
+    out = {}
+    for mesh in ((1, world), (2, world // 2)):
+        ctx = _tp_ctx(cfg, mesh, remat=False)
+        res = {"mesh": list(mesh), "data_rank": ctx.rank}
+        torch.cuda.reset_peak_memory_stats()
+        params = _tp_params(cfg, seed, torch.float32, ctx, dev)
+        rows = slice(ctx.rank * TP_BATCH // ctx.dp,
+                     (ctx.rank + 1) * TP_BATCH // ctx.dp)
+        slots = slice(ctx.rank * TP_SLOTS // ctx.dp,
+                      (ctx.rank + 1) * TP_SLOTS // ctx.dp)
+        with torch.no_grad():
+            n0, ex0 = launch_counts(), _exchange()
+            logits = make_prefill(cfg, ctx)(params,
+                                            ref["tokens"][rows].to(dev))
+            torch.cuda.synchronize()
+            res["prefill"] = {**_logit_err(logits.cpu(), ref["prefill"][rows],
+                                           cfg.vocab_size),
+                              "launches": _delta(n0),
+                              **_exchange_delta(ex0),
+                              "checksum": launch_train.checksum([logits])}
+            del logits
+            n0 = launch_counts()
+            got, _ = _ep_teacher_decode(cfg, params,
+                                        make_serve_step(cfg, ctx),
+                                        ref["fed"][slots], dev)
+            res["decode"] = {**_logit_err(got.cpu(), ref["decode"][slots],
+                                          cfg.vocab_size),
+                             "launches": _delta(n0),
+                             "checksum": launch_train.checksum([got])}
+            del got
+        zero1 = ctx.dp > 1
+        opt = init_opt_state(params, ctx if zero1 else None)
+        step = make_train_step(cfg, TrainConfig(zero1=zero1,
+                                                **TP_PARITY_TCFG), ctx)
+        dist.barrier()
+        n0, ex0 = launch_counts(), _exchange()
+        (params, opt, m), ms, wall = _timed(lambda: step(params, opt, batch))
+        res["step"] = {"device_ms": ms, "wall_ms": wall,
+                       "launches": _delta(n0), **_exchange_delta(ex0),
+                       "metrics": {k: float(v) for k, v in m.items()}}
+        full = gather_opt_state(opt, ctx, params) if zero1 else opt
+        del opt
+        # one leaf at a time, gathered over the model ranks, checksummed
+        # and (rank 0) held to the single-card step
+        dims = tp_dims(cfg, ctx)
+        sums = {"params": 0, "m": 0, "v": 0}
+        errs = {"m": [], "v": [], "update": []}
+        leaves = zip(_paths(params), param_leaves(params),
+                     param_leaves(full["m"]), param_leaves(full["v"]))
+        for i, (path, *mine) in enumerate(leaves):
+            whole = [t if dims[path] is None else torch.cat(
+                ccl_prim.ring_all_gather(t.contiguous(), ctx.model_group)
+                .unbind(0), dim=dims[path]) for t in mine]
+            for k, t in zip(sums, whole):
+                sums[k] += launch_train.checksum([t])
+            if single is not None:
+                a0, b, bm, bv = (t[i].to(dev) for t in single[0])
+                errs["m"].append(_leaf_err(whole[1], bm, path))
+                errs["v"].append(_leaf_err(whole[2], bv, path))
+                errs["update"].append(_leaf_update(
+                    a0, whole[0], b, whole[1], whole[2], path, tcfg,
+                    res["step"]["metrics"]["lr"]) + (
+                    float((whole[0] - b).abs().max()),))
+            del whole
+        del params, full
+        res["step"]["checksums"] = sums
+        if single is not None:
+            sm = single[1]
+            res["step"]["rel_err"] = {
+                k: abs(res["step"]["metrics"][k] - sm[k]) / abs(sm[k])
+                for k in ("loss", "grad_norm")}
+            res["step"]["trees"] = {k: _tree_err_of(errs[k])
+                                    for k in ("m", "v")}
+            res["step"]["params"] = {
+                **_update_err_of([e[:3] for e in errs["update"]]),
+                "max_abs_err": max(e[3] for e in errs["update"])}
+        res["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+        torch.cuda.empty_cache()
+        out["x".join(map(str, mesh))] = res
+    return out
+
+
+def phase_tp_parity(rng, seed: int) -> dict:
+    """granite-3-8b at full width, 2 layers, f32: TP on 4 ranks against
+    the single-card run (freed first) on meshes (1, 4) and (2, 2)."""
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config(TP_ARCH),
+                              num_layers=TP_PARITY_LAYERS)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                           (TP_BATCH, TP_SEQ)))
+    first = torch.from_numpy(rng.integers(0, cfg.vocab_size, (TP_SLOTS, 1)))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ref = _tp_reference(cfg, seed, torch.float32, tokens, first,
+                        TP_PARITY_STEPS)
+    ref_s = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory(prefix="tp_parity_") as tmp:
+        path = os.path.join(tmp, "ref.pt")
+        torch.save(ref, path)
+        ranks = spawn_ranks(tp_parity_rank, TP_RANKS, cfg, seed, path,
+                            DEVICE, backend="gloo", timeout_s=900)
+    counts = []
+    for mesh in ("1x4", "2x2"):
+        per = [r[mesh] for r in ranks]
+        head = per[0]
+        dp, tp = head["mesh"]
+        for case in ("prefill", "decode"):
+            same = all(len({p[case]["checksum"] for p in per
+                            if p["data_rank"] == d}) == 1 for d in range(dp))
+            emit({"phase": "tp_parity", "arch": cfg.name, "case": case,
+                  "dtype": "float32", "layers": cfg.num_layers,
+                  "mesh": head["mesh"], "backend": "gloo",
+                  **{k: max(p[case][k] for p in per)
+                     for k in ("max_abs_err", "excess")},
+                  "greedy_equal": all(p[case]["greedy_equal"] for p in per),
+                  "tol": PARITY_TOL, "identical_across_model_ranks": same,
+                  "launches_per_rank": [p[case]["launches"] for p in per]})
+            check(same, f"tp_parity {mesh} {case}: the ranks of a data "
+                        f"index hold different logits")
+            check(all(p[case]["excess"] <= 0 for p in per),
+                  f"tp_parity {mesh} {case}: beyond {PARITY_TOL}")
+            check(all(p[case]["greedy_equal"] for p in per),
+                  f"tp_parity {mesh} {case}: greedy tokens differ")
+        want = {"flash_attention": cfg.num_layers}
+        for p in per:
+            check(p["prefill"]["launches"] == want,
+                  f"tp_parity {mesh} prefill launched "
+                  f"{p['prefill']['launches']}, want {want}")
+            check(p["decode"]["launches"] == {},
+                  f"tp_parity {mesh} decode launched {p['decode']['launches']}")
+            rows = TP_BATCH // dp
+            wb = tp_forward_bytes(cfg, tp, rows, TP_SEQ, 4)
+            check(p["prefill"]["wire_bytes"] == wb,
+                  f"tp_parity {mesh} prefill wire bytes "
+                  f"{p['prefill']['wire_bytes']}, want {wb}")
+        st = head["step"]
+        same = all(p["step"]["checksums"] == st["checksums"] for p in per)
+        emit({"phase": "tp_parity", "arch": cfg.name, "case": "train_step",
+              "dtype": "float32", "layers": cfg.num_layers,
+              "mesh": head["mesh"], "zero1": dp > 1, "batch": 4,
+              "seq": TP_SEQ, "metrics": st["metrics"],
+              "rel_err": st["rel_err"], "trees": st["trees"],
+              "params": st["params"], "identical_on_all_ranks": same,
+              "device_ms": [p["step"]["device_ms"] for p in per],
+              "wall_ms": [p["step"]["wall_ms"] for p in per],
+              "exchange_s": [p["step"]["exchange_s"] for p in per],
+              "wire_bytes_per_rank": [p["step"]["wire_bytes"] for p in per],
+              "staged_bytes_per_rank": [p["step"]["staged_bytes"]
+                                        for p in per],
+              "launches_per_rank": [p["step"]["launches"] for p in per],
+              "peak_memory_bytes_per_rank": [p["peak_memory_bytes"]
+                                             for p in per]})
+        check(same, f"tp_parity {mesh}: ranks gathered different parameters")
+        check(max(st["rel_err"].values()) <= 1e-4,
+              f"tp_parity {mesh}: loss or grad_norm beyond rtol 1e-4 of the "
+              f"single-card step: {st['rel_err']}")
+        errs = {k: v["err_over_max"] for k, v in st["trees"].items()}
+        check(max(errs.values()) <= 1e-5,
+              f"tp_parity {mesh}: moments beyond 1e-5 of their max: {errs}")
+        check(st["params"]["adamw_over_lr"] <= 1e-3 and
+              st["params"]["update_rel_err"] <= 1e-2,
+              f"tp_parity {mesh}: parameters off their update: "
+              f"{st['params']}")
+        want_step = train_launches(cfg, 1, False, TP_SEQ)
+        for p in per:
+            check(p["step"]["launches"] == want_step,
+                  f"tp_parity {mesh} step launched {p['step']['launches']}, "
+                  f"want {want_step}")
+        counts += [p[k]["launches"] for p in per
+                   for k in ("prefill", "decode", "step")]
+    emit({"phase": "tp_parity_total", "seconds": time.perf_counter() - t0,
+          "reference_s": ref_s,
+          "main_process_allocated_bytes": torch.cuda.memory_allocated(),
+          "main_process_reserved_bytes": torch.cuda.memory_reserved()})
+    return _ep_sum(counts)
+
+
+def tp_serving_rank(rank: int, world: int, cfg, seed: int, ref_path: str,
+                    device: str) -> dict:
+    """bf16 on a (1, 4) mesh: prefill B 2 x S 256 through
+    ``make_prefill(cfg, ctx)`` (three calls, timed), then the
+    ``ContinuousBatcher`` over the requests (``tp_batcher_run``)."""
+    dev = rank_device(device)
+    ref = torch.load(ref_path)
+    ctx = _tp_ctx(cfg, (1, world), remat=False)
+    t0 = time.perf_counter()
+    params = _tp_params(cfg, seed, torch.bfloat16, ctx, dev)
+    out = {"init_s": time.perf_counter() - t0,
+           "param_bytes": sum(t.numel() * t.element_size()
+                              for t in param_leaves(params))}
+    torch.cuda.reset_peak_memory_stats()
+    prefill = make_prefill(cfg, ctx)
+    tokens = ref["tokens"].to(dev)
+    out["prefill_ms"], out["prefill_wall_ms"] = [], []
+    with torch.no_grad():
+        for i in range(3):
+            dist.barrier()
+            n0, ex0 = launch_counts(), _exchange()
+            logits, ms, wall = _timed(lambda: prefill(params, tokens))
+            out["prefill_ms"].append(ms)
+            out["prefill_wall_ms"].append(wall)
+            if i == 0:
+                out["prefill"] = {"launches": _delta(n0),
+                                  **_exchange_delta(ex0)}
+        out["prefill_tokens"] = _token_check(
+            logits[:, -1:].cpu(), {"decode": ref["prefill"][:, -1:]},
+            slice(None), cfg.vocab_size)
+        out["prefill_max_abs_logit_diff"] = float(
+            (logits.float().cpu() - ref["prefill"].float())[
+                ..., :cfg.vocab_size].abs().max())
+        del logits
+        dist.barrier()
+        out["batcher"] = tp_batcher_run(cfg, params, ref["requests"], ctx)
+    out["batcher"]["check"] = _batcher_check(out["batcher"], ref["batcher"],
+                                             cfg.vocab_size)
+    out["batcher"]["emitted"] = None  # held to the reference here
+    out["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    return out
+
+
+def phase_tp_serving(rng, seed: int) -> dict:
+    """granite-3-8b at full width and depth (40 layers, 16.75 GB in bf16),
+    bf16: the single-card run (freed first), then TP serving on (1, 4)."""
+    t0 = time.perf_counter()
+    cfg = get_config(TP_ARCH)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                           (TP_BATCH, TP_SEQ)))
+    requests = _tp_requests(rng, cfg)
+    ref = _tp_reference(cfg, seed, torch.bfloat16, tokens,
+                        requests=requests)
+    ref["requests"] = requests
+    ref_s = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory(prefix="tp_serving_") as tmp:
+        path = os.path.join(tmp, "ref.pt")
+        torch.save(ref, path)
+        t1 = time.perf_counter()
+        ranks = spawn_ranks(tp_serving_rank, TP_RANKS, cfg, seed, path,
+                            DEVICE, backend="gloo", timeout_s=900)
+        ranks_s = time.perf_counter() - t1
+    head = ranks[0]
+    tp = TP_RANKS
+    steps = head["batcher"]["steps"]
+    step_ms = [m for r in ranks for m in r["batcher"]["step_ms"]]
+    want_prefill_bytes = tp_forward_bytes(cfg, tp, TP_BATCH, TP_SEQ, 2)
+    want_decode_bytes = steps * tp_forward_bytes(cfg, tp, TP_SLOTS, 1, 2)
+    emit({"phase": "tp_serving", "arch": cfg.name, "dtype": "bfloat16",
+          "layers": cfg.num_layers, "mesh": [1, tp], "backend": "gloo",
+          "param_bytes_per_rank": [r["param_bytes"] for r in ranks],
+          "init_s_per_rank": [r["init_s"] for r in ranks],
+          "prefill_batch": TP_BATCH, "prefill_seq": TP_SEQ,
+          "prefill_device_ms": [r["prefill_ms"] for r in ranks],
+          "prefill_wall_ms": [r["prefill_wall_ms"] for r in ranks],
+          "prefill_exchange_s": [r["prefill"]["exchange_s"] for r in ranks],
+          "prefill_wire_bytes": [r["prefill"]["wire_bytes"] for r in ranks],
+          "prefill_wire_bytes_formula": want_prefill_bytes,
+          "prefill_staged_bytes": [r["prefill"]["staged_bytes"]
+                                   for r in ranks],
+          "prefill_tokens": head["prefill_tokens"],
+          "prefill_max_abs_logit_diff": [r["prefill_max_abs_logit_diff"]
+                                         for r in ranks],
+          "slots": TP_SLOTS, "requests": len(requests), "steps": steps,
+          "admitted_at": head["batcher"]["admitted_at"],
+          "decode_step_ms_p50": float(np.percentile(step_ms, 50)),
+          "decode_step_ms_p99": float(np.percentile(step_ms, 99)),
+          "single_card_step_ms_p50": float(np.percentile(
+              ref["batcher"]["step_ms"], 50)),
+          "decode_exchange_s": [r["batcher"]["exchange_s"] for r in ranks],
+          "decode_wire_bytes": [r["batcher"]["wire_bytes"] for r in ranks],
+          "decode_wire_bytes_formula": want_decode_bytes,
+          "decode_staged_bytes": [r["batcher"]["staged_bytes"]
+                                  for r in ranks],
+          "tokens": [r["batcher"]["check"] for r in ranks],
+          "peak_memory_bytes_per_rank": [r["peak_memory_bytes"]
+                                         for r in ranks],
+          "launches_per_rank": {"prefill": [r["prefill"]["launches"]
+                                            for r in ranks],
+                                "batcher": [r["batcher"]["launches"]
+                                            for r in ranks]},
+          "reference_s": ref_s, "ranks_s": ranks_s})
+    want = {"flash_attention": cfg.num_layers}
+    for r in ranks:
+        check(r["prefill"]["launches"] == want,
+              f"tp_serving prefill launched {r['prefill']['launches']}, "
+              f"want {want}")
+        check(r["batcher"]["launches"] == {},
+              f"tp_serving decode launched {r['batcher']['launches']}")
+        check(r["prefill"]["wire_bytes"] == want_prefill_bytes,
+              f"tp_serving prefill wire bytes {r['prefill']['wire_bytes']},"
+              f" want {want_prefill_bytes}")
+        check(r["batcher"]["wire_bytes"] == want_decode_bytes,
+              f"tp_serving decode wire bytes {r['batcher']['wire_bytes']}, "
+              f"want {want_decode_bytes}")
+        check(r["batcher"]["check"]["mismatches"] == 0,
+              f"tp_serving: tokens differ from the single-card run where "
+              f"its margin exceeds {EP_MARGIN_ULPS} bf16 ulps: "
+              f"{r['batcher']['check']}")
+        check(r["prefill_tokens"]["mismatches"] == 0,
+              f"tp_serving prefill tokens: {r['prefill_tokens']}")
+        check(r["batcher"]["out"] == head["batcher"]["out"],
+              "tp_serving: the ranks emitted different tokens")
+    check(any(t > 0 for t in head["batcher"]["admitted_at"].values()),
+          "tp_serving: no request was admitted mid-flight")
+    emit({"phase": "tp_serving_total", "seconds": time.perf_counter() - t0})
+    return _ep_sum([r[k]["launches"] for r in ranks
+                    for k in ("prefill", "batcher")])
+
+
+def _tp_requests(rng, cfg) -> list:
+    lo, hi = TP_REQUESTS["prompt_lens"]
+    return [list(map(int, rng.integers(0, cfg.vocab_size, n)))
+            for n in rng.integers(lo, hi + 1, 6)]
+
+
+def tp_mamba_rank(rank: int, world: int, cfg, seed: int, ref_path: str,
+                  device: str) -> dict:
+    """mamba2-130m on a (1, 4) mesh (6 of its 24 SSD heads a rank): f32
+    prefill and teacher-forced decode against the single-card run, then
+    bf16 serving, prefill and the ``ContinuousBatcher``."""
+    dev = rank_device(device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    refs = torch.load(ref_path)
+    ctx = _tp_ctx(cfg, (1, world), remat=False)
+    out = {}
+    ref = refs["f32"]
+    params = _tp_params(cfg, seed, torch.float32, ctx, dev)
+    with torch.no_grad():
+        n0, ex0 = launch_counts(), _exchange()
+        logits, ms, wall = _timed(lambda: make_prefill(cfg, ctx)(
+            params, ref["tokens"].to(dev)))
+        out["prefill"] = {**_logit_err(logits.cpu(), ref["prefill"],
+                                       cfg.vocab_size),
+                          "launches": _delta(n0), **_exchange_delta(ex0),
+                          "device_ms": ms, "wall_ms": wall}
+        del logits
+        n0 = launch_counts()
+        got, ms = _ep_teacher_decode(cfg, params, make_serve_step(cfg, ctx),
+                                     ref["fed"], dev)
+        out["decode"] = {**_logit_err(got.cpu(), ref["decode"],
+                                      cfg.vocab_size),
+                         "launches": _delta(n0), "step_ms": ms}
+    del params, got
+    _release()
+    ref = refs["bf16"]
+    params = _tp_params(cfg, seed, torch.bfloat16, ctx, dev)
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        dist.barrier()
+        n0, ex0 = launch_counts(), _exchange()
+        logits, ms, wall = _timed(lambda: make_prefill(cfg, ctx)(
+            params, ref["tokens"].to(dev)))
+        out["serve_prefill"] = {"launches": _delta(n0),
+                                **_exchange_delta(ex0), "device_ms": ms,
+                                "wall_ms": wall,
+                                "max_abs_logit_diff": float(
+                                    (logits.float().cpu()
+                                     - ref["prefill"].float())[
+                                        ..., :cfg.vocab_size].abs().max())}
+        del logits
+        dist.barrier()
+        out["batcher"] = tp_batcher_run(cfg, params, refs["requests"], ctx)
+    out["batcher"]["check"] = _batcher_check(out["batcher"], ref["batcher"],
+                                             cfg.vocab_size)
+    out["batcher"]["emitted"] = None
+    out["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    return out
+
+
+def phase_tp_mamba(rng, seed: int) -> dict:
+    """mamba2-130m at full size on (1, 4): f32 parity, then bf16
+    serving, against single-card runs (made first)."""
+    t0 = time.perf_counter()
+    cfg = get_config(SSM_ARCH)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                           (TP_BATCH, TP_SEQ)))
+    first = torch.from_numpy(rng.integers(0, cfg.vocab_size, (TP_SLOTS, 1)))
+    requests = _tp_requests(rng, cfg)
+    refs = {"f32": _tp_reference(cfg, seed, torch.float32, tokens, first,
+                                 TP_PARITY_STEPS),
+            "bf16": _tp_reference(cfg, seed, torch.bfloat16, tokens,
+                                  requests=requests),
+            "requests": requests}
+    with tempfile.TemporaryDirectory(prefix="tp_mamba_") as tmp:
+        path = os.path.join(tmp, "ref.pt")
+        torch.save(refs, path)
+        ranks = spawn_ranks(tp_mamba_rank, TP_RANKS, cfg, seed, path,
+                            DEVICE, backend="gloo", timeout_s=900)
+    head = ranks[0]
+    tp = TP_RANKS
+    step_ms = [m for r in ranks for m in r["batcher"]["step_ms"]]
+    emit({"phase": "tp_mamba", "arch": cfg.name, "layers": cfg.num_layers,
+          "mesh": [1, tp], "backend": "gloo",
+          "ssd_heads_per_rank": cfg.ssm_num_heads // tp,
+          "f32": {k: {kk: max(r[k][kk] for r in ranks)
+                      for kk in ("max_abs_err", "excess")}
+                  for k in ("prefill", "decode")},
+          "greedy_equal": all(r[k]["greedy_equal"] for r in ranks
+                              for k in ("prefill", "decode")),
+          "tol": PARITY_TOL,
+          "f32_prefill_device_ms": [r["prefill"]["device_ms"]
+                                    for r in ranks],
+          "f32_prefill_wire_bytes": [r["prefill"]["wire_bytes"]
+                                     for r in ranks],
+          "bf16_prefill_device_ms": [r["serve_prefill"]["device_ms"]
+                                     for r in ranks],
+          "bf16_prefill_wall_ms": [r["serve_prefill"]["wall_ms"]
+                                   for r in ranks],
+          "bf16_prefill_max_abs_logit_diff": [
+              r["serve_prefill"]["max_abs_logit_diff"] for r in ranks],
+          "decode_step_ms_p50": float(np.percentile(step_ms, 50)),
+          "decode_step_ms_p99": float(np.percentile(step_ms, 99)),
+          "single_card_step_ms_p50": float(np.percentile(
+              refs["bf16"]["batcher"]["step_ms"], 50)),
+          "decode_wire_bytes": [r["batcher"]["wire_bytes"] for r in ranks],
+          "decode_staged_bytes": [r["batcher"]["staged_bytes"]
+                                  for r in ranks],
+          "tokens": [r["batcher"]["check"] for r in ranks],
+          "peak_memory_bytes_per_rank": [r["peak_memory_bytes"]
+                                         for r in ranks],
+          "launches_per_rank": [r["prefill"]["launches"] for r in ranks]})
+    want = {k: n for k, n in prefill_launches(cfg).items() if n}
+    for r in ranks:
+        for k in ("prefill", "decode"):
+            check(r[k]["excess"] <= 0 and r[k]["greedy_equal"],
+                  f"tp_mamba f32 {k}: beyond {PARITY_TOL} or greedy tokens "
+                  f"differ: {r[k]}")
+        for k in ("prefill", "serve_prefill"):
+            check(r[k]["launches"] == want,
+                  f"tp_mamba {k} launched {r[k]['launches']}, want {want}")
+        check(r["decode"]["launches"] == {} and
+              r["batcher"]["launches"] == {},
+              "tp_mamba decode launched a kernel")
+        wb = tp_forward_bytes(cfg, tp, TP_BATCH, TP_SEQ, 4)
+        check(r["prefill"]["wire_bytes"] == wb,
+              f"tp_mamba prefill wire bytes {r['prefill']['wire_bytes']}, "
+              f"want {wb}")
+        wb = head["batcher"]["steps"] * tp_forward_bytes(cfg, tp, TP_SLOTS,
+                                                         1, 2)
+        check(r["batcher"]["wire_bytes"] == wb,
+              f"tp_mamba decode wire bytes {r['batcher']['wire_bytes']}, "
+              f"want {wb}")
+        check(r["batcher"]["check"]["mismatches"] == 0,
+              f"tp_mamba: tokens differ from the single-card run: "
+              f"{r['batcher']['check']}")
+        check(r["batcher"]["out"] == head["batcher"]["out"],
+              "tp_mamba: the ranks emitted different tokens")
+    emit({"phase": "tp_mamba_total", "seconds": time.perf_counter() - t0})
+    return _ep_sum([r[k]["launches"] for r in ranks
+                    for k in ("prefill", "decode", "serve_prefill",
+                              "batcher")])
+
+
+def tp_training_rank(rank: int, world: int, cfg, seed: int,
+                     device: str) -> dict:
+    """bf16 ZeRO-1 training on a (2, 2) mesh: 5 steps of
+    ``make_train_step`` on one batch of B 8 x S 512 in 2 microbatches,
+    remat, bf16 gradients; a step's wall, compute (its start to the local
+    gradient, CUDA events) and exchange time, wire and staged bytes and
+    launches."""
+    dev = rank_device(device)
+    ctx = _tp_ctx(cfg, (2, world // 2), remat=True)
+    tcfg = TrainConfig(**TP_TRAIN_TCFG)
+    params = _tp_params(cfg, seed, torch.bfloat16, ctx, dev)
+    opt = init_opt_state(params, ctx)
+    step = make_train_step(cfg, tcfg, ctx)
+    batch = next(make_batches(cfg, TP_TRAIN_BATCH, TP_TRAIN_SEQ, seed=seed))
+    torch.cuda.reset_peak_memory_stats()
+    steps = []
+    for _ in range(TP_TRAIN_STEPS):
+        marks = {}
+
+        def hook(stage, grads):
+            if stage == "local":
+                marks["local"] = torch.cuda.Event(enable_timing=True)
+                marks["local"].record()
+
+        dist.barrier()
+        n0, ex0 = launch_counts(), _exchange()
+        marks["start"] = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        marks["start"].record()
+        params, opt, m = step(params, opt, batch, grad_hook=hook)
+        torch.cuda.synchronize()
+        steps.append({"wall_ms": 1e3 * (time.perf_counter() - t0),
+                      "compute_ms": marks["start"].elapsed_time(
+                          marks["local"]),
+                      "loss": float(m["loss"]), "launches": _delta(n0),
+                      **_exchange_delta(ex0)})
+    return {"steps": steps,
+            "params": sum(t.numel() for t in param_leaves(params)),
+            "opt_state_bytes": 2 * 4 * opt["m"].numel(),
+            "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+
+
+def phase_tp_training(seed: int) -> dict:
+    """granite-3-8b at full width, 4 layers, bf16, ZeRO-1 on (2, 2)."""
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config(TP_ARCH),
+                              num_layers=TP_TRAIN_LAYERS)
+    ranks = spawn_ranks(tp_training_rank, TP_RANKS, cfg, seed, DEVICE,
+                        backend="gloo", timeout_s=900)
+    head = ranks[0]
+    losses = [s["loss"] for s in head["steps"]]
+    wall = [s["wall_ms"] for r in ranks for s in r["steps"][1:]]
+    emit({"phase": "tp_training", "arch": cfg.name, "dtype": "bfloat16",
+          "layers": cfg.num_layers, "params": cfg.param_counts()["total"],
+          "mesh": [2, TP_RANKS // 2], "backend": "gloo", "zero1": True,
+          "batch": TP_TRAIN_BATCH, "seq": TP_TRAIN_SEQ,
+          "microbatches": TP_TRAIN_MICROBATCHES, "remat": True,
+          "losses": losses,
+          "step_wall_ms_p50": float(np.percentile(wall, 50)),
+          "compute_ms": [[s["compute_ms"] for s in r["steps"]]
+                         for r in ranks],
+          "exchange_s": [[s["exchange_s"] for s in r["steps"]]
+                         for r in ranks],
+          "wire_bytes_per_step": [r["steps"][-1]["wire_bytes"]
+                                  for r in ranks],
+          "staged_bytes_per_step": [r["steps"][-1]["staged_bytes"]
+                                    for r in ranks],
+          "params_per_rank": [r["params"] for r in ranks],
+          "opt_state_bytes_per_rank": [r["opt_state_bytes"] for r in ranks],
+          "peak_memory_bytes_per_rank": [r["peak_memory_bytes"]
+                                         for r in ranks],
+          "launches_per_rank_step": [r["steps"][-1]["launches"]
+                                     for r in ranks],
+          "seconds": time.perf_counter() - t0})
+    check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+          f"tp_training: the loss did not fall: {losses}")
+    want = train_launches(cfg, TP_TRAIN_MICROBATCHES, True, TP_TRAIN_SEQ)
+    for r in ranks:
+        check(len({json.dumps([s["loss"] for s in r["steps"]])}) == 1 and
+              [s["loss"] for s in r["steps"]] == losses,
+              "tp_training: the ranks' losses differ")
+        for s in r["steps"]:
+            check(s["launches"] == want,
+                  f"tp_training step launched {s['launches']}, want {want}")
+    return _ep_sum([s["launches"] for r in ranks for s in r["steps"]])
+
+
+def tp_cmm_pipeline_rank(rank: int, world: int, cfg, seed: int,
+                         device: str) -> dict:
+    """Collective matmul at granite's FFN shape in f32 (TF32 off):
+    ``ag_matmul`` of this rank's rows of x (2 x 256, 4096) against its
+    column block of W (4096, 12800/4), against the bulk all-gather then
+    one product; ``matmul_rs`` of its contraction block of x (2 x 256,
+    12800) against its rows of W (12800, 4096), against one product then
+    the bulk ``ring_reduce_scatter``; seconds (median of 5) and bytes of
+    each.  Then the pipelines, each stage a granite layer at full width
+    (f32), 8 microbatches of B 1 x S 256: GPipe (4 stages) and the
+    interleaved schedule (v = 2, 8 layers), the outputs and each rank's
+    layers' gradients of sum(y^2) against the sequential composition of
+    the layers on this rank (drawn again from the same seeds)."""
+    from repro_torch.models.transformer import _apply_layer, _init_layer
+    from repro_torch.parallel.collective_matmul import ag_matmul, matmul_rs
+    from repro_torch.parallel.pipeline import (bubble_fraction,
+                                               interleaved_pipeline_apply,
+                                               pipeline_apply)
+    dev = rank_device(device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    d, ff = cfg.d_model, cfg.d_ff
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((CMM_ROWS, d), generator=gen, device=dev)
+    w = torch.randn((d, ff // world), generator=gen, device=dev) / d ** 0.5
+    x2 = torch.randn((CMM_ROWS, ff // world), generator=gen, device=dev)
+    w2 = torch.randn((ff // world, d), generator=gen, device=dev) / ff ** 0.5
+    mb = CMM_ROWS // world
+    xl = x[rank * mb:(rank + 1) * mb]
+    fns = {"ag_matmul": lambda: ag_matmul(xl, w),
+           "bulk_all_gather_matmul": lambda: ccl_prim.ring_all_gather(
+               xl).flatten(0, 1) @ w,
+           "matmul_rs": lambda: matmul_rs(x2, w2),
+           "matmul_bulk_reduce_scatter": lambda: ccl_prim.ring_reduce_scatter(
+               (x2 @ w2).view(world, mb, d))}
+    got = {}
+    for name, fn in fns.items():
+        secs = []
+        for i in range(5):
+            dist.barrier()
+            ex0 = _exchange()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got[name] = fn()
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            if i == 0:
+                out[name] = _exchange_delta(ex0)
+        out[name]["seconds_median"] = float(np.median(secs))
+    for a, b in (("ag_matmul", "bulk_all_gather_matmul"),
+                 ("matmul_rs", "matmul_bulk_reduce_scatter")):
+        out[a]["max_abs_err"] = float((got[a] - got[b]).abs().max())
+        out[a]["max_abs"] = float(got[b].abs().max())
+    del x, w, x2, w2, got, xl
+    _release()
+
+    spec = cfg.layer_specs()[0]
+    s = PIPE_MB_SHAPE[1]
+    positions = torch.arange(s, device=dev)
+
+    def stage_fn(lp, h):
+        return _apply_layer(lp, spec, cfg, h, positions, None)[0]
+
+    def layer(k):  # virtual stage k's layer, from its own seed
+        g = torch.Generator(device=dev).manual_seed(seed + 100 + k)
+        return _init_layer(cfg, spec, torch.float32, dev, g)
+
+    x_mb = torch.randn((PIPE_MICROBATCHES, *PIPE_MB_SHAPE, d),
+                       generator=gen, device=dev)
+    # untimed: the first backward of a process loads its kernels, and
+    # gloo connects a pair of ranks at its first send (the rings so far
+    # sent only to the right)
+    lp = tree_map(lambda t: t.requires_grad_(True), layer(rank))
+    (pipeline_apply(stage_fn, lp, x_mb[:2]) ** 2).sum().backward()
+    del lp
+    for name, v in (("gpipe", 1), ("interleaved", PIPE_V)):
+        ks = [rank + world * c for c in range(v)]  # this rank's stages
+        mine = [tree_map(lambda t: t.requires_grad_(True), layer(k))
+                for k in ks]
+        torch.cuda.reset_peak_memory_stats()
+        dist.barrier()
+        n0, ex0 = launch_counts(), _exchange()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if v == 1:
+            y = pipeline_apply(stage_fn, mine[0], x_mb)
+        else:
+            y = interleaved_pipeline_apply(stage_fn, _stack_trees(mine),
+                                           x_mb, v=v)
+        torch.cuda.synchronize()
+        res = {"forward_s": time.perf_counter() - t0,
+               "forward": {**_exchange_delta(ex0), "launches": _delta(n0)}}
+        n0, ex0 = launch_counts(), _exchange()
+        t0 = time.perf_counter()
+        (y ** 2).sum().backward()
+        torch.cuda.synchronize()
+        res.update(backward_s=time.perf_counter() - t0,
+                   backward={**_exchange_delta(ex0), "launches": _delta(n0)},
+                   bubble_fraction=bubble_fraction(world, PIPE_MICROBATCHES,
+                                                   v),
+                   peak_memory_bytes=torch.cuda.max_memory_allocated())
+        grads = [[t.grad for t in param_leaves(lp)] for lp in mine]
+        y = y.detach()
+        del mine
+        _release()
+        # the sequential composition of the v p layers, on this rank
+        ref, kept = x_mb.flatten(0, 1), {}
+        for k in range(world * v):
+            lp = layer(k)
+            if k in ks:
+                kept[k] = tree_map(lambda t: t.requires_grad_(True), lp)
+                lp = kept[k]
+            ref = stage_fn(lp, ref)
+        ref = ref.view_as(y)
+        (ref ** 2).sum().backward()
+        res["y_max_abs_err"] = float((y - ref.detach()).abs().max())
+        res["y_max_abs"] = float(ref.detach().abs().max())
+        res["grad_max_rel_err"] = max(
+            float((g - t.grad).abs().max())
+            / max(float(t.grad.abs().max()), 1e-30)
+            for k, gs in zip(ks, grads)
+            for g, t in zip(gs, param_leaves(kept[k])))
+        del ref, kept, grads, y
+        _release()
+        out[name] = res
+    return out
+
+
+def _stack_trees(trees: list):
+    """Trees of one structure -> one tree, each leaf stacked on a new
+    leading dim (the chunk dim of ``interleaved_pipeline_apply``)."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: _stack_trees([t[k] for t in trees]) for k in first}
+    return torch.stack(trees)
+
+
+def phase_tp_cmm_pipeline(seed: int) -> dict:
+    """Collective matmul at granite's FFN shape and the two pipelines of
+    granite layers, 4 gloo ranks on the card."""
+    t0 = time.perf_counter()
+    cfg = get_config(TP_ARCH)
+    ranks = spawn_ranks(tp_cmm_pipeline_rank, TP_RANKS, cfg, seed, DEVICE,
+                        backend="gloo", timeout_s=900)
+    p = TP_RANKS
+    for name in ("ag_matmul", "matmul_rs"):
+        bulk = {"ag_matmul": "bulk_all_gather_matmul",
+                "matmul_rs": "matmul_bulk_reduce_scatter"}[name]
+        emit({"phase": "cmm", "fn": name, "dtype": "float32",
+              "x": [CMM_ROWS, cfg.d_model if name == "ag_matmul"
+                    else cfg.d_ff], "ranks": p, "backend": "gloo",
+              "seconds_median": [r[name]["seconds_median"] for r in ranks],
+              "bulk_seconds_median": [r[bulk]["seconds_median"]
+                                      for r in ranks],
+              "wire_bytes": [r[name]["wire_bytes"] for r in ranks],
+              "bulk_wire_bytes": [r[bulk]["wire_bytes"] for r in ranks],
+              "staged_bytes": [r[name]["staged_bytes"] for r in ranks],
+              "max_abs_err": max(r[name]["max_abs_err"] for r in ranks),
+              "max_abs": max(r[name]["max_abs"] for r in ranks)})
+        for r in ranks:
+            check(r[name]["max_abs_err"] <= 1e-4 * max(r[name]["max_abs"],
+                                                       1.0),
+                  f"cmm {name}: beyond 1e-4 of the bulk form: {r[name]}")
+        # p - 1 hops of a (rows/p, d) block: x's rows, an output's rows
+        want = (p - 1) * (CMM_ROWS // p) * cfg.d_model * 4
+        for r in ranks:
+            check(r[name]["wire_bytes"] == want,
+                  f"cmm {name} wire bytes {r[name]['wire_bytes']}, want "
+                  f"{want}")
+    counts = []
+    act = math.prod(PIPE_MB_SHAPE) * cfg.d_model * 4
+    for name, v in (("gpipe", 1), ("interleaved", PIPE_V)):
+        per = [r[name] for r in ranks]
+        emit({"phase": "pipeline", "schedule": name, "arch": cfg.name,
+              "stages": p, "v": v, "layers": p * v, "dtype": "float32",
+              "microbatches": PIPE_MICROBATCHES,
+              "microbatch": list(PIPE_MB_SHAPE), "backend": "gloo",
+              "bubble_fraction": per[0]["bubble_fraction"],
+              "forward_s": [q["forward_s"] for q in per],
+              "backward_s": [q["backward_s"] for q in per],
+              "forward_wire_bytes": [q["forward"]["wire_bytes"]
+                                     for q in per],
+              "backward_wire_bytes": [q["backward"]["wire_bytes"]
+                                      for q in per],
+              "staged_bytes": [q["forward"]["staged_bytes"]
+                               + q["backward"]["staged_bytes"]
+                               for q in per],
+              "y_max_abs_err": max(q["y_max_abs_err"] for q in per),
+              "grad_max_rel_err": max(q["grad_max_rel_err"] for q in per),
+              "peak_memory_bytes_per_rank": [q["peak_memory_bytes"]
+                                             for q in per],
+              "launches_per_rank": [{"forward": q["forward"]["launches"],
+                                     "backward": q["backward"]["launches"]}
+                                    for q in per]})
+        for q in per:
+            check(q["y_max_abs_err"] <= PARITY_TOL["atol"] + PARITY_TOL[
+                "rtol"] * q["y_max_abs"],
+                  f"pipeline {name}: outputs off the sequential model "
+                  f"beyond {PARITY_TOL}: {q['y_max_abs_err']}")
+            check(q["grad_max_rel_err"] <= 1e-4,
+                  f"pipeline {name}: gradients off the sequential model: "
+                  f"{q['grad_max_rel_err']}")
+            n = PIPE_MICROBATCHES * v
+            want_f = {"flash_attention": n}
+            want_b = {"flash_attention_bwd": n * FA_BWD_LAUNCHES}
+            check(q["forward"]["launches"] == want_f and
+                  q["backward"]["launches"] == want_b,
+                  f"pipeline {name} launched {q['forward']['launches']}, "
+                  f"{q['backward']['launches']}; want {want_f}, {want_b}")
+            counts += [q["forward"]["launches"], q["backward"]["launches"]]
+        if v == 1:  # GPipe: M sends a boundary each way, the outputs' psum
+            ar = _ring_bytes(PIPE_MICROBATCHES * act // 4, p, 4)
+            for r_, q in enumerate(per):
+                fw = (PIPE_MICROBATCHES * act if r_ < p - 1 else 0) + ar
+                bw = PIPE_MICROBATCHES * act if r_ > 0 else 0
+                check(q["forward"]["wire_bytes"] == fw and
+                      q["backward"]["wire_bytes"] == bw,
+                      f"pipeline gpipe rank {r_} wire bytes "
+                      f"{q['forward']['wire_bytes']}, "
+                      f"{q['backward']['wire_bytes']}; want {fw}, {bw}")
+    emit({"phase": "cmm_pipeline_total",
+          "seconds": time.perf_counter() - t0})
+    return _ep_sum(counts)
+
+
+def run_tp(rng, seed: int) -> dict:
+    """The tensor-parallel paths (4 gloo ranks on the card): granite-3-8b
+    at full width (2 layers for parity, all 40 for serving, 4 for
+    training), mamba2-130m whole, collective matmul and the pipelines;
+    returns each phase's launch counts, summed over the ranks."""
+    _release()
+    counts = {"tp_parity": phase_tp_parity(rng, seed)}
+    counts["tp_serving"] = phase_tp_serving(rng, seed + 1)
+    counts["tp_mamba"] = phase_tp_mamba(rng, seed + 2)
+    counts["tp_training"] = phase_tp_training(seed + 3)
+    counts["pipeline"] = phase_tp_cmm_pipeline(seed + 4)
+    return counts
+
+
 def run_paths(rng) -> dict:
     """The three serving paths; returns each path's launch counts."""
     paths = {}
@@ -3175,6 +4200,7 @@ def main() -> int:
     paths["training"] = run_training(SEED + 8)
     paths.update(run_dp(SEED + 10))
     paths.update(run_ep(rng, SEED + 12))
+    paths.update(run_tp(rng, SEED + 20))
     codecs = phase_codecs(SEED + 6)
     check(codecs["values"] == n_values, "gradient size changed")
     paths["codecs"] = codecs["counts"]

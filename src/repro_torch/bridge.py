@@ -5,11 +5,13 @@ The caller converts the JAX pytrees to nested dicts of numpy arrays
 (``jax.tree.map(np.asarray, params)``), so the port itself never imports
 jax.  Weights are shared by value: ``jax.random`` is not re-implemented.
 ``params_to_jax_layout`` goes the other way, into numpy, so that tests
-compare updated parameters and moments leaf for leaf.  Under expert
-parallelism a rank holds its part of each expert weight
+compare updated parameters and moments leaf for leaf.  Under expert or
+tensor parallelism a rank holds its part of each split leaf
 (``parallel.shard_params``): ``params_from_jax(..., ctx=)`` cuts it out,
 ``params_to_jax_layout(..., ctx=)`` gathers the parts back (every rank
-calls it).
+calls it).  ``to_jax_layout`` is the leaf mapping of the latter on any
+tree of the port's layout (the specs of ``parallel.planner.param_specs``
+too).
 """
 from __future__ import annotations
 
@@ -63,7 +65,7 @@ def params_from_jax(cfg: ModelConfig, tree: dict, device="cuda",
                                    enc["final_norm"])}
         params["cross"] = [_unstack(tree["cross"], r, dev)
                            for r in range(cfg.num_layers)]
-    return shard_params(params, ctx)
+    return shard_params(params, ctx, cfg)
 
 
 def _unstack(stacked: dict, r: int, dev: torch.device) -> dict:
@@ -88,36 +90,57 @@ def params_to_jax_layout(cfg: ModelConfig, params: dict, ctx=None) -> dict:
     layout: each ``group{gi}/pos{i}`` leaf stacked over the group's repeats
     in the JAX layer order (and the encoder's layers and the cross blocks
     over theirs); bf16 leaves as f32 (exact).  With an
-    expert-parallel ``ctx`` the tree is this rank's shard, and the expert
-    weights are gathered from the ranks first (every rank calls it)."""
-    params = gather_params(params, ctx)
+    expert- or tensor-parallel ``ctx`` the tree is this rank's shard, and
+    the split leaves are gathered from the ranks first (every rank calls
+    it)."""
+    params = gather_params(params, ctx, cfg)
 
     def arr(t):
         t = t.detach().cpu()
         return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
-    tree = {"embed": arr(params["embed"]),
-            "final_norm": tree_map(arr, params["final_norm"])}
-    if "lm_head" in params:
-        tree["lm_head"] = arr(params["lm_head"])
-    layers = iter(params["layers"])
+    return to_jax_layout(cfg, params, arr, np.stack)
+
+
+def to_jax_layout(cfg: ModelConfig, tree: dict, leaf, stack) -> dict:
+    """The JAX package's layout of a tree in the port's (parameters, m, v
+    or their specs): ``leaf(x)`` of each leaf, and of each leaf stacked
+    over a layer group's repeats (the encoder's layers, the cross blocks)
+    ``stack([leaf(x) for each repeat])``, in the JAX layer order."""
+    out = {"embed": leaf(tree["embed"]),
+           "final_norm": tree_map(leaf, tree["final_norm"])}
+    if "lm_head" in tree:
+        out["lm_head"] = leaf(tree["lm_head"])
+    out.update(layers_to_jax_layout(cfg, tree["layers"], leaf, stack))
+    if "encoder" in tree:
+        out["encoder"] = {
+            "group0": {"pos0": _stack(tree["encoder"]["layers"], leaf,
+                                      stack)},
+            "final_norm": tree_map(leaf, tree["encoder"]["final_norm"])}
+        out["cross"] = _stack(tree["cross"], leaf, stack)
+    return out
+
+
+def layers_to_jax_layout(cfg: ModelConfig, layers: list, leaf,
+                         stack) -> dict:
+    """``to_jax_layout`` of the per-layer list alone (parameters or a
+    decode cache's ``layers``): {"group{gi}": {"pos{i}": ...}}."""
+    layers = iter(layers)
+    out = {}
     for gi, (period, repeats) in enumerate(cfg.layer_groups()):
         reps = [[next(layers) for _ in period] for _ in range(repeats)]
-        tree[f"group{gi}"] = {
-            f"pos{i}": _stack([reps[r][i] for r in range(repeats)], arr)
+        out[f"group{gi}"] = {
+            f"pos{i}": _stack([reps[r][i] for r in range(repeats)], leaf,
+                              stack)
             for i in range(len(period))}
-    if "encoder" in params:
-        tree["encoder"] = {
-            "group0": {"pos0": _stack(params["encoder"]["layers"], arr)},
-            "final_norm": tree_map(arr, params["encoder"]["final_norm"])}
-        tree["cross"] = _stack(params["cross"], arr)
-    return tree
+    return out
 
 
-def _stack(layers: list, arr) -> dict:
-    """Nested dicts of tensors, one per repeat -> the same dicts of numpy
-    arrays stacked along a new first axis."""
+def _stack(layers: list, leaf, stack) -> dict:
+    """Nested dicts of leaves, one per repeat -> the same dicts of the
+    repeats' leaves stacked."""
     first = layers[0]
     if isinstance(first, dict):
-        return {k: _stack([lp[k] for lp in layers], arr) for k in first}
-    return np.stack([arr(t) for t in layers])
+        return {k: _stack([lp[k] for lp in layers], leaf, stack)
+                for k in first}
+    return stack([leaf(t) for t in layers])

@@ -8,8 +8,8 @@ under its keys, ``params/<path>`` and ``opt_state/<path>`` with ``/``
 between the dict keys, so a checkpoint written by either package restores
 in the other.  bf16 leaves are written as f32 (exact) and restored in the
 template's dtype.  The manifest is encoded by ``msgpack_lite``.  Under
-expert parallelism the checkpoint still holds every expert: the ranks
-gather their parts first (``parallel.gather_params``, and
+expert or tensor parallelism the checkpoint still holds every leaf whole:
+the ranks gather their parts first (``parallel.gather_params``, and
 ``optim.gather_opt_state`` under ZeRO-1), and a restore with the context
 cuts each rank's part out again.
 """
@@ -65,8 +65,8 @@ def save_checkpoint(cfg: ModelConfig, ckpt_dir: str, step: int, params: Any,
                     opt_state: Optional[Dict[str, Any]] = None,
                     extra: Optional[Dict] = None) -> str:
     """Writes ``params`` (and the full ``opt_state``: under ZeRO-1, gather
-    it first with ``optim.gather_opt_state``, and under expert parallelism
-    both with ``parallel.gather_params``) as step ``step`` under
+    it first with ``optim.gather_opt_state``, and under expert or tensor
+    parallelism both with ``parallel.gather_params``) as step ``step`` under
     ``ckpt_dir``; returns the step's directory."""
     path = os.path.join(ckpt_dir, f"step_{step:08d}")
     os.makedirs(path, exist_ok=True)
@@ -97,8 +97,9 @@ def restore_checkpoint(cfg: ModelConfig, path: str, params_template: Any,
                        ) -> Tuple[Any, Optional[Dict[str, Any]], int]:
     """Reads the step directory ``path`` into the port's layout, each leaf
     on the device and in the dtype of its template's (the optimizer state
-    only where ``opt_template`` is given); with an expert-parallel ``ctx``
-    this rank's part of the experts (the templates are its shards).
+    only where ``opt_template`` is given); with an expert- or
+    tensor-parallel ``ctx`` this rank's part of the split leaves (the
+    templates are its shards).
     Returns (params, opt_state, step)."""
     with open(os.path.join(path, "manifest.msgpack"), "rb") as f:
         manifest = msgpack_lite.unpackb(f.read())

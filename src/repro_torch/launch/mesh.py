@@ -6,9 +6,10 @@ ranks are the processes of an initialised ``torch.distributed`` group.  A
 ``(data, model)`` mesh of ``dp x tp`` ranks puts rank ``d * tp + m`` at
 data index d and model index m, the row-major device order of
 ``jax.make_mesh``.  The data axes carry data parallelism; a model axis
-larger than 1 carries expert parallelism of the MoE layers only
-(``models.moe``): tensor parallelism of the dense layers, and with it
-pipeline and collective matmul, waits for ROADMAP item 8.
+larger than 1 carries expert parallelism of the MoE layers of a MoE config
+(``models.moe``), and tensor parallelism of the dense GQA and Mamba2
+layers of the others (``parallel.tensor``).  The tensor parallelism of
+MLA, cross-attention and the encoder waits for ROADMAP item 8b.
 """
 from __future__ import annotations
 
@@ -18,18 +19,16 @@ import torch.distributed as dist
 
 from repro_torch.core.types import MeshConfig, ModelConfig
 from repro_torch.launch.ranks import torus_groups
+from repro_torch.parallel.planner import check_tensor_parallel
 
 
 def check_model_axis(mesh_cfg: MeshConfig,
                      cfg: Optional[ModelConfig] = None) -> None:
     """Raises where the mesh has a model axis larger than 1 and ``cfg``
-    (``None``: no config) has no MoE layer to run expert parallelism on."""
-    if mesh_cfg.tp > 1 and not (cfg is not None and cfg.is_moe):
-        what = cfg.name if cfg is not None else "a mesh without a config"
-        raise NotImplementedError(
-            f"a model axis of {mesh_cfg.tp} for {what}: tensor "
-            f"parallelism of dense layers is not ported yet (ROADMAP item "
-            f"8); only MoE layers run on a model axis, expert-parallel")
+    (``None``: no config, nothing to check) has no MoE layer and layers
+    whose tensor parallelism is not ported (``check_tensor_parallel``)."""
+    if mesh_cfg.tp > 1 and cfg is not None and not cfg.is_moe:
+        check_tensor_parallel(cfg)
 
 
 def mesh_groups(mesh_cfg: MeshConfig, cfg: Optional[ModelConfig] = None):

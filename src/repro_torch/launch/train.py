@@ -14,11 +14,12 @@ config but places its moments like the parameters, replicated, so there
 each device holds the whole state where here a rank holds 1/N of it (the
 same per-element arithmetic).  ``--model-axis M`` > 1 builds a (N/M, M)
 data x model mesh (``launch.mesh.mesh_groups``) whose model axis runs the
-MoE layers expert-parallel, as the JAX launcher's ``make_ctx`` does; for an
-architecture without MoE layers it raises (tensor parallelism: ROADMAP
-item 8).  Each rank then holds its part of the experts (drawn from the
-seed, ``init_params(..., ctx=)``), and a checkpoint gathers them into the
-JAX layout.  The cross-attention families take their context from the
+MoE layers expert-parallel, as the JAX launcher's ``make_ctx`` does, and
+the layers of an architecture without MoE layers tensor-parallel
+(``parallel.tensor``; MLA, cross-attention and the encoder raise: ROADMAP
+item 8b).  Each rank then holds its part of the split leaves (drawn from
+the seed, ``init_params(..., ctx=)``), and a checkpoint gathers them into
+the JAX layout.  The cross-attention families take their context from the
 stubs, as the JAX launcher does: every step the same ``audio_frames``
 (encoded inside the loss) or ``vision_patches`` of the batch's rows.
 
@@ -46,7 +47,7 @@ from repro_torch.launch.mesh import check_model_axis, mesh_groups
 from repro_torch.launch.ranks import build_kernels, rank_device, spawn_ranks
 from repro_torch.models import init_params
 from repro_torch.optim import gather_opt_state, init_opt_state
-from repro_torch.parallel import expert_flags, gather_params, make_ctx
+from repro_torch.parallel import gather_params, make_ctx, model_flags
 from repro_torch.train import make_train_step
 
 
@@ -118,7 +119,8 @@ def train(rank: int, world: int, args: argparse.Namespace
         device = rank_device(args.device)
         mcfg = MeshConfig(shape=(world // args.model_axis, args.model_axis))
         dgroup, mgroup = mesh_groups(mcfg, cfg)
-        ctx = make_ctx(dgroup, mcfg, model_group=mgroup, remat=tcfg.remat)
+        ctx = make_ctx(dgroup, mcfg, model_group=mgroup, remat=tcfg.remat,
+                       cfg=cfg)
         say(f"mesh: {dict(zip(mcfg.axis_names, mcfg.shape))}")
     else:
         device = resolve_device(args.device)
@@ -129,7 +131,7 @@ def train(rank: int, world: int, args: argparse.Namespace
     n_local = sum(p.numel() for p in param_leaves(params))
     tp = ctx.tp if ctx is not None else 1
     n_params = sum(p.numel() * (tp if e else 1) for p, e in
-                   zip(param_leaves(params), expert_flags(params)))
+                   zip(param_leaves(params), model_flags(params, ctx, cfg)))
     say(f"arch={cfg.name} params={n_params/1e6:.1f}M "
         f"vocab={cfg.vocab_size} layers={cfg.num_layers}")
 
@@ -181,12 +183,12 @@ def train(rank: int, world: int, args: argparse.Namespace
                 f"ce={metrics['ce']:.4f} lr={metrics['lr']:.2e} "
                 f"gnorm={metrics['grad_norm']:.2f} "
                 f"tok/s={tokens_seen/max(dt,1e-9):,.0f}")
-    whole = gather_params(params, ctx)  # every expert, on every rank
+    whole = gather_params(params, ctx, cfg)  # every leaf, on every rank
     checksums = {"params": checksum(whole)}
     if args.ckpt_dir:
         full = gather_opt_state(opt, ctx, params) if zero1 else opt
-        full = {**full, "m": gather_params(full["m"], ctx),
-                "v": gather_params(full["v"], ctx)}
+        full = {**full, "m": gather_params(full["m"], ctx, cfg),
+                "v": gather_params(full["v"], ctx, cfg)}
         checksums.update(m=checksum(full["m"]), v=checksum(full["v"]))
         if rank == 0:
             path = save_checkpoint(cfg, args.ckpt_dir, args.steps, whole,

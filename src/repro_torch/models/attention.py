@@ -18,6 +18,19 @@ ring buffers of ``window`` slots; the MLA cache holds the compressed latent
 and the shared rope key of every position; cross-attention K/V are
 computed once from the context.  Unlike the JAX package, the caches are
 updated in place (they are the largest state of a server) and returned.
+
+Tensor parallelism (``ctx``, a context of ``ParallelCtx.tensor_parallel``):
+GQA self-attention runs on this model rank's block of the query heads
+where ``parallel.planner.tp_layout`` splits them (``wq``, ``bq`` and the
+rows of ``wo``), the input through ``copy_to_model`` and the output's
+partial sums through ``reduce_from_model``.  Where the KV heads split
+too, ``wk``/``wv`` hold this rank's; where they do not (fewer KV heads
+than ranks), every rank projects them all and attends with those of its
+query heads: local query head i is global head r H/tp + i, whose KV head
+is the global index over G = H / KV (``local_kv_heads``), and their
+gradient is summed over the model ranks.  Where the query heads do not
+split either, the attention is replicated and nothing is summed.  The
+KV cache holds the KV heads of this rank's ``wk``.
 """
 from __future__ import annotations
 
@@ -28,7 +41,9 @@ import torch
 from repro_torch.core.types import ModelConfig
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models.modules import (apply_rope, dense_init, init_norm,
-                                        rms_norm)
+                                        rms_norm, whole)
+from repro_torch.parallel.planner import tp_layout
+from repro_torch.parallel.tensor import copy_to_model, reduce_from_model
 
 NEG_INF = -1e30  # finite: fully masked rows stay finite (never -inf)
 _PLAIN_ATTN_MAX_SEQ = 2048  # above 2048^2 scores the CPU path goes chunked
@@ -37,25 +52,25 @@ _KV_CHUNK = 1024
 
 
 def init_gqa(cfg: ModelConfig, dtype, device, generator: torch.Generator,
-             cross: bool = False) -> dict:
+             cross: bool = False, cut=whole) -> dict:
     """GQA projections; ``cross``: a cross-attention block, whose output is
     scaled by ``tanh(gate_attn)``, the gate starting at 0 (Llama-3.2-Vision's
-    gating): a fresh cross block adds nothing to the stream."""
+    gating): a fresh cross block adds nothing to the stream.  ``cut``: as
+    ``modules.init_ffn``'s."""
     d = cfg.d_model
     hd = cfg.resolved_head_dim
+    h, kv = cfg.num_heads, cfg.num_kv_heads
     p = {
-        "wq": dense_init(d, (cfg.num_heads, hd), dtype, device, generator),
-        "wk": dense_init(d, (cfg.num_kv_heads, hd), dtype, device, generator),
-        "wv": dense_init(d, (cfg.num_kv_heads, hd), dtype, device, generator),
-        "wo": dense_init(cfg.num_heads * hd, (d,), dtype, device,
-                         generator).reshape(cfg.num_heads, hd, d),
+        "wq": cut("wq", dense_init(d, (h, hd), dtype, device, generator)),
+        "wk": cut("wk", dense_init(d, (kv, hd), dtype, device, generator)),
+        "wv": cut("wv", dense_init(d, (kv, hd), dtype, device, generator)),
+        "wo": cut("wo", dense_init(h * hd, (d,), dtype, device,
+                                   generator).reshape(h, hd, d)),
     }
     if cfg.qkv_bias:
-        p["bq"] = torch.zeros((cfg.num_heads, hd), dtype=dtype, device=device)
-        p["bk"] = torch.zeros((cfg.num_kv_heads, hd), dtype=dtype,
-                              device=device)
-        p["bv"] = torch.zeros((cfg.num_kv_heads, hd), dtype=dtype,
-                              device=device)
+        for name, n in (("bq", h), ("bk", kv), ("bv", kv)):
+            p[name] = cut(name, torch.zeros((n, hd), dtype=dtype,
+                                            device=device))
     if cross:
         p["gate_attn"] = torch.zeros((), dtype=dtype, device=device)
     return p
@@ -216,15 +231,57 @@ def _project_qkv(p: dict, cfg: ModelConfig, x, kv_x=None):
     return q, k, v
 
 
-def gqa_forward(p: dict, cfg: ModelConfig, x, positions, *, window=None):
-    """x: (B,S,d); positions: (S,) absolute positions."""
-    q, k, v = _project_qkv(p, cfg, x)
+def local_kv_heads(cfg: ModelConfig, heads: int, rank: int):
+    """The KV heads of query heads ``rank heads .. (rank+1) heads - 1``
+    (head h reads KV head h // G): a slice where each of them serves an
+    equal run of those query heads, else a list, one a query head."""
+    g = cfg.num_heads // cfg.num_kv_heads
+    kv = [(rank * heads + i) // g for i in range(heads)]
+    lo, n = kv[0], kv[-1] - kv[0] + 1
+    if heads % n == 0 and kv == [lo + i // (heads // n)
+                                 for i in range(heads)]:
+        return slice(lo, lo + n)
+    return kv
+
+
+def _tp_heads(cfg: ModelConfig, ctx):
+    """The layout of a tensor-parallel ``ctx`` whose query heads split,
+    else ``None`` (the attention replicated)."""
+    lay = tp_layout(cfg, ctx)
+    return lay if lay is not None and lay.heads else None
+
+
+def _tp_qkv(p: dict, cfg: ModelConfig, x, lay, ctx):
+    """q of this rank's query heads; k and v of the KV heads they read
+    (all of them from a replicated ``wk``/``wv``, whose gradient then sums
+    over the model ranks) and the KV selection (``None``: all)."""
+    xf = copy_to_model(x, ctx)
+    if lay.kv:
+        q, k, v = _project_qkv(p, cfg, xf)
+        return q, k, v, None
+    q, k, v = _project_qkv(p, cfg, xf, kv_x=x)
+    return q, copy_to_model(k, ctx), copy_to_model(v, ctx), \
+        local_kv_heads(cfg, q.shape[2], lay.rank)
+
+
+def gqa_forward(p: dict, cfg: ModelConfig, x, positions, *, window=None,
+                ctx=None):
+    """x: (B,S,d); positions: (S,) absolute positions.  ``ctx``: a
+    tensor-parallel context (the module's docstring)."""
+    lay = _tp_heads(cfg, ctx)
+    if lay is None:
+        q, k, v = _project_qkv(p, cfg, x)
+    else:
+        q, k, v, sel = _tp_qkv(p, cfg, x, lay, ctx)
+        if sel is not None:
+            k, v = k[:, :, sel], v[:, :, sel]
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     win = window if window is not None else cfg.sliding_window
     out = multihead_attention(q, k, v, q_pos=positions, k_pos=positions,
                               causal=True, window=win)
-    return torch.einsum("bshk,hkd->bsd", out, p["wo"])
+    out = torch.einsum("bshk,hkd->bsd", out, p["wo"])
+    return out if lay is None else reduce_from_model(out, ctx)
 
 
 def _gated(p: dict, out: torch.Tensor) -> torch.Tensor:
@@ -245,11 +302,14 @@ def cross_attention_forward(p: dict, cfg: ModelConfig, x, context):
 
 
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, dtype, device,
-                  window=None) -> dict:
-    """Slot axis first: k, v are (batch, slots, KV, hd)."""
+                  window=None, kv_heads=None) -> dict:
+    """Slot axis first: k, v are (batch, slots, KV, hd), ``kv_heads`` (by
+    default the config's) KV heads: a tensor-parallel rank's are those of
+    its ``wk``."""
     win = window if window is not None else cfg.sliding_window
     slots = min(max_len, win) if win else max_len
-    shape = (batch, slots, cfg.num_kv_heads, cfg.resolved_head_dim)
+    shape = (batch, slots, kv_heads or cfg.num_kv_heads,
+             cfg.resolved_head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
@@ -273,13 +333,19 @@ def _ring_slot_positions(pos: torch.Tensor, slots: int) -> torch.Tensor:
 
 
 def gqa_decode(p: dict, cfg: ModelConfig, x, cache: dict, pos, *,
-               window=None):
+               window=None, ctx=None):
     """x: (B,1,d); pos: int or (B,) position(s) of the new token.
     Writes the new K/V into ``cache`` in place; returns
-    (out (B,1,d), cache)."""
+    (out (B,1,d), cache).  ``ctx``: as ``gqa_forward``'s; the cache holds
+    the KV heads this rank projects."""
     b = x.shape[0]
     pos = _pos_vec(pos, b, x.device)
-    q, k, v = _project_qkv(p, cfg, x)
+    lay = _tp_heads(cfg, ctx)
+    sel = None
+    if lay is None:
+        q, k, v = _project_qkv(p, cfg, x)
+    else:
+        q, k, v, sel = _tp_qkv(p, cfg, x, lay, ctx)
     q = apply_rope(q, pos[:, None], cfg.rope_theta)
     k = apply_rope(k, pos[:, None], cfg.rope_theta)
 
@@ -295,17 +361,20 @@ def gqa_decode(p: dict, cfg: ModelConfig, x, cache: dict, pos, *,
     if win:
         valid &= pos[:, None] - slot_pos < win
 
-    qg = _group_q(q, cache["k"].shape[2])  # (B,1,KV,G,hd)
+    ck, cv = cache["k"], cache["v"]
+    if sel is not None:
+        ck, cv = ck[:, :, sel], cv[:, :, sel]
+    qg = _group_q(q, ck.shape[2])  # (B,1,KV,G,hd)
     scale = 1.0 / math.sqrt(q.shape[-1])
     scores = torch.einsum("bqkgh,bskh->bqkgs", qg.float(),
-                          cache["k"].float()) * scale
+                          ck.float()) * scale
     scores = torch.where(valid[:, None, None, None, :], scores,
                          torch.full_like(scores, NEG_INF))
     probs = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bqkgs,bskh->bqkgh", probs.to(cache["v"].dtype),
-                       cache["v"])
-    out = out.reshape(b, 1, cfg.num_heads, -1).to(x.dtype)
-    return torch.einsum("bshk,hkd->bsd", out, p["wo"]), cache
+    out = torch.einsum("bqkgs,bskh->bqkgh", probs.to(cv.dtype), cv)
+    out = out.reshape(b, 1, q.shape[2], -1).to(x.dtype)
+    out = torch.einsum("bshk,hkd->bsd", out, p["wo"])
+    return (out if lay is None else reduce_from_model(out, ctx)), cache
 
 
 def init_cross_cache(p: dict, cfg: ModelConfig, context, dtype) -> dict:

@@ -1,7 +1,10 @@
 """Shared building blocks: norms, linear init, embeddings, dense FFN, RoPE.
 
 Port of ``repro.models.modules``.  Parameter shapes and layouts are the JAX
-package's, so ``repro_torch.bridge`` carries weights over by value.
+package's, so ``repro_torch.bridge`` carries weights over by value.  The
+``init_*`` functions pass each leaf, as it is drawn, through ``cut(name,
+leaf)``: a tensor-parallel rank keeps its block of it
+(``parallel.planner.tp_cut``), so that no rank holds a whole model.
 """
 from __future__ import annotations
 
@@ -11,6 +14,12 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.types import ModelConfig
+from repro_torch.parallel.tensor import copy_to_model, reduce_from_model
+
+
+def whole(name: str, w: torch.Tensor) -> torch.Tensor:
+    """The ``cut`` of a rank that keeps every leaf whole."""
+    return w
 
 
 def dense_init(in_dim: int, out_shape, dtype, device,
@@ -67,18 +76,15 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 
 
 def init_ffn(cfg: ModelConfig, d_ff: int, dtype, device,
-             generator: torch.Generator) -> dict:
+             generator: torch.Generator, cut=whole) -> dict:
     d = cfg.d_model
-    if cfg.ffn_act in ("swiglu", "geglu"):
-        return {
-            "w_gate": dense_init(d, (d_ff,), dtype, device, generator),
-            "w_up": dense_init(d, (d_ff,), dtype, device, generator),
-            "w_down": dense_init(d_ff, (d,), dtype, device, generator),
-        }
-    return {
-        "w_up": dense_init(d, (d_ff,), dtype, device, generator),
-        "w_down": dense_init(d_ff, (d,), dtype, device, generator),
-    }
+    names = ("w_gate", "w_up") if cfg.ffn_act in ("swiglu", "geglu") \
+        else ("w_up",)
+    p = {name: cut(name, dense_init(d, (d_ff,), dtype, device, generator))
+         for name in names}
+    p["w_down"] = cut("w_down", dense_init(d_ff, (d,), dtype, device,
+                                           generator))
+    return p
 
 
 def _gelu(x: torch.Tensor) -> torch.Tensor:
@@ -86,10 +92,20 @@ def _gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")
 
 
-def ffn_apply(params: dict, x: torch.Tensor, act: str) -> torch.Tensor:
+def ffn_apply(params: dict, x: torch.Tensor, act: str,
+              ctx=None) -> torch.Tensor:
+    """The FFN of ``x`` (..., d).  ``ctx``: the tensor-parallel context of
+    a rank holding a column block of ``w_gate``/``w_up`` and the same rows
+    of ``w_down`` (Megatron's column / row split): ``x`` enters through
+    ``copy_to_model`` and the partial products are summed by
+    ``reduce_from_model``."""
+    if ctx is not None:
+        x = copy_to_model(x, ctx)
     if act in ("swiglu", "geglu"):
         g = x @ params["w_gate"]
         u = x @ params["w_up"]
         g = F.silu(g) if act == "swiglu" else _gelu(g)
-        return (g * u) @ params["w_down"]
-    return _gelu(x @ params["w_up"]) @ params["w_down"]
+        y = (g * u) @ params["w_down"]
+    else:
+        y = _gelu(x @ params["w_up"]) @ params["w_down"]
+    return reduce_from_model(y, ctx) if ctx is not None else y

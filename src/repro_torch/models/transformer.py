@@ -16,6 +16,19 @@ parameters' dtype where it enters (``encode``, ``forward``,
 ``init_cache``); the JAX package promotes instead, so with bf16
 parameters and an f32 context its stream turns f32 (with f32 parameters
 the two are the same).
+
+Tensor parallelism (a ``ctx`` of ``ParallelCtx.tensor_parallel``, for the
+dense GQA and Mamba2 configs): a rank holds the blocks of its model index
+(``parallel.planner.tp_layout``; ``init_params(..., ctx=)`` draws every
+leaf whole and keeps its block), the residual stream stays whole on every
+rank, and the layers sum their partial products over the model ranks
+(``parallel.tensor``).  Where the vocabulary splits, the embedding is
+looked up on this rank's rows and summed (``vocab_embed``), the LM head
+(with tied embeddings, the embedding's rows) gives this rank's block of the
+logits and its ``_vocab_bias``, and ``forward``/``decode_step`` return
+the logits sharded over the vocabulary, as the JAX package's
+``logit_spec`` keeps them (``serve`` gathers them before a token is
+picked; ``train.loss.cross_entropy`` never gathers them).
 """
 from __future__ import annotations
 
@@ -33,7 +46,10 @@ from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm
 from repro_torch.models.modules import (dense_init, embed_init, ffn_apply,
-                                        init_ffn, init_norm, rms_norm)
+                                        init_ffn, init_norm, rms_norm, whole)
+from repro_torch.parallel.planner import (check_tensor_parallel, tp_cut,
+                                          tp_layout)
+from repro_torch.parallel.tensor import copy_to_model, vocab_embed
 
 
 ENCODER_SPEC = LayerSpec(mixer="attn", ffn="dense")
@@ -102,21 +118,23 @@ def ep_launches(cfg: ModelConfig) -> dict:
 
 
 def _init_layer(cfg: ModelConfig, spec: LayerSpec, dtype, device,
-                generator: torch.Generator, ctx=None) -> dict:
+                generator: torch.Generator, ctx=None, cut=whole) -> dict:
     p = {"norm1": init_norm(cfg.d_model, dtype, device)}
     if spec.mixer == "attn" and cfg.attention == "mla":
         p["mixer"] = attn.init_mla(cfg, dtype, device, generator)
     elif spec.mixer in ("attn", "cross_attn"):
         p["mixer"] = attn.init_gqa(cfg, dtype, device, generator,
-                                   cross=spec.mixer == "cross_attn")
+                                   cross=spec.mixer == "cross_attn",
+                                   cut=cut)
     else:
-        p["mixer"] = ssm.init_mamba(cfg, dtype, device, generator)
+        p["mixer"] = ssm.init_mamba(cfg, dtype, device, generator, cut=cut)
     if spec.ffn != "none":
         p["norm2"] = init_norm(cfg.d_model, dtype, device)
         if spec.ffn == "moe":
             p["ffn"] = moe_mod.init_moe(cfg, dtype, device, generator, ctx)
         else:
-            p["ffn"] = init_ffn(cfg, cfg.d_ff, dtype, device, generator)
+            p["ffn"] = init_ffn(cfg, cfg.d_ff, dtype, device, generator,
+                                cut=cut)
     return p
 
 
@@ -126,18 +144,27 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     ``generator`` (which must live on ``device``).  With an
     expert-parallel ``ctx`` each MoE layer keeps only this rank's part of
     its experts (``parallel.shard_params``'s layout; ``models.moe.
-    init_moe`` draws the rest and drops it), bit-equal to the same part of
-    the full draw."""
+    init_moe`` draws the rest and drops it); with a tensor-parallel one
+    each leaf is drawn whole and only this rank's block of it kept
+    (``parallel.planner.tp_cut``): both bit-equal to the same part of the
+    full draw."""
     dev = resolve_device(device)
+    cut = whole
+    if ctx is not None and ctx.tensor_parallel:
+        check_tensor_parallel(cfg)
+
+        def cut(name, w):
+            return tp_cut(name, w, cfg, ctx)
     params = {
-        "embed": embed_init(cfg.padded_vocab, cfg.d_model, dtype, dev,
-                            generator),
+        "embed": cut("embed", embed_init(cfg.padded_vocab, cfg.d_model,
+                                         dtype, dev, generator)),
         "final_norm": init_norm(cfg.d_model, dtype, dev),
     }
     if not cfg.tie_embeddings:
-        params["lm_head"] = dense_init(cfg.d_model, (cfg.padded_vocab,),
-                                       dtype, dev, generator)
-    params["layers"] = [_init_layer(cfg, spec, dtype, dev, generator, ctx)
+        params["lm_head"] = cut("lm_head", dense_init(
+            cfg.d_model, (cfg.padded_vocab,), dtype, dev, generator))
+    params["layers"] = [_init_layer(cfg, spec, dtype, dev, generator, ctx,
+                                    cut)
                         for spec in cfg.layer_specs()]
     if cfg.is_encoder_decoder:
         params["encoder"] = {
@@ -150,19 +177,39 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     return params
 
 
-def _vocab_bias(cfg: ModelConfig, dtype, device) -> torch.Tensor:
-    """NEG_INF on the padded vocabulary ids, so argmax never picks one."""
-    v = torch.arange(cfg.padded_vocab, device=device)
+def _vocab_bias(cfg: ModelConfig, dtype, device, lo: int,
+                hi: int) -> torch.Tensor:
+    """NEG_INF on the padded vocabulary ids of [lo, hi) (all of them, or a
+    tensor-parallel rank's block), so argmax never picks one."""
+    v = torch.arange(lo, hi, device=device)
     return torch.where(v < cfg.vocab_size, 0.0, attn.NEG_INF).to(dtype)
 
 
-def _lm_head(cfg: ModelConfig, params: dict, x) -> torch.Tensor:
+def _tp_vocab(cfg: ModelConfig, ctx):
+    lay = tp_layout(cfg, ctx)
+    return lay if lay is not None and lay.vocab else None
+
+
+def _embed(cfg: ModelConfig, params: dict, tokens, ctx):
+    lay = _tp_vocab(cfg, ctx)
+    if lay is None:
+        return params["embed"][tokens]
+    lo, _ = lay.block(cfg.padded_vocab)
+    return vocab_embed(params["embed"], tokens, lo, ctx)
+
+
+def _lm_head(cfg: ModelConfig, params: dict, x, ctx=None) -> torch.Tensor:
     x = rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
+    lay = _tp_vocab(cfg, ctx)
+    lo, hi = (0, cfg.padded_vocab) if lay is None else \
+        lay.block(cfg.padded_vocab)
+    if lay is not None:
+        x = copy_to_model(x, ctx)
     if cfg.tie_embeddings:
         logits = x @ params["embed"].T
     else:
         logits = x @ params["lm_head"]
-    return logits + _vocab_bias(cfg, logits.dtype, logits.device)
+    return logits + _vocab_bias(cfg, logits.dtype, logits.device, lo, hi)
 
 
 def _apply_layer(lp: dict, spec: LayerSpec, cfg: ModelConfig, x,
@@ -175,11 +222,12 @@ def _apply_layer(lp: dict, spec: LayerSpec, cfg: ModelConfig, x,
     if spec.mixer == "attn" and cfg.attention == "mla":
         h = attn.mla_forward(lp["mixer"], cfg, h, positions, window=window)
     elif spec.mixer == "attn":
-        h = attn.gqa_forward(lp["mixer"], cfg, h, positions, window=window)
+        h = attn.gqa_forward(lp["mixer"], cfg, h, positions, window=window,
+                             ctx=ctx)
     elif spec.mixer == "cross_attn":
         h = attn.cross_attention_forward(lp["mixer"], cfg, h, context)
     else:
-        h = ssm.mamba_forward(lp["mixer"], cfg, h)
+        h = ssm.mamba_forward(lp["mixer"], cfg, h, ctx=ctx)
     x = x + h
     if cross_lp is not None:  # norm1's scale again, as in the JAX package
         h = rms_norm(x, lp["norm1"]["scale"], cfg.norm_eps)
@@ -190,9 +238,15 @@ def _apply_layer(lp: dict, spec: LayerSpec, cfg: ModelConfig, x,
         if spec.ffn == "moe":
             y, aux = moe_mod.moe_apply(lp["ffn"], cfg, h2, ctx=ctx)
         else:
-            y = ffn_apply(lp["ffn"], h2, cfg.ffn_act)
+            y = ffn_apply(lp["ffn"], h2, cfg.ffn_act, _tp_ffn(cfg, ctx))
         x = x + y
     return x, aux
+
+
+def _tp_ffn(cfg: ModelConfig, ctx):
+    """``ctx`` where it splits the dense FFN, else ``None``."""
+    lay = tp_layout(cfg, ctx)
+    return ctx if lay is not None and lay.ffn else None
 
 
 def _context(cfg: ModelConfig, params: dict, context):
@@ -231,9 +285,13 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
     ``repro_torch.parallel.ParallelCtx``, whose data ranks share the MoE
     router's load statistics (``models.moe.route``) and whose MoE layers
     run expert-parallel over its model axis where ``ctx.use_ep``
-    (``models.moe.moe_ep_train``)."""
+    (``models.moe.moe_ep_train``); a tensor-parallel ``ctx`` (the module's
+    docstring) returns this rank's vocabulary block of the logits (B, S,
+    V_pad/tp) where the vocabulary splits."""
+    if ctx is not None and ctx.tensor_parallel:
+        check_tensor_parallel(cfg)
     context = _context(cfg, params, context)
-    x = params["embed"][tokens]
+    x = _embed(cfg, params, tokens, ctx)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     win = window if window is not None else cfg.sliding_window
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -246,7 +304,7 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
             x, a = _apply_layer(*args)
         if a is not None:
             aux = aux + a
-    return _lm_head(cfg, params, x), aux
+    return _lm_head(cfg, params, x, ctx), aux
 
 
 def encode(cfg: ModelConfig, params: dict, frames: torch.Tensor, *,
@@ -274,10 +332,12 @@ def _init_layer_cache(cfg: ModelConfig, spec: LayerSpec, lp: dict,
         return attn.init_mla_cache(cfg, batch, max_len, dtype, device)
     if spec.mixer == "attn":
         return attn.init_kv_cache(cfg, batch, max_len, dtype, device,
-                                  window=window)
+                                  window=window,
+                                  kv_heads=lp["mixer"]["wk"].shape[1])
     if spec.mixer == "cross_attn":
         return attn.init_cross_cache(lp["mixer"], cfg, context, dtype)
-    return ssm.init_mamba_cache(cfg, batch, dtype, device)
+    return ssm.init_mamba_cache(cfg, batch, dtype, device,
+                                heads=lp["mixer"]["A_log"].shape[0])
 
 
 def init_cache(cfg: ModelConfig, params: dict, batch: int, max_len: int,
@@ -290,7 +350,9 @@ def init_cache(cfg: ModelConfig, params: dict, batch: int, max_len: int,
     An encoder-decoder config adds ``cache["cross"]``, each decoder layer's
     cross-block K/V over ``context`` (the encoder's output).  Defaults to
     f32 whatever the parameters' dtype, like the JAX package (the SSM
-    state is f32 always)."""
+    state is f32 always).  Each layer's cache has the KV heads of its
+    ``wk`` and the SSM heads of its ``A_log``: on a tensor-parallel rank's
+    parameters, that rank's part (``parallel.planner.cache_specs``)."""
     win = window if window is not None else cfg.sliding_window
     device = params["embed"].device
     context = _context(cfg, params, context)
@@ -312,11 +374,11 @@ def _decode_layer(lp: dict, spec: LayerSpec, cfg: ModelConfig, x, lcache,
         h, _ = attn.mla_decode(lp["mixer"], cfg, h, lcache, pos)
     elif spec.mixer == "attn":
         h, _ = attn.gqa_decode(lp["mixer"], cfg, h, lcache, pos,
-                               window=window)
+                               window=window, ctx=ctx)
     elif spec.mixer == "cross_attn":
         h = attn.cross_attention_decode(lp["mixer"], cfg, h, lcache)
     else:
-        h, _ = ssm.mamba_decode(lp["mixer"], cfg, h, lcache)
+        h, _ = ssm.mamba_decode(lp["mixer"], cfg, h, lcache, ctx=ctx)
     x = x + h
     if cross_lp is not None:
         h = rms_norm(x, lp["norm1"]["scale"], cfg.norm_eps)
@@ -327,7 +389,7 @@ def _decode_layer(lp: dict, spec: LayerSpec, cfg: ModelConfig, x, lcache,
             y, _ = moe_mod.moe_apply(lp["ffn"], cfg, h2, ctx=ctx,
                                      decode=True)
         else:
-            y = ffn_apply(lp["ffn"], h2, cfg.ffn_act)
+            y = ffn_apply(lp["ffn"], h2, cfg.ffn_act, _tp_ffn(cfg, ctx))
         x = x + y
     return x
 
@@ -339,12 +401,16 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict,
     Returns (logits (B,1,V_pad), cache), the cache updated in place.
     ``ctx``: an expert-parallel context runs the MoE layers through
     ``moe_ep_decode`` (or ``moe_ep_decode_ws``); tokens and cache are then
-    this rank's 1/dp of the batch."""
+    this rank's 1/dp of the batch.  A tensor-parallel one runs on this
+    rank's blocks and cache and returns its vocabulary block of the logits,
+    as ``forward``."""
+    if ctx is not None and ctx.tensor_parallel:
+        check_tensor_parallel(cfg)
     win = window if window is not None else cfg.sliding_window
-    x = params["embed"][tokens]
+    x = _embed(cfg, params, tokens, ctx)
     cross_caches = cache.get("cross") or [None] * cfg.num_layers
     for spec, lp, lc, cross_lp, cc in zip(
             cfg.layer_specs(), params["layers"], cache["layers"],
             _cross_blocks(cfg, params), cross_caches):
         x = _decode_layer(lp, spec, cfg, x, lc, pos, win, ctx, cross_lp, cc)
-    return _lm_head(cfg, params, x), cache
+    return _lm_head(cfg, params, x, ctx), cache

@@ -14,9 +14,10 @@ Under ZeRO-1 (``init_opt_state(params, ctx)``) m and v are flat f32 shards,
 this rank's chunks of ``repro_torch.parallel.FlatLayout``;
 ``adamw_shard_update`` runs the same per-element arithmetic on a shard, and
 ``gather_opt_state`` returns the full moments in the port's layout.  Under
-expert parallelism a rank's parameters, and so its m and v, hold only its
-experts (``parallel.shard_params``); the global norm counts the replicated
-leaves once and sums the experts' squares over the model ranks.
+expert or tensor parallelism a rank's parameters, and so its m and v, hold
+only its part of the leaves split over the model axis (its experts, its
+blocks: ``parallel.shard_params``); the global norm counts the replicated
+leaves once and sums the split leaves' squares over the model ranks.
 """
 from __future__ import annotations
 
@@ -32,7 +33,8 @@ from repro_torch.parallel.planner import ParallelCtx, flat_layout
 def init_opt_state(params: Any, ctx: Optional[ParallelCtx] = None
                    ) -> Dict[str, Any]:
     """Zero moments in f32 on each parameter's device, step 0, shaped like
-    this rank's parameters (its experts only, under expert parallelism).
+    this rank's parameters (its part of the split leaves, under expert or
+    tensor parallelism).
     With a ``ctx`` (ZeRO-1) m and v are this rank's flat shards of
     ``flat_layout(param_leaves(params), ctx)``: 1/dp of the state."""
     device = next(param_leaves(params)).device
@@ -53,8 +55,9 @@ def gather_opt_state(state: Dict[str, Any], ctx: ParallelCtx, params: Any
                      ) -> Dict[str, Any]:
     """The full m and v of a ZeRO-1 state, gathered from every data rank
     into the port's layout (trees shaped like ``params``, this rank's,
-    which give the layout; under expert parallelism its experts only:
-    ``parallel.gather_params`` gathers those): for checkpoints and tests.
+    which give the layout; under expert or tensor parallelism its part of
+    the split leaves: ``parallel.gather_params`` gathers those): for
+    checkpoints and tests.
     Every rank of the data group calls it and gets the same trees."""
     leaves = list(param_leaves(params))
     layout = flat_layout(leaves, ctx)
@@ -68,7 +71,7 @@ def gather_opt_state(state: Dict[str, Any], ctx: ParallelCtx, params: Any
 
 def global_norm(tree, *, acc: torch.dtype = torch.float64,
                 ctx: Optional[ParallelCtx] = None,
-                expert: Optional[Sequence[bool]] = None,
+                split: Optional[Sequence[bool]] = None,
                 sharded: bool = False) -> torch.Tensor:
     """sqrt of the sum of squares of every leaf, returned in f32.  Each
     leaf's norm accumulates in ``acc``, f64 by default: a departure from
@@ -81,16 +84,16 @@ def global_norm(tree, *, acc: torch.dtype = torch.float64,
     sizes of the JAX comparisons both accumulations agree with JAX's f32
     norm within 1e-5 (``tests/test_torch_train.py``).
 
-    ``expert``: one flag a leaf, set where the leaf is this model rank's
-    part of the experts (``parallel.expert_flags``): those squares are
-    summed over ``ctx``'s model ranks, the other leaves' (the same on every
-    model rank) counted once.  ``sharded``: the leaves are this rank's
+    ``split``: one flag a leaf, set where the leaf is this model rank's
+    part of a leaf split over the model axis (``parallel.model_flags``):
+    those squares are summed over ``ctx``'s model ranks, the other leaves'
+    (the same on every model rank) counted once.  ``sharded``: the leaves are this rank's
     ZeRO-1 shard, and the sum is taken over ``ctx``'s data ranks too."""
     leaves = tree if isinstance(tree, list) else list(param_leaves(tree))
     norms = torch.stack([torch.linalg.vector_norm(t, dtype=acc)
                          for t in leaves])
-    if expert is not None and ctx is not None and ctx.tp > 1:
-        mask = torch.tensor(expert, device=norms.device)
+    if split is not None and ctx is not None and ctx.tp > 1:
+        mask = torch.tensor(split, device=norms.device)
         squares = norms[~mask].square().sum() + ctx.model_allsum(
             norms[mask].square().sum())
     else:
@@ -134,17 +137,17 @@ def _updates(flat_p: List[torch.Tensor], flat_g: Sequence[torch.Tensor],
 def adamw_update(params: Any, grads: Any, state: Dict[str, Any],
                  tcfg: TrainConfig, lr: torch.Tensor,
                  ctx: Optional[ParallelCtx] = None,
-                 expert: Optional[Sequence[bool]] = None
+                 split: Optional[Sequence[bool]] = None
                  ) -> Tuple[Any, Dict[str, Any], Dict[str, torch.Tensor]]:
     """One clipped AdamW step.  ``grads``: a tree like ``params``, or the
     list of its leaves in order.  Updates params, m and v in place and
     returns (params, state, {"grad_norm": the norm before clipping}).
-    ``ctx``, ``expert``: an expert-parallel rank's (``global_norm``)."""
+    ``ctx``, ``split``: a model-parallel rank's (``global_norm``)."""
     flat_p = list(param_leaves(params))
     flat_g: Sequence[torch.Tensor] = grads if isinstance(grads, list) \
         else list(param_leaves(grads))
     m, v = list(param_leaves(state["m"])), list(param_leaves(state["v"]))
-    gnorm = global_norm(flat_g, ctx=ctx, expert=expert)
+    gnorm = global_norm(flat_g, ctx=ctx, split=split)
     step = state["step"] + 1
     with torch.no_grad():
         p32, update = _updates(flat_p, flat_g, m, v, gnorm, step, tcfg, lr)
@@ -157,19 +160,19 @@ def adamw_update(params: Any, grads: Any, state: Dict[str, Any],
 def adamw_shard_update(p_shard: torch.Tensor, g_shard: torch.Tensor,
                        state: Dict[str, Any], tcfg: TrainConfig,
                        lr: torch.Tensor, ctx: ParallelCtx,
-                       expert_ranges: Sequence[Tuple[int, int]] = ()
+                       split_ranges: Sequence[Tuple[int, int]] = ()
                        ) -> Tuple[torch.Tensor, Dict[str, Any],
                                   Dict[str, torch.Tensor]]:
     """One clipped AdamW step on this rank's ZeRO-1 shard: ``p_shard`` the
     parameters' chunks as f32, ``g_shard`` the reduced gradient's, m and v
     of ``state`` the moments' (updated in place).  The clip reads the
-    global norm, summed over the ranks; ``expert_ranges``, the ranges of
-    the shard that hold this model rank's experts
+    global norm, summed over the ranks; ``split_ranges``, the ranges of
+    the shard that hold this model rank's part of the split leaves
     (``FlatLayout.shard_ranges``), summed over the model ranks too.
     Returns (the updated parameter chunks in f32, state, {"grad_norm"})."""
-    if expert_ranges:
-        pieces, flags = _cut(g_shard, expert_ranges)
-        gnorm = global_norm(pieces, ctx=ctx, expert=flags, sharded=True)
+    if split_ranges:
+        pieces, flags = _cut(g_shard, split_ranges)
+        gnorm = global_norm(pieces, ctx=ctx, split=flags, sharded=True)
     else:
         gnorm = global_norm([g_shard], ctx=ctx, sharded=True)
     step = state["step"] + 1

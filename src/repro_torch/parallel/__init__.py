@@ -1,6 +1,8 @@
 """Parallel strategies of the port (``repro.parallel``): the data axes,
-plain DP and ZeRO-1, and expert parallelism of the MoE layers over a model
-axis (``planner``)."""
+plain DP and ZeRO-1, expert parallelism of the MoE layers and tensor
+parallelism of the dense and SSM layers over a model axis (``planner``,
+``tensor``), collective matmul (``collective_matmul``) and the GPipe and
+interleaved pipelines (``pipeline``)."""
 from repro_torch.parallel.planner import (  # noqa: F401
     BUCKET_BYTES,
     FlatLayout,
@@ -10,5 +12,6 @@ from repro_torch.parallel.planner import (  # noqa: F401
     gather_params,
     make_ctx,
     microbatch_rows,
+    model_flags,
     shard_params,
 )

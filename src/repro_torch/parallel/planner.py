@@ -1,42 +1,55 @@
-"""Data- and expert-parallel context and gradient layout of the port: the
-part of ``repro.parallel.planner`` that the port runs.
+"""The parallel context of the port and its layouts: data parallelism,
+expert parallelism of the MoE layers and tensor parallelism of the dense
+and SSM layers, the parts of ``repro.parallel.planner`` that the port runs.
 
 The JAX package threads a ``ParallelCtx`` holding a mesh through its model
 code and lets XLA's sharding propagation place the collectives: plain DP
 parameter specs give a gradient all-reduce, ZeRO-1 optimizer-state specs
-(``zero1_spec``) a reduce-scatter and an all-gather, and the expert specs
-of ``param_specs`` (experts over the model axis) put each expert's weights
-on one model rank.  Here the context holds the process groups of the data
-axes and of the model axis instead, and the step and the MoE layers call
-the collectives themselves (``repro_torch.train.make_train_step``,
-``repro_torch.models.moe``):
+(``zero1_spec``) a reduce-scatter and an all-gather, the expert specs of
+``param_specs`` (experts over the model axis) put each expert's weights on
+one model rank, and its Megatron specs (columns of ``wq``/``w_gate``, rows
+of ``wo``/``w_down``, the vocabulary of ``embed``/``lm_head``, the Mamba
+heads) an activation all-reduce after each row-parallel product.  Here the
+context holds the process groups of the data axes and of the model axis
+instead, and the step and the layers call the collectives themselves
+(``repro_torch.train.make_train_step``, ``repro_torch.models.moe``,
+``repro_torch.parallel.tensor``):
 
-- ``make_ctx`` builds the context from the groups and a ``MeshConfig``;
+- ``make_ctx`` builds the context from the groups and a ``MeshConfig``: a
+  model axis runs expert parallelism for a MoE config and tensor
+  parallelism (``ParallelCtx.tensor_parallel``) for the others;
+- ``param_specs`` and ``cache_specs`` are the JAX package's layout rules
+  (``guarded``, ``_leaf_rule``, ``_mamba_head_axis``), leaf for leaf, on
+  the port's trees: one tuple of mesh axes (or ``None``) a dim;
+  ``tp_layout`` is what they decide for the model code of a tensor-parallel
+  rank;
 - ``microbatch_rows`` is the batch shard of ``batch_specs``;
-- ``shard_params`` cuts a rank's experts out of the full parameters, the
-  layouts of ``param_specs``: under expert parallelism each MoE layer's
-  ``w_gate``, ``w_up``, ``w_down`` as ``(E/tp, ...)``, model rank m
-  holding experts ``m E/tp .. (m+1) E/tp - 1``; weight-stationary, also
-  the ffn dim over the data axes;
+- ``shard_params`` cuts a rank's part out of the full parameters (its
+  experts under expert parallelism, model rank m holding experts
+  ``m E/tp .. (m+1) E/tp - 1`` and, weight-stationary, its slice of the
+  ffn dim over the data axes; under tensor parallelism the m-th of tp
+  equal blocks of each dim ``param_specs`` puts on the model axis), and
+  ``gather_params`` puts it back together;
 - ``FlatLayout`` is the gradient of this rank's leaves flattened into the
   planner's 64 MiB buckets, with the chunk of each bucket that
   ``ring_reduce_scatter`` leaves on this rank: the ZeRO-1 shard of the
   optimizer state.
 
-Tensor parallelism of the dense layers (a model axis without MoE) is not
-ported: ROADMAP item 8.
+The tensor parallelism of MLA, cross-attention, the encoder and the hybrid
+jamba, and ``apply_fsdp``, are not ported: ROADMAP item 8b.
 """
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
-from typing import Any, List, Optional, Sequence, Tuple
+from typing import Any, List, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.distributed as dist
 
 from repro_torch.ccl import primitives as prim
-from repro_torch.core.types import MeshConfig
+from repro_torch.core.types import MeshConfig, ModelConfig
 
 # the planner's gradient bucket (``plan_iteration(bucket_bytes=...)``), in
 # f32 values: the dtype of the sums and of the moments
@@ -55,7 +68,8 @@ class ParallelCtx:
     names the entry of ``ccl.primitives.IMPLEMENTATIONS`` that carries a
     plain-DP gradient sync.  ``use_ep``: the MoE layers run expert-parallel
     over the model axis (``models.moe.moe_apply``), with the JAX package's
-    capacity factors and ``ep_weight_stationary`` decode.
+    capacity factors and ``ep_weight_stationary`` decode; a model axis
+    without it is tensor parallelism (``tensor_parallel``).
     """
 
     group: Any = None
@@ -77,6 +91,11 @@ class ParallelCtx:
     def ep_axis(self) -> str:
         return self.model_axis
 
+    @property
+    def tensor_parallel(self) -> bool:
+        """The dense and SSM layers are split over the model axis."""
+        return self.tp > 1 and not self.use_ep
+
     def allsum(self, x: torch.Tensor) -> torch.Tensor:
         """The sum of ``x`` over the data ranks, the same bits on every
         rank: ``ring_all_gather`` then a sum in rank order.  For the
@@ -94,31 +113,49 @@ class ParallelCtx:
         return prim.ring_all_gather(x, self.model_group).sum(dim=0)
 
 
+def check_tensor_parallel(cfg: ModelConfig) -> None:
+    """Raises where ``cfg`` has a layer whose tensor parallelism is not
+    ported (MLA, cross-attention, the encoder, and the layers of a MoE
+    config, whose model axis runs expert parallelism: ROADMAP item 8b)."""
+    specs = cfg.layer_specs()
+    what = [w for w, has in (
+        ("MoE layers", cfg.is_moe),
+        ("MLA", cfg.attention == "mla"),
+        ("cross-attention", any(s.mixer == "cross_attn" for s in specs)),
+        ("an encoder", cfg.is_encoder_decoder)) if has]
+    if what:
+        raise NotImplementedError(
+            f"tensor parallelism of {cfg.name} ({', '.join(what)}) is not "
+            f"ported yet: ROADMAP item 8b")
+
+
 def make_ctx(group, mesh_cfg: MeshConfig, *, model_group=None,
              remat: bool = True, use_ep: Optional[bool] = None,
              capacity_factor: float = 1.25,
              decode_capacity_factor: float = 4.0,
              ep_weight_stationary: bool = False,
-             grad_all_reduce: str = "ring") -> ParallelCtx:
+             grad_all_reduce: str = "ring",
+             cfg: Optional[ModelConfig] = None) -> ParallelCtx:
     """The context of this rank in ``group`` (the data axes of
     ``mesh_cfg``) and ``model_group`` (its model axis);
     ``repro_torch.launch.mesh.mesh_groups`` builds both.
 
-    ``use_ep`` defaults to ``mesh_cfg.tp > 1``: the port runs a model axis
-    only expert-parallel, and with a model axis of 1 expert parallelism
-    would only add capacity drops (the JAX package's default, ``True``,
-    drops tokens there too; pass ``use_ep=True`` for that).  A model axis
-    without it is tensor parallelism: ROADMAP item 8."""
+    ``use_ep`` defaults to ``mesh_cfg.tp > 1`` for a MoE config (and
+    where no ``cfg`` is given): the model axis then runs the MoE layers
+    expert-parallel and replicates the rest, and with a model axis of 1
+    expert parallelism would only add capacity drops (the JAX package's
+    default, ``True``, drops tokens there too; pass ``use_ep=True`` for
+    that).  For a config without MoE layers a model axis is tensor
+    parallelism (``ParallelCtx.tensor_parallel``), which raises for the
+    layers that wait for ROADMAP item 8b (``check_tensor_parallel``)."""
     if grad_all_reduce not in prim.IMPLEMENTATIONS:
         raise KeyError(f"unknown all-reduce {grad_all_reduce!r}; known: "
                        f"{sorted(prim.IMPLEMENTATIONS)}")
     tp = mesh_cfg.tp
     if use_ep is None:
-        use_ep = tp > 1
-    if tp > 1 and not use_ep:
-        raise NotImplementedError(
-            f"a model axis of {tp} without expert parallelism is tensor "
-            f"parallelism, not ported yet: ROADMAP item 8")
+        use_ep = tp > 1 and (cfg is None or cfg.is_moe)
+    if tp > 1 and not use_ep and cfg is not None:
+        check_tensor_parallel(cfg)
     dp = dist.get_world_size(group)
     if dp != mesh_cfg.dp:
         raise ValueError(f"the group has {dp} ranks, the mesh's data axes "
@@ -137,6 +174,300 @@ def make_ctx(group, mesh_cfg: MeshConfig, *, model_group=None,
         decode_capacity_factor=decode_capacity_factor,
         ep_weight_stationary=ep_weight_stationary,
         grad_all_reduce=grad_all_reduce)
+
+
+# ---------------------------------------------------------------------------
+# Layout rules (``param_specs`` / ``cache_specs`` of the JAX package)
+# ---------------------------------------------------------------------------
+
+Axis = Union[str, Tuple[str, ...], None]
+Spec = Tuple[Axis, ...]
+
+
+def _axis_size(mesh_cfg: MeshConfig, axis: Axis) -> int:
+    if axis is None:
+        return 1
+    if isinstance(axis, tuple):
+        return math.prod(mesh_cfg.axis_size(a) for a in axis)
+    return mesh_cfg.axis_size(axis)
+
+
+def guarded(shape: Sequence[int], axes: Sequence[Axis],
+            mesh_cfg: MeshConfig, notes: Optional[List[str]] = None,
+            what: str = "") -> Spec:
+    """The axes of a spec, each dropped (``None``, with a planner note)
+    where its size does not divide the dim."""
+    out = []
+    for dim, ax in zip(shape, axes):
+        if ax is not None and dim % _axis_size(mesh_cfg, ax) == 0:
+            out.append(ax)
+        else:
+            if ax is not None and notes is not None:
+                notes.append(f"replicated {what} dim={dim} (axis {ax} "
+                             f"size {_axis_size(mesh_cfg, ax)} !| {dim})")
+            out.append(None)
+    return tuple(out)
+
+
+def validate_spec(spec: Spec, shape: Sequence[int],
+                  mesh_cfg: MeshConfig) -> bool:
+    for dim, ax in zip(shape, tuple(spec) + (None,) * (len(shape)
+                                                       - len(spec))):
+        if ax is not None and dim % _axis_size(mesh_cfg, ax) != 0:
+            return False
+    return True
+
+
+def _mamba_head_axis(cfg: ModelConfig, mesh_cfg: MeshConfig) -> Axis:
+    """Shard SSM channels only when shards align with head boundaries."""
+    m = mesh_cfg.model_axes[0]
+    tp = _axis_size(mesh_cfg, m)
+    if cfg.ssm_num_heads and cfg.ssm_num_heads % tp == 0:
+        return m
+    return None
+
+
+def _leaf_rule(path: str, shape, cfg: ModelConfig, mesh_cfg: MeshConfig,
+               notes) -> Spec:
+    """The JAX package's rule for the leaf at ``path`` (``/``-joined keys
+    of the port's tree) of the (unstacked) ``shape``."""
+    m = mesh_cfg.model_axes[0]
+
+    def g(axes, what):
+        return guarded(shape, axes, mesh_cfg, notes, what=f"{what}:{path}")
+
+    rep = (None,) * len(shape)
+    name = path.rsplit("/", 1)[-1]
+    # ---- embeddings / head: the logits stay sharded over the vocabulary
+    # and the loss's logsumexp reduces them with a small all-reduce ----
+    if name == "embed":
+        return g((m, None), "embed")
+    if name == "lm_head":
+        return g((None, m), "lm_head")
+    if name == "scale":  # norms
+        return rep
+    # ---- attention ----
+    if name == "wq":
+        return g((None, m, None), "wq")
+    if name in ("wk", "wv"):
+        return g((None, m, None), "wkv")
+    if name == "wo":
+        return g((m, None, None), "wo")
+    if name == "bq":
+        return g((m, None), "bq")
+    if name in ("bk", "bv"):
+        return g((m, None), "bkv")
+    if name == "gate_attn":
+        return ()
+    # ---- MLA ----
+    if name == "w_uq":
+        return g((None, m, None), "w_uq")
+    if name in ("w_uk", "w_uv"):
+        return g((None, m, None), "w_ukv")
+    if name in ("w_dq", "w_dkv"):
+        return (None, None)
+    # ---- MoE ----
+    if name == "router":
+        return (None, None)
+    if name in EXPERT_LEAVES and "ffn" in path and len(shape) == 3 and \
+            cfg.is_moe and shape[0] == cfg.num_experts:
+        return g((m, None, None), "moe_expert")
+    # ---- dense FFN (also MoE shared expert) ----
+    if name in ("w_gate", "w_up"):
+        return g((None, m), "ffn_col")
+    if name == "w_down":
+        return g((m, None), "ffn_row")
+    # ---- Mamba ----
+    sp = _mamba_head_axis(cfg, mesh_cfg)
+    if name in ("z_proj", "x_proj"):
+        return g((None, sp), "ssm_col")
+    if name == "out_proj":
+        return g((sp, None), "ssm_row")
+    if name == "dt_proj":
+        return g((None, sp), "ssm_dt")
+    if name in ("b_proj", "c_proj"):
+        return (None, None)
+    if name == "conv_x":
+        return g((None, sp), "ssm_conv")
+    if name == "conv_x_bias":
+        return g((sp,), "ssm_conv_bias")
+    if name in ("conv_b", "conv_c"):
+        return (None, None)
+    if name in ("conv_b_bias", "conv_c_bias"):
+        return (None,)
+    if name in ("A_log", "D", "dt_bias"):
+        return g((sp,), "ssm_head_vec")
+    return rep  # fallback: replicate
+
+
+def _with_paths(tree, prefix: str = ""):
+    """(path, leaf) of every leaf of a port tree, in ``param_leaves``
+    order; paths ``/``-joined, list entries by index."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _with_paths(v, f"{prefix}/{k}")
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            yield from _with_paths(v, f"{prefix}/{i}")
+    else:
+        yield prefix, tree
+
+
+def _unflatten_like(tree, values):
+    it = iter(values)
+
+    def walk(t):
+        if isinstance(t, dict):
+            return {k: walk(v) for k, v in t.items()}
+        if isinstance(t, list):
+            return [walk(v) for v in t]
+        return next(it)
+    return walk(tree)
+
+
+def param_shapes(cfg: ModelConfig):
+    """The port's parameter tree of ``cfg`` on the meta device: every
+    leaf's shape and dtype, no values."""
+    from repro_torch.models.transformer import init_params
+    return init_params(cfg, torch.Generator(), device="meta")
+
+
+def param_specs(cfg: ModelConfig, mesh_cfg: MeshConfig,
+                notes: Optional[List[str]] = None, shapes=None):
+    """The spec of every leaf of the port's parameter tree (``shapes``: a
+    tree of tensors of the full shapes, by default ``param_shapes(cfg)``):
+    the same tree with a tuple of mesh axes (or ``None``) a dim, the
+    entries of the JAX package's ``param_specs`` without the
+    group-stacking dim."""
+    shapes = param_shapes(cfg) if shapes is None else shapes
+    return _unflatten_like(shapes, [
+        _leaf_rule(path, tuple(t.shape), cfg, mesh_cfg, notes)
+        for path, t in _with_paths(shapes)])
+
+
+def _bspec(mesh_cfg: MeshConfig) -> Axis:
+    axes = tuple(mesh_cfg.data_axes)
+    return axes if len(axes) > 1 else axes[0]
+
+
+def cache_specs(cfg: ModelConfig, mesh_cfg: MeshConfig, batch: int,
+                cache_shapes, notes: Optional[List[str]] = None):
+    """Specs of the decode cache (``cache_shapes``: the port's cache tree
+    of ``models.init_cache``, leaves with a ``shape``): the batch (slot)
+    dim over the data axes where they divide it, else the sequence or slot
+    dim (the long-context batch-1 case); KV heads, SSM heads and the
+    ``conv_x`` channels over the model axis (``guarded``), as the JAX
+    package's ``cache_specs`` without the group-stacking dim."""
+    b = _bspec(mesh_cfg)
+    m = mesh_cfg.model_axes[0]
+    batch_ok = batch % _axis_size(mesh_cfg, b) == 0
+    bb = b if batch_ok else None
+
+    def g(shape, axes, what):
+        return guarded(shape, axes, mesh_cfg, notes, what=what)
+
+    def classify(path: str, shape) -> Spec:
+        name = path.rsplit("/", 1)[-1]
+        if name in ("k", "v"):
+            if "/cross/" in path:  # cross K/V: (B, T, KV, hd)
+                return g(shape, (bb, None, m, None), "cross_cache")
+            if batch_ok:  # (B, slots, KV, hd)
+                return g(shape, (b, None, m, None), "kv_cache")
+            return g(shape, (None, b, m, None), "kv_cache_seqsharded")
+        if name in ("c", "k_rope"):  # (B, L, lora)
+            if batch_ok:
+                return g(shape, (b, None, None), "mla_cache")
+            return g(shape, (None, b, None), "mla_cache_seqsharded")
+        if name == "ssm":  # (B, H, P, N)
+            return g(shape, (bb, m, None, None), "ssm_cache")
+        if name in ("conv_x", "conv_b", "conv_c"):  # (B, K-1, C)
+            return g(shape, (bb, None, m if name == "conv_x" else None),
+                     "conv_cache")
+        return (None,) * len(shape)
+
+    return _unflatten_like(cache_shapes, [
+        classify(path, tuple(t.shape))
+        for path, t in _with_paths(cache_shapes)])
+
+
+@dataclass(frozen=True)
+class TPLayout:
+    """What ``param_specs`` splits over the model axis of a
+    tensor-parallel rank (``rank`` of ``tp``): the query heads (``wq``,
+    ``bq``, ``wo``), the KV heads (``wk``, ``wv``, ``bk``, ``bv``), the
+    dense FFN's hidden dim, the vocabulary (``embed``, ``lm_head``) and the
+    Mamba heads (``_mamba_head_axis``)."""
+
+    rank: int
+    tp: int
+    heads: bool
+    kv: bool
+    ffn: bool
+    vocab: bool
+    ssm: bool
+
+    def block(self, n: int) -> Tuple[int, int]:
+        """[lo, hi): this rank's block of a dim of ``n`` split tp ways."""
+        return self.rank * (n // self.tp), (self.rank + 1) * (n // self.tp)
+
+
+def tp_layout(cfg: ModelConfig, ctx: Optional[ParallelCtx]
+              ) -> Optional[TPLayout]:
+    """The layout of a tensor-parallel ``ctx`` (``None`` without one):
+    each flag what ``guarded`` decides for the leaves it names."""
+    if ctx is None or not ctx.tensor_parallel:
+        return None
+    tp = ctx.tp
+    return TPLayout(
+        rank=ctx.model_rank, tp=tp,
+        heads=cfg.num_heads > 0 and cfg.num_heads % tp == 0,
+        kv=cfg.num_kv_heads > 0 and cfg.num_kv_heads % tp == 0,
+        ffn=cfg.d_ff > 0 and cfg.d_ff % tp == 0,
+        vocab=cfg.padded_vocab % tp == 0,
+        ssm=bool(cfg.ssm_num_heads) and cfg.ssm_num_heads % tp == 0)
+
+
+def _tp_mesh(tp: int, axis: str) -> MeshConfig:
+    """A mesh whose model axis ``axis`` has ``tp`` ranks: all the rules of
+    a tensor-parallel rank read (they put no leaf on a data axis)."""
+    return MeshConfig(shape=(1, tp), axis_names=("data", axis),
+                      model_axes=(axis,))
+
+
+def tp_dim(path: str, shape, cfg: ModelConfig, ctx: ParallelCtx
+           ) -> Optional[int]:
+    """The dim of the leaf at ``path`` (full ``shape``) that a
+    tensor-parallel ``ctx`` splits, or ``None``."""
+    spec = _leaf_rule(path, tuple(shape), cfg,
+                      _tp_mesh(ctx.tp, ctx.model_axis), None)
+    return next((i for i, ax in enumerate(spec) if ax == ctx.model_axis),
+                None)
+
+
+def tp_dims(cfg: ModelConfig, ctx: ParallelCtx) -> dict:
+    """``tp_dim`` of every leaf of the port's parameter tree, by path
+    (kept per config and model axis: the meta tree of a full-size config
+    takes a second to build)."""
+    return _tp_dims(cfg, ctx.tp, ctx.model_axis)
+
+
+@functools.lru_cache(maxsize=16)
+def _tp_dims(cfg: ModelConfig, tp: int, axis: str) -> dict:
+    ctx = ParallelCtx(tp=tp, model_axis=axis)
+    return {path: tp_dim(path, t.shape, cfg, ctx)
+            for path, t in _with_paths(param_shapes(cfg))}
+
+
+def tp_cut(path: str, w: torch.Tensor, cfg: ModelConfig,
+           ctx: ParallelCtx) -> torch.Tensor:
+    """This model rank's block of the full leaf ``w`` at ``path`` (a
+    contiguous copy), or ``w`` itself where the leaf is replicated."""
+    dim = tp_dim(path, w.shape, cfg, ctx)
+    if dim is None:
+        return w
+    n = w.shape[dim] // ctx.tp
+    return w.narrow(dim, ctx.model_rank * n, n).clone(
+        memory_format=torch.contiguous_format)
 
 
 # ---------------------------------------------------------------------------
@@ -200,10 +531,36 @@ def expert_shard(name: str, w: torch.Tensor, ctx: ParallelCtx
     return ffn_slice(name, w[lo:hi], ctx)
 
 
-def shard_params(params, ctx: Optional[ParallelCtx]):
-    """The tree with each expert weight replaced by this rank's part
-    (``expert_shard``); every other leaf is the same tensor.  Without
-    sharded experts the tree itself."""
+def model_flags(params, ctx: Optional[ParallelCtx],
+                cfg: Optional[ModelConfig] = None) -> List[bool]:
+    """One flag a leaf of this rank's parameter tree (or m or v), in
+    ``param_leaves`` order: set where the leaf is this rank's part of a
+    leaf split over the model axis (the experts under expert parallelism,
+    ``expert_flags``; the leaves ``param_specs`` puts on the model axis
+    under tensor parallelism).  The other leaves are the same on every
+    model rank."""
+    if ctx is not None and ctx.tensor_parallel:
+        dims = tp_dims(cfg, ctx)
+        return [dims[path] is not None for path, _ in _with_paths(params)]
+    if sharded_experts(ctx):
+        return expert_flags(params)
+    return [False] * sum(1 for _ in _with_paths(params))
+
+
+def shard_params(params, ctx: Optional[ParallelCtx],
+                 cfg: Optional[ModelConfig] = None):
+    """The tree with each leaf that ``ctx`` splits replaced by this rank's
+    part: each expert weight by ``expert_shard``; under tensor parallelism
+    (which needs ``cfg``) each leaf that ``param_specs`` puts on the model
+    axis by its block (``tp_cut``).  Every other leaf is the same tensor.
+    Without either, the tree itself."""
+    if ctx is not None and ctx.tensor_parallel:
+        if cfg is None:
+            raise ValueError("shard_params: tensor parallelism needs the "
+                             "config")
+        check_tensor_parallel(cfg)
+        return _unflatten_like(params, [
+            tp_cut(path, t, cfg, ctx) for path, t in _with_paths(params)])
     if not sharded_experts(ctx):
         return params
     if isinstance(params, list):
@@ -215,11 +572,24 @@ def shard_params(params, ctx: Optional[ParallelCtx]):
             else shard_params(v, ctx) for k, v in params.items()}
 
 
-def gather_params(params, ctx: Optional[ParallelCtx]):
-    """The inverse of ``shard_params``: each expert weight gathered from
-    the ranks that hold its parts (the model group, and weight-stationary
-    the data group), every other leaf the same tensor.  Every rank calls
-    it and gets the full tree."""
+def gather_params(params, ctx: Optional[ParallelCtx],
+                  cfg: Optional[ModelConfig] = None):
+    """The inverse of ``shard_params``: each split leaf gathered from the
+    ranks that hold its parts (the model group, and for weight-stationary
+    experts the data group), every other leaf the same tensor.  Every rank
+    calls it and gets the full tree."""
+    if ctx is not None and ctx.tensor_parallel:
+        if cfg is None:
+            raise ValueError("gather_params: tensor parallelism needs the "
+                             "config")
+        dims = tp_dims(cfg, ctx)
+        out = []
+        for path, t in _with_paths(params):
+            if dims[path] is not None:
+                got = prim.ring_all_gather(t.contiguous(), ctx.model_group)
+                t = torch.cat(got.unbind(0), dim=dims[path])
+            out.append(t)
+        return _unflatten_like(params, out)
     if not sharded_experts(ctx):
         return params
     if isinstance(params, list):

@@ -21,6 +21,7 @@ import torch
 
 from repro_torch.core.types import ModelConfig
 from repro_torch.models.transformer import decode_step, init_cache
+from repro_torch.serve.step import full_logits
 
 
 @dataclasses.dataclass
@@ -40,8 +41,9 @@ class Request:
 class ContinuousBatcher:
     def __init__(self, cfg: ModelConfig, params, max_slots: int,
                  max_len: int, context=None, temperature: float = 0.0,
-                 seed: int = 0, cache_dtype=torch.float32):
+                 seed: int = 0, cache_dtype=torch.float32, ctx=None):
         self.cfg = cfg
+        self.ctx = ctx
         self.params = params
         self.max_slots = max_slots
         self.max_len = max_len
@@ -107,8 +109,9 @@ class ContinuousBatcher:
         pos = torch.from_numpy(np.minimum(self.pos, self.max_len - 1))
         logits, self.cache = decode_step(
             self.cfg, self.params, self.cache,
-            torch.from_numpy(tokens).to(self.device), pos.to(self.device))
-        last = logits[:, 0, :]
+            torch.from_numpy(tokens).to(self.device), pos.to(self.device),
+            ctx=self.ctx)
+        last = full_logits(self.cfg, logits, self.ctx)[:, 0, :]
         if self.temperature > 0:
             probs = torch.softmax(last.float() / self.temperature, dim=-1)
             nxt = torch.multinomial(probs, 1, generator=self.generator)[:, 0]

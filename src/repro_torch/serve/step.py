@@ -1,6 +1,9 @@
 """Serving: prefill + batched single-token decode against the KV cache.
 
-Port of ``repro.serve.step``."""
+Port of ``repro.serve.step``.  Under tensor parallelism the model returns
+each rank's block of the vocabulary; both entry points gather the logits
+over the model ranks (``full_logits``), so that every rank returns all of
+them and picks the same token."""
 from __future__ import annotations
 
 from typing import Callable, Optional
@@ -9,6 +12,18 @@ import torch
 
 from repro_torch.core.types import ModelConfig
 from repro_torch.models.transformer import decode_step, forward
+from repro_torch.parallel.planner import tp_layout
+from repro_torch.parallel.tensor import gather_vocab
+
+
+def full_logits(cfg: ModelConfig, logits: torch.Tensor, ctx=None
+                ) -> torch.Tensor:
+    """The logits over the whole vocabulary: a tensor-parallel rank's
+    block gathered from the model ranks (the same bits on every rank),
+    else ``logits`` itself."""
+    lay = tp_layout(cfg, ctx)
+    return gather_vocab(logits, ctx) if lay is not None and lay.vocab \
+        else logits
 
 
 def make_serve_step(cfg: ModelConfig, ctx=None,
@@ -20,11 +35,15 @@ def make_serve_step(cfg: ModelConfig, ctx=None,
     Greedy argmax at temperature 0; otherwise a sample from
     softmax(logits / temperature) drawn with ``generator``.  ``ctx``: an
     expert-parallel ``parallel.ParallelCtx`` (``decode_step``): every rank
-    of its mesh calls the step on its tokens and cache."""
+    of its mesh calls the step on its tokens and cache; a tensor-parallel
+    one: every rank calls it on the same tokens and its cache, the logits
+    are gathered (``full_logits``) and, with the generators of the ranks
+    seeded alike, every rank draws the same token."""
 
     def serve_step(params, cache, tokens, pos, generator=None):
         logits, cache = decode_step(cfg, params, cache, tokens, pos,
                                     ctx=ctx, window=window)
+        logits = full_logits(cfg, logits, ctx)
         last = logits[:, -1, :]
         if temperature > 0.0:
             probs = torch.softmax(last.float() / temperature, dim=-1)
@@ -49,11 +68,12 @@ def make_prefill(cfg: ModelConfig, ctx=None,
     cache-exact).  ``ctx``: an
     expert-parallel context runs the MoE layers through ``moe_ep_train``
     (each rank its data shard of the prompts, the sequence split over the
-    model axis inside the layer)."""
+    model axis inside the layer); a tensor-parallel one runs every rank on
+    the same prompts and returns the gathered logits (``full_logits``)."""
 
     def prefill(params, tokens, context=None):
         logits, _ = forward(cfg, params, tokens, context=context,
                             window=window, ctx=ctx)
-        return logits
+        return full_logits(cfg, logits, ctx)
 
     return prefill

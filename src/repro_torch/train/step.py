@@ -38,6 +38,16 @@ over those rows, so the sync runs over the data group only (plain DP or
 ZeRO-1 alike), and the norm of the clip sums the experts' squares over
 the model ranks (``optim.global_norm``).  On the card it raises until K5
 has a backward kernel (ROADMAP item 4c).
+
+Tensor parallelism.  With a tensor-parallel context the ranks of one data
+index take the same rows and run the layers on their blocks
+(``parallel.tensor``); the loss is the vocabulary-parallel cross-entropy
+of the sharded logits, the same on every model rank, and the conjugate
+all-reduces leave every leaf's gradient complete on its rank: a block's
+for that block, a replicated leaf's whole.  So, as under expert
+parallelism, the sync runs over the data group only, on each rank's own
+leaves, and the clip's norm sums the blocks' squares over the model ranks
+(``parallel.model_flags``).
 """
 from __future__ import annotations
 
@@ -51,8 +61,9 @@ from repro_torch.core.tree import param_leaves, tree_map
 from repro_torch.models.transformer import encode, forward
 from repro_torch.optim.adamw import adamw_shard_update, adamw_update
 from repro_torch.optim.schedule import lr_schedule
-from repro_torch.parallel.planner import (ParallelCtx, expert_flags,
-                                          flat_layout, microbatch_rows)
+from repro_torch.parallel.planner import (ParallelCtx, flat_layout,
+                                          microbatch_rows, model_flags,
+                                          tp_layout)
 from repro_torch.train.loss import cross_entropy
 
 GradHook = Callable[[str, Any], None]
@@ -97,14 +108,16 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
     nmb = max(1, tcfg.microbatches)
     dp = ctx.dp if ctx is not None else 1
     zero1 = dp > 1 and tcfg.zero1
-    ep = ctx is not None and ctx.use_ep and ctx.tp > 1
+    split = ctx is not None and ctx.tp > 1
+    lay = tp_layout(cfg, ctx)
+    vocab_ctx = ctx if lay is not None and lay.vocab else None
 
     def grads_of(p, leaves, tokens, labels, context, count):
         if cfg.is_encoder_decoder:
             context = encode(cfg, p, context, remat=remat)
         logits, aux = forward(cfg, p, tokens, context=context, remat=remat,
                               ctx=ctx)
-        ce = cross_entropy(logits, labels, count=count)
+        ce = cross_entropy(logits, labels, count=count, ctx=vocab_ctx)
         aux = aux / dp
         loss = ce + cfg.router_aux_loss * aux
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
@@ -125,7 +138,7 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
                 "an expert-parallel training step on the card: K5 "
                 "(moe_gmm) has no backward kernel yet (ROADMAP item 4c); "
                 "it trains on CPU tensors")
-        expert = expert_flags(params) if ep else None
+        sharded = model_flags(params, ctx, cfg) if split else None
         tokens, labels = _on(batch["tokens"], device), \
             _on(batch["labels"], device)
         context = batch.get("context")
@@ -168,7 +181,7 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
         lr = lr_schedule(opt_state["step"], tcfg)
         if zero1:
             params, opt_state, opt_metrics = _zero1_update(
-                params, grads, opt_state, tcfg, lr, ctx, grad_hook, expert)
+                params, grads, opt_state, tcfg, lr, ctx, grad_hook, sharded)
         else:
             if dp > 1:
                 layout = flat_layout(grads, ctx)
@@ -180,7 +193,7 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
             if grad_hook is not None:
                 grad_hook("synced", grads)
             params, opt_state, opt_metrics = adamw_update(
-                params, grads, opt_state, tcfg, lr, ctx, expert)
+                params, grads, opt_state, tcfg, lr, ctx, sharded)
         metrics = {"ce": ce, "aux": aux, "loss": loss, "lr": lr,
                    **opt_metrics}
         return params, opt_state, metrics
@@ -189,11 +202,12 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
 
 
 def _zero1_update(params, grads, opt_state, tcfg, lr, ctx, grad_hook,
-                  expert=None):
+                  sharded=None):
     """Reduce-scatter the gradient, AdamW on this rank's shard, all-gather
     the updated parameters into every rank's ``params`` (in place).
-    ``expert``: the flags of this model rank's expert leaves, whose
-    squares the clip's norm sums over the model ranks."""
+    ``sharded``: the flags of this model rank's leaves split over the
+    model axis, whose squares the clip's norm sums over the model
+    ranks."""
     flat_p = list(param_leaves(params))
     layout = flat_layout(flat_p, ctx)
     flat_g = layout.flatten(grads)
@@ -206,7 +220,7 @@ def _zero1_update(params, grads, opt_state, tcfg, lr, ctx, grad_hook,
         p_shard = layout.shard(layout.flatten(flat_p, torch.float32))
     new, opt_state, opt_metrics = adamw_shard_update(
         p_shard, g_shard, opt_state, tcfg, lr, ctx,
-        layout.shard_ranges(expert) if expert is not None else ())
+        layout.shard_ranges(sharded) if sharded is not None else ())
     del p_shard, g_shard
     # the wire carries the parameters' dtype where they share one
     dtypes = {p.dtype for p in flat_p}

@@ -1,6 +1,7 @@
 """The port on the card: each CUDA kernel against its plain version, the
-model's prefill and the codecs on the card against the same on the CPU, and
-a quantized ring over gloo with CUDA tensors.
+model's prefill and the codecs on the card against the same on the CPU, a
+quantized ring over gloo with CUDA tensors, and the data-, expert- and
+tensor-parallel steps over gloo ranks sharing the card.
 
 Every test here is marked ``cuda`` and skips where there is no card.  The
 file imports no jax, so it also runs where jax is not installed:
@@ -38,6 +39,8 @@ from repro_torch.serve import make_prefill
 from torch_ccl_ranks import compressed_ring_emulation, ring_q8_on_card
 from torch_dp_ranks import dp_on_card, update_errors
 from torch_ep_ranks import card_tokens, ep_on_card
+from torch_tp_ranks import card_tokens as tp_card_tokens
+from torch_tp_ranks import tp_on_card
 from torch_context import open_gates, stub_context
 
 pytestmark = pytest.mark.cuda
@@ -882,3 +885,99 @@ def test_ep_training_on_card_raises(cuda):
                         ParallelCtx(use_ep=True, remat=False))(
             params, init_opt_state(params), batch)
     assert launch_counts() == before
+
+
+# the local heads of tensor parallelism at tp 4 (B 2 x S 256): granite-3-8b
+# (8 of 32 query heads, 2 of 8 KV heads, D 128), starcoder2-3b's mixed case
+# (6 of 24 query heads reading 1 of its 2 KV heads, a slice of the
+# projected K/V), mamba2-130m's SSD scan (6 of 24 heads)
+TP_ATTN_SHAPES = [((2, 8, 2, 256, 256, 128), None),
+                  ((2, 6, 2, 256, 256, 128), slice(0, 1))]
+TP_SSD_SHAPE = (2, 6, 256, 64, 128, 256)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,sel", TP_ATTN_SHAPES)
+def test_kernel_on_tp_local_heads(cuda, shape, sel, dtype):
+    """K1 on a tensor-parallel rank's heads, on the model's (B,S,H,D)
+    tensors as views; where the KV heads do not split, K and V are a head
+    slice of the projected (B,S,KV,D) tensors: the kernel reads them
+    through their strides and gives the contiguous inputs' result."""
+    b, h, kv, s, _, d = shape
+    rng = np.random.default_rng(sum(shape))
+    q, k, v = (torch.from_numpy(rng.standard_normal(sh, dtype=np.float32))
+               .to(cuda, dtype)
+               for sh in ((b, s, h, d), (b, s, kv, d), (b, s, kv, d)))
+    if sel is not None:
+        k, v = k[:, :, sel], v[:, :, sel]
+    q, k, v = (t.transpose(1, 2) for t in (q, k, v))
+    before = flash_attention.launches
+    out = flash_attention(q, k, v, causal=True)
+    ref = attention_ref(q.contiguous(), k.contiguous(), v.contiguous(),
+                        causal=True)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    np.testing.assert_allclose(out.float().cpu().numpy(),
+                               ref.float().cpu().numpy(), **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_scan_on_tp_local_heads(cuda, dtype):
+    """K6 on a tensor-parallel rank's 6 of mamba2's 24 heads, its x a head
+    block of the (B,L,H,P) projection, as the model passes it."""
+    b, h, l, p, n, chunk = TP_SSD_SHAPE
+    rng = np.random.default_rng(sum(TP_SSD_SHAPE))
+
+    def mk(*s, scale=1.0):
+        return torch.from_numpy(rng.standard_normal(s, dtype=np.float32)
+                                * scale).to(cuda)
+
+    x = mk(b, l, h, p, scale=0.5).to(dtype).permute(0, 2, 1, 3)
+    dt = torch.nn.functional.softplus(mk(b, l, h)).permute(0, 2, 1)
+    a = -torch.linspace(1.0, 16.0, 4 * h, device=cuda)[h:2 * h]  # rank 1
+    bb, cc = mk(b, l, n, scale=0.3).to(dtype), mk(b, l, n, scale=0.3).to(dtype)
+    before = ssd_scan.launches
+    out = ssd_scan(x, dt, a, bb, cc, chunk=chunk)
+    ref = ssd_scan_ref(x, dt, a, bb, cc, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ssd_scan.launches == before + SSD_LAUNCHES
+    scale = max(float(ref.float().abs().max()), 1.0)
+    np.testing.assert_allclose(
+        out.float().cpu().numpy() / scale, ref.float().cpu().numpy() / scale,
+        **(dict(atol=3e-2, rtol=3e-2) if dtype == torch.bfloat16
+           else dict(atol=3e-5, rtol=0.0)))
+
+
+@pytest.mark.parametrize("mesh", [(1, 2), (1, 4)], ids=["1x2", "1x4"])
+def test_tp_on_card_matches_cpu_step(cuda, mesh):
+    """granite's smoke config on tensor-parallel gloo ranks sharing the
+    card (at tp 2 its KV heads split, at tp 4 only its query heads): the
+    gathered prefill logits within LOGIT_TOL of the single-rank CPU
+    forward, one f32 step's loss and grad_norm within 1e-5 and the
+    gathered parameters and first moments within TOL of the single-rank
+    CPU step (as test_train_step_on_card_matches_cpu); each rank launches
+    K1 once a layer in the prefill and a step's ``train_launches``."""
+    arch = "granite-3-8b"
+    build_kernels()
+    world = mesh[0] * mesh[1]
+    ranks = spawn_ranks(tp_on_card, world, arch, mesh, 0, timeout_s=300)
+    cfg = smoke_config(arch)
+    params = init_params(cfg, torch.Generator().manual_seed(0),
+                         device="cpu")
+    tokens = tp_card_tokens(cfg)
+    with torch.no_grad():
+        want, _ = forward(cfg, params, tokens)
+    params, opt, m = make_train_step(cfg, TrainConfig(remat=False))(
+        params, init_opt_state(params),
+        {"tokens": tokens, "labels": torch.roll(tokens, -1, 1)})
+    for r in ranks:
+        assert r["device"] == "cuda:0"
+        np.testing.assert_allclose(r["logits"], want.numpy(), **LOGIT_TOL)
+        assert r["prefill_launches"] == {"flash_attention": cfg.num_layers}
+        assert r["step_launches"] == train_launches(cfg, 1, False, 64)
+        for k in ("loss", "grad_norm"):
+            assert r["metrics"][k] == pytest.approx(float(m[k]), rel=1e-5)
+        for got, tree in ((r["params"], params), (r["m"], opt["m"])):
+            for a, b in zip(got, param_leaves(tree)):
+                np.testing.assert_allclose(a, b.numpy(),
+                                           **TOL[torch.float32])

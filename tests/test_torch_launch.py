@@ -1,9 +1,10 @@
 """The port's training launcher (``python -m repro_torch.launch.train``) on
 the CPU, through ``run(argv)``: one process against 2 gloo ranks (ZeRO-1),
 the JAX launcher's line format, its checkpoint, expert parallelism on a
-data x model mesh against the JAX package's step, and the refusals (no
-card for the default ``--device cuda``; a model axis for a dense
-architecture)."""
+data x model mesh against the JAX package's step, tensor parallelism on
+one against the launcher's own single-rank run, and the refusals (no card
+for the default ``--device cuda``; a model axis for an architecture whose
+tensor parallelism waits for ROADMAP item 8b)."""
 import concurrent.futures
 import json
 import re
@@ -111,8 +112,53 @@ def test_default_device_needs_a_card():
 
 
 def test_model_axis_raises():
-    with pytest.raises(NotImplementedError, match="item 8"):
-        run(SMOKE + ["--devices", "4", "--model-axis", "2"])
+    """A model axis for cross-attention or an encoder (dense configs, so
+    tensor parallelism) raises before any rank starts: ROADMAP item 8b."""
+    for arch in ("llama-3.2-vision-90b", "seamless-m4t-medium"):
+        with pytest.raises(NotImplementedError, match="item 8"):
+            run(SMOKE + ["--arch", arch, "--devices", "4",
+                         "--model-axis", "2"])
+
+
+def test_model_axis_runs_tensor_parallel(tmp_path):
+    """granite's smoke config on ``--devices 4 --model-axis 2``: a (2, 2)
+    mesh whose model axis splits the layers (tensor parallelism), three
+    steps whose losses are the launcher's own on one rank (the JAX
+    launcher's mesh fails on jax 0.9, R5; the step itself is held against
+    JAX's in tests/test_torch_tp.py); every rank ends with the same
+    gathered parameters; the checkpoint holds every leaf whole in the JAX
+    layout, restores whole and into a model rank's blocks."""
+    from repro_torch.parallel.planner import tp_cut, _with_paths
+    base = SMOKE[:3] + ["--arch", "granite-3-8b", "--steps", "3",
+                        "--batch", "8", "--seq", "32", "--log-every", "1"]
+    one = run(base)
+    got = run(base + ["--devices", "4", "--model-axis", "2", "--ckpt-dir",
+                      str(tmp_path)])
+    for a, b in zip(got["ranks"][0]["steps"], one["ranks"][0]["steps"]):
+        assert a["loss"] == pytest.approx(b["loss"], rel=1e-5)
+        assert a["grad_norm"] == pytest.approx(b["grad_norm"], rel=1e-5)
+    assert got["lines"][0] == "mesh: {'data': 2, 'model': 2}"
+    assert got["lines"][1] == one["lines"][0]
+    assert len({json.dumps(r["checksums"]) for r in got["ranks"]}) == 1
+    assert all(s["wire_bytes"] > 0 for s in got["ranks"][0]["steps"])
+
+    cfg = smoke_config("granite-3-8b")
+    params = init_params(cfg, torch.Generator().manual_seed(0),
+                         device="cpu")
+    path = got["lines"][-1].split(": ", 1)[1]
+    whole, opt, step = restore_checkpoint(cfg, path, params,
+                                          init_opt_state(params))
+    assert step == 3
+    for name, tree in (("params", whole), ("m", opt["m"]), ("v", opt["v"])):
+        assert checksum(tree) == got["ranks"][0]["checksums"][name], name
+    ctx = ParallelCtx(use_ep=False, tp=2, model_rank=1)
+    shard, _, _ = restore_checkpoint(cfg, path, params, ctx=ctx)
+    split = 0
+    for (p, a), (_, b) in zip(_with_paths(shard), _with_paths(whole)):
+        want = tp_cut(p, b, cfg, ctx)
+        split += want.shape != b.shape
+        assert torch.equal(a, want), p
+    assert split > 0
 
 
 _JAX_EP_STEPS = """

@@ -29,7 +29,7 @@ from repro.models import init_params as jax_init_params
 from repro_torch.bridge import params_from_jax, params_to_jax_layout
 from repro_torch.configs import smoke_config
 from repro_torch.core.types import MeshConfig, TrainConfig
-from repro_torch.launch.mesh import check_model_axis, mesh_groups
+from repro_torch.launch.mesh import check_model_axis
 from repro_torch.launch.ranks import spawn_ranks
 from repro_torch.optim import init_opt_state
 from repro_torch.parallel import make_ctx
@@ -356,17 +356,19 @@ def test_ranks_identical_after_two_steps(runs, name):
 
 def test_model_axis_and_expert_parallel_raise():
     """A model axis > 1 runs the MoE layers expert-parallel
-    (tests/test_torch_moe_ep.py); without them it is tensor parallelism,
-    item 8 of the ROADMAP: the groups of a (2, 2) mesh without a config, a
-    dense config's model axis and a context of a model axis without expert
-    parallelism raise."""
+    (tests/test_torch_moe_ep.py) and the layers of a dense or SSM config
+    tensor-parallel (tests/test_torch_tp.py); for MLA, cross-attention
+    and the encoder tensor parallelism is ROADMAP item 8b: the mesh check
+    of such a config and a context of a model axis without expert
+    parallelism for it raise."""
     with pytest.raises(NotImplementedError, match="item 8"):
-        mesh_groups(MeshConfig((2, 2)))
+        check_model_axis(MeshConfig((2, 2)),
+                         smoke_config("llama-3.2-vision-90b"))
     with pytest.raises(NotImplementedError, match="item 8"):
-        check_model_axis(MeshConfig((2, 2)), smoke_config("qwen2-0.5b"))
-    with pytest.raises(NotImplementedError, match="item 8"):
-        make_ctx(None, MeshConfig((1, 2)), use_ep=False)
+        make_ctx(None, MeshConfig((1, 2)), use_ep=False,
+                 cfg=smoke_config("seamless-m4t-medium"))
     check_model_axis(MeshConfig((2, 2)), smoke_config("dbrx-132b"))
+    check_model_axis(MeshConfig((2, 2)), smoke_config("qwen2-0.5b"))
 
 
 def test_zero1_without_sharded_state_raises():
