@@ -28,6 +28,16 @@ exits non-zero:
      torch.profiler, beside the plain version, SDPA's backward through
      autograd (the backend named) and its bound, with K1's forward timed
      with and without the row statistics;
+   - K6's gradient K6-bwd (four launches a call, reading the forward's
+     workspace) at mamba2-130m's training microbatch (B 4 x L 512, H 24,
+     P 64, N 128, f32) and two odd shapes: each gradient within 5e-5 of
+     its scale of the plain version and of f64 autograd, two calls
+     bit-equal, each launch's device time; K5's gradient K5-bwd (two
+     launches, dx and dw) at dbrx-132b's training step (E 16, T 512, x
+     expanded; and the w_down product), an EP rank's dispatched (8, 160)
+     tokens and a sweep (E 160 among it), f32 and bf16, against the plain
+     version and (at the step) f64 autograd, beside ``torch.bmm`` of the
+     same two products;
    - quantize K2a and dequantize K2b (q and decode bit-equal, scales
      within rtol 1e-6; K2b also bit-equal to torch.mul on each of its
      variants vec16 / vec4 / scalar), sparsify K3 (bit-equal) and the
@@ -69,7 +79,14 @@ exits non-zero:
    make_train_step (2 microbatches, remat, bf16 gradient cast), 20 steps
    on one fixed batch of B 8 x S 512: losses finite and the last <= 0.9 x
    the first; step time, tokens/s, peak memory, one profiled step, and
-   the launches of a step against train_launches.
+   the launches of a step against train_launches.  Then the Mamba and MoE
+   families, whose steps run K6-bwd and K5-bwd: mamba2-130m whole, one
+   f32 step against the host's (loss and grad_norm within rtol 1e-5,
+   parameters and m within the f32 kernel tolerance) and 20 bf16 steps as
+   qwen2's; one dbrx-132b MoE layer at full width in f32 (B 1 x S 128),
+   the gradients of x and the three expert stacks through the kernels
+   against the plain version's; dbrx-132b at full width, 1 layer, 20 bf16
+   steps of B 2 x S 256 (one microbatch, no remat), checked as qwen2's.
 3c. data-parallel training, qwen2-0.5b at full width and depth, 4 gloo
    ranks sharing the card (the main process frees its tensors first):
    dp_parity, one f32 step of ZeRO-1 and one of plain DP on ``ring`` (B 8
@@ -104,7 +121,13 @@ exits non-zero:
    run's where its top-2 margin exceeds 8 bf16 ulps, K5 launches a rank
    equal to ``ep_launches`` a prefill and a step, the all-to-all wire
    bytes equal to their formula; ep_ws_decode (bf16, 4 layers, (2, 2)):
-   the same decode through ``moe_ep_decode_ws`` and ``moe_ep_decode``.
+   the same decode through ``moe_ep_decode_ws`` and ``moe_ep_decode``;
+   ep_training (2 gloo ranks, (1, 2)): dbrx's smoke config, one f32 step
+   against the single-card step through the plain emulation at capacity
+   1.25 (loss and grad_norm within rtol 1e-5), then dbrx-132b at full
+   width, 1 layer, 5 bf16 steps (the loss falls; wire bytes equal their
+   formula; launches a rank equal ``train_launches``; peak memory a
+   rank).
    Prefill ms, decode step p50/p99 (CUDA events), exchange seconds, wire
    and staged bytes and peak memory a rank; times are gloo over loopback.
 3e. tensor parallelism, 4 gloo ranks sharing the card, each drawing only
@@ -143,7 +166,7 @@ exits non-zero:
    ring and bidir_ring, and two buckets through the ATP schedule with and
    without q8; results against the sum of the four gradients (regenerated
    from their seeds) and across ranks.  Times are gloo over loopback.
-6. The kernels line (all eight kernels, launches from the path that runs
+6. The kernels line (all ten kernels, launches from the path that runs
    each, and by every path, the data-parallel ones summed over the
    ranks), the card's name and power limit, and last the line
    {"ok": true, "device": {...}}.
@@ -176,7 +199,7 @@ try:
     from repro_torch.ccl.synth import atp_schedule
     from repro_torch.compress import get_codec
     from repro_torch.compress.lowrank import _matrix_shape
-    from repro_torch.configs import get_config
+    from repro_torch.configs import get_config, smoke_config
     from repro_torch.kernels import (SOURCES, WRAPPERS, _build, launch_counts,
                                      reset_launch_counts)
     from repro_torch.kernels.compress import ops as cops
@@ -192,8 +215,15 @@ try:
                                                      flash_attention_stats)
     from repro_torch.kernels.flash_attention.ops import \
         LAUNCHES_PER_CALL as FA_BWD_LAUNCHES
-    from repro_torch.kernels.moe_gmm import moe_gmm, moe_gmm_ref
-    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_ref
+    from repro_torch.kernels.moe_gmm import (moe_gmm, moe_gmm_bwd,
+                                             moe_gmm_bwd_ref, moe_gmm_ref)
+    from repro_torch.kernels.moe_gmm.ops import \
+        BWD_LAUNCHES_PER_CALL as GMM_BWD_LAUNCHES
+    from repro_torch.kernels.ssd_scan import (ssd_scan, ssd_scan_bwd,
+                                              ssd_scan_bwd_ref, ssd_scan_ref,
+                                              ssd_scan_workspace)
+    from repro_torch.kernels.ssd_scan.ops import \
+        BWD_LAUNCHES_PER_CALL as SSD_BWD_LAUNCHES
     from repro_torch.launch import train as launch_train
     from repro_torch.launch.mesh import mesh_groups
     from repro_torch.launch.ranks import rank_device, spawn_ranks
@@ -264,10 +294,24 @@ KERNEL_INFO = {
         "source": "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan_fwd.cu",
         "replaces": "src/repro/kernels/ssd_scan/kernel.py:69",
     },
+    "ssd_scan_bwd": {
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan_bwd.cu",
+        "replaces": "none: the TPU kernel "
+                    "src/repro/kernels/ssd_scan/kernel.py:69 is "
+                    "forward-only",
+    },
     "moe_gmm": {
         "route": "cuda",
         "source": "src/repro_torch/kernels/moe_gmm/csrc/moe_gmm.cu",
         "replaces": "src/repro/kernels/moe_gmm/kernel.py:40",
+    },
+    "moe_gmm_bwd": {
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/moe_gmm/csrc/moe_gmm_bwd.cu",
+        "replaces": "none: the TPU kernel "
+                    "src/repro/kernels/moe_gmm/kernel.py:40 is "
+                    "forward-only",
     },
 }
 for _name, _line in (("quantize", 53), ("dequantize", 91), ("sparsify", 113),
@@ -1088,6 +1132,252 @@ def phase_gmm_kernel(rng) -> dict:
         del x, w
     return {"path": timings["decode"],
             **{k: v for k, v in timings.items() if k != "decode"}}
+
+
+# --------------------------------------------------------------------------
+# 2c'. the backward kernels of K6 and K5 against their plain versions
+# --------------------------------------------------------------------------
+
+# (B, H, L, P, N): mamba2-130m's training microbatch (B 8 x S 512 in 2,
+# H 24, P 64, N 128, the model's chunk 256), a ragged L with P 128, and N
+# 16 at P 32 over several chunks
+SSD_BWD_PATH_SHAPE = (4, 24, 512, 64, 128)
+_SSD_BWD_SWEEP = [(1, 3, 200, 128, 64), (2, 4, 320, 32, 16),
+                  SSD_BWD_PATH_SHAPE]
+SSD_MODEL_CHUNK = 256
+# the backward's four launches, by the names the profiler gives them
+SSD_BWD_STAGES = ("dstate_kernel", "carry_kernel", "chunk_grad_kernel",
+                  "reduce_kernel")
+# |err| / max(|ref|, 1) of each gradient: the SSD pieces' 5e-5
+SSD_BWD_TOL = 5e-5
+
+
+def ssd_bwd_bound(b, h, l, p, n):
+    """Least time (ms) of the scan's gradient: its inputs (x, dt, a, b,
+    c, dy) read once and its outputs (dx, ddt, da, db, dc) written once
+    over HBM, against the least operations at the f32 peak of the CUDA
+    cores: the recurrence's gradient, whose two P x N products a row and
+    head (the state's update and its read) each take two of the same size
+    backward, 8PN, plus 4(N + P) for the rest."""
+    flops = b * h * l * (8 * p * n + 4 * (n + p))
+    nbytes = 4 * (2 * (2 * b * h * l * p + b * h * l + 2 * b * l * n + h)
+                  - b * h * l * p)
+    return _bound(nbytes, flops, PEAK_F32_FLOPS)
+
+
+def _ssd_bwd_args(rng, shape):
+    """The model's layouts and decays (``_ssd_inputs``, f32) and dy as
+    autograd hands it back through the model's permute."""
+    b, h, l, p, n = shape
+    x, dt, a, bb, cc = _ssd_inputs(rng, b, h, l, p, n, torch.float32, True)
+    dy = torch.from_numpy(rng.standard_normal((b, l, h, p), dtype=np.float32)
+                          ).to(DEVICE).permute(0, 2, 1, 3)
+    return x, dt, a, bb, cc, dy
+
+
+def _scaled_err(got, want) -> float:
+    return float((got.double() - want.double()).abs().max()) / max(
+        float(want.double().abs().max()), 1.0)
+
+
+def phase_ssd_bwd_kernel(rng) -> dict:
+    """K6-bwd (four launches reading the forward's workspace) against its
+    plain version at the kernel's chunk of 64 and against f64 autograd of
+    the plain forward at the model's chunk, each gradient within
+    ``SSD_BWD_TOL`` of its scale; two calls bit-equal; timed at mamba2's
+    training microbatch."""
+    names = ("dx", "ddt", "da", "db", "dc")
+    path_err = None
+    for shape in _SSD_BWD_SWEEP:
+        args = _ssd_bwd_args(rng, shape)
+        _, work = ssd_scan_workspace(*args[:5])
+        before = ssd_scan_bwd.launches
+        got = ssd_scan_bwd(*args, workspace=work)
+        again = ssd_scan_bwd(*args, workspace=work)
+        torch.cuda.synchronize()
+        per_call = (ssd_scan_bwd.launches - before) // 2
+        want = ssd_scan_bwd_ref(*args, chunk=SSD_KERNEL_CHUNK)
+        ins = [t.double().requires_grad_(True) for t in args[:5]]
+        l = shape[2]
+        exact = torch.autograd.grad(
+            ssd_scan_ref(*ins, chunk=SSD_MODEL_CHUNK if
+                         l % SSD_MODEL_CHUNK == 0 else l), ins,
+            args[5].double())
+        errs = {k: {"plain": _scaled_err(g, w), "f64": _scaled_err(g, t)}
+                for k, g, w, t in zip(names, got, want, exact)}
+        max_abs = max(float((g - w).abs().max()) for g, w in zip(got, want))
+        bitwise = all(torch.equal(g, h) for g, h in zip(got, again))
+        finite = all(bool(torch.isfinite(g).all()) for g in got)
+        worst = max(max(e.values()) for e in errs.values())
+        emit({"phase": "kernel_check", "kernel": "ssd_scan_bwd",
+              "shape": list(shape), "dtype": "float32",
+              "scaled_err": errs, "max_abs_err": max_abs,
+              "tol": {"scaled": SSD_BWD_TOL, "scaled_by": "max(|ref|, 1)"},
+              "bit_equal_calls": bitwise, "launches_per_call": per_call,
+              "finite": finite})
+        check(finite and worst <= SSD_BWD_TOL,
+              f"ssd_scan_bwd disagrees at {shape}: {errs}")
+        check(bitwise, f"ssd_scan_bwd: two calls differ at {shape}")
+        check(per_call == SSD_BWD_LAUNCHES,
+              f"ssd_scan_bwd launched {per_call} kernels a call, not "
+              f"{SSD_BWD_LAUNCHES}")
+        if shape == SSD_BWD_PATH_SHAPE:
+            path_err = max_abs
+        del args, work, got, again, want, ins, exact
+
+    args = _ssd_bwd_args(rng, SSD_BWD_PATH_SHAPE)
+    _, work = ssd_scan_workspace(*args[:5])
+
+    def kernel():
+        return ssd_scan_bwd(*args, workspace=work)
+
+    bound_ms, bound_by = ssd_bwd_bound(*SSD_BWD_PATH_SHAPE)
+    timing = {"shape": list(SSD_BWD_PATH_SHAPE), "dtype": "float32",
+              "ms": cuda_ms(kernel, 20), "graph_ms": graph_ms(kernel, 10),
+              "launches_per_call": SSD_BWD_LAUNCHES,
+              "stage_ms": stage_ms(kernel, 10, SSD_BWD_STAGES),
+              "forward_ms": cuda_ms(lambda: ssd_scan_workspace(*args[:5]),
+                                    20),
+              "plain_ms": cuda_ms(lambda: ssd_scan_bwd_ref(
+                  *args, chunk=SSD_KERNEL_CHUNK), 5),
+              "library_ms": None,  # no single PyTorch call
+              "bound_ms": bound_ms, "bound_by": bound_by,
+              "max_abs_err": path_err}
+    emit({"phase": "kernel_time", "kernel": "ssd_scan_bwd", **timing})
+    return {"path": timing}
+
+
+# (E, C, d, f, x expanded): dbrx-132b's training step at B 2 x S 256 (gate
+# and up on the tokens every expert reads; down on the (E, T, f)
+# activations), an expert-parallel rank's dispatched tokens at (1, 2) (8
+# experts, tp x capacity = 2 x 80 rows), and a sweep of odd shapes
+GMM_BWD_PATH = (16, 512, 6144, 10752, True)
+GMM_BWD_DOWN = (16, 512, 10752, 6144, False)
+GMM_BWD_EP = (8, 160, 6144, 10752, False)
+_GMM_BWD_SWEEP = [(3, 77, 100, 60, True), (4, 256, 512, 384, False),
+                  (160, 8, 64, 48, True), (2, 63, 200, 1000, False)]
+
+
+def gmm_bwd_bound(e, c, d, f, expand, dtype):
+    """Least time (ms) of the two products: x (once, also when expanded),
+    w and dy read and dx and dw written once over HBM, against 4 E C d f
+    operations at the peak for the dtype."""
+    size = torch.tensor([], dtype=dtype).element_size()
+    xs = (1 if expand else e) * c * d
+    nbytes = size * (2 * xs + 2 * e * d * f + e * c * f)
+    return _bound(nbytes, 4 * e * c * d * f,
+                  PEAK_BF16_FLOPS if dtype == torch.bfloat16
+                  else PEAK_F32_FLOPS)
+
+
+def _gmm_bwd_inputs(rng, gen, e, c, d, f, expand, dtype):
+    """x from numpy ((C, d) where expanded), w at the model's scale drawn
+    on the card, dy standard normal."""
+    x = torch.from_numpy(rng.standard_normal((c, d) if expand else (e, c, d),
+                                             dtype=np.float32)).to(DEVICE,
+                                                                   dtype)
+    w = (torch.randn((e, d, f), device=DEVICE, generator=gen)
+         * d ** -0.5).to(dtype)
+    dy = torch.randn((e, c, f), device=DEVICE, generator=gen).to(dtype)
+    return x, w, dy
+
+
+def phase_gmm_bwd_kernel(rng) -> dict:
+    """K5-bwd (two launches: dx, dw) against its plain version (f32
+    accumulation, cast) and, at the path shape, against f64 autograd of
+    ``moe_gmm_ref``, scaled by max(|ref|, 1) within KERNEL_TOL; two calls
+    bit-equal; timed at the path shapes beside the plain version and
+    ``torch.bmm`` computing the same two products (dx per expert, not
+    summed; the library yardstick, never called by the port)."""
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 3)
+    cases = [(s, dt) for dt in (torch.float32, torch.bfloat16)
+             for s in _GMM_BWD_SWEEP]
+    cases += [(GMM_BWD_PATH, torch.bfloat16), (GMM_BWD_DOWN, torch.bfloat16),
+              (GMM_BWD_EP, torch.bfloat16)]
+    errs = {}
+    for shape, dtype in cases:
+        e, c, d, f, expand = shape
+        x, w, dy = _gmm_bwd_inputs(rng, gen, *shape, dtype)
+        before = moe_gmm_bwd.launches
+        got = moe_gmm_bwd(x, w, dy, expanded=expand)
+        again = moe_gmm_bwd(x, w, dy, expanded=expand)
+        torch.cuda.synchronize()
+        per_call = (moe_gmm_bwd.launches - before) // 2
+        bitwise = all(torch.equal(g, h) for g, h in zip(got, again))
+        del again
+        refs = {"plain": moe_gmm_bwd_ref(x, w, dy, expanded=expand)}
+        if shape == GMM_BWD_PATH:
+            xi = x.double().requires_grad_(True)
+            wi = w.double().requires_grad_(True)
+            refs["f64"] = torch.autograd.grad(
+                moe_gmm_ref(xi, wi, expanded=expand), (xi, wi),
+                dy.double())
+            del xi, wi
+        tol = KERNEL_TOL[dtype]
+        report, ok = {}, True
+        for name, want in refs.items():
+            for k, g, r in zip(("dx", "dw"), got, want):
+                scale = max(float(r.abs().max()), 1.0)
+                err = (g.double() - r.double()).abs() / scale
+                bad = int((err > tol["atol"] + tol["rtol"]
+                           * r.double().abs() / scale).sum())
+                report[f"{k}_{name}"] = {"max_scaled_err": float(err.max()),
+                                         "mismatches": bad}
+                ok = ok and bad == 0
+                del err
+        max_abs = max(float((g.float() - r.float()).abs().max())
+                      for g, r in zip(got, refs["plain"]))
+        finite = all(bool(torch.isfinite(g.float()).all()) for g in got)
+        errs[(shape, dtype)] = max_abs
+        emit({"phase": "kernel_check", "kernel": "moe_gmm_bwd",
+              "shape": list(shape[:4]), "x_expert_stride_0": expand,
+              "dtype": str(dtype).split(".")[-1], "errors": report,
+              "max_abs_err": max_abs, "tol": {**tol,
+                                              "scaled_by": "max(|ref|, 1)"},
+              "bit_equal_calls": bitwise, "launches_per_call": per_call,
+              "finite": finite})
+        check(finite and ok, f"moe_gmm_bwd disagrees at {shape} {dtype}: "
+                             f"{report}")
+        check(bitwise, f"moe_gmm_bwd: two calls differ at {shape}")
+        check(per_call == GMM_BWD_LAUNCHES,
+              f"moe_gmm_bwd launched {per_call} kernels a call")
+        del x, w, dy, got, refs
+        _release()
+
+    timings = {}
+    for name, shape, iters in (("training", GMM_BWD_PATH, 3),
+                               ("training_down", GMM_BWD_DOWN, 3),
+                               ("ep_training", GMM_BWD_EP, 5)):
+        e, c, d, f, expand = shape
+        x, w, dy = _gmm_bwd_inputs(rng, gen, *shape, torch.bfloat16)
+        xe = x.expand(e, c, d) if expand else x
+
+        def kernel():
+            return moe_gmm_bwd(x, w, dy, expanded=expand)
+
+        def library():  # yardstick only: the port never calls it
+            return (torch.bmm(dy, w.transpose(1, 2)),
+                    torch.bmm(xe.transpose(1, 2), dy))
+
+        bound_ms, bound_by = gmm_bwd_bound(*shape, torch.bfloat16)
+        timings[name] = {
+            "shape": list(shape[:4]), "x_expert_stride_0": expand,
+            "dtype": "bfloat16", "ms": cuda_ms(kernel, iters),
+            "graph_ms": graph_ms(kernel, iters),
+            "launches_per_call": GMM_BWD_LAUNCHES,
+            "plain_ms": cuda_ms(lambda: moe_gmm_bwd_ref(
+                x, w, dy, expanded=expand), iters),
+            "library_ms": cuda_ms(library, iters),
+            "library_graph_ms": graph_ms(library, iters),
+            "library": "torch.bmm x 2", "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            "max_abs_err": errs[(shape, torch.bfloat16)]}
+        emit({"phase": "kernel_time", "kernel": "moe_gmm_bwd",
+              **timings[name]})
+        del x, xe, w, dy
+        _release()
+    return {"path": timings["training"],
+            **{k: v for k, v in timings.items() if k != "training"}}
 
 
 # --------------------------------------------------------------------------
@@ -2039,13 +2329,16 @@ TRAIN_TCFG = dict(learning_rate=1e-3, warmup_steps=5, total_steps=20,
                   grad_dtype="bf16")
 
 
-def phase_train_parity(cfg, seed: int) -> None:
+def phase_train_parity(cfg, seed: int, name: str = "train_parity",
+                       strict: bool = False) -> None:
     """One f32 step (microbatches 1, no remat) through the kernels on the
     card against the same step through the port's plain path on the host
     CPU (which the CPU tests hold to the JAX package), from the same
     params, batch and optimizer state: loss and grad_norm within rtol
     1e-4, each leaf's first moment m (0.1 x the clipped gradient after
-    step 1) within 1e-3 of the leaf's max |m|."""
+    step 1) within 1e-3 of the leaf's max |m|.  ``strict`` (mamba2-130m,
+    whose step runs K6 and K6-bwd): loss and grad_norm within rtol 1e-5,
+    the parameters and m within the f32 kernel tolerance, elementwise."""
     torch.cuda.reset_peak_memory_stats()
     gen = torch.Generator(device=DEVICE).manual_seed(seed)
     params = init_params(cfg, gen, dtype=torch.float32, device=DEVICE)
@@ -2080,7 +2373,15 @@ def phase_train_parity(cfg, seed: int) -> None:
         "leaf_max_rel": max(abs(a - b) / b for a, b in zip(f32, f64) if b),
         "global_rel": abs(math.hypot(*f32) - math.hypot(*f64))
         / math.hypot(*f64)}
-    emit({"phase": "train_parity", "arch": cfg.name, "dtype": "float32",
+    leaf_tol = None
+    if strict:  # the worst leaf's share of its KERNEL_TOL allowance
+        tol = KERNEL_TOL[torch.float32]
+        leaf_tol = max(
+            float(((a.cpu() - b).abs() / (tol["atol"] + tol["rtol"]
+                                          * b.abs())).max())
+            for tree, host_tree in ((params, host), (opt["m"], host_opt["m"]))
+            for a, b in zip(param_leaves(tree), param_leaves(host_tree)))
+    emit({"phase": name, "arch": cfg.name, "dtype": "float32",
           "layers": cfg.num_layers, "batch": TRAIN_PARITY_BATCH,
           "seq": TRAIN_PARITY_SEQ, "microbatches": 1, "remat": False,
           "loss": float(m["loss"]), "host_loss": float(host_m["loss"]),
@@ -2089,11 +2390,16 @@ def phase_train_parity(cfg, seed: int) -> None:
           "m_max_err_over_leaf_max": m_err,
           "host_cpu_f32_norm_drift": norm_drift, "kernel_launches": launched,
           "card_step_s": card_s, "host_step_s": host_s,
+          "params_and_m_err_over_tol": leaf_tol,
           "peak_memory_bytes": torch.cuda.max_memory_allocated()})
-    check(rel["loss"] <= 1e-4 and rel["grad_norm"] <= 1e-4,
-          f"f32 step: card and host disagree beyond rtol 1e-4: {rel}")
+    rtol = 1e-5 if strict else 1e-4
+    check(rel["loss"] <= rtol and rel["grad_norm"] <= rtol,
+          f"f32 step: card and host disagree beyond rtol {rtol}: {rel}")
     check(m_err <= 1e-3, f"f32 step: first moments disagree: {m_err} of "
                          f"a leaf's max")
+    check(leaf_tol is None or leaf_tol <= 1.0,
+          f"f32 step: parameters or first moments beyond "
+          f"{KERNEL_TOL[torch.float32]}: {leaf_tol} of the allowance")
 
 
 def _profile_step(step, params, opt, batch) -> dict:
@@ -2122,21 +2428,24 @@ def _profile_step(step, params, opt, batch) -> dict:
                             for a in top]}
 
 
-def phase_training(cfg, seed: int) -> dict:
+def phase_training(cfg, seed: int, name: str = "training",
+                   batch_size: int = TRAIN_BATCH, seq: int = TRAIN_SEQ,
+                   tcfg: dict = TRAIN_TCFG) -> dict:
     """bf16 training through the entry points: make_batches, init_params,
-    init_opt_state, make_train_step (microbatches 2, remat, bf16 gradient
-    cast), 20 steps on one fixed batch of B 8 x S 512 (overfitting it):
-    every loss finite and the last <= 0.9 x the first; step wall time (CUDA
-    events), tokens/s, peak memory; the launches of the first step against
-    ``train_launches``; then one more step under torch.profiler.  Returns
-    the launch counts of the 20 steps (set to 0 just before)."""
+    init_opt_state, make_train_step (by default microbatches 2, remat,
+    bf16 gradient cast), 20 steps on one fixed batch (B 8 x S 512 by
+    default; overfitting it): every loss finite and the last <= 0.9 x the
+    first; step wall time (CUDA events), tokens/s, peak memory; the
+    launches of the first step against ``train_launches``; then one more
+    step under torch.profiler.  Returns the launch counts of the 20 steps
+    (set to 0 just before)."""
     t_phase = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
     gen = torch.Generator(device=DEVICE).manual_seed(seed)
     params = init_params(cfg, gen, dtype=torch.bfloat16, device=DEVICE)
     opt = init_opt_state(params)
-    batch = next(make_batches(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=seed))
-    tcfg = TrainConfig(**TRAIN_TCFG)
+    batch = next(make_batches(cfg, batch_size, seq, seed=seed))
+    tcfg = TrainConfig(**tcfg)
     step = make_train_step(cfg, tcfg)
     torch.cuda.synchronize()
 
@@ -2161,9 +2470,9 @@ def phase_training(cfg, seed: int) -> dict:
     want = train_launches(cfg, tcfg.microbatches, tcfg.remat)
     profiled = _profile_step(step, params, opt, batch)
     p50 = float(np.percentile(step_ms, 50))
-    emit({"phase": "training", "arch": cfg.name, "dtype": "bfloat16",
+    emit({"phase": name, "arch": cfg.name, "dtype": "bfloat16",
           "params": sum(t.numel() for t in param_leaves(params)),
-          "layers": cfg.num_layers, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+          "layers": cfg.num_layers, "batch": batch_size, "seq": seq,
           "microbatches": tcfg.microbatches, "remat": tcfg.remat,
           "grad_dtype": tcfg.grad_dtype, "learning_rate": tcfg.learning_rate,
           "warmup_steps": tcfg.warmup_steps,
@@ -2171,7 +2480,7 @@ def phase_training(cfg, seed: int) -> dict:
           "steps": TRAIN_STEPS, "losses": losses,
           "step_ms": step_ms, "step_ms_p50": p50,
           "step_ms_p99": float(np.percentile(step_ms, 99)),
-          "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / (p50 / 1e3),
+          "tokens_per_s": batch_size * seq / (p50 / 1e3),
           "first_step_launches": first_step, "want_launches": want,
           "launches": counts,
           "peak_memory_bytes": torch.cuda.max_memory_allocated(),
@@ -2196,6 +2505,96 @@ def run_training(seed: int) -> dict:
     counts = phase_training(cfg, seed + 1)
     _release()
     emit({"phase": "training_total", "seconds": time.perf_counter() - t0})
+    return counts
+
+
+# the dbrx-132b training path: full width, 1 layer (AdamW's 12 B a parameter
+# of 4.49 B parameters is 54 GB; two layers, 93 GB, fit no card), one
+# microbatch of B 2 x S 256, no remat
+MOE_TRAIN_LAYERS = 1
+MOE_TRAIN_BATCH, MOE_TRAIN_SEQ = 2, 256
+MOE_TRAIN_TCFG = dict(TRAIN_TCFG, microbatches=1, remat=False)
+MOE_GRAD_SEQ = 128  # moe_grad_parity: one MoE layer, B 1 x S 128, f32
+
+
+def phase_moe_grad_parity(seed: int) -> None:
+    """One dbrx-132b MoE layer at full width in f32 (16 experts of 6144 x
+    10752), B 1 x S 128: ``moe_dense``'s gradients of x and of the three
+    expert stacks through K5 and K5-bwd against the same through
+    ``moe_gmm_ref`` (autograd) on the card, scaled by max(|ref|, 1) within
+    the f32 kernel tolerance; the kernels' launches (K5 three times, K5-bwd
+    three calls)."""
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config(MOE_ARCH)
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    p = moe_mod.init_moe(cfg, torch.float32, DEVICE, gen)
+    x = torch.randn((1, MOE_GRAD_SEQ, cfg.d_model), device=DEVICE,
+                    generator=gen)
+    dy = torch.randn(x.shape, device=DEVICE, generator=gen)
+    names = ("w_gate", "w_up", "w_down")
+
+    def grads(gmm):
+        leaves = [x.clone().requires_grad_(True)] + \
+            [p[k].detach().requires_grad_(True) for k in names]
+        q = {**p, **dict(zip(names, leaves[1:]))}
+        y, aux = moe_mod.moe_dense(q, cfg, leaves[0], gmm=gmm)
+        return torch.autograd.grad((y * dy).sum() + aux, leaves)
+
+    n0 = launch_counts()
+    got = grads(moe_gmm)
+    torch.cuda.synchronize()
+    launched = _delta(n0)
+    want = grads(moe_gmm_ref)
+    tol = KERNEL_TOL[torch.float32]
+    errs = {}
+    for k, g, w in zip(("x",) + names, got, want):
+        scale = max(float(w.abs().max()), 1.0)
+        err = (g - w).abs() / scale
+        errs[k] = {"max_scaled_err": float(err.max()),
+                   "mismatches": int((err > tol["atol"] + tol["rtol"]
+                                      * w.abs() / scale).sum())}
+        del err
+    emit({"phase": "moe_grad_parity", "arch": cfg.name, "dtype": "float32",
+          "shape": [1, MOE_GRAD_SEQ, cfg.d_model],
+          "experts": cfg.num_experts, "ffn": cfg.moe_d_ff or cfg.d_ff,
+          "errors": errs, "tol": {**tol, "scaled_by": "max(|ref|, 1)"},
+          "kernel_launches": launched,
+          "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+          "seconds": time.perf_counter() - t0})
+    check(all(e["mismatches"] == 0 for e in errs.values()),
+          f"moe_dense's gradients through K5-bwd disagree with the plain "
+          f"version's: {errs}")
+    want_launches = {"moe_gmm": 3, "moe_gmm_bwd": 3 * GMM_BWD_LAUNCHES}
+    check(launched == want_launches,
+          f"moe_grad_parity launched {launched}, want {want_launches}")
+    del p, x, dy, got, want
+
+
+def run_family_training(seed: int) -> dict:
+    """The training paths of the Mamba and MoE families, whose steps run
+    K6-bwd and K5-bwd: mamba2-130m whole (f32 parity with the host, then
+    bf16 training as qwen2's), dbrx-132b's MoE layer at full width (the
+    gradients against the plain version's), then dbrx-132b at full width,
+    1 layer, in bf16; returns each training path's launch counts."""
+    t0 = time.perf_counter()
+    counts = {}
+    cfg = get_config(SSM_ARCH)
+    phase_train_parity(cfg, seed, name="train_parity_mamba2", strict=True)
+    _release()
+    counts["training_mamba2"] = phase_training(cfg, seed + 1,
+                                               name="training_mamba2")
+    _release()
+    phase_moe_grad_parity(seed + 2)
+    _release()
+    moe = dataclasses.replace(get_config(MOE_ARCH),
+                              num_layers=MOE_TRAIN_LAYERS)
+    counts["training_dbrx"] = phase_training(
+        moe, seed + 3, name="training_dbrx", batch_size=MOE_TRAIN_BATCH,
+        seq=MOE_TRAIN_SEQ, tcfg=MOE_TRAIN_TCFG)
+    _release()
+    emit({"phase": "family_training_total",
+          "seconds": time.perf_counter() - t0})
     return counts
 
 
@@ -3130,13 +3529,179 @@ def phase_ep_serving(rng, seed: int) -> dict:
                                  for k in ("ws", "ep")])}
 
 
+# expert-parallel training: dbrx-132b at full width, 1 layer, on (1, 2),
+# two gloo ranks sharing the card (8 experts a rank: 2.91 B parameters,
+# 35 GB of parameters, gradients and AdamW state a rank); first dbrx's
+# smoke config in f32 against the single-card step of the plain emulation
+EP_TRAIN_RANKS = 2
+EP_TRAIN_STEPS = 5
+EP_TRAIN_SMOKE_BATCH, EP_TRAIN_SMOKE_SEQ = 4, 64
+EP_TRAIN_TCFG = dict(microbatches=1, remat=False, learning_rate=1e-3,
+                     warmup_steps=1, total_steps=EP_TRAIN_STEPS,
+                     grad_dtype="bf16", zero1=False)
+
+
+def ep_training_rank(rank: int, world: int, cfg, seed: int,
+                     device: str) -> dict:
+    """On a (1, world) mesh at capacity factor 1.25: one f32 step of
+    dbrx's smoke config (this rank's experts drawn from ``seed``), then
+    ``EP_TRAIN_STEPS`` bf16 steps of ``cfg`` on one batch, each with its
+    launches, wall ms (CUDA events), exchange seconds and bytes; the
+    peak memory of this rank."""
+    # the two ranks hold ~37 GB each of the card's 80: no fragmentation
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+    dev = rank_device(device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    small = smoke_config(MOE_ARCH)
+    ctx = _ep_ctx(small, (1, world), remat=False,
+                  capacity_factor=EP_TRAIN_FACTOR)
+    params = _ep_rank_params(small, seed, torch.float32, ctx, dev)
+    batch = next(make_batches(small, EP_TRAIN_SMOKE_BATCH,
+                              EP_TRAIN_SMOKE_SEQ, seed=seed))
+    _, _, m = make_train_step(small, TrainConfig(remat=False, zero1=False),
+                              ctx)(params, init_opt_state(params), batch)
+    out = {"smoke": {k: float(v) for k, v in m.items()}}
+    del params, m
+    _release()
+
+    ctx = _ep_ctx(cfg, (1, world), remat=False,
+                  capacity_factor=EP_TRAIN_FACTOR)
+    torch.cuda.reset_peak_memory_stats()
+    params = _ep_rank_params(cfg, seed + 1, torch.bfloat16, ctx, dev)
+    opt = init_opt_state(params)
+    batch = next(make_batches(cfg, MOE_TRAIN_BATCH, MOE_TRAIN_SEQ,
+                              seed=seed + 1))
+    step = make_train_step(cfg, TrainConfig(**EP_TRAIN_TCFG), ctx)
+    out["steps"] = []
+    for _ in range(EP_TRAIN_STEPS):
+        dist.barrier()
+        n0, ex0 = launch_counts(), _exchange()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        params, opt, m = step(params, opt, batch)
+        b.record()
+        torch.cuda.synchronize()
+        out["steps"].append({"ms": a.elapsed_time(b),
+                             "loss": float(m["loss"]),
+                             "grad_norm": float(m["grad_norm"]),
+                             "launches": _delta(n0),
+                             **_exchange_delta(ex0)})
+    out["params"] = sum(t.numel() for t in param_leaves(params))
+    out["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    out["peak_reserved_bytes"] = torch.cuda.max_memory_reserved()
+    out["capacity"] = moe_mod.capacity_for(
+        MOE_TRAIN_BATCH * MOE_TRAIN_SEQ // world, cfg.top_k,
+        cfg.num_experts, EP_TRAIN_FACTOR)
+    return out
+
+
+def ep_train_bytes(cfg, tp: int, capacity: int) -> int:
+    """Wire bytes a rank a training step (bf16) on a (1, tp) mesh: per
+    MoE layer the two all-to-alls forward and their two transposes
+    backward (``_ep_a2a_bytes`` each way), the sequence gather of the
+    output forward and of the gradients of x and of the routing weights
+    backward (ring all-gathers of a rank's B x S/tp rows); once a step the
+    sum of the experts' squares in the clip's norm (an f64 scalar)."""
+    n_moe = sum(s.ffn == "moe" for s in cfg.layer_specs())
+    rows = MOE_TRAIN_BATCH * MOE_TRAIN_SEQ // tp
+    gathers = (tp - 1) * rows * (2 * cfg.d_model + cfg.top_k) * 2
+    return n_moe * (2 * _ep_a2a_bytes(cfg, tp, capacity) + gathers) \
+        + (tp - 1) * 8
+
+
+def phase_ep_training(seed: int) -> dict:
+    """Expert-parallel training on 2 gloo ranks sharing the card: dbrx's
+    smoke config in f32, one step against the single-card step whose MoE
+    layers run the plain emulation (``moe_ep_train_ref``, the same
+    capacity drops at 1.25) on the same batch, loss and grad_norm within
+    rtol 1e-5; then dbrx-132b at full width, 1 layer, bf16, 5 steps on one
+    batch of B 2 x S 256: the loss falls, each step's wire bytes equal
+    ``ep_train_bytes``, each rank's launches a step ``train_launches`` (K5
+    and K5-bwd on its 8 experts); step ms, exchange, peak memory a rank.
+    Returns the launch counts, summed over the ranks."""
+    t0 = time.perf_counter()
+    small = smoke_config(MOE_ARCH)
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    params = init_params(small, gen, dtype=torch.float32, device=DEVICE)
+    batch = next(make_batches(small, EP_TRAIN_SMOKE_BATCH,
+                              EP_TRAIN_SMOKE_SEQ, seed=seed))
+    real = moe_mod.moe_apply
+    dropped = []
+
+    def plain_ep(p, cfg_, x, *, ctx=None, decode=False):
+        y, aux, share = moe_mod.moe_ep_train_ref(
+            p, cfg_, x, EP_TRAIN_RANKS, EP_TRAIN_FACTOR)
+        dropped.append(share)
+        return y, aux
+
+    moe_mod.moe_apply = plain_ep
+    try:
+        _, _, ref = make_train_step(small, TrainConfig(remat=False,
+                                                       zero1=False))(
+            params, init_opt_state(params), batch)
+    finally:
+        moe_mod.moe_apply = real
+    ref = {k: float(v) for k, v in ref.items()}
+    del params
+    _release()
+
+    cfg = dataclasses.replace(get_config(MOE_ARCH),
+                              num_layers=MOE_TRAIN_LAYERS)
+    t1 = time.perf_counter()
+    ranks = spawn_ranks(ep_training_rank, EP_TRAIN_RANKS, cfg, seed, DEVICE,
+                        backend="gloo", timeout_s=900)
+    ranks_s = time.perf_counter() - t1
+    rel = [{k: abs(r["smoke"][k] - ref[k]) / abs(ref[k])
+            for k in ("loss", "grad_norm")} for r in ranks]
+    tp = EP_TRAIN_RANKS
+    want_bytes = ep_train_bytes(cfg, tp, ranks[0]["capacity"])
+    want_launches = train_launches(cfg, 1, False)
+    losses = [s["loss"] for s in ranks[0]["steps"]]
+    step_ms = [s["ms"] for r in ranks for s in r["steps"]]
+    emit({"phase": "ep_training", "arch": cfg.name, "dtype": "bfloat16",
+          "layers": cfg.num_layers, "mesh": [1, tp], "backend": "gloo",
+          "batch": MOE_TRAIN_BATCH, "seq": MOE_TRAIN_SEQ,
+          "capacity_factor": EP_TRAIN_FACTOR,
+          "capacity": ranks[0]["capacity"], "params_a_rank": ranks[0]["params"],
+          "smoke_parity": {"arch": small.name, "dtype": "float32",
+                           "rel_err": rel, "ref": ref,
+                           "ref_dropped_share": dropped},
+          "losses": losses,
+          "step_ms": step_ms, "step_ms_p50": float(np.percentile(step_ms, 50)),
+          "exchange_s": [s["exchange_s"] for s in ranks[0]["steps"]],
+          "wire_bytes": [s["wire_bytes"] for s in ranks[0]["steps"]],
+          "want_wire_bytes": want_bytes,
+          "staged_bytes": ranks[0]["steps"][0]["staged_bytes"],
+          "launches_a_step": [r["steps"][0]["launches"] for r in ranks],
+          "want_launches": want_launches,
+          "peak_memory_bytes_a_rank": [r["peak_memory_bytes"]
+                                       for r in ranks],
+          "peak_reserved_bytes_a_rank": [r["peak_reserved_bytes"]
+                                         for r in ranks],
+          "ranks_s": ranks_s, "seconds": time.perf_counter() - t0})
+    check(all(e["loss"] <= 1e-5 and e["grad_norm"] <= 1e-5 for e in rel),
+          f"EP training step disagrees with the single-card emulation: "
+          f"{rel}")
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"EP training did not lower the loss: {losses}")
+    check(all(s["wire_bytes"] == want_bytes for r in ranks
+              for s in r["steps"]),
+          f"EP training wire bytes differ from {want_bytes}")
+    check(all(s["launches"] == want_launches for r in ranks
+              for s in r["steps"]),
+          f"EP training launches differ from {want_launches}")
+    return _ep_sum(s["launches"] for r in ranks for s in r["steps"])
+
+
 def run_ep(rng, seed: int) -> dict:
     """The expert-parallel paths (4 gloo ranks on the card, dbrx-132b at
-    full width); returns each phase's launch counts, summed over the
-    ranks."""
+    full width; training on 2); returns each phase's launch counts,
+    summed over the ranks."""
     _release()
     counts = {"ep_parity": phase_ep_parity(rng, seed)}
     counts.update(phase_ep_serving(rng, seed + 1))
+    counts["ep_training"] = phase_ep_training(seed + 2)
     return counts
 
 
@@ -4193,11 +4758,14 @@ def main() -> int:
     timings["flash_attention_bwd"] = phase_bwd_kernel(rng)
     timings["ssd_scan"] = phase_ssd_kernel(rng)
     timings["moe_gmm"] = phase_gmm_kernel(rng)
+    timings["ssd_scan_bwd"] = phase_ssd_bwd_kernel(rng)
+    timings["moe_gmm_bwd"] = phase_gmm_bwd_kernel(rng)
     n_values = gradient_values()
     timings.update(phase_compress_kernels(n_values))
     paths = run_paths(rng)
     paths.update(run_context_paths(rng))
     paths["training"] = run_training(SEED + 8)
+    paths.update(run_family_training(SEED + 30))
     paths.update(run_dp(SEED + 10))
     paths.update(run_ep(rng, SEED + 12))
     paths.update(run_tp(rng, SEED + 20))
@@ -4209,8 +4777,9 @@ def main() -> int:
 
     # each kernel's launches are read from the path that runs it
     main_path = {"flash_attention": ARCH, "flash_attention_bwd": "training",
-                 "ssd_scan": SSM_ARCH,
-                 "moe_gmm": MOE_ARCH, "quantize": "collectives",
+                 "ssd_scan": SSM_ARCH, "ssd_scan_bwd": "training_mamba2",
+                 "moe_gmm": MOE_ARCH, "moe_gmm_bwd": "training_dbrx",
+                 "quantize": "collectives",
                  "dequantize": "collectives", "sparsify": "codecs",
                  "matmul": "codecs"}
     kernels = []
@@ -4227,7 +4796,8 @@ def main() -> int:
                      "library_backend", "launches_per_call", "stage_ms",
                      "bound_tc_ms", "bound_tc_by") if key in t},
                  "path": main_path[name],
-                 "launches_by_path": {p: c[name] for p, c in paths.items()}}
+                 "launches_by_path": {p: c.get(name, 0)
+                                      for p, c in paths.items()}}
         check(entry["launches"] > 0,
               f"kernel {name} was not launched on its path "
               f"{main_path[name]}")

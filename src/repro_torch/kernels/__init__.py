@@ -4,8 +4,9 @@
 ``launches`` count that it raises by the number of CUDA kernels it launches,
 where it launches them.
 ``SOURCES`` maps each kernel to its CUDA source (the four compression
-kernels share one).  ``flash_attention_bwd`` is K1's gradient, which the
-forward-only TPU kernel does not have.
+kernels share one).  ``flash_attention_bwd``, ``ssd_scan_bwd`` and
+``moe_gmm_bwd`` are the gradients of K1, K6 and K5, which the forward-only
+TPU kernels do not have.
 """
 from __future__ import annotations
 
@@ -19,7 +20,9 @@ from repro_torch.kernels.ssd_scan import ops as _ssd
 WRAPPERS = {"flash_attention": _fa.flash_attention,
             "flash_attention_bwd": _fa.flash_attention_bwd,
             "ssd_scan": _ssd.ssd_scan,
+            "ssd_scan_bwd": _ssd.ssd_scan_bwd,
             "moe_gmm": _gmm.moe_gmm,
+            "moe_gmm_bwd": _gmm.moe_gmm_bwd,
             "quantize": _cmp.quantize_kernel,
             "dequantize": _cmp.dequantize_kernel,
             "sparsify": _cmp.sparsify_kernel,
@@ -27,7 +30,9 @@ WRAPPERS = {"flash_attention": _fa.flash_attention,
 SOURCES = {"flash_attention": _fa.SOURCE,
            "flash_attention_bwd": _fa.BWD_SOURCE,
            "ssd_scan": _ssd.SOURCE,
+           "ssd_scan_bwd": _ssd.BWD_SOURCE,
            "moe_gmm": _gmm.SOURCE,
+           "moe_gmm_bwd": _gmm.BWD_SOURCE,
            "quantize": _cmp.SOURCE,
            "dequantize": _cmp.SOURCE,
            "sparsify": _cmp.SOURCE,

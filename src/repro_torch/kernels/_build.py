@@ -6,7 +6,8 @@ of the checkout, named by a hash of the sources and flags, at first use.
 Only the sources in the repository are built; nothing is fetched.  A failed
 build raises with nvcc's error output.  Also the launch helpers the
 wrappers share: the current device and stream, and ``refuse_grad`` for the
-kernels whose gradient has no kernel yet.
+kernels that have no backward kernel (the compression kernels, whose
+inputs are detached gradients).
 """
 from __future__ import annotations
 
@@ -112,10 +113,9 @@ def raw_stream(device: torch.device) -> int:
 
 def refuse_grad(kernel: str, backward: str, *tensors) -> None:
     """Raises NotImplementedError where autograd would record a CUDA launch
-    of ``kernel``, whose gradient has no kernel yet: its wrapper returns a
-    tensor without a grad_fn, which would cut the graph silently.  Serving
-    (no_grad or inference_mode, or inputs that need no gradient) and the
-    codecs (detached gradients) pass."""
+    of ``kernel``, whose gradient has no kernel: its wrapper returns a
+    tensor without a grad_fn, which would cut the graph silently.  The
+    codecs (detached gradients) and calls under no_grad pass."""
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in tensors):
         raise NotImplementedError(

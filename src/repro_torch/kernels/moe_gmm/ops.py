@@ -1,9 +1,15 @@
-"""Public wrapper of the grouped expert GEMM kernel.
+"""Public wrappers of the grouped expert GEMM kernels, forward and
+backward.
 
-On CUDA tensors it launches the hand-written Hopper kernel
-(``csrc/moe_gmm.cu``) or raises; on CPU tensors it computes the plain
-PyTorch version (``ref.moe_gmm_ref``).  The device of the tensors decides:
-there is no flag and no fallback.
+On CUDA tensors they launch the hand-written Hopper kernels
+(``csrc/moe_gmm.cu``; its gradient ``csrc/moe_gmm_bwd.cu``, two launches,
+dx and dw) or raise; on CPU tensors they compute the plain PyTorch
+versions (``ref.moe_gmm_ref``, which autograd differentiates, and
+``ref.moe_gmm_bwd_ref``).  The device of the tensors decides: there is no
+flag and no fallback.  Where autograd needs the gradient of a CUDA call,
+``moe_gmm`` goes through ``MoeGmm``, a ``torch.autograd.Function`` whose
+backward is the backward kernel; with ``expanded`` it holds the tokens
+once, so autograd never materialises their E copies.
 """
 from __future__ import annotations
 
@@ -14,9 +20,11 @@ from pathlib import Path
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.moe_gmm.ref import moe_gmm_ref
+from repro_torch.kernels.moe_gmm.ref import moe_gmm_bwd_ref, moe_gmm_ref
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "moe_gmm.cu"
+BWD_SOURCE = Path(__file__).resolve().parent / "csrc" / "moe_gmm_bwd.cu"
+BWD_LAUNCHES_PER_CALL = 2  # dx, dw
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _VARIANT_CODES = {"f32": 0, "mma_sync": 0, "wgmma": 1, "wgmma_swap": 1}
@@ -49,6 +57,27 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+@functools.cache
+def _bwd_lib() -> ctypes.CDLL:
+    lib = _build.load(BWD_SOURCE)
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.moe_gmm_bwd.argtypes = [p, p, p, p, p, i, i, i, i, ll, ll, i, i, p]
+    lib.moe_gmm_bwd.restype = i
+    lib.moe_gmm_bwd_error_string.argtypes = [i]
+    lib.moe_gmm_bwd_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _expand(x, w, expanded: bool):
+    """The (E, C, d) operand: with ``expanded``, x's (C, d) tokens as a view
+    of expert stride 0."""
+    if not expanded:
+        return x
+    if x.dim() != 2:
+        raise ValueError(f"expanded: want x (C, d); got {tuple(x.shape)}")
+    return x.expand(w.shape[0], *x.shape)
+
+
 def _check(x, w) -> None:
     if x.dim() != 3 or w.dim() != 3 or x.shape[0] != w.shape[0] or \
             x.shape[2] != w.shape[1]:
@@ -71,20 +100,10 @@ def _check(x, w) -> None:
         raise ValueError(f"x on {x.device}, w on {w.device}")
 
 
-def moe_gmm(x, w):
-    """Grouped expert matmul: (E,C,d) x (E,d,f) -> (E,C,f) contiguous in x's
-    dtype, accumulated in f32 (full f32 for f32 inputs, never TF32).
-
-    x: unit stride along d; its expert stride may be 0 (every expert on the
-    same tokens, as ``moe_dense`` computes) and C, d, f need not divide any
-    tile."""
-    _check(x, w)
-    if x.device.type == "cpu":
-        return moe_gmm_ref(x, w)
+def _launch_fwd(x, w):
+    """K5 on CUDA tensors, x (E, C, d) of any expert stride."""
     if x.device.type != "cuda":
         raise ValueError(f"no moe_gmm for device {x.device}")
-    _build.refuse_grad("moe_gmm", "the grouped GEMM's backward (dx, dw; "
-                       "ROADMAP item 4c)", x, w)
     e, c, d = x.shape
     f = w.shape[2]
     variant = gmm_variant(x.dtype, c, f, x.stride(), x.data_ptr(),
@@ -104,5 +123,91 @@ def moe_gmm(x, w):
     return out
 
 
+class MoeGmm(torch.autograd.Function):
+    """K5 with its gradient: the forward saves x as given (the (C, d)
+    tokens where ``expanded``) and w; the backward is ``moe_gmm_bwd``.  On
+    CUDA tensors both are kernels (this is what ``moe_gmm`` records
+    there); on CPU tensors both are the plain versions, which the CPU tests
+    hold against autograd."""
+
+    @staticmethod
+    def forward(ctx, x, w, expanded):
+        xe = _expand(x, w, expanded)
+        out = moe_gmm_ref(xe, w) if x.device.type == "cpu" \
+            else _launch_fwd(xe, w)
+        ctx.save_for_backward(x, w)
+        ctx.expanded = expanded
+        return out
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        dx, dw = moe_gmm_bwd(x, w, dy, expanded=ctx.expanded)
+        return dx, dw, None
+
+
+def moe_gmm(x, w, *, expanded: bool = False):
+    """Grouped expert matmul: (E,C,d) x (E,d,f) -> (E,C,f) contiguous in x's
+    dtype, accumulated in f32 (full f32 for f32 inputs, never TF32).
+
+    x: unit stride along d; its expert stride may be 0 (every expert on the
+    same tokens, as ``moe_dense`` computes) and C, d, f need not divide any
+    tile.  ``expanded``: x is those (C, d) tokens themselves, read by every
+    expert.  Differentiable: on CUDA tensors through ``MoeGmm`` where
+    autograd records."""
+    xe = _expand(x, w, expanded)
+    _check(xe, w)
+    if x.device.type == "cpu":
+        return moe_gmm_ref(xe, w)
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        return MoeGmm.apply(x, w, expanded)
+    return _launch_fwd(xe, w)
+
+
 moe_gmm.launches = 0  # kernel launches, counted only where they happen
 moe_gmm.last_variant = None  # the variant of the last launch
+
+
+def moe_gmm_bwd(x, w, dy, *, expanded: bool = False):
+    """Gradient of ``moe_gmm``: (dx, dw) in the dtypes of x and w,
+    contiguous, accumulated in f32.
+
+    x, w as the forward took them (x (C, d) where ``expanded``, and dx
+    then the one (C, d) sum over the experts); dy (E, C, f), copied where
+    not contiguous.  On CUDA tensors two launches (``BWD_LAUNCHES_PER_CALL``:
+    dx = dy w^T with w read transposed in place, and dw = x^T dy with x
+    read through its strides); on CPU tensors ``ref.moe_gmm_bwd_ref``."""
+    xe = _expand(x, w, expanded)
+    _check(xe, w)
+    if tuple(dy.shape) != (*xe.shape[:2], w.shape[2]) or \
+            dy.dtype != x.dtype:
+        raise ValueError(f"dy {dy.dtype} {tuple(dy.shape)} does not match "
+                         f"the output of x {tuple(xe.shape)} and w "
+                         f"{tuple(w.shape)}")
+    if x.device.type == "cpu":
+        return moe_gmm_bwd_ref(x, w, dy, expanded=expanded)
+    if x.device.type != "cuda":
+        raise ValueError(f"no moe_gmm_bwd for device {x.device}")
+    if dy.device != x.device:
+        raise ValueError(f"dy on {dy.device}, x on {x.device}")
+    dy = dy.contiguous()
+    e, c, d = xe.shape
+    f = w.shape[2]
+    dx = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+    dw = torch.empty(w.shape, dtype=w.dtype, device=w.device)
+    lib = _bwd_lib()
+    with _build.on_device(x.device):
+        rc = lib.moe_gmm_bwd(x.data_ptr(), w.data_ptr(), dy.data_ptr(),
+                             dx.data_ptr(), dw.data_ptr(), e, c, d, f,
+                             xe.stride(0), xe.stride(1),
+                             1 if expanded else 0, _DTYPE_CODES[x.dtype],
+                             _build.raw_stream(x.device))
+    moe_gmm_bwd.launches += rc & 15
+    if rc >> 4:
+        raise RuntimeError(
+            f"moe_gmm_bwd launch failed: CUDA error {rc >> 4} "
+            f"({lib.moe_gmm_bwd_error_string(rc >> 4).decode()})")
+    return dx, dw
+
+
+moe_gmm_bwd.launches = 0  # kernel launches, counted only where they happen

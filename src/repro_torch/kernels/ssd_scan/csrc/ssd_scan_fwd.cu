@@ -82,16 +82,14 @@
 //    skips it.
 //  * x and dt are read through strides (the model passes permuted views of
 //    its (B,L,H,P) and (B,L,H) tensors, no copy); x has unit stride along P.
+#include "ssd_scan.cuh"
+
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stddef.h>
 #include <stdint.h>
 
 namespace {
-
-constexpr int Q = 64;          // rows per chunk
-constexpr int THREADS = 256;   // 8 warps
-constexpr int WARPS = THREADS / 32;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -280,35 +278,6 @@ __device__ __forceinline__ void load_tile(float* dst, const T* src,
     const int r = e / (W / 4), c4 = e % (W / 4);
     if (e < ITEMS) *reinterpret_cast<float4*>(dst + r * LD + 4 * c4) = v[it];
   }
-}
-
-// One warp: cs = inclusive cumsum of dt * a over the chunk's `rows` rows,
-// lane l holding rows 2l and 2l + 1; padded rows get dt = 0, so cs_Q is
-// the last real row's.  Every block of a chunk computes the same cs, bit
-// for bit.
-struct LaneCumsum {
-  float cs0, cs1, dt0, dt1, last;  // rows 2l, 2l + 1; cs_Q
-};
-__device__ __forceinline__ LaneCumsum chunk_cumsum(
-    const float* __restrict__ dtb, long long sdl, float ah, int rows) {
-  const int lane = threadIdx.x % 32;
-  const int j0 = 2 * lane, j1 = j0 + 1;
-  LaneCumsum r;
-  r.dt0 = j0 < rows ? dtb[j0 * sdl] : 0.f;
-  r.dt1 = j1 < rows ? dtb[j1 * sdl] : 0.f;
-  const float v0 = r.dt0 * ah, v1 = r.dt1 * ah;
-  float s = v0 + v1;
-#pragma unroll
-  for (int off = 1; off < 32; off <<= 1) {
-    const float t = __shfl_up_sync(0xffffffffu, s, off);
-    if (lane >= off) s += t;
-  }
-  float excl = __shfl_up_sync(0xffffffffu, s, 1);
-  if (lane == 0) excl = 0.f;
-  r.cs0 = excl + v0;
-  r.cs1 = excl + v0 + v1;
-  r.last = __shfl_sync(0xffffffffu, r.cs1, 31);
-  return r;
 }
 
 // warps along the columns and rows of a warp grid for an M x NC output of
@@ -691,17 +660,6 @@ chunk_out_kernel(const T* __restrict__ x, const float* __restrict__ dt,
 bool aligned(const void* p, size_t bytes) {
   return reinterpret_cast<uintptr_t>(p) % bytes == 0;
 }
-
-// floats of each part of the workspace
-struct Workspace {
-  long long state, cb, decay;
-  Workspace(int B, int H, int L, int P, int N) {
-    const long long nc = (L + Q - 1) / Q;
-    state = (long long)B * H * (nc - 1) * P * N;
-    cb = (long long)B * nc * Q * Q;
-    decay = (long long)B * H * nc;
-  }
-};
 
 // the number of launches in the low four bits, a refused launch's error
 // above them

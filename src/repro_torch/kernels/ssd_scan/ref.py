@@ -92,9 +92,9 @@ def ssd_chunked(x, dt, a, b, c, *, chunk: int = DEFAULT_CHUNK, h0=None):
                           bs, decay_out, dts, xs)  # (B,nc,H,P,N)
 
     # inter-chunk recurrence (jax.lax.scan in the JAX package)
-    hprev = (torch.zeros((bsz, h, p, n), dtype=torch.float32,
-                         device=x.device)
-             if h0 is None else h0.float())
+    state_dtype = torch.promote_types(x.dtype, torch.float32)  # f64 stays
+    hprev = (torch.zeros((bsz, h, p, n), dtype=state_dtype, device=x.device)
+             if h0 is None else h0.to(state_dtype))
     h_before = []
     for ci in range(nc):
         h_before.append(hprev)
@@ -112,9 +112,10 @@ def ssd_chunked(x, dt, a, b, c, *, chunk: int = DEFAULT_CHUNK, h0=None):
 
 def ssd_scan_ref(x, dt, a, b, c, *, chunk: int = 128):
     """x: (B,H,L,P); dt: (B,H,L); a: (H,); b,c: (B,L,N) -> y (B,H,L,P) in
-    x's dtype, computed in f32."""
-    y, _ = ssd_chunked(x.movedim(1, 2).float(), dt.movedim(1, 2).float(),
-                       a.float(), b.float(), c.float(), chunk=chunk)
+    x's dtype, computed in f32 (in f64 where x is f64)."""
+    work = torch.float64 if x.dtype == torch.float64 else torch.float32
+    y, _ = ssd_chunked(x.movedim(1, 2).to(work), dt.movedim(1, 2).to(work),
+                       a.to(work), b.to(work), c.to(work), chunk=chunk)
     return y.movedim(2, 1).to(x.dtype)
 
 
@@ -203,3 +204,114 @@ def ssd_scan_staged(x, dt, a, b, c, *, q: int = KERNEL_CHUNK,
     y = _product(g, xs, product) + torch.exp(cs)[..., None] * _product(
         cs_mat[:, None], before.transpose(-1, -2), product)
     return y.reshape(bsz, h, nc * q, p)[:, :, :l].to(x.dtype)
+
+
+def ssd_scan_bwd_ref(x, dt, a, b, c, dy, *, chunk: int = KERNEL_CHUNK):
+    """Gradient of the SSD scan, written out stage by stage as the backward
+    kernel (``csrc/ssd_scan_bwd.cu``) computes it, not through autograd.
+    x (B,H,L,P), dt (B,H,L), a (H,), b, c (B,L,N), dy (B,H,L,P) -> (dx,
+    ddt, da, db, dc) in the dtypes of x, dt, a, b, c, computed in f64:
+    ddt's sums of mixed-sign terms leave an f32 computation up to ~3e-5 of
+    its scale off the exact gradient at the model's decays, as far as the
+    f32 kernel's own error, so an f32 reference would not tell the two
+    apart within the 5e-5 tolerance.  L is cut into chunks of ``min(chunk, L)`` rows,
+    the last one zero-padded (no decay, no state, never returned).  Per
+    chunk, with cs = cumsum(dt a), e = exp(cs), w = exp(cs_Q - cs) dt, h
+    the state before the chunk and G the gradient of the state after it:
+      (i)   dH_c = (dy_c o e)^T C_c, the gradient that the chunk's outputs
+            send to the state before it;
+      (ii)  the reverse carry G_{c-1} = dH_c + exp(cs_Q,c) G_c, G_last = 0;
+      (iii) the dual's backward, as attention's: D = dy x^T and L[i, j] =
+            exp(cs_i - cs_j) on and below the diagonal, M = (C B^T) o L,
+            dCB = D o L o dt_j; dx = dt o (M^T dy) + w o (B G^T); dC =
+            dCB B + e o (dy h), dB = dCB^T C + w o (x G), summed over the
+            heads (B and C are shared by them);
+      (iv)  d(dt a) at row m, the sum of d cs over rows k >= m, taken
+            term by term in forms that do not cancel: L's share is the sum
+            of T = M o D o dt_j over the rectangle i >= m > j (its row and
+            column sums would cancel to it), e's the sum over k >= m of e_k
+            r_k, r_i = C_i . (dy h)_i, w's the sum over k < m of w_k u_k,
+            u_j = B_j . (x G)_j, and the carry's exp(cs_Q) <G, h>; then ddt
+            = (M o D) summed over i + exp(cs_Q - cs) u + a d(dt a), and da
+            = the sum over (B, L) of dt d(dt a)."""
+    work = torch.float64
+    bsz, h, l, p = x.shape
+    n = b.shape[-1]
+    q = min(chunk, l)
+    nc = math.ceil(l / q)
+    pad = nc * q - l
+
+    def chunks(t, axis):
+        t = t.to(work)
+        t = torch.cat([t, t.new_zeros(*t.shape[:axis], pad,
+                                      *t.shape[axis + 1:])], axis)
+        return t.reshape(*t.shape[:axis], nc, q, *t.shape[axis + 1:])
+
+    xs, dys, dts = chunks(x, 2), chunks(dy, 2), chunks(dt, 2)
+    bs, cm = chunks(b, 1)[:, None], chunks(c, 1)[:, None]  # (B,1,nc,Q,N)
+    av = a.to(work)[:, None, None]
+    cs = torch.cumsum(dts * av, dim=-1)          # (B,H,nc,Q)
+    last = cs[..., -1]                           # (B,H,nc)
+    dec = torch.exp(last)
+    wo = torch.exp(last[..., None] - cs)         # exponents <= 0
+    w = wo * dts
+    e = torch.exp(cs)
+
+    # the forward's chunk states and the state before each chunk
+    states = (xs * w[..., None]).transpose(-1, -2) @ bs  # (B,H,nc,P,N)
+    hcur = states.new_zeros(bsz, h, p, n)
+    before = []
+    for ci in range(nc):
+        before.append(hcur)
+        hcur = hcur * dec[:, :, ci, None, None] + states[:, :, ci]
+    before = torch.stack(before, dim=2)
+
+    # (i), (ii): gn[c] = G_c, the gradient of the state after chunk c
+    dh_in = (dys * e[..., None]).transpose(-1, -2) @ cm  # (B,H,nc,P,N)
+    g = torch.zeros_like(hcur)
+    gn = [None] * nc
+    for ci in reversed(range(nc)):
+        gn[ci] = g
+        g = dh_in[:, :, ci] + dec[:, :, ci, None, None] * g
+    gn = torch.stack(gn, dim=2)
+
+    # (iii)
+    tril = torch.tril(torch.ones(q, q, dtype=torch.bool, device=x.device))
+    diff = torch.where(tril, cs[..., :, None] - cs[..., None, :],
+                       torch.full((), -torch.inf, dtype=work,
+                                  device=x.device))
+    lmat = torch.exp(diff)
+    cb = cm @ bs.transpose(-1, -2)               # (B,1,nc,Q,Q)
+    d = dys @ xs.transpose(-1, -2)               # (B,H,nc,Q,Q)
+    m = cb * lmat
+    md = m * d
+    dcb = d * lmat * dts[..., None, :]
+    xg = xs @ gn                                 # (B,H,nc,Q,N)
+    dh = dys @ before                            # (B,H,nc,Q,N)
+    u = (xg * bs).sum(-1)                        # (B,H,nc,Q)
+    r = (dh * cm).sum(-1)
+    dx = dts[..., None] * (m.transpose(-1, -2) @ dys) \
+        + w[..., None] * (bs @ gn.transpose(-1, -2))
+    dc = (dcb @ bs + e[..., None] * dh).sum(1)   # (B,nc,Q,N)
+    db = (dcb.transpose(-1, -2) @ cm + w[..., None] * xg).sum(1)
+
+    # (iv)
+    def before_m(v):  # the sum over j < m, not cumsum - v (which cancels)
+        return torch.nn.functional.pad(torch.cumsum(v, -1)[..., :-1], (1, 0))
+
+    t = md * dts[..., None, :]
+    er = e * r
+    dda = torch.tril(before_m(t)).sum(-2) \
+        + torch.flip(torch.cumsum(torch.flip(er, (-1,)), -1), (-1,)) \
+        + before_m(w * u) \
+        + (dec * (gn * before).sum((-1, -2)))[..., None]
+    ddt = md.sum(-2) + wo * u + av * dda
+    da = (dts * dda).sum((0, 2, 3))
+
+    def unchunk(t, axis):
+        t = t.reshape(*t.shape[:axis], nc * q, *t.shape[axis + 2:])
+        return t.narrow(axis, 0, l)
+
+    return (unchunk(dx, 2).to(x.dtype), unchunk(ddt, 2).to(dt.dtype),
+            da.to(a.dtype), unchunk(db, 1).to(b.dtype),
+            unchunk(dc, 1).to(c.dtype))

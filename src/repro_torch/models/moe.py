@@ -14,7 +14,8 @@
   experts over the data axes and sums over both axes.
 
 Every expert product runs the hand-written grouped-GEMM kernel K5 on CUDA
-tensors and the plain einsum on the CPU; the wrapper decides by device.
+tensors, and its gradient the backward kernel K5-bwd, and the plain
+einsum on the CPU; the wrapper decides by device.
 The JAX package runs the expert-parallel bodies in a ``shard_map``; here
 every rank of the mesh runs its shard, with the port's collectives over
 the groups of a ``parallel.ParallelCtx`` (``make_ctx``), whose
@@ -104,27 +105,29 @@ def route(p: dict, cfg: ModelConfig, x: torch.Tensor, ctx=None):
 
 
 def _expert_ffn(p: dict, cfg: ModelConfig, x_e: torch.Tensor,
-                gmm=moe_gmm) -> torch.Tensor:
-    """Batched-over-experts FFN. x_e: (E, T, d) -> (E, T, d); three grouped
+                gmm=moe_gmm, expanded: bool = False) -> torch.Tensor:
+    """Batched-over-experts FFN. x_e: (E, T, d), or with ``expanded`` the
+    (T, d) tokens that every expert reads -> (E, T, d); three grouped
     products (etd,edf->etf twice, etf,efd->etd), by K5 (``gmm``: its plain
     version for a reference)."""
-    g = gmm(x_e, p["w_gate"])
-    u = gmm(x_e, p["w_up"])
+    g = gmm(x_e, p["w_gate"], expanded=expanded)
+    u = gmm(x_e, p["w_up"], expanded=expanded)
     act = F.silu if cfg.ffn_act == "swiglu" else _gelu  # repro moe.py:90
     return gmm(act(g) * u, p["w_down"])
 
 
-def moe_dense(p: dict, cfg: ModelConfig, x: torch.Tensor, ctx=None
-              ) -> Tuple[torch.Tensor, torch.Tensor]:
+def moe_dense(p: dict, cfg: ModelConfig, x: torch.Tensor, ctx=None,
+              gmm=moe_gmm) -> Tuple[torch.Tensor, torch.Tensor]:
     """Computes every expert for every token, masks by routing weight.
-    Exact (no capacity drops)."""
+    Exact (no capacity drops).  ``gmm``: the expert products (K5; its plain
+    version for a reference)."""
     ids, weights, aux = route(p, cfg, x, ctx)
     shp = x.shape
     xt = x.reshape(-1, shp[-1])
     e = cfg.num_experts
-    # every expert reads the same tokens: an expanded view (expert stride 0),
-    # never materialized
-    y_all = _expert_ffn(p, cfg, xt.expand(e, *xt.shape))
+    # every expert reads the same tokens: K5 takes them as a view of expert
+    # stride 0, and its gradient sums over the experts, never materialized
+    y_all = _expert_ffn(p, cfg, xt, gmm=gmm, expanded=True)
     w_full = torch.zeros((xt.shape[0], e), dtype=x.dtype, device=x.device)
     w_full.scatter_(1, ids.reshape(-1, cfg.top_k),
                     weights.reshape(-1, cfg.top_k))

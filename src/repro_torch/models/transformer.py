@@ -41,6 +41,10 @@ from repro_torch.core.device import resolve_device
 from repro_torch.core.types import LayerSpec, ModelConfig
 from repro_torch.kernels.flash_attention.ops import \
     LAUNCHES_PER_CALL as FA_BWD_LAUNCHES
+from repro_torch.kernels.moe_gmm.ops import \
+    BWD_LAUNCHES_PER_CALL as GMM_BWD_LAUNCHES
+from repro_torch.kernels.ssd_scan.ops import \
+    BWD_LAUNCHES_PER_CALL as SSD_BWD_LAUNCHES
 from repro_torch.kernels.ssd_scan.ops import LAUNCHES_PER_CALL as SSD_LAUNCHES
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
@@ -94,19 +98,30 @@ def encode_launches(cfg: ModelConfig) -> dict:
 def train_launches(cfg: ModelConfig, microbatches: int = 1,
                    remat: bool = False, seq_len: Optional[int] = None
                    ) -> dict:
-    """Flash-attention launches of one training step on CUDA tensors
-    (``repro_torch.train.make_train_step``) over sequences of ``seq_len``:
-    the forward once per attention that takes the kernel
-    (``prefill_launches``, and the encoder's ``encode_launches``, which
-    the step runs inside the loss) and microbatch, twice with ``remat``
-    (the checkpointed layer runs again in the backward), and the backward
-    kernel's ``LAUNCHES_PER_CALL`` per such attention and microbatch.
-    (Training a Mamba or MoE layer on the card raises until K6 and K5 have
-    backward kernels.)"""
-    n_attn = prefill_launches(cfg, seq_len)["flash_attention"] + \
-        encode_launches(cfg)["flash_attention"]
-    return {"flash_attention": n_attn * microbatches * (2 if remat else 1),
-            "flash_attention_bwd": n_attn * microbatches * FA_BWD_LAUNCHES}
+    """Kernel launches of one training step on CUDA tensors
+    (``repro_torch.train.make_train_step``) over sequences of ``seq_len``,
+    by the names of ``repro_torch.kernels.WRAPPERS``, those that launch:
+    each forward kernel once per layer that takes it
+    (``prefill_launches``, and the encoder's ``encode_launches``, which the
+    step runs inside the loss) and microbatch, twice with ``remat`` (the
+    checkpointed layer runs again in the backward), and each backward
+    kernel once per such layer and microbatch: flash attention's
+    ``LAUNCHES_PER_CALL`` per attention, the SSD scan's
+    ``BWD_LAUNCHES_PER_CALL`` per Mamba layer, the grouped GEMM's
+    ``BWD_LAUNCHES_PER_CALL`` per expert product (three a MoE layer).  An
+    expert-parallel rank launches as many on its own experts."""
+    fwd = prefill_launches(cfg, seq_len)
+    n_attn = fwd["flash_attention"] + encode_launches(cfg)["flash_attention"]
+    n_ssd = fwd["ssd_scan"] // SSD_LAUNCHES
+    n_gmm = fwd["moe_gmm"]
+    again = microbatches * (2 if remat else 1)
+    counts = {"flash_attention": n_attn * again,
+              "flash_attention_bwd": n_attn * microbatches * FA_BWD_LAUNCHES,
+              "ssd_scan": n_ssd * SSD_LAUNCHES * again,
+              "ssd_scan_bwd": n_ssd * microbatches * SSD_BWD_LAUNCHES,
+              "moe_gmm": n_gmm * again,
+              "moe_gmm_bwd": n_gmm * microbatches * GMM_BWD_LAUNCHES}
+    return {k: n for k, n in counts.items() if n}
 
 
 def ep_launches(cfg: ModelConfig) -> dict:

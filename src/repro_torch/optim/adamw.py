@@ -90,8 +90,7 @@ def global_norm(tree, *, acc: torch.dtype = torch.float64,
     (the same on every model rank) counted once.  ``sharded``: the leaves are this rank's
     ZeRO-1 shard, and the sum is taken over ``ctx``'s data ranks too."""
     leaves = tree if isinstance(tree, list) else list(param_leaves(tree))
-    norms = torch.stack([torch.linalg.vector_norm(t, dtype=acc)
-                         for t in leaves])
+    norms = torch.stack([_norm(t, acc) for t in leaves])
     if split is not None and ctx is not None and ctx.tp > 1:
         mask = torch.tensor(split, device=norms.device)
         squares = norms[~mask].square().sum() + ctx.model_allsum(
@@ -101,6 +100,51 @@ def global_norm(tree, *, acc: torch.dtype = torch.float64,
     if sharded:  # each rank's sum, then theirs
         squares = ctx.allsum(squares)
     return squares.sqrt().to(torch.float32)
+
+
+# values of one piece of the update: the update holds four f32 temporaries
+# of its piece (the clipped gradient, the denominator, the update, the
+# parameters as f32), so a whole leaf at full width would not fit beside
+# the state (dbrx-132b's embedding: 617M values, 9.9 GB of temporaries)
+UPDATE_CHUNK = 1 << 26
+
+
+def _norm(t: torch.Tensor, acc: torch.dtype) -> torch.Tensor:
+    """|t| accumulated in ``acc``; a leaf above ``UPDATE_CHUNK`` values in
+    pieces of that many (the cast to ``acc`` copies its input), their
+    squares summed."""
+    if t.numel() <= UPDATE_CHUNK:
+        return torch.linalg.vector_norm(t, dtype=acc)
+    flat = t.reshape(-1)
+    return torch.stack([torch.linalg.vector_norm(flat[a:a + UPDATE_CHUNK],
+                                                 dtype=acc)
+                        for a in range(0, flat.numel(), UPDATE_CHUNK)]
+                       ).square().sum().sqrt()
+
+
+def _pieces(flat_p, flat_g, m, v):
+    """The update's work in groups of (p, g, m, v) of at most about
+    ``UPDATE_CHUNK`` values: small leaves together, a larger leaf whose
+    p, m and v are contiguous in flat slices (the arithmetic is per
+    element, so the result does not depend on the cut)."""
+    group, size = [], 0
+    for p, g, mm, vv in zip(flat_p, flat_g, m, v):
+        n = p.numel()
+        if n > UPDATE_CHUNK and p.is_contiguous() and mm.is_contiguous() \
+                and vv.is_contiguous():
+            pf, gf, mf, vf = (p.view(-1), g.reshape(-1), mm.view(-1),
+                              vv.view(-1))
+            for a in range(0, n, UPDATE_CHUNK):
+                cut = slice(a, a + UPDATE_CHUNK)
+                yield [(pf[cut], gf[cut], mf[cut], vf[cut])]
+            continue
+        if group and size + n > UPDATE_CHUNK:
+            yield group
+            group, size = [], 0
+        group.append((p, g, mm, vv))
+        size += n
+    if group:
+        yield group
 
 
 def _updates(flat_p: List[torch.Tensor], flat_g: Sequence[torch.Tensor],
@@ -150,9 +194,12 @@ def adamw_update(params: Any, grads: Any, state: Dict[str, Any],
     gnorm = global_norm(flat_g, ctx=ctx, split=split)
     step = state["step"] + 1
     with torch.no_grad():
-        p32, update = _updates(flat_p, flat_g, m, v, gnorm, step, tcfg, lr)
-        for p, p_f, u in zip(flat_p, p32, update):
-            p.copy_(p_f - u)  # cast back to p's dtype
+        for group in _pieces(flat_p, flat_g, m, v):
+            ps, gs, ms, vs = (list(t) for t in zip(*group))
+            p32, update = _updates(ps, gs, ms, vs, gnorm, step, tcfg, lr)
+            for p, p_f, u in zip(ps, p32, update):
+                p.copy_(p_f - u)  # cast back to p's dtype
+            del p32, update
     new_state = {"m": state["m"], "v": state["v"], "step": step}
     return params, new_state, {"grad_norm": gnorm}
 

@@ -5,8 +5,9 @@ Port of ``repro.train.step``.  ``jax.value_and_grad`` becomes
 require grad (the caller's tensors keep ``requires_grad=False``, so serving
 from them never records a graph); the microbatch ``lax.scan`` becomes a
 loop over slices of the batch dimension with f32 gradient sums.  The
-parameters' device decides where the step runs: on the card, attention's
-forward and backward are the flash-attention kernels.  Batches are numpy
+parameters' device decides where the step runs: on the card, the forward
+and backward of attention, the SSD scan and the expert products are the
+kernels K1, K6 and K5 and their backward kernels.  Batches are numpy
 (``repro_torch.data.make_batches``) or tensors, moved to that device.
 
 Data parallelism.  In the JAX package the gradient sync falls out of the
@@ -36,8 +37,9 @@ data index take the same rows, every one of them ends the backward with
 the same gradient of the replicated leaves and its own experts' gradient
 over those rows, so the sync runs over the data group only (plain DP or
 ZeRO-1 alike), and the norm of the clip sums the experts' squares over
-the model ranks (``optim.global_norm``).  On the card it raises until K5
-has a backward kernel (ROADMAP item 4c).
+the model ranks (``optim.global_norm``).  On the card the two all-to-alls
+of a layer carry the inputs of K5's backward kernel too
+(``ccl.primitives.AllToAll`` is differentiable).
 
 Tensor parallelism.  With a tensor-parallel context the ranks of one data
 index take the same rows and run the layers on their blocks
@@ -133,11 +135,6 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
                              "the sharded state of init_opt_state(params, "
                              "ctx)")
         device = params["embed"].device
-        if ctx is not None and ctx.use_ep and device.type == "cuda":
-            raise NotImplementedError(
-                "an expert-parallel training step on the card: K5 "
-                "(moe_gmm) has no backward kernel yet (ROADMAP item 4c); "
-                "it trains on CPU tensors")
         sharded = model_flags(params, ctx, cfg) if split else None
         tokens, labels = _on(batch["tokens"], device), \
             _on(batch["labels"], device)

@@ -22,8 +22,15 @@ from repro_torch.kernels.flash_attention import (
     flash_attention_bwd, flash_attention_stats)
 from repro_torch.kernels.flash_attention.ops import \
     LAUNCHES_PER_CALL as BWD_LAUNCHES
-from repro_torch.kernels.moe_gmm import moe_gmm, moe_gmm_ref
-from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_ref
+from repro_torch.kernels.moe_gmm import (moe_gmm, moe_gmm_bwd,
+                                         moe_gmm_bwd_ref, moe_gmm_ref)
+from repro_torch.kernels.moe_gmm.ops import \
+    BWD_LAUNCHES_PER_CALL as GMM_BWD_LAUNCHES
+from repro_torch.kernels.ssd_scan import (ssd_scan, ssd_scan_bwd,
+                                          ssd_scan_bwd_ref, ssd_scan_ref,
+                                          ssd_scan_workspace)
+from repro_torch.kernels.ssd_scan.ops import \
+    BWD_LAUNCHES_PER_CALL as SSD_BWD_LAUNCHES
 from repro_torch.kernels.ssd_scan.ops import LAUNCHES_PER_CALL as SSD_LAUNCHES
 from repro_torch.core.types import TrainConfig
 from repro_torch.data import make_batches
@@ -31,14 +38,14 @@ from repro_torch.models import (decode_step, encode, encode_launches,
                                 ep_launches, forward, init_cache,
                                 init_params, param_leaves, prefill_launches,
                                 train_launches, tree_map)
-from repro_torch.parallel import ParallelCtx, expert_flags
+from repro_torch.parallel import expert_flags
 from repro_torch.optim import init_opt_state
 from repro_torch.train import make_train_step
 from repro_torch.launch.ranks import build_kernels, spawn_ranks
 from repro_torch.serve import make_prefill
 from torch_ccl_ranks import compressed_ring_emulation, ring_q8_on_card
 from torch_dp_ranks import dp_on_card, update_errors
-from torch_ep_ranks import card_tokens, ep_on_card
+from torch_ep_ranks import card_tokens, ep_on_card, ep_train_on_card
 from torch_tp_ranks import card_tokens as tp_card_tokens
 from torch_tp_ranks import tp_on_card
 from torch_context import open_gates, stub_context
@@ -397,6 +404,143 @@ def test_moe_gmm_bf16_variants(cuda, e, c, d, f, broadcast, pad, variant):
                                **TOL[torch.bfloat16])
 
 
+# K6's backward: P 32 / 64 / 128, N 16 to 128, one chunk, several to carry
+# and a ragged last chunk (of the kernel's 64), mamba2-130m's heads
+SSD_BWD_SHAPES = [(1, 2, 64, 32, 16), (2, 3, 256, 64, 32),
+                  (1, 2, 200, 128, 64), (2, 4, 512, 64, 128),
+                  (1, 3, 1000, 32, 128), (2, 24, 256, 64, 128),
+                  (1, 2, 130, 128, 16)]
+
+
+def _ssd_bwd_inputs(shape, device, seed):
+    """The model's layouts (x and dt permuted views) and decays; dy too a
+    permuted view, as autograd hands it back through the model's permute."""
+    b, h, l, p, n = shape
+    rng = np.random.default_rng(seed)
+
+    def mk(*s, scale=1.0):
+        return torch.from_numpy(rng.standard_normal(s, dtype=np.float32)
+                                * scale).to(device)
+
+    x = mk(b, l, h, p, scale=0.5).permute(0, 2, 1, 3)
+    dt = torch.nn.functional.softplus(mk(b, l, h)).permute(0, 2, 1)
+    a = -torch.linspace(1.0, 16.0, h, device=device)
+    bb, cc = mk(b, l, n, scale=0.3), mk(b, l, n, scale=0.3)
+    dy = mk(b, l, h, p).permute(0, 2, 1, 3)
+    return x, dt, a, bb, cc, dy
+
+
+def _scaled(got, want) -> float:
+    return float((got.double() - want.double()).abs().max()) / max(
+        float(want.double().abs().max()), 1.0)
+
+
+@pytest.mark.parametrize("shape", SSD_BWD_SHAPES)
+def test_ssd_scan_bwd_kernel_matches_plain(cuda, shape):
+    """K6-bwd (four launches, reading the forward's workspace) against its
+    plain version on the card at the kernel's chunk of 64, within 5e-5 of
+    each gradient's scale, and against the f64 autograd gradient of the
+    plain forward (one chunk of L) within 5e-5; two calls bit-equal (the head and chunk sums
+    are taken in a fixed order)."""
+    x, dt, a, bb, cc, dy = _ssd_bwd_inputs(shape, cuda, sum(shape))
+    _, work = ssd_scan_workspace(x, dt, a, bb, cc)
+    before = ssd_scan_bwd.launches
+    got = ssd_scan_bwd(x, dt, a, bb, cc, dy, workspace=work)
+    again = ssd_scan_bwd(x, dt, a, bb, cc, dy, workspace=work)
+    torch.cuda.synchronize()
+    assert ssd_scan_bwd.launches == before + 2 * SSD_BWD_LAUNCHES
+    want = ssd_scan_bwd_ref(x, dt, a, bb, cc, dy, chunk=64)
+    ins = [t.double().requires_grad_(True) for t in (x, dt, a, bb, cc)]
+    exact = torch.autograd.grad(ssd_scan_ref(*ins, chunk=shape[2]), ins,
+                                dy.double())
+    for g, g2, w, t, v in zip(got, again, want, exact, (x, dt, a, bb, cc)):
+        assert g.shape == v.shape and g.dtype == torch.float32
+        assert torch.equal(g, g2)
+        assert bool(torch.isfinite(g).all())
+        assert _scaled(g, w) <= 5e-5 and _scaled(g, t) <= 5e-5
+
+
+GMM_BWD_SHAPES = [(2, 128, 256, 128), (4, 256, 512, 384), (3, 77, 100, 60),
+                  (16, 4, 640, 1000), (2, 63, 64, 200), (160, 8, 64, 48),
+                  (8, 160, 256, 512)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", GMM_BWD_SHAPES)
+@pytest.mark.parametrize("layout", ["expanded", "strided", "contiguous"])
+def test_moe_gmm_bwd_kernel_matches_plain(cuda, shape, dtype, layout):
+    """K5-bwd (two launches: dx with w read transposed, dw with x read
+    through its strides) against its plain version: x expanded over the
+    experts (dx their one sum), x a row-padded view, or contiguous; C
+    below and above one 64-row tile, d and f off the tiles, E 160.
+    Scaled by max(|ref|, 1), within TOL; two calls bit-equal."""
+    e, c, d, f = shape
+    rng = np.random.default_rng(sum(shape))
+
+    def mk(*s, scale=1.0):
+        return torch.from_numpy(rng.standard_normal(s, dtype=np.float32)
+                                * scale).to(cuda, dtype)
+
+    expanded = layout == "expanded"
+    if expanded:
+        x = mk(c, d)
+    elif layout == "strided":
+        x = mk(e, c, d + 8)[..., :d]
+    else:
+        x = mk(e, c, d)
+    w, dy = mk(e, d, f, scale=0.05), mk(e, c, f)
+    before = moe_gmm_bwd.launches
+    got = moe_gmm_bwd(x, w, dy, expanded=expanded)
+    again = moe_gmm_bwd(x, w, dy, expanded=expanded)
+    torch.cuda.synchronize()
+    assert moe_gmm_bwd.launches == before + 2 * GMM_BWD_LAUNCHES
+    want = moe_gmm_bwd_ref(x, w, dy, expanded=expanded)
+    for g, g2, ref, v in zip(got, again, want, (x, w)):
+        assert g.shape == v.shape and g.dtype == dtype
+        assert torch.equal(g, g2)
+        scale = max(float(ref.float().abs().max()), 1.0)
+        np.testing.assert_allclose(g.float().cpu().numpy() / scale,
+                                   ref.float().cpu().numpy() / scale,
+                                   **TOL[dtype])
+
+
+def test_ssd_scan_and_moe_gmm_record_their_backward_kernels(cuda):
+    """On CUDA tensors that require grad, ``ssd_scan`` and ``moe_gmm``
+    (expanded as moe_dense calls it, and not) record their autograd
+    Functions: the forward kernel once, the backward kernel in the
+    backward, and autograd's gradients of the plain forward (f32)."""
+    x, dt, a, bb, cc, dy = _ssd_bwd_inputs((2, 4, 256, 64, 32), cuda, 3)
+    ins = [t.detach().clone().requires_grad_(True)
+           for t in (x, dt, a, bb, cc)]
+    n0 = launch_counts()
+    got = torch.autograd.grad(ssd_scan(*ins, chunk=64), ins, dy)
+    torch.cuda.synchronize()
+    n1 = launch_counts()
+    assert n1["ssd_scan"] - n0["ssd_scan"] == SSD_LAUNCHES
+    assert n1["ssd_scan_bwd"] - n0["ssd_scan_bwd"] == SSD_BWD_LAUNCHES
+    want = torch.autograd.grad(ssd_scan_ref(*ins, chunk=64), ins, dy)
+    for g, w in zip(got, want):
+        assert _scaled(g, w) <= 5e-5
+    g = torch.Generator(device=cuda).manual_seed(0)
+    for expanded in (True, False):
+        xs = (16, 64) if expanded else (4, 16, 64)
+        xg = torch.randn(*xs, device=cuda, generator=g).requires_grad_(True)
+        wg = (0.05 * torch.randn(4, 64, 32, device=cuda, generator=g)
+              ).requires_grad_(True)
+        dyg = torch.randn(4, 16, 32, device=cuda, generator=g)
+        n0 = launch_counts()
+        got = torch.autograd.grad(moe_gmm(xg, wg, expanded=expanded),
+                                  (xg, wg), dyg)
+        torch.cuda.synchronize()
+        n1 = launch_counts()
+        assert n1["moe_gmm"] - n0["moe_gmm"] == 1
+        assert n1["moe_gmm_bwd"] - n0["moe_gmm_bwd"] == GMM_BWD_LAUNCHES
+        want = torch.autograd.grad(moe_gmm_ref(xg, wg, expanded=expanded),
+                                   (xg, wg), dyg)
+        for gv, wv in zip(got, want):
+            torch.testing.assert_close(gv, wv, **TOL[torch.float32])
+
+
 @pytest.mark.parametrize("arch", ARCHS)
 def test_prefill_on_card_runs_the_kernel_and_matches_cpu(cuda, arch):
     """make_prefill on the card against the CPU, the launches counted
@@ -677,12 +821,6 @@ def _refused(name, cuda):
     def rnd(*shape, grad=True):
         return torch.randn(*shape, device=cuda, generator=g) \
             .requires_grad_(grad)
-    if name == "ssd_scan":
-        return ssd_scan(rnd(1, 2, 64, 64), rnd(1, 2, 64).abs(),
-                        -rnd(2).abs(), rnd(1, 64, 32), rnd(1, 64, 32),
-                        chunk=64)
-    if name == "moe_gmm":
-        return moe_gmm(rnd(2, 8, 64), rnd(2, 64, 32))
     if name == "quantize":
         return cops.quantize_kernel(rnd(4, 256))
     if name == "dequantize":
@@ -693,13 +831,13 @@ def _refused(name, cuda):
     return cops.matmul_kernel(rnd(64, 32), rnd(32, 4))
 
 
-@pytest.mark.parametrize("name", ["ssd_scan", "moe_gmm", "quantize",
-                                  "dequantize", "sparsify", "matmul"])
+@pytest.mark.parametrize("name", ["quantize", "dequantize", "sparsify",
+                                  "matmul"])
 def test_kernels_without_backward_refuse_grad(cuda, name):
-    """K6, K5 and the compression kernels have no backward kernel: on CUDA
-    inputs that require grad they raise (naming the missing backward)
-    instead of returning a tensor that cuts the graph; under no_grad they
-    launch."""
+    """The compression kernels have no backward kernel (their inputs are
+    detached gradients): on CUDA inputs that require grad they raise
+    (naming the missing backward) instead of returning a tensor that cuts
+    the graph; under no_grad they launch."""
     before = launch_counts()
     with pytest.raises(NotImplementedError, match="backward"):
         _refused(name, cuda)
@@ -711,26 +849,40 @@ def test_kernels_without_backward_refuse_grad(cuda, name):
 
 
 @pytest.mark.parametrize("arch", ["mamba2-130m", "dbrx-132b"])
-def test_training_ssm_and_moe_on_card_raises(cuda, arch):
-    """Until K6 and K5 have backward kernels, a training step of a Mamba or
-    MoE model on the card raises (on the CPU it trains: the plain versions
-    are differentiable)."""
+def test_training_ssm_and_moe_on_card(cuda, arch):
+    """A Mamba and a MoE model train on the card: 8 f32 steps on one
+    batch at smoke size lower the loss, every step launching the forward
+    and backward kernels of ``train_launches`` (K6 and K6-bwd; K1, K5 and
+    K5-bwd)."""
     cfg = smoke_config(arch)
     params = init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
                          device=cuda)
+    opt = init_opt_state(params)
     batch = next(make_batches(cfg, 2, 64))
-    with pytest.raises(NotImplementedError, match="backward"):
-        make_train_step(cfg, TrainConfig(remat=False))(
-            params, init_opt_state(params), batch)
+    step = make_train_step(cfg, TrainConfig(remat=False, learning_rate=3e-3,
+                                            warmup_steps=1))
+    losses = []
+    n0 = launch_counts()
+    for _ in range(8):
+        params, opt, m = step(params, opt, batch)
+        losses.append(float(m["loss"]))
+    torch.cuda.synchronize()
+    n1 = launch_counts()
+    assert all(np.isfinite(losses)) and losses[-1] < 0.9 * losses[0], losses
+    assert {k: n1[k] - n0[k] for k in n1 if n1[k] != n0[k]} == {
+        k: 8 * n for k, n in train_launches(cfg, 1, False).items()}
 
 
 @pytest.mark.parametrize("arch,microbatches,remat", [
     ("qwen2-0.5b", 1, False), ("qwen2-0.5b", 2, True),
     ("h2o-danube-1.8b", 2, False), ("granite-3-8b", 1, True),
-    ("llama-3.2-vision-90b", 1, False), ("seamless-m4t-medium", 2, True)])
+    ("llama-3.2-vision-90b", 1, False), ("seamless-m4t-medium", 2, True),
+    ("mamba2-130m", 2, True), ("dbrx-132b", 1, False),
+    ("deepseek-v2-236b", 1, False), ("jamba-1.5-large-398b", 1, False)])
 def test_train_step_on_card_matches_cpu(cuda, arch, microbatches, remat):
-    """One f32 step at smoke size on the card (K1 and its backward kernel,
-    counted against ``train_launches``; the encoder's layers included)
+    """One f32 step at smoke size on the card (K1, K6 and K5 and their
+    backward kernels, counted against ``train_launches``; the encoder's
+    layers included)
     against the same step on the CPU (held to JAX by
     tests/test_torch_train.py): loss and grad_norm within 1e-5, params and
     m within TOL.  The context families take their stub context, gates
@@ -871,20 +1023,36 @@ def test_ep_on_card_matches_dense(cuda):
             k: n * steps for k, n in ep_launches(cfg).items()}
 
 
-def test_ep_training_on_card_raises(cuda):
-    """An expert-parallel training step on the card raises, naming ROADMAP
-    item 4c (K5's backward kernel), before any kernel launches; nothing
-    trains on the CPU instead."""
+@pytest.mark.parametrize("mesh", [(1, 4), (2, 2)], ids=["1x4", "2x2"])
+def test_ep_training_on_card_matches_single_card_step(cuda, mesh):
+    """An expert-parallel f32 training step of dbrx's smoke config on 4
+    gloo ranks sharing the card (two all-to-alls a MoE layer forward and
+    two backward, K5-bwd on each rank's experts), at capacity factor 16
+    (no drops), against the single-card dense step on the same batch:
+    loss and grad_norm within 1e-5, every rank's first moments after the
+    step (0.1 x the clipped gradient; of its experts' slice) within TOL;
+    each rank launches a step's ``train_launches`` (K5 and K5-bwd on its
+    own experts)."""
+    tcfg = dict(remat=False, zero1=False)
+    build_kernels()
+    ranks = spawn_ranks(ep_train_on_card, 4, mesh, 0, tcfg, timeout_s=300)
     cfg = smoke_config("dbrx-132b")
     params = init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
                          device=cuda)
-    batch = next(make_batches(cfg, 2, 64))
-    before = launch_counts()
-    with pytest.raises(NotImplementedError, match="item 4c"):
-        make_train_step(cfg, TrainConfig(remat=False),
-                        ParallelCtx(use_ep=True, remat=False))(
-            params, init_opt_state(params), batch)
-    assert launch_counts() == before
+    batch = next(make_batches(cfg, 4, 64, seed=1))
+    _, opt, m = make_train_step(cfg, TrainConfig(**tcfg))(
+        params, init_opt_state(params), batch)
+    want = [t.cpu().numpy() for t in param_leaves(opt["m"])]
+    for r in ranks:
+        assert r["launches"] == train_launches(cfg, 1, False)
+        for k in ("loss", "grad_norm"):
+            assert r["metrics"][k] == pytest.approx(float(m[k]), rel=1e-5)
+        for got, full, expert in zip(r["m"], want, r["experts"]):
+            if expert:
+                part = full.shape[0] // r["tp"]
+                full = full[r["model_rank"] * part:
+                            (r["model_rank"] + 1) * part]
+            np.testing.assert_allclose(got, full, **TOL[torch.float32])
 
 
 # the local heads of tensor parallelism at tp 4 (B 2 x S 256): granite-3-8b

@@ -38,6 +38,12 @@ from repro_torch.core.types import TrainConfig
 from repro_torch.data import SyntheticLM, make_batches
 from repro_torch.configs import get_config
 from repro_torch.kernels.flash_attention.ops import LAUNCHES_PER_CALL
+from repro_torch.kernels.moe_gmm.ops import \
+    BWD_LAUNCHES_PER_CALL as GMM_BWD_LAUNCHES
+from repro_torch.kernels.ssd_scan.ops import \
+    BWD_LAUNCHES_PER_CALL as SSD_BWD_LAUNCHES
+from repro_torch.kernels.ssd_scan.ops import \
+    LAUNCHES_PER_CALL as SSD_LAUNCHES
 from repro_torch.models import (forward, init_params, param_leaves,
                                 train_launches, tree_map)
 from repro_torch.models.attention import (_flash_attention_chunked,
@@ -199,6 +205,35 @@ def test_adamw_update_matches_jax(dtype, grad_scale):
                         **(TOL if dtype == "float32" else BF16_TOL))
     _assert_trees_close(cfg, opt["m"], jo["m"], **TOL)
     _assert_trees_close(cfg, opt["v"], jo["v"], **TOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_adamw_update_in_pieces_gives_the_same_bits(monkeypatch, dtype):
+    """AdamW's update in pieces (``UPDATE_CHUNK`` values: small leaves
+    grouped, large contiguous ones sliced, a non-contiguous one whole) is
+    the update over all leaves at once, bit for bit, and the norm of a
+    leaf taken in pieces is its norm."""
+    from repro_torch.optim import adamw
+    gen = torch.Generator().manual_seed(0)
+    shapes = [(3000,), (10, 7), (500,), (2500,), (40, 40)]
+    params = [torch.randn(s, generator=gen).to(dtype) for s in shapes]
+    params[-1] = params[-1].t()  # a transposed leaf stays whole
+    grads = [torch.randn(p.shape, generator=gen) for p in params]
+    tcfg, lr = TrainConfig(), torch.tensor(1e-3)
+    runs = []
+    for chunk in (adamw.UPDATE_CHUNK, 1000):
+        monkeypatch.setattr(adamw, "UPDATE_CHUNK", chunk)
+        p = [t.clone() for t in params]
+        state = init_opt_state(p)
+        for _ in range(2):
+            p, state, m = adamw_update(p, grads, state, tcfg, lr)
+        runs.append((p, state, m))
+    (p0, s0, m0), (p1, s1, m1) = runs
+    assert all(torch.equal(a, b) for a, b in zip(p0, p1))
+    assert all(torch.equal(a, b) for k in ("m", "v")
+               for a, b in zip(s0[k], s1[k]))
+    assert float(m1["grad_norm"]) == pytest.approx(float(m0["grad_norm"]),
+                                                   rel=1e-12)
 
 
 def test_global_norm_holds_f32_accuracy_over_large_leaves():
@@ -386,34 +421,57 @@ def test_training_learns_synthetic_pattern():
     assert last < 0.8 * uniform, f"loss {first}->{last}, uniform {uniform}"
 
 
+# the kernels' launches a call: K1-bwd 3, K6 3, K6-bwd 4, K5 1, K5-bwd 2
+K1B, K6, K6B, K5B = LAUNCHES_PER_CALL, SSD_LAUNCHES, SSD_BWD_LAUNCHES, \
+    GMM_BWD_LAUNCHES
+
+
 @pytest.mark.parametrize("arch,microbatches,remat,want", [
-    ("qwen2-0.5b", 2, True, (96, 48)), ("qwen2-0.5b", 1, False, (24, 24)),
-    ("jamba-1.5-large-398b", 3, False, (3, 3)),
-    ("mamba2-130m", 4, True, (0, 0))])
+    # 24 attention layers x 2 microbatches, forward twice under remat
+    ("qwen2-0.5b", 2, True, {"flash_attention": 24 * 2 * 2,
+                             "flash_attention_bwd": 24 * 2 * K1B}),
+    ("qwen2-0.5b", 1, False, {"flash_attention": 24,
+                              "flash_attention_bwd": 24 * K1B}),
+    # smoke: one attention + dense layer, one Mamba + MoE layer
+    ("jamba-1.5-large-398b", 3, False, {
+        "flash_attention": 3, "flash_attention_bwd": 3 * K1B,
+        "ssd_scan": 3 * K6, "ssd_scan_bwd": 3 * K6B,
+        "moe_gmm": 3 * 3, "moe_gmm_bwd": 3 * 3 * K5B}),
+    # smoke: two Mamba layers
+    ("mamba2-130m", 4, True, {"ssd_scan": 2 * 4 * 2 * K6,
+                              "ssd_scan_bwd": 2 * 4 * K6B}),
+    # smoke: two attention + MoE layers
+    ("dbrx-132b", 2, True, {
+        "flash_attention": 2 * 2 * 2, "flash_attention_bwd": 2 * 2 * K1B,
+        "moe_gmm": 3 * 2 * 2 * 2, "moe_gmm_bwd": 3 * 2 * 2 * K5B})])
 def test_train_launches(arch, microbatches, remat, want):
-    """K1's forward launches (twice a layer under remat) and its backward's
-    three launches a call, per attention layer and microbatch; qwen2-0.5b
-    at full depth, the others at smoke size."""
+    """Each forward kernel once a layer and microbatch (twice under remat,
+    whose checkpointed layer runs again in the backward), each backward
+    kernel once: K1 and its backward per attention layer, K6 and its
+    backward per Mamba layer, K5 and its backward per expert product
+    (three a MoE layer); kernels that do not launch are left out.
+    qwen2-0.5b at full depth, the others at smoke size."""
     cfg = get_config(arch) if arch == "qwen2-0.5b" else smoke_config(arch)
-    got = train_launches(cfg, microbatches, remat)
-    assert got == {"flash_attention": want[0],
-                   "flash_attention_bwd": want[1] * LAUNCHES_PER_CALL}
+    assert train_launches(cfg, microbatches, remat) == want
 
 
-@pytest.mark.parametrize("arch,seq,want", [
-    ("deepseek-v2-236b", None, 0),  # MLA: q and v head dims differ
-    ("llama-3.2-vision-90b", 512, 80),  # self layers; cross T 1601
-    ("llama-3.2-vision-90b", 1601, 100),  # cross layers at S == T too
-    ("seamless-m4t-medium", 512, 24),  # encoder + decoder self
-    ("seamless-m4t-medium", 1024, 36)])  # + the cross blocks at S == T
-def test_train_launches_with_context(arch, seq, want):
+@pytest.mark.parametrize("arch,seq,want,moe", [
+    ("deepseek-v2-236b", None, 0, 59),  # MLA: q and v head dims differ
+    ("llama-3.2-vision-90b", 512, 80, 0),  # self layers; cross T 1601
+    ("llama-3.2-vision-90b", 1601, 100, 0),  # cross layers at S == T too
+    ("seamless-m4t-medium", 512, 24, 0),  # encoder + decoder self
+    ("seamless-m4t-medium", 1024, 36, 0)])  # + the cross blocks at S == T
+def test_train_launches_with_context(arch, seq, want, moe):
     """K1 launches a step of the context families at full size, one
     microbatch: MLA none, a cross-attention layer or cross block one
     only where the sequence is as long as the context, the encoder's
-    layers one each (the loss encodes)."""
+    layers one each (the loss encodes); deepseek-v2's 59 MoE layers K5
+    three times and its backward's two launches three times each."""
     got = train_launches(get_config(arch), 1, False, seq)
-    assert got == {"flash_attention": want,
-                   "flash_attention_bwd": want * LAUNCHES_PER_CALL}
+    want = {"flash_attention": want,
+            "flash_attention_bwd": want * LAUNCHES_PER_CALL,
+            "moe_gmm": 3 * moe, "moe_gmm_bwd": 3 * moe * K5B}
+    assert got == {k: n for k, n in want.items() if n}
 
 
 # --- the chunked CPU attention path -----------------------------------------

@@ -209,3 +209,39 @@ def card_tokens(cfg) -> torch.Tensor:
     """The prompt of ``ep_on_card``: B 2 x S 64 from a seed."""
     return torch.from_numpy(np.random.default_rng(7).integers(
         0, cfg.vocab_size, (2, 64)))
+
+
+def ep_train_on_card(rank: int, world: int, mesh_shape, seed: int,
+                     tcfg: dict, device: str = "cuda") -> dict:
+    """One f32 training step of dbrx's smoke config on the card over a
+    (data, model) mesh of gloo ranks, every MoE layer through
+    ``moe_ep_train`` at capacity factor 16 (no dispatch dropped), K5 and
+    its backward kernel on this rank's experts: the step's metrics, this
+    rank's first moments after it (of its experts' parts), which leaves are
+    expert parts, and the kernel launches of the step (none on the CPU,
+    where ``device`` "cpu" rehearses it)."""
+    from repro_torch.data import make_batches
+    from repro_torch.kernels import launch_counts
+    from repro_torch.launch.ranks import rank_device
+    from repro_torch.models import init_params
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    device = rank_device(device)
+    cfg = smoke_config(ARCH)
+    mcfg, (dgroup, mgroup) = _mesh(world, mesh_shape)
+    ctx = make_ctx(dgroup, mcfg, model_group=mgroup, use_ep=True,
+                   remat=False, capacity_factor=16.0)
+    params = init_params(cfg, torch.Generator(device=device).manual_seed(
+        seed), device=device, ctx=ctx)
+    flags = expert_flags(params)
+    batch = next(make_batches(cfg, 4, 64, seed=1))
+    step = make_train_step(cfg, TrainConfig(**tcfg), ctx)
+    n0 = launch_counts()
+    _, opt, m = step(params, init_opt_state(params), batch)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    n1 = launch_counts()
+    return {"metrics": {k: float(v) for k, v in m.items()},
+            "m": [t.cpu().numpy() for t in param_leaves(opt["m"])],
+            "experts": flags, "model_rank": ctx.model_rank, "tp": ctx.tp,
+            "launches": {k: n1[k] - n0[k] for k in n1 if n1[k] != n0[k]}}
