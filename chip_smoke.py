@@ -411,13 +411,17 @@ def _release() -> None:
 # 1. build
 # --------------------------------------------------------------------------
 
-# the wgmma / TMA kernels (K1 bf16 and its backward; K5 bf16 prefill and,
-# swap-AB, decode)
-WGMMA_KERNELS = ("flash_attn_bf16_kernel<64>", "flash_attn_bf16_kernel<128>",
+# the tensor-core kernels whose registers and spills get a line each: the
+# wgmma / TMA kernels (K1 bf16 and its backward; K5 bf16 prefill and,
+# swap-AB, decode; K5-bwd's dx and dw) and K6-bwd's two 3xTF32 mma.sync
+# stages at mamba2's (P, N)
+TC_KERNELS = ("flash_attn_bf16_kernel<64>", "flash_attn_bf16_kernel<128>",
                  "dkdv_wgmma_kernel<64>", "dkdv_wgmma_kernel<128>",
                  "dq_wgmma_kernel<64>", "dq_wgmma_kernel<128>",
                  "gmm_wgmma_kernel", "gmm_swap_kernel<8>", "gmm_swap_kernel<16>",
-                 "gmm_swap_kernel<32>", "gmm_swap_kernel<64>")
+                 "gmm_swap_kernel<32>", "gmm_swap_kernel<64>",
+                 "gmm_bwd_wgmma_kernel<false>", "gmm_bwd_wgmma_kernel<true>",
+                 "chunk_grad_kernel<64, 128>", "dstate_kernel<128, 64>")
 
 
 def ptxas_summary(log: str) -> dict:
@@ -431,8 +435,12 @@ def ptxas_summary(log: str) -> dict:
             for m in re.finditer(r"(?=(\d+)([A-Za-z_]\w*))", ln):
                 n, rest = int(m.group(1)), m.group(2)  # <length><identifier>
                 if rest[:n].endswith("_kernel"):
-                    arg = re.match(r"ILi(\d+)E", rest[n:])
-                    name = rest[:n] + (f"<{arg.group(1)}>" if arg else "")
+                    args = re.match(r"I((?:L[ib]\d+E)+)E", rest[n:])
+                    name = rest[:n] + ("<" + ", ".join(
+                        v if k == "i" else ("true" if v == "1" else "false")
+                        for k, v in re.findall(r"L([ib])(\d+)E",
+                                               args.group(1))) + ">"
+                        if args else "")
         elif name and ("registers" in ln or "spill" in ln):
             text = ln.split("ptxas info    :")[-1].strip()
             out[name] = f"{out[name]}; {text}" if name in out else text
@@ -453,7 +461,7 @@ def phase_build() -> None:
           "ptxas": ptxas})
     for src in ptxas.values():  # the tensor-core kernels, one line each
         for name, info in src.items():
-            if name in WGMMA_KERNELS:
+            if name in TC_KERNELS:
                 emit({"phase": "build", "kernel": name, "ptxas": info})
 
 
@@ -1165,6 +1173,19 @@ def ssd_bwd_bound(b, h, l, p, n):
     return _bound(nbytes, flops, PEAK_F32_FLOPS)
 
 
+def ssd_bwd_tc_bound(b, h, l, p, n, q=SSD_KERNEL_CHUNK):
+    """Least time (ms) of the backward kernel's own design: its products'
+    least operations at its chunk q (D = dy x^T and (M o dt)^T dy on and
+    below the diagonal, (q + 1) P a row each; dCB B and dCB^T C, (q + 1) N
+    each; (w o B) G^T, dy h, x G and the states' gradient (dy o e)^T C, 2PN
+    each), three times over for 3xTF32, at the dense TF32 peak of the
+    tensor cores, against the bytes of ``ssd_bwd_bound``."""
+    flops = 3 * b * h * l * (2 * (q + 1) * (p + n) + 8 * p * n)
+    nbytes = 4 * (2 * (2 * b * h * l * p + b * h * l + 2 * b * l * n + h)
+                  - b * h * l * p)
+    return _bound(nbytes, flops, PEAK_TF32_FLOPS)
+
+
 def _ssd_bwd_args(rng, shape):
     """The model's layouts and decays (``_ssd_inputs``, f32) and dy as
     autograd hands it back through the model's permute."""
@@ -1181,11 +1202,12 @@ def _scaled_err(got, want) -> float:
 
 
 def phase_ssd_bwd_kernel(rng) -> dict:
-    """K6-bwd (four launches reading the forward's workspace) against its
-    plain version at the kernel's chunk of 64 and against f64 autograd of
-    the plain forward at the model's chunk, each gradient within
-    ``SSD_BWD_TOL`` of its scale; two calls bit-equal; timed at mamba2's
-    training microbatch."""
+    """K6-bwd (four launches reading the forward's workspace, its products
+    in 3xTF32 on the tensor cores) against its plain version at the
+    kernel's chunk of 64 and against f64 autograd of the plain forward at
+    the model's chunk, each gradient within ``SSD_BWD_TOL`` of its scale;
+    two calls bit-equal; timed at mamba2's training microbatch beside both
+    bounds (f32 CUDA cores, and the design's 3xTF32 at the TF32 rate)."""
     names = ("dx", "ddt", "da", "db", "dc")
     path_err = None
     for shape in _SSD_BWD_SWEEP:
@@ -1232,7 +1254,9 @@ def phase_ssd_bwd_kernel(rng) -> dict:
         return ssd_scan_bwd(*args, workspace=work)
 
     bound_ms, bound_by = ssd_bwd_bound(*SSD_BWD_PATH_SHAPE)
+    bound_tc_ms, bound_tc_by = ssd_bwd_tc_bound(*SSD_BWD_PATH_SHAPE)
     timing = {"shape": list(SSD_BWD_PATH_SHAPE), "dtype": "float32",
+              "products": "3xtf32 (mma.sync m16n8k8)",
               "ms": cuda_ms(kernel, 20), "graph_ms": graph_ms(kernel, 10),
               "launches_per_call": SSD_BWD_LAUNCHES,
               "stage_ms": stage_ms(kernel, 10, SSD_BWD_STAGES),
@@ -1242,6 +1266,7 @@ def phase_ssd_bwd_kernel(rng) -> dict:
                   *args, chunk=SSD_KERNEL_CHUNK), 5),
               "library_ms": None,  # no single PyTorch call
               "bound_ms": bound_ms, "bound_by": bound_by,
+              "bound_tc_ms": bound_tc_ms, "bound_tc_by": bound_tc_by,
               "max_abs_err": path_err}
     emit({"phase": "kernel_time", "kernel": "ssd_scan_bwd", **timing})
     return {"path": timing}
@@ -1256,6 +1281,9 @@ GMM_BWD_DOWN = (16, 512, 10752, 6144, False)
 GMM_BWD_EP = (8, 160, 6144, 10752, False)
 _GMM_BWD_SWEEP = [(3, 77, 100, 60, True), (4, 256, 512, 384, False),
                   (160, 8, 64, 48, True), (2, 63, 200, 1000, False)]
+# the path shapes take the wgmma variant (ops.gmm_bwd_variant); its two
+# launches by the names the profiler gives them
+GMM_BWD_STAGES = ("gmm_bwd_wgmma_kernel<false>", "gmm_bwd_wgmma_kernel<true>")
 
 
 def gmm_bwd_bound(e, c, d, f, expand, dtype):
@@ -1286,9 +1314,11 @@ def phase_gmm_bwd_kernel(rng) -> dict:
     """K5-bwd (two launches: dx, dw) against its plain version (f32
     accumulation, cast) and, at the path shape, against f64 autograd of
     ``moe_gmm_ref``, scaled by max(|ref|, 1) within KERNEL_TOL; two calls
-    bit-equal; timed at the path shapes beside the plain version and
-    ``torch.bmm`` computing the same two products (dx per expert, not
-    summed; the library yardstick, never called by the port)."""
+    bit-equal; each call's variant and split printed, the path shapes
+    checked to take wgmma; timed at the path shapes, each launch's device
+    time in ``stage_ms``, beside the plain version and ``torch.bmm``
+    computing the same two products (dx per expert, not summed; the
+    library yardstick, never called by the port)."""
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 3)
     cases = [(s, dt) for dt in (torch.float32, torch.bfloat16)
              for s in _GMM_BWD_SWEEP]
@@ -1329,9 +1359,11 @@ def phase_gmm_bwd_kernel(rng) -> dict:
                       for g, r in zip(got, refs["plain"]))
         finite = all(bool(torch.isfinite(g.float()).all()) for g in got)
         errs[(shape, dtype)] = max_abs
+        variant, split = moe_gmm_bwd.last_variant, moe_gmm_bwd.last_split
         emit({"phase": "kernel_check", "kernel": "moe_gmm_bwd",
               "shape": list(shape[:4]), "x_expert_stride_0": expand,
-              "dtype": str(dtype).split(".")[-1], "errors": report,
+              "dtype": str(dtype).split(".")[-1], "variant": variant,
+              "split": split, "errors": report,
               "max_abs_err": max_abs, "tol": {**tol,
                                               "scaled_by": "max(|ref|, 1)"},
               "bit_equal_calls": bitwise, "launches_per_call": per_call,
@@ -1341,6 +1373,9 @@ def phase_gmm_bwd_kernel(rng) -> dict:
         check(bitwise, f"moe_gmm_bwd: two calls differ at {shape}")
         check(per_call == GMM_BWD_LAUNCHES,
               f"moe_gmm_bwd launched {per_call} kernels a call")
+        if shape in (GMM_BWD_PATH, GMM_BWD_DOWN, GMM_BWD_EP):
+            check(variant == "wgmma",
+                  f"moe_gmm_bwd took {variant} at the path shape {shape}")
         del x, w, dy, got, refs
         _release()
 
@@ -1364,6 +1399,9 @@ def phase_gmm_bwd_kernel(rng) -> dict:
             "shape": list(shape[:4]), "x_expert_stride_0": expand,
             "dtype": "bfloat16", "ms": cuda_ms(kernel, iters),
             "graph_ms": graph_ms(kernel, iters),
+            "variant": moe_gmm_bwd.last_variant,
+            "split": moe_gmm_bwd.last_split,
+            "stage_ms": stage_ms(kernel, iters, GMM_BWD_STAGES),
             "launches_per_call": GMM_BWD_LAUNCHES,
             "plain_ms": cuda_ms(lambda: moe_gmm_bwd_ref(
                 x, w, dy, expanded=expand), iters),
@@ -4792,9 +4830,10 @@ def main() -> int:
                  "bound_by": t["bound_by"], "library_ms": t["library_ms"],
                  "shape": t["shape"], "dtype": t["dtype"],
                  **{key: t[key] for key in (
-                     "variant", "graph_ms", "library_graph_ms",
-                     "library_backend", "launches_per_call", "stage_ms",
-                     "bound_tc_ms", "bound_tc_by") if key in t},
+                     "variant", "split", "products", "graph_ms",
+                     "library_graph_ms", "library_backend",
+                     "launches_per_call", "stage_ms", "bound_tc_ms",
+                     "bound_tc_by") if key in t},
                  "path": main_path[name],
                  "launches_by_path": {p: c.get(name, 0)
                                       for p, c in paths.items()}}

@@ -3,7 +3,7 @@ backward.
 
 On CUDA tensors they launch the hand-written Hopper kernels
 (``csrc/moe_gmm.cu``; its gradient ``csrc/moe_gmm_bwd.cu``, two launches,
-dx and dw) or raise; on CPU tensors they compute the plain PyTorch
+dx and dw, in the variant ``gmm_bwd_variant`` picks) or raise; on CPU tensors they compute the plain PyTorch
 versions (``ref.moe_gmm_ref``, which autograd differentiates, and
 ``ref.moe_gmm_bwd_ref``).  The device of the tensors decides: there is no
 flag and no fallback.  Where autograd needs the gradient of a CUDA call,
@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from pathlib import Path
 
 import torch
@@ -24,7 +25,7 @@ from repro_torch.kernels.moe_gmm.ref import moe_gmm_bwd_ref, moe_gmm_ref
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "moe_gmm.cu"
 BWD_SOURCE = Path(__file__).resolve().parent / "csrc" / "moe_gmm_bwd.cu"
-BWD_LAUNCHES_PER_CALL = 2  # dx, dw
+BWD_LAUNCHES_PER_CALL = 2  # dx, dw (a split dx sums its parts in-kernel)
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _VARIANT_CODES = {"f32": 0, "mma_sync": 0, "wgmma": 1, "wgmma_swap": 1}
@@ -46,6 +47,68 @@ def gmm_variant(dtype, c: int, f: int, x_strides, x_ptr: int,
     return "wgmma" if c >= WGMMA_MIN_C else "wgmma_swap"
 
 
+_BWD_VARIANT_CODES = {"f32": 0, "mma_sync": 0, "wgmma": 1}
+# the backward's wgmma tiles: 128 rows x 256 columns, 64-deep slices
+BWD_TILE_M, BWD_TILE_N, BWD_SLICE = 128, 256, 64
+MAX_SPLIT = 16
+PART_FLOATS = 256 * 128  # f32 of one part's tile: 256 threads x 128
+
+
+def gmm_bwd_variant(dtype, d: int, f: int, x_strides, x_ptr: int,
+                    w_ptr: int, dy_ptr: int) -> str:
+    """Which of the backward kernel's variants a call takes
+    (csrc/moe_gmm_bwd.cu): "f32" (CUDA cores) for f32; for bf16 where TMA
+    can address every operand (16-byte-aligned bases and x row and expert
+    strides, d and f multiples of 8) "wgmma", at any C; else "mma_sync"."""
+    if dtype == torch.float32:
+        return "f32"
+    sxe, sxc = x_strides[0], x_strides[1]
+    if x_ptr % 16 or w_ptr % 16 or dy_ptr % 16 or d % 8 or f % 8 or \
+            sxc % 8 or sxe % 8:
+        return "mma_sync"
+    return "wgmma"
+
+
+def gmm_bwd_tiles(e: int, c: int, d: int, expanded: bool) -> int:
+    """Output tiles of the wgmma variant's dx: 128 (C) x 256 (d) of each
+    expert's (C, d), or of the one expanded sum."""
+    return (math.ceil(c / BWD_TILE_M) * math.ceil(d / BWD_TILE_N)
+            * (1 if expanded else e))
+
+
+def gmm_bwd_walk(e: int, f: int, expanded: bool) -> int:
+    """Steps of dx's K loop: the 64-deep slices of f, of every expert where
+    expanded (the walk over (expert, slice) pairs)."""
+    return (e if expanded else 1) * math.ceil(f / BWD_SLICE)
+
+
+def gmm_bwd_split(tiles: int, steps: int, sms: int) -> int:
+    """Parts that dx's K walk is cut into so that ``tiles`` output tiles
+    fill ``sms`` SMs: the number of parts s whose rounds of work units,
+    ceil(tiles s / sms) / s of a whole tile's time, come within 5% of the
+    least over 1 .. MAX_SPLIT (the smallest such s: each part adds an f32
+    tile to write and sum).  1 where the tiles fill the SMs already.  At
+    dbrx's step (96 tiles, 132 SMs) 4: 384 units, three rounds of a
+    quarter tile each."""
+    top = max(1, min(MAX_SPLIT, steps))
+    cost = {s: math.ceil(tiles * s / sms) / s for s in range(1, top + 1)}
+    best = min(cost.values())
+    return min(s for s, c in cost.items() if c <= best * 1.05)
+
+
+def gmm_bwd_parts(steps: int, split: int):
+    """The [begin, end) steps of each part, in the order the kernel sums
+    them: part s takes floor(s steps / split) up to floor((s + 1) steps /
+    split)."""
+    return [(s * steps // split, (s + 1) * steps // split)
+            for s in range(split)]
+
+
+@functools.lru_cache(maxsize=16)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.load(SOURCE)
@@ -61,7 +124,8 @@ def _lib() -> ctypes.CDLL:
 def _bwd_lib() -> ctypes.CDLL:
     lib = _build.load(BWD_SOURCE)
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.moe_gmm_bwd.argtypes = [p, p, p, p, p, i, i, i, i, ll, ll, i, i, p]
+    lib.moe_gmm_bwd.argtypes = [p, p, p, p, p, i, i, i, i, ll, ll, i, i, i,
+                                i, p, p, p]
     lib.moe_gmm_bwd.restype = i
     lib.moe_gmm_bwd_error_string.argtypes = [i]
     lib.moe_gmm_bwd_error_string.restype = ctypes.c_char_p
@@ -176,7 +240,10 @@ def moe_gmm_bwd(x, w, dy, *, expanded: bool = False):
     then the one (C, d) sum over the experts); dy (E, C, f), copied where
     not contiguous.  On CUDA tensors two launches (``BWD_LAUNCHES_PER_CALL``:
     dx = dy w^T with w read transposed in place, and dw = x^T dy with x
-    read through its strides); on CPU tensors ``ref.moe_gmm_bwd_ref``."""
+    read through its strides; ``gmm_bwd_variant`` picks the kernel's
+    variant, and for wgmma ``gmm_bwd_split`` the parts of dx's K walk, whose
+    f32 tiles the kernel sums in a fixed order); on CPU tensors
+    ``ref.moe_gmm_bwd_ref``."""
     xe = _expand(x, w, expanded)
     _check(xe, w)
     if tuple(dy.shape) != (*xe.shape[:2], w.shape[2]) or \
@@ -193,21 +260,39 @@ def moe_gmm_bwd(x, w, dy, *, expanded: bool = False):
     dy = dy.contiguous()
     e, c, d = xe.shape
     f = w.shape[2]
+    variant = gmm_bwd_variant(x.dtype, d, f, xe.stride(), x.data_ptr(),
+                              w.data_ptr(), dy.data_ptr())
     dx = torch.empty(x.shape, dtype=x.dtype, device=x.device)
     dw = torch.empty(w.shape, dtype=w.dtype, device=w.device)
+    split, part, count = 1, None, None
+    if variant == "wgmma":
+        tiles = gmm_bwd_tiles(e, c, d, expanded)
+        split = gmm_bwd_split(tiles, gmm_bwd_walk(e, f, expanded),
+                              _sm_count(x.device.index or 0))
+        if split > 1:
+            part = torch.empty(tiles * split * PART_FLOATS,
+                               dtype=torch.float32, device=x.device)
+            count = torch.zeros(tiles, dtype=torch.int32, device=x.device)
     lib = _bwd_lib()
     with _build.on_device(x.device):
         rc = lib.moe_gmm_bwd(x.data_ptr(), w.data_ptr(), dy.data_ptr(),
                              dx.data_ptr(), dw.data_ptr(), e, c, d, f,
                              xe.stride(0), xe.stride(1),
                              1 if expanded else 0, _DTYPE_CODES[x.dtype],
+                             _BWD_VARIANT_CODES[variant], split,
+                             None if part is None else part.data_ptr(),
+                             None if count is None else count.data_ptr(),
                              _build.raw_stream(x.device))
     moe_gmm_bwd.launches += rc & 15
     if rc >> 4:
         raise RuntimeError(
-            f"moe_gmm_bwd launch failed: CUDA error {rc >> 4} "
+            f"moe_gmm_bwd launch failed ({variant}): CUDA error {rc >> 4} "
             f"({lib.moe_gmm_bwd_error_string(rc >> 4).decode()})")
+    moe_gmm_bwd.last_variant = variant
+    moe_gmm_bwd.last_split = split
     return dx, dw
 
 
 moe_gmm_bwd.launches = 0  # kernel launches, counted only where they happen
+moe_gmm_bwd.last_variant = None  # the variant of the last call
+moe_gmm_bwd.last_split = None  # the parts of its dx's K walk

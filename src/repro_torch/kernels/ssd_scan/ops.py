@@ -31,7 +31,7 @@ STATE_DIMS = (16, 32, 64, 128)  # N
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 LAUNCHES_PER_CALL = 3  # chunk states, the carry, the outputs
 # backward: the states' gradients, their reverse carry, every gradient of
-# a chunk per head, the sums over heads and chunks
+# a chunk for a group of heads, the sums over the groups and chunks
 BWD_LAUNCHES_PER_CALL = 4
 
 
@@ -199,10 +199,11 @@ def ssd_scan_bwd(x, dt, a, b, c, dy, *, chunk: int = 128, workspace=None):
 
     x, dt, a, b, c as the forward took them; dy the output's gradient (any
     strides with a unit stride along P; copied otherwise).  On CUDA tensors
-    f32 only, four launches (``BWD_LAUNCHES_PER_CALL``) that read the
-    forward's ``workspace`` (``ssd_scan_workspace``, or the one ``SsdScan``
-    keeps) and one f32 buffer of their own: the states' gradients and the
-    per-head partials of db and dc, summed over the heads in a fixed order.
+    f32 only, four launches (``BWD_LAUNCHES_PER_CALL``; every product in
+    3xTF32 on the tensor cores) that read the forward's ``workspace``
+    (``ssd_scan_workspace``, or the one ``SsdScan`` keeps) and one f32
+    buffer of their own: the states' gradients and the partials of db and
+    dc of each group of heads, summed over the groups in a fixed order.
     On CPU tensors ``ref.ssd_scan_bwd_ref`` at ``chunk``."""
     _check(x, dt, a, b, c)
     if dy.shape != x.shape:

@@ -206,7 +206,8 @@ def ssd_scan_staged(x, dt, a, b, c, *, q: int = KERNEL_CHUNK,
     return y.reshape(bsz, h, nc * q, p)[:, :, :l].to(x.dtype)
 
 
-def ssd_scan_bwd_ref(x, dt, a, b, c, dy, *, chunk: int = KERNEL_CHUNK):
+def ssd_scan_bwd_ref(x, dt, a, b, c, dy, *, chunk: int = KERNEL_CHUNK,
+                     product: str | None = None):
     """Gradient of the SSD scan, written out stage by stage as the backward
     kernel (``csrc/ssd_scan_bwd.cu``) computes it, not through autograd.
     x (B,H,L,P), dt (B,H,L), a (H,), b, c (B,L,N), dy (B,H,L,P) -> (dx,
@@ -233,8 +234,16 @@ def ssd_scan_bwd_ref(x, dt, a, b, c, dy, *, chunk: int = KERNEL_CHUNK):
             r_k, r_i = C_i . (dy h)_i, w's the sum over k < m of w_k u_k,
             u_j = B_j . (x G)_j, and the carry's exp(cs_Q) <G, h>; then ddt
             = (M o D) summed over i + exp(cs_Q - cs) u + a d(dt a), and da
-            = the sum over (B, L) of dt d(dt a)."""
-    work = torch.float64
+            = the sum over (B, L) of dt d(dt a).
+    ``product`` ("f32", "3xtf32" or "tf32"): compute in f32 instead, with
+    every matrix product (the forward's states and C B^T, which the kernel
+    reads from K6's workspace, and the backward's ten) taken as
+    ``_product`` does, so that the CPU tests pin which products the kernel
+    may run on the tensor cores."""
+    work = torch.float64 if product is None else torch.float32
+
+    def mm(u, v):
+        return u @ v if product is None else _product(u, v, product)
     bsz, h, l, p = x.shape
     n = b.shape[-1]
     q = min(chunk, l)
@@ -258,7 +267,7 @@ def ssd_scan_bwd_ref(x, dt, a, b, c, dy, *, chunk: int = KERNEL_CHUNK):
     e = torch.exp(cs)
 
     # the forward's chunk states and the state before each chunk
-    states = (xs * w[..., None]).transpose(-1, -2) @ bs  # (B,H,nc,P,N)
+    states = mm((xs * w[..., None]).transpose(-1, -2), bs)  # (B,H,nc,P,N)
     hcur = states.new_zeros(bsz, h, p, n)
     before = []
     for ci in range(nc):
@@ -267,7 +276,7 @@ def ssd_scan_bwd_ref(x, dt, a, b, c, dy, *, chunk: int = KERNEL_CHUNK):
     before = torch.stack(before, dim=2)
 
     # (i), (ii): gn[c] = G_c, the gradient of the state after chunk c
-    dh_in = (dys * e[..., None]).transpose(-1, -2) @ cm  # (B,H,nc,P,N)
+    dh_in = mm((dys * e[..., None]).transpose(-1, -2), cm)  # (B,H,nc,P,N)
     g = torch.zeros_like(hcur)
     gn = [None] * nc
     for ci in reversed(range(nc)):
@@ -281,19 +290,19 @@ def ssd_scan_bwd_ref(x, dt, a, b, c, dy, *, chunk: int = KERNEL_CHUNK):
                        torch.full((), -torch.inf, dtype=work,
                                   device=x.device))
     lmat = torch.exp(diff)
-    cb = cm @ bs.transpose(-1, -2)               # (B,1,nc,Q,Q)
-    d = dys @ xs.transpose(-1, -2)               # (B,H,nc,Q,Q)
+    cb = mm(cm, bs.transpose(-1, -2))            # (B,1,nc,Q,Q)
+    d = mm(dys, xs.transpose(-1, -2))            # (B,H,nc,Q,Q)
     m = cb * lmat
     md = m * d
     dcb = d * lmat * dts[..., None, :]
-    xg = xs @ gn                                 # (B,H,nc,Q,N)
-    dh = dys @ before                            # (B,H,nc,Q,N)
+    xg = mm(xs, gn)                              # (B,H,nc,Q,N)
+    dh = mm(dys, before)                         # (B,H,nc,Q,N)
     u = (xg * bs).sum(-1)                        # (B,H,nc,Q)
     r = (dh * cm).sum(-1)
-    dx = dts[..., None] * (m.transpose(-1, -2) @ dys) \
-        + w[..., None] * (bs @ gn.transpose(-1, -2))
-    dc = (dcb @ bs + e[..., None] * dh).sum(1)   # (B,nc,Q,N)
-    db = (dcb.transpose(-1, -2) @ cm + w[..., None] * xg).sum(1)
+    dx = dts[..., None] * mm(m.transpose(-1, -2), dys) \
+        + w[..., None] * mm(bs, gn.transpose(-1, -2))
+    dc = (mm(dcb, bs) + e[..., None] * dh).sum(1)   # (B,nc,Q,N)
+    db = (mm(dcb.transpose(-1, -2), cm) + w[..., None] * xg).sum(1)
 
     # (iv)
     def before_m(v):  # the sum over j < m, not cumsum - v (which cancels)

@@ -26,6 +26,8 @@ from repro_torch.kernels.moe_gmm import (moe_gmm, moe_gmm_bwd,
                                          moe_gmm_bwd_ref, moe_gmm_ref)
 from repro_torch.kernels.moe_gmm.ops import \
     BWD_LAUNCHES_PER_CALL as GMM_BWD_LAUNCHES
+from repro_torch.kernels.moe_gmm.ops import (gmm_bwd_split, gmm_bwd_tiles,
+                                             gmm_bwd_walk)
 from repro_torch.kernels.ssd_scan import (ssd_scan, ssd_scan_bwd,
                                           ssd_scan_bwd_ref, ssd_scan_ref,
                                           ssd_scan_workspace)
@@ -435,7 +437,15 @@ def _scaled(got, want) -> float:
         float(want.double().abs().max()), 1.0)
 
 
-@pytest.mark.parametrize("shape", SSD_BWD_SHAPES)
+# the head groups of chunk_grad (a block takes the heads of one (b,
+# chunk)): odd head counts that leave a short last group, P 128 with N
+# 128 (h and G in slices of 16 columns), several groups of 8 heads
+SSD_BWD_GROUP_SHAPES = [(1, 5, 320, 64, 128), (3, 7, 192, 64, 128),
+                        (1, 3, 200, 128, 128), (1, 33, 128, 32, 64),
+                        (2, 11, 448, 128, 32), (1, 48, 512, 64, 128)]
+
+
+@pytest.mark.parametrize("shape", SSD_BWD_SHAPES + SSD_BWD_GROUP_SHAPES)
 def test_ssd_scan_bwd_kernel_matches_plain(cuda, shape):
     """K6-bwd (four launches, reading the forward's workspace) against its
     plain version on the card at the kernel's chunk of 64, within 5e-5 of
@@ -502,6 +512,73 @@ def test_moe_gmm_bwd_kernel_matches_plain(cuda, shape, dtype, layout):
         np.testing.assert_allclose(g.float().cpu().numpy() / scale,
                                    ref.float().cpu().numpy() / scale,
                                    **TOL[dtype])
+
+
+# (E, C, d, f, x layout, variant): the wgmma variant's paths -- C 160
+# (an EP rank: a last tile of 32 rows, taken as a 64-row half tile), the
+# 64-row edge exactly (C 192) and past it (C 200: a full last tile), dx's
+# K walk split into several part counts (expanded tokens and too few
+# tiles for the card), a padded-row view that stays aligned -- and the
+# layouts that take mma_sync (d 100; rows 131 values apart)
+GMM_BWD_PATH_CASES = [
+    (8, 160, 256, 512, "contiguous", "wgmma"),
+    (4, 192, 256, 256, "contiguous", "wgmma"),
+    (3, 200, 384, 320, "strided", "wgmma"),
+    (2, 130, 256, 512, "expanded", "wgmma"),
+    (2, 128, 256, 128, "expanded", "wgmma"),
+    (4, 256, 512, 384, "expanded", "wgmma"),
+    (16, 512, 640, 1024, "expanded", "wgmma"),
+    (3, 77, 100, 60, "expanded", "mma_sync"),
+    (2, 128, 128, 256, "padded3", "mma_sync")]
+
+
+@pytest.mark.parametrize("e,c,d,f,layout,variant", GMM_BWD_PATH_CASES)
+def test_moe_gmm_bwd_variants_and_split(cuda, e, c, d, f, layout, variant):
+    """K5-bwd bf16 on the variant its layout picks, against its plain
+    version within TOL of max(|ref|, 1); the split of dx's K walk is the
+    plan's for this card (``gmm_bwd_split``), several counts above 1
+    among these cases; two calls bit-equal (the parts are summed in a
+    fixed order)."""
+    rng = np.random.default_rng(e + c + d + f)
+
+    def mk(*s, scale=1.0):
+        return torch.from_numpy(rng.standard_normal(s, dtype=np.float32)
+                                * scale).to(cuda, torch.bfloat16)
+
+    expanded = layout == "expanded"
+    pad = {"strided": 8, "padded3": 3}.get(layout, 0)
+    x = mk(c, d) if expanded else mk(e, c, d + pad)[..., :d]
+    w, dy = mk(e, d, f, scale=0.05), mk(e, c, f)
+    before = moe_gmm_bwd.launches
+    got = moe_gmm_bwd(x, w, dy, expanded=expanded)
+    again = moe_gmm_bwd(x, w, dy, expanded=expanded)
+    torch.cuda.synchronize()
+    assert moe_gmm_bwd.launches == before + 2 * GMM_BWD_LAUNCHES
+    assert moe_gmm_bwd.last_variant == variant
+    if variant == "wgmma":
+        sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+        want_split = gmm_bwd_split(gmm_bwd_tiles(e, c, d, expanded),
+                                   gmm_bwd_walk(e, f, expanded), sms)
+        assert moe_gmm_bwd.last_split == want_split
+    want = moe_gmm_bwd_ref(x, w, dy, expanded=expanded)
+    for g, g2, ref, v in zip(got, again, want, (x, w)):
+        assert g.shape == v.shape and g.dtype == torch.bfloat16
+        assert torch.equal(g, g2)
+        scale = max(float(ref.float().abs().max()), 1.0)
+        np.testing.assert_allclose(g.float().cpu().numpy() / scale,
+                                   ref.float().cpu().numpy() / scale,
+                                   **TOL[torch.bfloat16])
+
+
+def test_moe_gmm_bwd_splits_at_several_counts(cuda):
+    """On this card the split cases above cut dx's walk into more than one
+    distinct count of parts (the last part of each tile sums them)."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    splits = {gmm_bwd_split(gmm_bwd_tiles(e, c, d, True),
+                            gmm_bwd_walk(e, f, True), sms)
+              for e, c, d, f, layout, _ in GMM_BWD_PATH_CASES
+              if layout == "expanded" and d % 8 == 0}
+    assert len(splits - {1}) >= 2, splits
 
 
 def test_ssd_scan_and_moe_gmm_record_their_backward_kernels(cuda):
