@@ -13,11 +13,10 @@ ZeRO-1, ``TrainConfig.zero1``'s default: the JAX launcher passes the same
 config but places its moments like the parameters, replicated, so there
 each device holds the whole state where here a rank holds 1/N of it (the
 same per-element arithmetic).  ``--model-axis M`` > 1 builds a (N/M, M)
-data x model mesh (``launch.mesh.mesh_groups``) whose model axis runs the
-MoE layers expert-parallel, as the JAX launcher's ``make_ctx`` does, and
-the layers of an architecture without MoE layers tensor-parallel
-(``parallel.tensor``; MLA, cross-attention and the encoder raise: ROADMAP
-item 8b).  Each rank then holds its part of the split leaves (drawn from
+data x model mesh (``launch.mesh.mesh_groups``) whose model axis runs
+every layer tensor-parallel (``parallel.tensor``) and, as the JAX
+launcher's ``make_ctx`` does, the MoE layers' experts expert-parallel
+beside it.  Each rank then holds its part of the split leaves (drawn from
 the seed, ``init_params(..., ctx=)``), and a checkpoint gathers them into
 the JAX layout.  The cross-attention families take their context from the
 stubs, as the JAX launcher does: every step the same ``audio_frames``
@@ -43,7 +42,7 @@ from repro_torch.core.tree import param_leaves
 from repro_torch.core.types import MeshConfig, TrainConfig
 from repro_torch.data import audio_frames, make_batches, vision_patches
 from repro_torch.kernels import launch_counts
-from repro_torch.launch.mesh import check_model_axis, mesh_groups
+from repro_torch.launch.mesh import mesh_groups
 from repro_torch.launch.ranks import build_kernels, rank_device, spawn_ranks
 from repro_torch.models import init_params
 from repro_torch.optim import gather_opt_state, init_opt_state
@@ -118,7 +117,7 @@ def train(rank: int, world: int, args: argparse.Namespace
     if world > 1:
         device = rank_device(args.device)
         mcfg = MeshConfig(shape=(world // args.model_axis, args.model_axis))
-        dgroup, mgroup = mesh_groups(mcfg, cfg)
+        dgroup, mgroup = mesh_groups(mcfg)
         ctx = make_ctx(dgroup, mcfg, model_group=mgroup, remat=tcfg.remat,
                        cfg=cfg)
         say(f"mesh: {dict(zip(mcfg.axis_names, mcfg.shape))}")
@@ -234,10 +233,6 @@ def run(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     if args.devices == 1:
         ranks = [train(0, 1, args)]
     else:
-        mcfg = MeshConfig(shape=(args.devices // args.model_axis,
-                                 args.model_axis))
-        check_model_axis(mcfg, smoke_config(args.arch) if args.smoke
-                         else get_config(args.arch))
         if args.devices % args.model_axis:
             raise ValueError(f"--devices {args.devices} is not a multiple "
                              f"of --model-axis {args.model_axis}")

@@ -31,6 +31,20 @@ is the global index over G = H / KV (``local_kv_heads``), and their
 gradient is summed over the model ranks.  Where the query heads do not
 split either, the attention is replicated and nothing is summed.  The
 KV cache holds the KV heads of this rank's ``wk``.
+
+Cross-attention splits the same way, its keys and values projected from
+the context, which enters through ``copy_to_model`` (the encoder's
+gradient is summed over the model ranks); ``tanh(gate_attn)`` scales the
+output after ``reduce_from_model``, as the JAX package applies it after
+``wo``, so that its gradient is the whole output's.  Its cache holds the
+KV heads of this rank's ``wk`` (all of them where they do not split).
+MLA computes its low-rank paths whole on every rank (``w_dq``,
+``w_dkv`` and their norms stay replicated) and its heads on this rank's
+block of ``w_uq``, ``w_uk``, ``w_uv`` and ``wo``: the normed query latent,
+the KV latent and the rope key enter the heads through ``copy_to_model``,
+where the replicated part meets the split part, so that every rank's
+gradient of the replicated weights is all heads' (as Mamba's B and C).
+Its decode cache (the latent) is whole on every rank.
 """
 from __future__ import annotations
 
@@ -77,11 +91,12 @@ def init_gqa(cfg: ModelConfig, dtype, device, generator: torch.Generator,
 
 
 def init_mla(cfg: ModelConfig, dtype, device,
-             generator: torch.Generator) -> dict:
+             generator: torch.Generator, cut=whole) -> dict:
     """DeepSeek-V2's multi-head latent attention: queries through a
     low-rank ``w_dq`` (where ``q_lora_rank``), keys and values
     decompressed per head from one ``kv_lora_rank`` latent, plus one rope
-    key shared by the heads."""
+    key shared by the heads.  ``cut``: as ``init_gqa``'s (it keeps the
+    low-rank projections and their norms whole)."""
     d = cfg.d_model
     hd = cfg.resolved_head_dim  # qk nope dim
     vhd = cfg.resolved_v_head_dim
@@ -93,16 +108,17 @@ def init_mla(cfg: ModelConfig, dtype, device,
                                generator)
         p["norm_q"] = init_norm(cfg.q_lora_rank, dtype, device)
     q_in = cfg.q_lora_rank or d
-    p["w_uq"] = dense_init(q_in, (h, hd + rhd), dtype, device, generator)
+    p["w_uq"] = cut("w_uq", dense_init(q_in, (h, hd + rhd), dtype, device,
+                                       generator))
     p["w_dkv"] = dense_init(d, (cfg.kv_lora_rank + rhd,), dtype, device,
                             generator)
     p["norm_kv"] = init_norm(cfg.kv_lora_rank, dtype, device)
-    p["w_uk"] = dense_init(cfg.kv_lora_rank, (h, hd), dtype, device,
-                           generator)
-    p["w_uv"] = dense_init(cfg.kv_lora_rank, (h, vhd), dtype, device,
-                           generator)
-    p["wo"] = dense_init(h * vhd, (d,), dtype, device,
-                         generator).reshape(h, vhd, d)
+    p["w_uk"] = cut("w_uk", dense_init(cfg.kv_lora_rank, (h, hd), dtype,
+                                       device, generator))
+    p["w_uv"] = cut("w_uv", dense_init(cfg.kv_lora_rank, (h, vhd), dtype,
+                                       device, generator))
+    p["wo"] = cut("wo", dense_init(h * vhd, (d,), dtype, device,
+                                   generator).reshape(h, vhd, d))
     return p
 
 
@@ -251,15 +267,20 @@ def _tp_heads(cfg: ModelConfig, ctx):
     return lay if lay is not None and lay.heads else None
 
 
-def _tp_qkv(p: dict, cfg: ModelConfig, x, lay, ctx):
-    """q of this rank's query heads; k and v of the KV heads they read
-    (all of them from a replicated ``wk``/``wv``, whose gradient then sums
-    over the model ranks) and the KV selection (``None``: all)."""
+def _tp_qkv(p: dict, cfg: ModelConfig, x, lay, ctx, kv_x=None):
+    """q of this rank's query heads; k and v (from ``kv_x``, by default
+    ``x``) of the KV heads they read (all of them from a replicated
+    ``wk``/``wv``, whose gradient then sums over the model ranks) and the
+    KV selection (``None``: all)."""
     xf = copy_to_model(x, ctx)
+    if kv_x is None:
+        kv_x, kvf = x, xf
+    else:
+        kvf = copy_to_model(kv_x, ctx)
     if lay.kv:
-        q, k, v = _project_qkv(p, cfg, xf)
+        q, k, v = _project_qkv(p, cfg, xf, kv_x=kvf)
         return q, k, v, None
-    q, k, v = _project_qkv(p, cfg, xf, kv_x=x)
+    q, k, v = _project_qkv(p, cfg, xf, kv_x=kv_x)
     return q, copy_to_model(k, ctx), copy_to_model(v, ctx), \
         local_kv_heads(cfg, q.shape[2], lay.rank)
 
@@ -280,8 +301,7 @@ def gqa_forward(p: dict, cfg: ModelConfig, x, positions, *, window=None,
     win = window if window is not None else cfg.sliding_window
     out = multihead_attention(q, k, v, q_pos=positions, k_pos=positions,
                               causal=True, window=win)
-    out = torch.einsum("bshk,hkd->bsd", out, p["wo"])
-    return out if lay is None else reduce_from_model(out, ctx)
+    return _out_proj(out, p, None if lay is None else ctx)
 
 
 def _gated(p: dict, out: torch.Tensor) -> torch.Tensor:
@@ -290,15 +310,29 @@ def _gated(p: dict, out: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def cross_attention_forward(p: dict, cfg: ModelConfig, x, context):
+def _out_proj(out, p: dict, ctx):
+    """``wo`` of the attention output (B, S, H or H/tp, hd), summed over
+    the model ranks of ``ctx`` (``None``: the heads do not split)."""
+    out = torch.einsum("bshk,hkd->bsd", out, p["wo"])
+    return out if ctx is None else reduce_from_model(out, ctx)
+
+
+def cross_attention_forward(p: dict, cfg: ModelConfig, x, context,
+                            ctx=None):
     """Cross-attention: queries from x (B,S,d), keys and values from the
     context (B,T,d).  No RoPE, no mask (Llama-3.2-Vision / enc-dec
-    style)."""
-    q, k, v = _project_qkv(p, cfg, x, kv_x=context)
+    style).  ``ctx``: as ``gqa_forward``'s (the module's docstring)."""
+    lay = _tp_heads(cfg, ctx)
+    if lay is None:
+        q, k, v = _project_qkv(p, cfg, x, kv_x=context)
+    else:
+        q, k, v, sel = _tp_qkv(p, cfg, x, lay, ctx, kv_x=context)
+        if sel is not None:
+            k, v = k[:, :, sel], v[:, :, sel]
     out = multihead_attention(
         q, k, v, q_pos=torch.arange(x.shape[1], device=x.device),
         k_pos=torch.arange(context.shape[1], device=x.device), causal=False)
-    return _gated(p, torch.einsum("bshk,hkd->bsd", out, p["wo"]))
+    return _gated(p, _out_proj(out, p, None if lay is None else ctx))
 
 
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, dtype, device,
@@ -373,14 +407,14 @@ def gqa_decode(p: dict, cfg: ModelConfig, x, cache: dict, pos, *,
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bqkgs,bskh->bqkgh", probs.to(cv.dtype), cv)
     out = out.reshape(b, 1, q.shape[2], -1).to(x.dtype)
-    out = torch.einsum("bshk,hkd->bsd", out, p["wo"])
-    return (out if lay is None else reduce_from_model(out, ctx)), cache
+    return _out_proj(out, p, None if lay is None else ctx), cache
 
 
 def init_cross_cache(p: dict, cfg: ModelConfig, context, dtype) -> dict:
     """Cross-attention K/V computed once from the (encoder or vision)
     context: (B, T, KV, hd) each, with no slot axis of their own (their
-    batch is the context's)."""
+    batch is the context's); the KV heads of ``wk``, on a
+    tensor-parallel rank its own (``parallel.planner.cache_specs``)."""
     k = torch.einsum("btd,dhk->bthk", context, p["wk"])
     v = torch.einsum("btd,dhk->bthk", context, p["wv"])
     if cfg.qkv_bias and "bk" in p:
@@ -389,49 +423,71 @@ def init_cross_cache(p: dict, cfg: ModelConfig, context, dtype) -> dict:
     return {"k": k.to(dtype), "v": v.to(dtype)}
 
 
-def cross_attention_decode(p: dict, cfg: ModelConfig, x, cross_cache: dict):
-    """x: (B,1,d) against the precomputed K/V of ``init_cross_cache``."""
+def cross_attention_decode(p: dict, cfg: ModelConfig, x, cross_cache: dict,
+                           ctx=None):
+    """x: (B,1,d) against the precomputed K/V of ``init_cross_cache``.
+    ``ctx``: as ``cross_attention_forward``'s; the cache holds this rank's
+    KV heads, or all of them where they do not split."""
+    lay = _tp_heads(cfg, ctx)
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
     if cfg.qkv_bias and "bq" in p:
         q = q + p["bq"]
     k, v = cross_cache["k"], cross_cache["v"]
+    if lay is not None and not lay.kv:
+        sel = local_kv_heads(cfg, q.shape[2], lay.rank)
+        k, v = k[:, :, sel], v[:, :, sel]
     qg = _group_q(q, k.shape[2])
     scale = 1.0 / math.sqrt(q.shape[-1])
     scores = torch.einsum("bqkgh,bskh->bqkgs", qg.float(), k.float()) * scale
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bqkgs,bskh->bqkgh", probs.to(v.dtype), v)
-    out = out.reshape(x.shape[0], x.shape[1], cfg.num_heads, -1).to(x.dtype)
-    return _gated(p, torch.einsum("bshk,hkd->bsd", out, p["wo"]))
+    out = out.reshape(x.shape[0], x.shape[1], q.shape[2], -1).to(x.dtype)
+    return _gated(p, _out_proj(out, p, None if lay is None else ctx))
 
 
-def _mla_q(p: dict, cfg: ModelConfig, x, positions):
-    """(q_nope (B,S,H,hd), q_rope (B,S,H,rope)), q_rope rotated."""
+def _mla_q(p: dict, cfg: ModelConfig, x, positions, ctx=None):
+    """(q_nope (B,S,H,hd), q_rope (B,S,H,rope)), q_rope rotated; ``ctx``
+    (where the heads split): the heads of this rank's ``w_uq``, its input
+    (the normed latent, or x) through ``copy_to_model``."""
     hd = cfg.resolved_head_dim
     if cfg.q_lora_rank:
-        cq = rms_norm(x @ p["w_dq"], p["norm_q"]["scale"], cfg.norm_eps)
-        q = torch.einsum("bsr,rhk->bshk", cq, p["w_uq"])
+        q_in = rms_norm(x @ p["w_dq"], p["norm_q"]["scale"], cfg.norm_eps)
     else:
-        q = torch.einsum("bsd,dhk->bshk", x, p["w_uq"])
+        q_in = x
+    if ctx is not None:
+        q_in = copy_to_model(q_in, ctx)
+    q = torch.einsum("bsr,rhk->bshk", q_in, p["w_uq"])
     return q[..., :hd], apply_rope(q[..., hd:], positions, cfg.rope_theta)
 
 
-def _mla_latent(p: dict, cfg: ModelConfig, x, positions):
-    """(c (B,S,kv_lora_rank) normed, k_rope (B,S,rope) rotated)."""
+def _mla_latent(p: dict, cfg: ModelConfig, x, positions, ctx=None):
+    """(c (B,S,kv_lora_rank) normed, k_rope (B,S,rope) rotated); ``ctx``
+    (where the heads split): both through ``copy_to_model``."""
     ckv = x @ p["w_dkv"]
     r = cfg.kv_lora_rank
     c = rms_norm(ckv[..., :r], p["norm_kv"]["scale"], cfg.norm_eps)
     # k_rope is shared across heads: rotated as a single head
     k_rope = apply_rope(ckv[..., None, r:], positions,
                         cfg.rope_theta)[..., 0, :]
+    if ctx is not None:
+        c, k_rope = copy_to_model(c, ctx), copy_to_model(k_rope, ctx)
     return c, k_rope
 
 
-def mla_forward(p: dict, cfg: ModelConfig, x, positions, *, window=None):
+def _tp_mla(cfg: ModelConfig, ctx):
+    """``ctx`` where it splits MLA's heads, else ``None``."""
+    return ctx if _tp_heads(cfg, ctx) is not None else None
+
+
+def mla_forward(p: dict, cfg: ModelConfig, x, positions, *, window=None,
+                ctx=None):
     """Decompressed MLA for train and prefill: per-head K/V materialized
     from the latent, then ``multihead_attention`` (whose scale is
-    1/sqrt(head_dim + qk_rope_head_dim), the q head dim)."""
-    q_nope, q_rope = _mla_q(p, cfg, x, positions)
-    c, k_rope = _mla_latent(p, cfg, x, positions)
+    1/sqrt(head_dim + qk_rope_head_dim), the q head dim).  ``ctx``: this
+    rank's heads (the module's docstring)."""
+    tctx = _tp_mla(cfg, ctx)
+    q_nope, q_rope = _mla_q(p, cfg, x, positions, tctx)
+    c, k_rope = _mla_latent(p, cfg, x, positions, tctx)
     k_nope = torch.einsum("bsr,rhk->bshk", c, p["w_uk"])
     v = torch.einsum("bsr,rhk->bshk", c, p["w_uv"])
     q = torch.cat([q_nope, q_rope], dim=-1)
@@ -439,7 +495,7 @@ def mla_forward(p: dict, cfg: ModelConfig, x, positions, *, window=None):
         *k_nope.shape[:3], cfg.qk_rope_head_dim)], dim=-1)
     out = multihead_attention(q, k, v, q_pos=positions, k_pos=positions,
                               causal=True, window=window)
-    return torch.einsum("bshk,hkd->bsd", out, p["wo"])
+    return _out_proj(out, p, tctx)
 
 
 def init_mla_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
@@ -453,16 +509,18 @@ def init_mla_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
                                   dtype=dtype, device=device)}
 
 
-def mla_decode(p: dict, cfg: ModelConfig, x, cache: dict, pos):
+def mla_decode(p: dict, cfg: ModelConfig, x, cache: dict, pos, ctx=None):
     """Absorbed MLA decode: attends in the latent space (DeepSeek-V2's
     deployment form), ``w_uk`` absorbed into the query and ``w_uv``
     applied after the softmax.  x: (B,1,d); pos: int or (B,) positions.
     Writes the new latent and rope key into ``cache`` in place; positions
     above ``pos`` are masked, so a recycled slot needs no reset.  Returns
-    (out (B,1,d), cache)."""
+    (out (B,1,d), cache).  ``ctx``: this rank's heads, as
+    ``mla_forward``'s; the latent cache is whole on every rank."""
     b = x.shape[0]
     pos = _pos_vec(pos, b, x.device)
-    q_nope, q_rope = _mla_q(p, cfg, x, pos[:, None])  # (B,1,H,*)
+    tctx = _tp_mla(cfg, ctx)
+    q_nope, q_rope = _mla_q(p, cfg, x, pos[:, None], tctx)  # (B,1,H,*)
     c_new, k_rope_new = _mla_latent(p, cfg, x, pos[:, None])
     bi = torch.arange(b, device=x.device)
     cache["c"][bi, pos] = c_new[:, 0].to(cache["c"].dtype)
@@ -480,4 +538,4 @@ def mla_decode(p: dict, cfg: ModelConfig, x, cache: dict, pos):
     probs = torch.softmax(scores, dim=-1)
     ctx_lat = torch.einsum("bshl,blr->bshr", probs.to(c.dtype), c)
     v = torch.einsum("bshr,rhk->bshk", ctx_lat.to(x.dtype), p["w_uv"])
-    return torch.einsum("bshk,hkd->bsd", v, p["wo"]), cache
+    return _out_proj(v, p, tctx), cache

@@ -24,7 +24,11 @@ whole activations (its data shard, replicated over the model axis), as in
 the JAX package's pjit region; in training and prefill the pick
 fractions of the load-balance loss are summed over the data ranks, so
 that the ranks' losses add up to the loss of the global batch (decode
-discards the loss and skips that sum).
+discards the loss and skips that sum).  The shared experts are a dense
+FFN over the whole sequence: on a model axis each rank computes its
+column block of them and the ranks' partial products are summed
+(``_shared``, tensor parallelism beside the experts' expert parallelism,
+as ``param_specs`` lays out a MoE config).
 """
 from __future__ import annotations
 
@@ -38,19 +42,21 @@ from repro_torch.ccl import primitives as prim
 from repro_torch.core.types import ModelConfig
 from repro_torch.kernels.moe_gmm.ops import moe_gmm
 from repro_torch.kernels.moe_gmm.ref import moe_gmm_ref
-from repro_torch.models.modules import _gelu, dense_init, ffn_apply, init_ffn
+from repro_torch.models.modules import (_gelu, dense_init, ffn_apply,
+                                        init_ffn, whole)
 from repro_torch.parallel.planner import (expert_range, ffn_slice,
-                                          sharded_experts)
+                                          sharded_experts, tp_layout)
 
 
 def init_moe(cfg: ModelConfig, dtype, device,
-             generator: torch.Generator, ctx=None) -> dict:
+             generator: torch.Generator, ctx=None, cut=whole) -> dict:
     """The MoE layer's parameters drawn from ``generator``.  With an
     expert-parallel ``ctx`` only this rank's part of each expert weight is
     kept (``parallel.shard_params``'s layout), but every expert is drawn,
     one at a time, so that the generator runs through the full sequence:
     the part is bit-equal to the slice of the full draw, and no rank
-    holds all experts of a layer."""
+    holds all experts of a layer.  ``cut``: as ``modules.init_ffn``'s, on
+    the shared experts (a tensor-parallel rank's column block)."""
     d = cfg.d_model
     ff = cfg.moe_d_ff or cfg.d_ff
     e = cfg.num_experts
@@ -74,7 +80,7 @@ def init_moe(cfg: ModelConfig, dtype, device,
     }
     if cfg.num_shared_experts:
         p["shared"] = init_ffn(cfg, ff * cfg.num_shared_experts, dtype,
-                               device, generator)
+                               device, generator, cut=cut)
     return p
 
 
@@ -132,14 +138,21 @@ def moe_dense(p: dict, cfg: ModelConfig, x: torch.Tensor, ctx=None,
     w_full.scatter_(1, ids.reshape(-1, cfg.top_k),
                     weights.reshape(-1, cfg.top_k))
     y = torch.einsum("te,etd->td", w_full, y_all)
-    y = y + _shared(p, cfg, xt)
+    y = y + _shared(p, cfg, xt, ctx)
     return y.reshape(shp), aux
 
 
-def _shared(p: dict, cfg: ModelConfig, xt: torch.Tensor) -> torch.Tensor:
-    if "shared" in p:
-        return ffn_apply(p["shared"], xt, cfg.ffn_act)
-    return torch.zeros_like(xt)
+def _shared(p: dict, cfg: ModelConfig, xt: torch.Tensor,
+            ctx=None) -> torch.Tensor:
+    """The shared experts' FFN of ``xt`` (..., d) (zeros without them); on
+    a model axis that splits their hidden dim (``tp_layout``'s
+    ``shared``) a column / row split summed over the model ranks, as
+    ``param_specs`` splits them (``ffn_col``/``ffn_row``)."""
+    if "shared" not in p:
+        return torch.zeros_like(xt)
+    lay = tp_layout(cfg, ctx)
+    return ffn_apply(p["shared"], xt, cfg.ffn_act,
+                     ctx if lay is not None and lay.shared else None)
 
 
 # ---------------------------------------------------------------------------
@@ -313,7 +326,7 @@ def moe_ep_train(p: dict, cfg: ModelConfig, x: torch.Tensor, ctx,
     y = y.reshape(x_l.shape)
     if ctx.tp > 1:
         y = _SeqGather.apply(y, ctx)
-    y = y + _shared(p, cfg, x.reshape(-1, d)).reshape(x.shape)
+    y = y + _shared(p, cfg, x.reshape(-1, d), ctx).reshape(x.shape)
     return y, aux
 
 
@@ -407,8 +420,8 @@ def moe_ep_decode(p: dict, cfg: ModelConfig, x: torch.Tensor, ctx,
                         rank=ctx.model_rank, capacity=capacity)
     if ctx.tp > 1:
         y = prim.ring_all_reduce(y, ctx.model_group)
-    y = y.reshape(x.shape) + _shared(p, cfg, x.reshape(-1, d)).reshape(
-        x.shape)
+    y = y.reshape(x.shape) + _shared(p, cfg, x.reshape(-1, d),
+                                     ctx).reshape(x.shape)
     return y, aux
 
 
@@ -442,8 +455,8 @@ def moe_ep_decode_ws(p: dict, cfg: ModelConfig, x: torch.Tensor, ctx,
         out = prim.ring_all_reduce(out, ctx.group)  # combine ffn partials
     if gather:
         out = out[ctx.rank * t:(ctx.rank + 1) * t]
-    y = out.reshape(x.shape) + _shared(p, cfg, x.reshape(-1, d)).reshape(
-        x.shape)
+    y = out.reshape(x.shape) + _shared(p, cfg, x.reshape(-1, d),
+                                       ctx).reshape(x.shape)
     return y, aux
 
 

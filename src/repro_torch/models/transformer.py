@@ -17,18 +17,23 @@ parameters' dtype where it enters (``encode``, ``forward``,
 parameters and an f32 context its stream turns f32 (with f32 parameters
 the two are the same).
 
-Tensor parallelism (a ``ctx`` of ``ParallelCtx.tensor_parallel``, for the
-dense GQA and Mamba2 configs): a rank holds the blocks of its model index
-(``parallel.planner.tp_layout``; ``init_params(..., ctx=)`` draws every
-leaf whole and keeps its block), the residual stream stays whole on every
-rank, and the layers sum their partial products over the model ranks
-(``parallel.tensor``).  Where the vocabulary splits, the embedding is
-looked up on this rank's rows and summed (``vocab_embed``), the LM head
-(with tied embeddings, the embedding's rows) gives this rank's block of the
-logits and its ``_vocab_bias``, and ``forward``/``decode_step`` return
-the logits sharded over the vocabulary, as the JAX package's
-``logit_spec`` keeps them (``serve`` gathers them before a token is
-picked; ``train.loss.cross_entropy`` never gathers them).
+Tensor parallelism (a ``ctx`` whose model axis splits,
+``ParallelCtx.tensor_parallel``, for every config): a rank holds the
+blocks of its model index (``parallel.planner.tp_layout``;
+``init_params(..., ctx=)`` draws every leaf whole and keeps its block),
+the residual stream stays whole on every rank, and the layers sum their
+partial products over the model ranks (``parallel.tensor``): GQA, MLA,
+cross-attention, the encoder-decoder's cross blocks and the encoder's
+layers on their heads, the dense FFN and the shared experts on their
+columns, Mamba on its heads, and the MoE experts, under expert
+parallelism, on the same model axis (``models.moe``).  Where the
+vocabulary splits, the embedding is looked up on this rank's rows and
+summed (``vocab_embed``), the LM head (with tied embeddings, the
+embedding's rows) gives this rank's block of the logits and its
+``_vocab_bias``, and ``forward``/``decode_step`` return the logits
+sharded over the vocabulary, as the JAX package's ``logit_spec`` keeps
+them (``serve`` gathers them before a token is picked;
+``train.loss.cross_entropy`` never gathers them).
 """
 from __future__ import annotations
 
@@ -136,7 +141,7 @@ def _init_layer(cfg: ModelConfig, spec: LayerSpec, dtype, device,
                 generator: torch.Generator, ctx=None, cut=whole) -> dict:
     p = {"norm1": init_norm(cfg.d_model, dtype, device)}
     if spec.mixer == "attn" and cfg.attention == "mla":
-        p["mixer"] = attn.init_mla(cfg, dtype, device, generator)
+        p["mixer"] = attn.init_mla(cfg, dtype, device, generator, cut=cut)
     elif spec.mixer in ("attn", "cross_attn"):
         p["mixer"] = attn.init_gqa(cfg, dtype, device, generator,
                                    cross=spec.mixer == "cross_attn",
@@ -146,7 +151,8 @@ def _init_layer(cfg: ModelConfig, spec: LayerSpec, dtype, device,
     if spec.ffn != "none":
         p["norm2"] = init_norm(cfg.d_model, dtype, device)
         if spec.ffn == "moe":
-            p["ffn"] = moe_mod.init_moe(cfg, dtype, device, generator, ctx)
+            p["ffn"] = moe_mod.init_moe(cfg, dtype, device, generator, ctx,
+                                        cut=cut)
         else:
             p["ffn"] = init_ffn(cfg, cfg.d_ff, dtype, device, generator,
                                 cut=cut)
@@ -159,14 +165,14 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     ``generator`` (which must live on ``device``).  With an
     expert-parallel ``ctx`` each MoE layer keeps only this rank's part of
     its experts (``parallel.shard_params``'s layout; ``models.moe.
-    init_moe`` draws the rest and drops it); with a tensor-parallel one
-    each leaf is drawn whole and only this rank's block of it kept
+    init_moe`` draws the rest and drops it); on a model axis every other
+    leaf is drawn whole and only this rank's block of it kept
     (``parallel.planner.tp_cut``): both bit-equal to the same part of the
     full draw."""
     dev = resolve_device(device)
     cut = whole
     if ctx is not None and ctx.tensor_parallel:
-        check_tensor_parallel(cfg)
+        check_tensor_parallel(cfg, ctx.use_ep)
 
         def cut(name, w):
             return tp_cut(name, w, cfg, ctx)
@@ -183,11 +189,12 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
                         for spec in cfg.layer_specs()]
     if cfg.is_encoder_decoder:
         params["encoder"] = {
-            "layers": [_init_layer(cfg, ENCODER_SPEC, dtype, dev, generator)
+            "layers": [_init_layer(cfg, ENCODER_SPEC, dtype, dev, generator,
+                                   ctx, cut)
                        for _ in range(cfg.encoder_layers)],
             "final_norm": init_norm(cfg.d_model, dtype, dev)}
         params["cross"] = [attn.init_gqa(cfg, dtype, dev, generator,
-                                         cross=True)
+                                         cross=True, cut=cut)
                            for _ in range(cfg.num_layers)]
     return params
 
@@ -235,18 +242,21 @@ def _apply_layer(lp: dict, spec: LayerSpec, cfg: ModelConfig, x,
     encoder-decoder's cross block, after the self-attention."""
     h = rms_norm(x, lp["norm1"]["scale"], cfg.norm_eps)
     if spec.mixer == "attn" and cfg.attention == "mla":
-        h = attn.mla_forward(lp["mixer"], cfg, h, positions, window=window)
+        h = attn.mla_forward(lp["mixer"], cfg, h, positions, window=window,
+                             ctx=ctx)
     elif spec.mixer == "attn":
         h = attn.gqa_forward(lp["mixer"], cfg, h, positions, window=window,
                              ctx=ctx)
     elif spec.mixer == "cross_attn":
-        h = attn.cross_attention_forward(lp["mixer"], cfg, h, context)
+        h = attn.cross_attention_forward(lp["mixer"], cfg, h, context,
+                                         ctx=ctx)
     else:
         h = ssm.mamba_forward(lp["mixer"], cfg, h, ctx=ctx)
     x = x + h
     if cross_lp is not None:  # norm1's scale again, as in the JAX package
         h = rms_norm(x, lp["norm1"]["scale"], cfg.norm_eps)
-        x = x + attn.cross_attention_forward(cross_lp, cfg, h, context)
+        x = x + attn.cross_attention_forward(cross_lp, cfg, h, context,
+                                             ctx=ctx)
     aux = None
     if spec.ffn != "none":
         h2 = rms_norm(x, lp["norm2"]["scale"], cfg.norm_eps)
@@ -304,7 +314,7 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
     docstring) returns this rank's vocabulary block of the logits (B, S,
     V_pad/tp) where the vocabulary splits."""
     if ctx is not None and ctx.tensor_parallel:
-        check_tensor_parallel(cfg)
+        check_tensor_parallel(cfg, ctx.use_ep)
     context = _context(cfg, params, context)
     x = _embed(cfg, params, tokens, ctx)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
@@ -323,16 +333,19 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
 
 
 def encode(cfg: ModelConfig, params: dict, frames: torch.Tensor, *,
-           remat: bool = False) -> torch.Tensor:
+           remat: bool = False, ctx=None) -> torch.Tensor:
     """Encoder stack over the stub frame embeddings (B, T, d) -> the
     context: causal GQA self-attention (``gqa_forward``, as the JAX
     package's encoder) and a dense FFN a layer, then the encoder's final
-    norm.  ``remat``: each layer checkpointed, as ``forward``'s."""
+    norm.  ``remat``: each layer checkpointed, as ``forward``'s.  ``ctx``:
+    a tensor-parallel context runs each layer on this rank's heads and FFN
+    columns (``forward``'s docstring); the context comes out whole on
+    every rank."""
     enc = params["encoder"]
     x = _context(cfg, params, frames)
     positions = torch.arange(x.shape[1], device=x.device)
     for lp in enc["layers"]:
-        args = (lp, ENCODER_SPEC, cfg, x, positions, cfg.sliding_window)
+        args = (lp, ENCODER_SPEC, cfg, x, positions, cfg.sliding_window, ctx)
         if remat:
             x, _ = checkpoint(_apply_layer, *args, use_reentrant=False)
         else:
@@ -386,18 +399,20 @@ def _decode_layer(lp: dict, spec: LayerSpec, cfg: ModelConfig, x, lcache,
                   ) -> torch.Tensor:
     h = rms_norm(x, lp["norm1"]["scale"], cfg.norm_eps)
     if spec.mixer == "attn" and cfg.attention == "mla":
-        h, _ = attn.mla_decode(lp["mixer"], cfg, h, lcache, pos)
+        h, _ = attn.mla_decode(lp["mixer"], cfg, h, lcache, pos, ctx=ctx)
     elif spec.mixer == "attn":
         h, _ = attn.gqa_decode(lp["mixer"], cfg, h, lcache, pos,
                                window=window, ctx=ctx)
     elif spec.mixer == "cross_attn":
-        h = attn.cross_attention_decode(lp["mixer"], cfg, h, lcache)
+        h = attn.cross_attention_decode(lp["mixer"], cfg, h, lcache,
+                                        ctx=ctx)
     else:
         h, _ = ssm.mamba_decode(lp["mixer"], cfg, h, lcache, ctx=ctx)
     x = x + h
     if cross_lp is not None:
         h = rms_norm(x, lp["norm1"]["scale"], cfg.norm_eps)
-        x = x + attn.cross_attention_decode(cross_lp, cfg, h, cross_cache)
+        x = x + attn.cross_attention_decode(cross_lp, cfg, h, cross_cache,
+                                            ctx=ctx)
     if spec.ffn != "none":
         h2 = rms_norm(x, lp["norm2"]["scale"], cfg.norm_eps)
         if spec.ffn == "moe":
@@ -420,7 +435,7 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict,
     rank's blocks and cache and returns its vocabulary block of the logits,
     as ``forward``."""
     if ctx is not None and ctx.tensor_parallel:
-        check_tensor_parallel(cfg)
+        check_tensor_parallel(cfg, ctx.use_ep)
     win = window if window is not None else cfg.sliding_window
     x = _embed(cfg, params, tokens, ctx)
     cross_caches = cache.get("cross") or [None] * cfg.num_layers

@@ -1,6 +1,6 @@
 """Parallel strategies of the port (``repro.parallel``): the data axes,
-plain DP and ZeRO-1, expert parallelism of the MoE layers and tensor
-parallelism of the dense and SSM layers over a model axis (``planner``,
+plain DP and ZeRO-1, tensor parallelism of every layer over a model axis
+and expert parallelism of the MoE layers beside it (``planner``,
 ``tensor``), collective matmul (``collective_matmul``) and the GPipe and
 interleaved pipelines (``pipeline``)."""
 from repro_torch.parallel.planner import (  # noqa: F401

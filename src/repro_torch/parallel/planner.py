@@ -1,6 +1,7 @@
 """The parallel context of the port and its layouts: data parallelism,
-expert parallelism of the MoE layers and tensor parallelism of the dense
-and SSM layers, the parts of ``repro.parallel.planner`` that the port runs.
+tensor parallelism of every layer over the model axis and expert
+parallelism of the MoE layers beside it, the parts of
+``repro.parallel.planner`` that the port runs.
 
 The JAX package threads a ``ParallelCtx`` holding a mesh through its model
 code and lets XLA's sharding propagation place the collectives: plain DP
@@ -16,27 +17,31 @@ instead, and the step and the layers call the collectives themselves
 ``repro_torch.parallel.tensor``):
 
 - ``make_ctx`` builds the context from the groups and a ``MeshConfig``: a
-  model axis runs expert parallelism for a MoE config and tensor
-  parallelism (``ParallelCtx.tensor_parallel``) for the others;
+  model axis runs tensor parallelism (``ParallelCtx.tensor_parallel``) of
+  every leaf ``param_specs`` splits, and for a MoE config expert
+  parallelism of the experts beside it;
 - ``param_specs`` and ``cache_specs`` are the JAX package's layout rules
   (``guarded``, ``_leaf_rule``, ``_mamba_head_axis``), leaf for leaf, on
   the port's trees: one tuple of mesh axes (or ``None``) a dim;
-  ``tp_layout`` is what they decide for the model code of a tensor-parallel
-  rank;
+  ``tp_layout`` is what they decide for the model code of a rank;
+  ``zero1_spec`` and ``apply_fsdp`` are the JAX package's optimizer-state
+  and FSDP specs on those tuples (specs only: FSDP's gathers on demand are
+  not run, ROADMAP item 13b);
 - ``microbatch_rows`` is the batch shard of ``batch_specs``;
-- ``shard_params`` cuts a rank's part out of the full parameters (its
-  experts under expert parallelism, model rank m holding experts
+- ``shard_params`` cuts a rank's part out of the full parameters (under
+  expert parallelism its experts, model rank m holding experts
   ``m E/tp .. (m+1) E/tp - 1`` and, weight-stationary, its slice of the
-  ffn dim over the data axes; under tensor parallelism the m-th of tp
-  equal blocks of each dim ``param_specs`` puts on the model axis), and
+  ffn dim over the data axes; of every other leaf that ``param_specs``
+  puts on the model axis the m-th of tp equal blocks of that dim), and
   ``gather_params`` puts it back together;
 - ``FlatLayout`` is the gradient of this rank's leaves flattened into the
   planner's 64 MiB buckets, with the chunk of each bucket that
   ``ring_reduce_scatter`` leaves on this rank: the ZeRO-1 shard of the
   optimizer state.
 
-The tensor parallelism of MLA, cross-attention, the encoder and the hybrid
-jamba, and ``apply_fsdp``, are not ported: ROADMAP item 8b.
+A MoE config on a model axis without expert parallelism (the JAX
+package's ``moe_dense`` on experts that XLA shards over the model axis) is
+not ported: ROADMAP item 8c.
 """
 from __future__ import annotations
 
@@ -69,7 +74,8 @@ class ParallelCtx:
     plain-DP gradient sync.  ``use_ep``: the MoE layers run expert-parallel
     over the model axis (``models.moe.moe_apply``), with the JAX package's
     capacity factors and ``ep_weight_stationary`` decode; a model axis
-    without it is tensor parallelism (``tensor_parallel``).
+    splits every other leaf that ``param_specs`` puts on it
+    (``tensor_parallel``), with or without it.
     """
 
     group: Any = None
@@ -93,8 +99,10 @@ class ParallelCtx:
 
     @property
     def tensor_parallel(self) -> bool:
-        """The dense and SSM layers are split over the model axis."""
-        return self.tp > 1 and not self.use_ep
+        """The model axis splits the layers' heads, hidden dims, Mamba
+        heads and vocabulary (``tp_layout``), beside the experts under
+        ``use_ep``."""
+        return self.tp > 1
 
     def allsum(self, x: torch.Tensor) -> torch.Tensor:
         """The sum of ``x`` over the data ranks, the same bits on every
@@ -113,20 +121,16 @@ class ParallelCtx:
         return prim.ring_all_gather(x, self.model_group).sum(dim=0)
 
 
-def check_tensor_parallel(cfg: ModelConfig) -> None:
-    """Raises where ``cfg`` has a layer whose tensor parallelism is not
-    ported (MLA, cross-attention, the encoder, and the layers of a MoE
-    config, whose model axis runs expert parallelism: ROADMAP item 8b)."""
-    specs = cfg.layer_specs()
-    what = [w for w, has in (
-        ("MoE layers", cfg.is_moe),
-        ("MLA", cfg.attention == "mla"),
-        ("cross-attention", any(s.mixer == "cross_attn" for s in specs)),
-        ("an encoder", cfg.is_encoder_decoder)) if has]
-    if what:
+def check_tensor_parallel(cfg: ModelConfig, use_ep: bool) -> None:
+    """Raises for a MoE config on a model axis without expert parallelism
+    (``use_ep`` False): the JAX package runs ``moe_dense`` there on
+    experts that XLA shards over the model axis, which the port has not
+    ported (ROADMAP item 8c)."""
+    if cfg.is_moe and not use_ep:
         raise NotImplementedError(
-            f"tensor parallelism of {cfg.name} ({', '.join(what)}) is not "
-            f"ported yet: ROADMAP item 8b")
+            f"a model axis without expert parallelism on {cfg.name}'s MoE "
+            f"layers (moe_dense on experts split over the model axis) is "
+            f"not ported yet: ROADMAP item 8c")
 
 
 def make_ctx(group, mesh_cfg: MeshConfig, *, model_group=None,
@@ -142,20 +146,19 @@ def make_ctx(group, mesh_cfg: MeshConfig, *, model_group=None,
 
     ``use_ep`` defaults to ``mesh_cfg.tp > 1`` for a MoE config (and
     where no ``cfg`` is given): the model axis then runs the MoE layers
-    expert-parallel and replicates the rest, and with a model axis of 1
-    expert parallelism would only add capacity drops (the JAX package's
-    default, ``True``, drops tokens there too; pass ``use_ep=True`` for
-    that).  For a config without MoE layers a model axis is tensor
-    parallelism (``ParallelCtx.tensor_parallel``), which raises for the
-    layers that wait for ROADMAP item 8b (``check_tensor_parallel``)."""
+    expert-parallel beside the tensor parallelism of the other layers, and
+    with a model axis of 1 expert parallelism would only add capacity drops
+    (the JAX package's default, ``True``, drops tokens there too; pass
+    ``use_ep=True`` for that).  A model axis without it on a MoE config
+    raises (``check_tensor_parallel``: ROADMAP item 8c)."""
     if grad_all_reduce not in prim.IMPLEMENTATIONS:
         raise KeyError(f"unknown all-reduce {grad_all_reduce!r}; known: "
                        f"{sorted(prim.IMPLEMENTATIONS)}")
     tp = mesh_cfg.tp
     if use_ep is None:
         use_ep = tp > 1 and (cfg is None or cfg.is_moe)
-    if tp > 1 and not use_ep and cfg is not None:
-        check_tensor_parallel(cfg)
+    if tp > 1 and cfg is not None:
+        check_tensor_parallel(cfg, use_ep)
     dp = dist.get_world_size(group)
     if dp != mesh_cfg.dp:
         raise ValueError(f"the group has {dp} ranks, the mesh's data axes "
@@ -390,13 +393,44 @@ def cache_specs(cfg: ModelConfig, mesh_cfg: MeshConfig, batch: int,
         for path, t in _with_paths(cache_shapes)])
 
 
+def zero1_spec(param_spec: Spec, shape: Sequence[int],
+               mesh_cfg: MeshConfig) -> Spec:
+    """The JAX package's ZeRO-1 spec of an optimizer-state leaf: the
+    parameter's spec plus the data axes on its first free dim they divide
+    (unchanged where it already holds them: FSDP)."""
+    b = _bspec(mesh_cfg)
+    dp = _axis_size(mesh_cfg, b)
+    entries = list(tuple(param_spec) + (None,) * (len(shape)
+                                                  - len(param_spec)))
+    if b in entries:
+        return tuple(entries)
+    for i, (dim, ax) in enumerate(zip(shape, entries)):
+        if ax is None and dim % dp == 0:
+            entries[i] = b
+            break
+    return tuple(entries)
+
+
+def apply_fsdp(specs, shapes, mesh_cfg: MeshConfig):
+    """The JAX package's FSDP (ZeRO-3) specs: each leaf of ``specs`` (the
+    port's tree of ``param_specs``) also over the data axes on its first
+    free dim they divide (``zero1_spec``; ``shapes``: the leaves' full
+    shapes).  Specs only: the port does not run FSDP's gathers of the
+    weights on demand, which go with the dry-run (ROADMAP item 13b)."""
+    return _unflatten_like(shapes, [
+        zero1_spec(sp, tuple(t.shape), mesh_cfg)
+        for (_, sp), (_, t) in zip(_with_paths(specs), _with_paths(shapes))])
+
+
 @dataclass(frozen=True)
 class TPLayout:
-    """What ``param_specs`` splits over the model axis of a
-    tensor-parallel rank (``rank`` of ``tp``): the query heads (``wq``,
-    ``bq``, ``wo``), the KV heads (``wk``, ``wv``, ``bk``, ``bv``), the
-    dense FFN's hidden dim, the vocabulary (``embed``, ``lm_head``) and the
-    Mamba heads (``_mamba_head_axis``)."""
+    """What ``param_specs`` splits over the model axis of a rank (``rank``
+    of ``tp``): the query heads (``wq``, ``bq``, ``wo``; of MLA ``w_uq``,
+    ``w_uk``, ``w_uv`` and ``wo``), the KV heads (``wk``, ``wv``, ``bk``,
+    ``bv``), the dense FFN's hidden dim, the shared experts' hidden dim
+    (``shared``), the vocabulary (``embed``, ``lm_head``) and the Mamba
+    heads (``_mamba_head_axis``).  Cross-attention and the encoder read
+    ``heads`` and ``kv`` as self-attention does."""
 
     rank: int
     tp: int
@@ -405,6 +439,7 @@ class TPLayout:
     ffn: bool
     vocab: bool
     ssm: bool
+    shared: bool
 
     def block(self, n: int) -> Tuple[int, int]:
         """[lo, hi): this rank's block of a dim of ``n`` split tp ways."""
@@ -413,18 +448,21 @@ class TPLayout:
 
 def tp_layout(cfg: ModelConfig, ctx: Optional[ParallelCtx]
               ) -> Optional[TPLayout]:
-    """The layout of a tensor-parallel ``ctx`` (``None`` without one):
-    each flag what ``guarded`` decides for the leaves it names."""
+    """The layout of ``ctx`` where its model axis splits (``None``
+    without one): each flag what ``guarded`` decides for the leaves it
+    names."""
     if ctx is None or not ctx.tensor_parallel:
         return None
     tp = ctx.tp
+    shared = (cfg.moe_d_ff or cfg.d_ff) * cfg.num_shared_experts
     return TPLayout(
         rank=ctx.model_rank, tp=tp,
         heads=cfg.num_heads > 0 and cfg.num_heads % tp == 0,
         kv=cfg.num_kv_heads > 0 and cfg.num_kv_heads % tp == 0,
         ffn=cfg.d_ff > 0 and cfg.d_ff % tp == 0,
         vocab=cfg.padded_vocab % tp == 0,
-        ssm=bool(cfg.ssm_num_heads) and cfg.ssm_num_heads % tp == 0)
+        ssm=bool(cfg.ssm_num_heads) and cfg.ssm_num_heads % tp == 0,
+        shared=shared > 0 and shared % tp == 0)
 
 
 def _tp_mesh(tp: int, axis: str) -> MeshConfig:
@@ -481,8 +519,9 @@ def expert_flags(tree, _expert: bool = False) -> List[bool]:
     """One flag a leaf of a parameter tree (or m or v), in
     ``param_leaves`` order: set for the expert weights of the MoE layers
     (the ``w_gate``, ``w_up``, ``w_down`` of a dict holding a
-    ``router``), which expert parallelism shards; shared experts and the
-    router are replicated."""
+    ``router``), which expert parallelism shards; the router is
+    replicated, and the shared experts are a dense FFN (split by
+    ``tp_cut`` on a model axis)."""
     if isinstance(tree, dict):
         moe = "router" in tree
         return [f for k, v in tree.items()
@@ -535,41 +574,47 @@ def model_flags(params, ctx: Optional[ParallelCtx],
                 cfg: Optional[ModelConfig] = None) -> List[bool]:
     """One flag a leaf of this rank's parameter tree (or m or v), in
     ``param_leaves`` order: set where the leaf is this rank's part of a
-    leaf split over the model axis (the experts under expert parallelism,
-    ``expert_flags``; the leaves ``param_specs`` puts on the model axis
-    under tensor parallelism).  The other leaves are the same on every
-    model rank."""
+    leaf split over the model axis: the experts under expert parallelism
+    (``expert_flags``) and every other leaf that ``param_specs`` puts on
+    the model axis (which needs ``cfg``).  The other leaves are the same
+    on every model rank."""
+    experts = expert_flags(params)
     if ctx is not None and ctx.tensor_parallel:
         dims = tp_dims(cfg, ctx)
-        return [dims[path] is not None for path, _ in _with_paths(params)]
+        return [e or dims[path] is not None
+                for (path, _), e in zip(_with_paths(params), experts)]
     if sharded_experts(ctx):
-        return expert_flags(params)
-    return [False] * sum(1 for _ in _with_paths(params))
+        return experts
+    return [False] * len(experts)
+
+
+def _split(ctx: Optional[ParallelCtx], cfg: Optional[ModelConfig],
+           what: str) -> bool:
+    """Whether ``ctx``'s model axis splits the leaves (raising where it
+    has no config, or where the layout is not ported)."""
+    if ctx is None or not ctx.tensor_parallel:
+        return False
+    if cfg is None:
+        raise ValueError(f"{what}: a model axis needs the config")
+    check_tensor_parallel(cfg, ctx.use_ep)
+    return True
 
 
 def shard_params(params, ctx: Optional[ParallelCtx],
                  cfg: Optional[ModelConfig] = None):
     """The tree with each leaf that ``ctx`` splits replaced by this rank's
-    part: each expert weight by ``expert_shard``; under tensor parallelism
-    (which needs ``cfg``) each leaf that ``param_specs`` puts on the model
-    axis by its block (``tp_cut``).  Every other leaf is the same tensor.
-    Without either, the tree itself."""
-    if ctx is not None and ctx.tensor_parallel:
-        if cfg is None:
-            raise ValueError("shard_params: tensor parallelism needs the "
-                             "config")
-        check_tensor_parallel(cfg)
-        return _unflatten_like(params, [
-            tp_cut(path, t, cfg, ctx) for path, t in _with_paths(params)])
-    if not sharded_experts(ctx):
+    part: each expert weight (of a dict holding a ``router``) by
+    ``expert_shard``; on a model axis (which needs ``cfg``) every other
+    leaf that ``param_specs`` puts on it by its block (``tp_cut``).  Every
+    other leaf is the same tensor; with nothing split, the tree itself."""
+    split = _split(ctx, cfg, "shard_params")
+    experts = sharded_experts(ctx)
+    if not (split or experts):
         return params
-    if isinstance(params, list):
-        return [shard_params(v, ctx) for v in params]
-    if not isinstance(params, dict):
-        return params
-    moe = "router" in params
-    return {k: expert_shard(k, v, ctx) if moe and k in EXPERT_LEAVES
-            else shard_params(v, ctx) for k, v in params.items()}
+    return _unflatten_like(params, [
+        expert_shard(path.rsplit("/", 1)[-1], t, ctx) if e and experts
+        else tp_cut(path, t, cfg, ctx) if split else t
+        for (path, t), e in zip(_with_paths(params), expert_flags(params))])
 
 
 def gather_params(params, ctx: Optional[ParallelCtx],
@@ -578,27 +623,20 @@ def gather_params(params, ctx: Optional[ParallelCtx],
     ranks that hold its parts (the model group, and for weight-stationary
     experts the data group), every other leaf the same tensor.  Every rank
     calls it and gets the full tree."""
-    if ctx is not None and ctx.tensor_parallel:
-        if cfg is None:
-            raise ValueError("gather_params: tensor parallelism needs the "
-                             "config")
-        dims = tp_dims(cfg, ctx)
-        out = []
-        for path, t in _with_paths(params):
-            if dims[path] is not None:
-                got = prim.ring_all_gather(t.contiguous(), ctx.model_group)
-                t = torch.cat(got.unbind(0), dim=dims[path])
-            out.append(t)
-        return _unflatten_like(params, out)
-    if not sharded_experts(ctx):
+    split = _split(ctx, cfg, "gather_params")
+    experts = sharded_experts(ctx)
+    if not (split or experts):
         return params
-    if isinstance(params, list):
-        return [gather_params(v, ctx) for v in params]
-    if not isinstance(params, dict):
-        return params
-    moe = "router" in params
-    return {k: _gather_expert(k, v, ctx) if moe and k in EXPERT_LEAVES
-            else gather_params(v, ctx) for k, v in params.items()}
+    dims = tp_dims(cfg, ctx) if split else {}
+    out = []
+    for (path, t), e in zip(_with_paths(params), expert_flags(params)):
+        if e and experts:
+            t = _gather_expert(path.rsplit("/", 1)[-1], t, ctx)
+        elif split and dims[path] is not None:
+            got = prim.ring_all_gather(t.contiguous(), ctx.model_group)
+            t = torch.cat(got.unbind(0), dim=dims[path])
+        out.append(t)
+    return _unflatten_like(params, out)
 
 
 def _gather_expert(name: str, w: torch.Tensor, ctx: ParallelCtx
@@ -632,8 +670,8 @@ def microbatch_rows(batch_size: int, microbatches: int,
 
 @dataclass(frozen=True)
 class FlatLayout:
-    """This rank's parameter leaves (under expert parallelism its own
-    experts) flattened in ``param_leaves`` order and cut
+    """This rank's parameter leaves (its parts of the leaves split over the
+    model axis) flattened in ``param_leaves`` order and cut
     into buckets of ``BUCKET_VALUES``; each bucket is padded to a multiple
     of ``dp`` and split into ``dp`` chunks, and this rank owns chunk
     ``rank`` of each, the chunk ``ring_reduce_scatter`` leaves on it.
@@ -694,7 +732,7 @@ class FlatLayout:
 
     def shard_ranges(self, flags: Sequence[bool]) -> List[Tuple[int, int]]:
         """The [start, stop) ranges of ``shard``'s result that hold values
-        of the leaves whose flag is set (``expert_flags``)."""
+        of the leaves whose flag is set (``model_flags``)."""
         offsets = [0]
         for s in self.shapes:
             offsets.append(offsets[-1] + math.prod(s))

@@ -1,9 +1,10 @@
 """Serving: prefill + batched single-token decode against the KV cache.
 
-Port of ``repro.serve.step``.  Under tensor parallelism the model returns
-each rank's block of the vocabulary; both entry points gather the logits
-over the model ranks (``full_logits``), so that every rank returns all of
-them and picks the same token."""
+Port of ``repro.serve.step``.  On a model axis the model returns each
+rank's block of the vocabulary (with or without expert parallelism of the
+MoE layers beside it); both entry points gather the logits over the model
+ranks (``full_logits``), so that every rank returns all of them and picks
+the same token."""
 from __future__ import annotations
 
 from typing import Callable, Optional
@@ -33,12 +34,12 @@ def make_serve_step(cfg: ModelConfig, ctx=None,
     (next_tokens (B,1) int64, logits, cache).
 
     Greedy argmax at temperature 0; otherwise a sample from
-    softmax(logits / temperature) drawn with ``generator``.  ``ctx``: an
-    expert-parallel ``parallel.ParallelCtx`` (``decode_step``): every rank
-    of its mesh calls the step on its tokens and cache; a tensor-parallel
-    one: every rank calls it on the same tokens and its cache, the logits
-    are gathered (``full_logits``) and, with the generators of the ranks
-    seeded alike, every rank draws the same token."""
+    softmax(logits / temperature) drawn with ``generator``.  ``ctx``: a
+    ``parallel.ParallelCtx`` (``decode_step``): every rank of its mesh
+    calls the step on its data rank's tokens and its cache (the ranks of
+    a model group on the same tokens), the logits are gathered
+    (``full_logits``) and, with the generators of the ranks seeded alike,
+    every rank of a model group draws the same token."""
 
     def serve_step(params, cache, tokens, pos, generator=None):
         logits, cache = decode_step(cfg, params, cache, tokens, pos,
@@ -65,11 +66,12 @@ def make_prefill(cfg: ModelConfig, ctx=None,
     On the card its attention runs the flash-attention kernel where
     ``models.prefill_launches`` says.  The batcher fills its cache by
     replaying the prompt through decode_step instead (simple and
-    cache-exact).  ``ctx``: an
-    expert-parallel context runs the MoE layers through ``moe_ep_train``
-    (each rank its data shard of the prompts, the sequence split over the
-    model axis inside the layer); a tensor-parallel one runs every rank on
-    the same prompts and returns the gathered logits (``full_logits``)."""
+    cache-exact).  ``ctx``: every rank of a model group runs on the same
+    prompts (its data shard of them) and its blocks, the context encoded
+    or projected on its heads, the MoE layers through ``moe_ep_train``
+    under expert parallelism (the sequence split over the model axis
+    inside the layer), and returns the gathered logits
+    (``full_logits``)."""
 
     def prefill(params, tokens, context=None):
         logits, _ = forward(cfg, params, tokens, context=context,

@@ -31,25 +31,23 @@ the global batch give it on every rank), the MoE router loss over ``dp``;
 the shares, and so the gradients, add up over the ranks.  The bf16
 gradient cast comes before the sync and halves its bytes.
 
-Expert parallelism.  With a context of ``use_ep`` the MoE layers run
-``moe_ep_train`` over the model axis (``models.moe``): the ranks of one
-data index take the same rows, every one of them ends the backward with
-the same gradient of the replicated leaves and its own experts' gradient
-over those rows, so the sync runs over the data group only (plain DP or
-ZeRO-1 alike), and the norm of the clip sums the experts' squares over
-the model ranks (``optim.global_norm``).  On the card the two all-to-alls
-of a layer carry the inputs of K5's backward kernel too
-(``ccl.primitives.AllToAll`` is differentiable).
-
-Tensor parallelism.  With a tensor-parallel context the ranks of one data
-index take the same rows and run the layers on their blocks
-(``parallel.tensor``); the loss is the vocabulary-parallel cross-entropy
-of the sharded logits, the same on every model rank, and the conjugate
+Model axis.  With a context whose model axis splits
+(``ParallelCtx.tensor_parallel``) the ranks of one data index take the
+same rows and run the layers on their blocks (``parallel.tensor``): the
+heads of GQA, MLA, cross-attention and the encoder, the FFN's and the
+shared experts' columns, the Mamba heads; for a MoE config the MoE layers
+run ``moe_ep_train`` over the same axis (``models.moe``), each rank on its
+own experts, and on the card the two all-to-alls of a layer carry the
+inputs of K5's backward kernel too (``ccl.primitives.AllToAll`` is
+differentiable).  The loss is the vocabulary-parallel cross-entropy of the
+sharded logits, the same on every model rank, and the conjugate
 all-reduces leave every leaf's gradient complete on its rank: a block's
-for that block, a replicated leaf's whole.  So, as under expert
-parallelism, the sync runs over the data group only, on each rank's own
-leaves, and the clip's norm sums the blocks' squares over the model ranks
-(``parallel.model_flags``).
+or an expert's for that part, a replicated leaf's whole.  So the sync
+runs over the data group only (plain DP or ZeRO-1 alike), on each rank's
+own leaves, and the clip's norm sums the parts' squares over the model
+ranks (``parallel.model_flags``, ``optim.global_norm``).  An
+encoder-decoder's encoder runs inside the loss on the same context, as
+the JAX step's ``encode(..., ctx=ctx)``.
 """
 from __future__ import annotations
 
@@ -116,7 +114,7 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
 
     def grads_of(p, leaves, tokens, labels, context, count):
         if cfg.is_encoder_decoder:
-            context = encode(cfg, p, context, remat=remat)
+            context = encode(cfg, p, context, remat=remat, ctx=ctx)
         logits, aux = forward(cfg, p, tokens, context=context, remat=remat,
                               ctx=ctx)
         ce = cross_entropy(logits, labels, count=count, ctx=vocab_ctx)

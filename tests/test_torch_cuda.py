@@ -48,6 +48,8 @@ from repro_torch.serve import make_prefill
 from torch_ccl_ranks import compressed_ring_emulation, ring_q8_on_card
 from torch_dp_ranks import dp_on_card, update_errors
 from torch_ep_ranks import card_tokens, ep_on_card, ep_train_on_card
+from torch_tp_ranks import card_context as tp_card_context
+from torch_tp_ranks import card_params as tp_card_params
 from torch_tp_ranks import card_tokens as tp_card_tokens
 from torch_tp_ranks import tp_on_card
 from torch_context import open_gates, stub_context
@@ -1107,9 +1109,10 @@ def test_ep_training_on_card_matches_single_card_step(cuda, mesh):
     two backward, K5-bwd on each rank's experts), at capacity factor 16
     (no drops), against the single-card dense step on the same batch:
     loss and grad_norm within 1e-5, every rank's first moments after the
-    step (0.1 x the clipped gradient; of its experts' slice) within TOL;
-    each rank launches a step's ``train_launches`` (K5 and K5-bwd on its
-    own experts)."""
+    step (0.1 x the clipped gradient), gathered from the model ranks
+    (experts and attention heads), within TOL; each rank launches a step's
+    ``train_launches`` (K5 and K5-bwd on its own experts, K1 and K1-bwd on
+    its heads)."""
     tcfg = dict(remat=False, zero1=False)
     build_kernels()
     ranks = spawn_ranks(ep_train_on_card, 4, mesh, 0, tcfg, timeout_s=300)
@@ -1124,11 +1127,7 @@ def test_ep_training_on_card_matches_single_card_step(cuda, mesh):
         assert r["launches"] == train_launches(cfg, 1, False)
         for k in ("loss", "grad_norm"):
             assert r["metrics"][k] == pytest.approx(float(m[k]), rel=1e-5)
-        for got, full, expert in zip(r["m"], want, r["experts"]):
-            if expert:
-                part = full.shape[0] // r["tp"]
-                full = full[r["model_rank"] * part:
-                            (r["model_rank"] + 1) * part]
+        for got, full in zip(r["m"], want):
             np.testing.assert_allclose(got, full, **TOL[torch.float32])
 
 
@@ -1220,6 +1219,57 @@ def test_tp_on_card_matches_cpu_step(cuda, mesh):
         np.testing.assert_allclose(r["logits"], want.numpy(), **LOGIT_TOL)
         assert r["prefill_launches"] == {"flash_attention": cfg.num_layers}
         assert r["step_launches"] == train_launches(cfg, 1, False, 64)
+        for k in ("loss", "grad_norm"):
+            assert r["metrics"][k] == pytest.approx(float(m[k]), rel=1e-5)
+        for got, tree in ((r["params"], params), (r["m"], opt["m"])):
+            for a, b in zip(got, param_leaves(tree)):
+                np.testing.assert_allclose(a, b.numpy(),
+                                           **TOL[torch.float32])
+
+
+@pytest.mark.parametrize("arch", ["dbrx-132b", "deepseek-v2-236b",
+                                  "jamba-1.5-large-398b",
+                                  "llama-3.2-vision-90b",
+                                  "seamless-m4t-medium"])
+def test_tp_beside_ep_on_card_matches_cpu_step(cuda, arch):
+    """The model axis of every family on 2 gloo ranks sharing the card, a
+    (1, 2) mesh: dbrx's, deepseek's (MLA and the shared experts) and
+    jamba's (Mamba heads) attention and FFN on their halves beside K5 on
+    each rank's experts (expert parallelism, capacity factor E: no drops),
+    llama-3.2-vision's cross-attention layer and seamless's encoder and
+    cross blocks on their heads (the gates opened); the gathered prefill
+    logits within LOGIT_TOL of the single-rank CPU forward, one f32 step
+    as ``test_tp_on_card_matches_cpu_step``; each rank launches K1 on its
+    heads, K5 on its experts and K6 on its Mamba heads as
+    ``prefill_launches`` (and the encoder's ``encode_launches``) and a
+    step's ``train_launches`` say."""
+    build_kernels()
+    ranks = spawn_ranks(tp_on_card, 2, arch, (1, 2), 0, timeout_s=300)
+    cfg = smoke_config(arch)
+    params = tp_card_params(cfg, 0)
+    tokens = tp_card_tokens(cfg)
+    frames = tp_card_context(cfg)
+    batch = {"tokens": tokens, "labels": torch.roll(tokens, -1, 1)}
+    context = None
+    with torch.no_grad():
+        if frames is not None:
+            batch["context"] = frames
+            context = torch.from_numpy(frames)
+            if cfg.is_encoder_decoder:
+                context = encode(cfg, params, context)
+        want, _ = forward(cfg, params, tokens, context=context)
+    params, opt, m = make_train_step(cfg, TrainConfig(remat=False))(
+        params, init_opt_state(params), batch)
+    seq = tokens.shape[1]
+    prefill = prefill_launches(cfg, seq)
+    prefill["flash_attention"] += encode_launches(cfg)["flash_attention"] \
+        if cfg.is_encoder_decoder else 0
+    for r in ranks:
+        assert r["device"] == "cuda:0"
+        np.testing.assert_allclose(r["logits"], want.numpy(), **LOGIT_TOL)
+        assert r["prefill_launches"] == {k: n for k, n in prefill.items()
+                                         if n}
+        assert r["step_launches"] == train_launches(cfg, 1, False, seq)
         for k in ("loss", "grad_norm"):
             assert r["metrics"][k] == pytest.approx(float(m[k]), rel=1e-5)
         for got, tree in ((r["params"], params), (r["m"], opt["m"])):

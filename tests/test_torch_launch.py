@@ -3,8 +3,8 @@ the CPU, through ``run(argv)``: one process against 2 gloo ranks (ZeRO-1),
 the JAX launcher's line format, its checkpoint, expert parallelism on a
 data x model mesh against the JAX package's step, tensor parallelism on
 one against the launcher's own single-rank run, and the refusals (no card
-for the default ``--device cuda``; a model axis for an architecture whose
-tensor parallelism waits for ROADMAP item 8b)."""
+for the default ``--device cuda``; a model axis that does not divide the
+ranks)."""
 import concurrent.futures
 import json
 import re
@@ -112,12 +112,14 @@ def test_default_device_needs_a_card():
 
 
 def test_model_axis_raises():
-    """A model axis for cross-attention or an encoder (dense configs, so
-    tensor parallelism) raises before any rank starts: ROADMAP item 8b."""
+    """A model axis that does not divide ``--devices`` raises before any
+    rank starts, for the cross-attention and encoder-decoder configs as
+    for the others (their model axis itself is tensor parallelism now:
+    tests/test_torch_tp.py)."""
     for arch in ("llama-3.2-vision-90b", "seamless-m4t-medium"):
-        with pytest.raises(NotImplementedError, match="item 8"):
+        with pytest.raises(ValueError, match="not a multiple"):
             run(SMOKE + ["--arch", arch, "--devices", "4",
-                         "--model-axis", "2"])
+                         "--model-axis", "3"])
 
 
 def test_model_axis_runs_tensor_parallel(tmp_path):
@@ -211,7 +213,9 @@ def test_model_axis_runs_expert_parallel_moe(tmp_path):
     mesh, R5: the JAX launcher's own mesh fails on jax 0.9) from the same
     parameters and batches; every rank ends with the same gathered
     parameters; the checkpoint holds every expert in the JAX layout and
-    restores whole and into a model rank's shard."""
+    restores whole and into a model rank's shard (its experts, and its
+    blocks of the leaves the model axis splits beside them)."""
+    from repro_torch.parallel.planner import tp_cut, _with_paths
     argv = SMOKE[:3] + ["--arch", "dbrx-132b", "--steps", "2", "--batch",
                         "8", "--seq", "32", "--devices", "4",
                         "--model-axis", "2", "--ckpt-dir", str(tmp_path)]
@@ -253,7 +257,7 @@ def test_model_axis_runs_expert_parallel_moe(tmp_path):
         assert checksum(tree) == got["ranks"][0]["checksums"][name], name
     ctx = ParallelCtx(use_ep=True, tp=2, model_rank=1)
     shard, _, _ = restore_checkpoint(cfg, path, params, ctx=ctx)
-    for a, b, e in zip(param_leaves(shard), param_leaves(whole),
-                       expert_flags(whole)):
-        half = b.shape[0] // 2
-        assert torch.equal(a, b[half:] if e else b)
+    for (p, a), (_, b), e in zip(_with_paths(shard), _with_paths(whole),
+                                 expert_flags(whole)):
+        want = b[b.shape[0] // 2:] if e else tp_cut(p, b, cfg, ctx)
+        assert torch.equal(a, want), p

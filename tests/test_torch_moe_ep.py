@@ -33,7 +33,7 @@ from repro_torch.configs import smoke_config
 from repro_torch.launch.ranks import spawn_ranks
 from repro_torch.models import moe as tmoe
 from torch_dp_ranks import flatten, update_errors
-from torch_ep_ranks import ep_cases, moe_config
+from torch_ep_ranks import bf16_decode, ep_cases, moe_config
 
 ARCH = "dbrx-132b"
 MESHES = [(2, 2), (1, 4)]
@@ -47,6 +47,12 @@ TOKENS = (8, 32)
 DECODE_STEPS = 6
 # tests/test_torch_parallel.py's rate: every parameter moves visibly
 BASE = dict(remat=False, learning_rate=1e-3, warmup_steps=1)
+BF16_SEED = 5
+# G2 at smoke size: about twice the worst sound bf16 EP decode's max
+# |logit diff| against the single rank's, 1.11 (the (1, 4) mesh, one token
+# whose top-2 experts are near a tie and flip in bf16; 0.04 elsewhere);
+# the planted fault gives 3.79 and 5.14
+BF16_BOUND = 2.25
 
 
 def _cases(mesh) -> dict:
@@ -61,6 +67,8 @@ def _cases(mesh) -> dict:
         cases[f"{fn}|replicated"] = {"kind": "moe", "fn": fn,
                                      "factor": NO_DROP, "batch": 3,
                                      "replicated": True}
+    cases["bf16_decode"] = {"kind": "bf16_decode", "seed": BF16_SEED,
+                            "steps": DECODE_STEPS}
     # with one data rank (1 x 4) ZeRO-1 has nothing to shard: both run the
     # plain update there
     for name, zero1 in (("zero1", True), ("dp", False)):
@@ -411,3 +419,25 @@ def test_ep_ranks_identical_after_two_steps(runs, name):
     assert len({r[name]["own"] for r in ranks[:mesh[1]]}) == mesh[1]
     first, second = ranks[0][name]["metrics"]
     assert np.isfinite([first["loss"], second["loss"]]).all()
+
+
+def test_bf16_ep_decode_logit_diff_is_bounded(runs):
+    """G2 at smoke size: the bf16 EP decode (experts over the model axis,
+    the attention and the vocabulary split beside them, a bf16 cache),
+    teacher forced, against the single-rank bf16 decode of the same draw:
+    the max |logit diff| within ``BF16_BOUND``; the attention's
+    ``reduce_from_model`` skipped on the first layer
+    (``torch_ep_ranks.SkipAttentionReduce``) beyond it."""
+    from repro_torch.models import init_params
+    mesh, ranks, _, inputs = runs
+    cfg = smoke_config(ARCH)
+    params = init_params(cfg, torch.Generator().manual_seed(BF16_SEED),
+                         dtype=torch.bfloat16, device="cpu")
+    tokens = torch.from_numpy(inputs["tokens"]).long()
+    want = bf16_decode(cfg, params, tokens, DECODE_STEPS).numpy()
+    v = cfg.vocab_size
+    got = _data_rows(mesh, ranks, "bf16_decode", "logits")
+    bad = _data_rows(mesh, ranks, "bf16_decode", "fault")
+    sound = float(np.abs(got[..., :v] - want[..., :v]).max())
+    fault = float(np.abs(bad[..., :v] - want[..., :v]).max())
+    assert sound <= BF16_BOUND < fault, (sound, fault)

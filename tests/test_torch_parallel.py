@@ -29,7 +29,6 @@ from repro.models import init_params as jax_init_params
 from repro_torch.bridge import params_from_jax, params_to_jax_layout
 from repro_torch.configs import smoke_config
 from repro_torch.core.types import MeshConfig, TrainConfig
-from repro_torch.launch.mesh import check_model_axis
 from repro_torch.launch.ranks import spawn_ranks
 from repro_torch.optim import init_opt_state
 from repro_torch.parallel import make_ctx
@@ -355,20 +354,17 @@ def test_ranks_identical_after_two_steps(runs, name):
 
 
 def test_model_axis_and_expert_parallel_raise():
-    """A model axis > 1 runs the MoE layers expert-parallel
-    (tests/test_torch_moe_ep.py) and the layers of a dense or SSM config
-    tensor-parallel (tests/test_torch_tp.py); for MLA, cross-attention
-    and the encoder tensor parallelism is ROADMAP item 8b: the mesh check
-    of such a config and a context of a model axis without expert
-    parallelism for it raise."""
-    with pytest.raises(NotImplementedError, match="item 8"):
-        check_model_axis(MeshConfig((2, 2)),
-                         smoke_config("llama-3.2-vision-90b"))
-    with pytest.raises(NotImplementedError, match="item 8"):
+    """A model axis > 1 runs every layer tensor-parallel and the MoE
+    layers' experts expert-parallel beside it (tests/test_torch_tp.py,
+    tests/test_torch_moe_ep.py): ``make_ctx`` picks EP for a MoE config
+    and takes every config; a context of a model axis without expert
+    parallelism for a MoE config is ROADMAP item 8c and raises."""
+    with pytest.raises(NotImplementedError, match="item 8c"):
         make_ctx(None, MeshConfig((1, 2)), use_ep=False,
-                 cfg=smoke_config("seamless-m4t-medium"))
-    check_model_axis(MeshConfig((2, 2)), smoke_config("dbrx-132b"))
-    check_model_axis(MeshConfig((2, 2)), smoke_config("qwen2-0.5b"))
+                 cfg=smoke_config("dbrx-132b"))
+    with pytest.raises(NotImplementedError, match="item 8c"):
+        make_ctx(None, MeshConfig((1, 2)), use_ep=False,
+                 cfg=smoke_config("deepseek-v2-236b"))
 
 
 def test_zero1_without_sharded_state_raises():

@@ -1,7 +1,7 @@
 """The port's tensor parallelism (``repro_torch.parallel.tensor`` and the
-model, loss, step and serving under a tensor-parallel context) against the
-JAX package's and against the port's own single-rank run, at smoke size on
-the CPU.
+model, loss, step and serving under a context whose model axis splits)
+against the JAX package's and against the port's own single-rank run, at
+smoke size on the CPU.
 
 For each mesh, (1, 4) and (2, 2): one ``spawn_ranks`` of 4 gloo ranks
 computes every case (``torch_tp_ranks.tp_cases``), and, at the same time,
@@ -9,15 +9,22 @@ one JAX subprocess on 4 forced host devices computes the JAX package's
 forward, decode and training step on a mesh of Auto axes (ROADMAP R5) with
 the planner's parameter specs.  A (1, 2) mesh, on which the smoke configs'
 2 KV heads split too, is held against the single-rank run.  The inputs are
-the JAX package's parameters (``init_params``, key 0) and numpy from a
-seed.  The smoke configs have 4 query and 2 KV heads: at tp 4 the query
-heads split and the KV heads do not (each rank reads the KV head of its
-query head), at tp 2 both split; ``torch_tp_ranks.REPLICATED_ATTN`` has 14
-query heads, so at tp 4 its attention is replicated and only its FFN
-splits.  Tolerances: the logits ``tests/test_pallas_integration.py``'s
-(atol 5e-4, rtol 1e-3) against JAX and 1e-5 against the single-rank run,
-the training step ``tests/test_torch_parallel.py``'s (metrics rel 1e-5,
-moments and gradients 1e-5, parameters through their update).
+the JAX package's parameters (``init_params``, key 0, the cross-attention
+gates opened: ``torch_context.open_gates``), the stub contexts and numpy
+from a seed.  This file holds the dense GQA and Mamba2 configs; the
+families whose model axis splits MLA, cross-attention, the encoder and
+(beside expert parallelism) the MoE configs' other layers run the same
+checks in ``tests/test_torch_tp_families.py``, on ranks and a JAX run of
+their own (so that the two files share the work of a test run's
+workers).  The smoke configs have 4 query and 2 KV heads: at tp 4 the
+query heads split and the KV heads do not (each rank reads the KV head of
+its query head), at tp 2 both split; ``torch_tp_ranks.REPLICATED_ATTN``
+has 14 query heads, so at tp 4 its attention is replicated and only its
+FFN splits.  Tolerances: the logits
+``tests/test_pallas_integration.py``'s (atol 5e-4, rtol 1e-3) against JAX
+and 1e-5 against the single-rank run, the training step
+``tests/test_torch_parallel.py``'s (metrics rel 1e-5, moments and
+gradients 1e-5, parameters through their update).
 """
 import concurrent.futures
 import json
@@ -40,10 +47,14 @@ from repro_torch.models import (decode_step, forward, init_cache,
 from repro_torch.optim import init_opt_state
 from repro_torch.parallel.planner import _unflatten_like
 from repro_torch.train import make_train_step
+from torch_context import open_gates, stub_context
 from torch_dp_ranks import flatten, nest, update_errors
-from torch_tp_ranks import REPLICATED_ATTN, tp_cases, tp_config
+from torch_tp_ranks import (REPLICATED_ATTN, tp_batch, tp_cases, tp_config,
+                            tp_context)
 
 ARCHS = ("qwen2-0.5b", "granite-3-8b", "starcoder2-3b", "mamba2-130m")
+BATCHER_ARCHS = ("granite-3-8b", "mamba2-130m")
+MOE_ARCHS = ("deepseek-v2-236b", "dbrx-132b", "jamba-1.5-large-398b")
 MESHES = [(1, 4), (2, 2)]
 LOGIT_TOL = dict(atol=5e-4, rtol=1e-3)  # tests/test_pallas_integration.py
 STEP_TOL = dict(atol=1e-5, rtol=1e-5)   # tests/test_torch_parallel.py
@@ -59,13 +70,26 @@ ADAMW_TOL = 1e-3
 UPDATE_RTOL = 1e-2
 
 
-def _cases(mesh) -> dict:
+def model_cases(mesh, archs) -> dict:
+    """The "model" and "init" cases of ``archs`` on ``mesh``."""
     cases = {}
-    for arch in ARCHS + (REPLICATED_ATTN,):
+    for arch in archs:
         cases[f"model|{arch}"] = {
             "kind": "model", "arch": arch, "steps": DECODE_STEPS,
             "tcfg": {**BASE, "zero1": mesh[0] > 1}}
         cases[f"init|{arch}"] = {"kind": "init", "arch": arch, "seed": 3}
+    return cases
+
+
+def batcher_cases(archs) -> dict:
+    return {f"batcher|{arch}|{temp}": {
+        "kind": "batcher", "arch": arch, "temperature": temp,
+        "requests": BATCHER_REQUESTS}
+        for arch in archs for temp in BATCHER_TEMPERATURES}
+
+
+def _cases(mesh) -> dict:
+    cases = model_cases(mesh, ARCHS + (REPLICATED_ATTN,))
     cases["fault|wo"] = {"kind": "fault", "arch": REPLICATED_ATTN,
                          "fault": "wo_all_reduce"}
     cases["fault|norm"] = {"kind": "fault", "arch": "mamba2-130m",
@@ -73,22 +97,18 @@ def _cases(mesh) -> dict:
     for arch in ("granite-3-8b", "mamba2-130m", REPLICATED_ATTN):
         cases[f"bytes|{arch}"] = {"kind": "bytes", "arch": arch,
                                   "tcfg": BASE}
-    for arch in ("granite-3-8b", "mamba2-130m"):
-        for temp in BATCHER_TEMPERATURES:
-            cases[f"batcher|{arch}|{temp}"] = {
-                "kind": "batcher", "arch": arch, "temperature": temp,
-                "requests": BATCHER_REQUESTS}
+    cases.update(batcher_cases(BATCHER_ARCHS))
     return cases
 
 
 _JAX_SCRIPT = """
-import json, sys
+import dataclasses, json, sys
 import jax, jax.numpy as jnp
 import numpy as np
 from jax.sharding import AxisType, NamedSharding, PartitionSpec as P
 from repro.configs import smoke_config
 from repro.core.types import MeshConfig, TrainConfig
-from repro.models import decode_step, forward, init_cache
+from repro.models import decode_step, encode, forward, init_cache
 from repro.optim.adamw import init_opt_state
 from repro.parallel.planner import make_ctx, param_specs
 from repro.train.step import make_train_step
@@ -121,17 +141,31 @@ def flat(tree, prefix):
 out = {}
 for arch in json.loads(archs_json):
     cfg = smoke_config(arch)
-    ctx = make_ctx(mesh, mcfg, remat=False, use_ep=False)
+    # MoE configs: expert parallelism beside the tensor parallelism, at
+    # capacity factor E (no dispatch dropped)
+    ctx = make_ctx(mesh, mcfg, remat=False, use_ep=cfg.is_moe)
+    if cfg.is_moe:
+        ctx = dataclasses.replace(
+            ctx, capacity_factor=float(cfg.num_experts),
+            decode_capacity_factor=float(cfg.num_experts))
     pre = "params|" + arch + "|"
     params = nest({k[len(pre):]: data[k] for k in data.files
                    if k.startswith(pre)})
     specs = param_specs(cfg, mcfg)
     params = jax.device_put(params, jax.tree.map(shard, specs, is_leaf=is_p))
-    logits, _ = jax.jit(lambda p_, t_: forward(cfg, p_, t_, ctx=ctx))(
-        params, tokens)
+    raw = ("context|" + arch) in data.files
+    frames = jnp.asarray(data["context|" + arch]) if raw else None
+    if cfg.is_encoder_decoder:
+        context = jax.jit(lambda p_, f_: encode(cfg, p_, f_, ctx=ctx))(
+            params, frames)
+    else:
+        context = frames
+    logits, _ = jax.jit(lambda p_, t_, c_: forward(cfg, p_, t_, context=c_,
+                                                   ctx=ctx))(
+        params, tokens, context)
     out[arch + "|logits"] = np.asarray(logits)
     n = int(steps)
-    cache = init_cache(cfg, params, tokens.shape[0], n)
+    cache = init_cache(cfg, params, tokens.shape[0], n, context=context)
     step = jax.jit(lambda p_, c_, t_, pos: decode_step(cfg, p_, c_, t_, pos,
                                                        ctx=ctx))
     got = []
@@ -145,6 +179,9 @@ for arch in json.loads(archs_json):
     batch = jax.device_put({k: jnp.asarray(data[k])
                             for k in ("tokens", "labels")},
                            shard(P("data", None)))
+    if raw:
+        batch["context"] = jax.device_put(frames, shard(P("data", None,
+                                                          None)))
     p, opt, metrics = jax.jit(make_train_step(cfg, TrainConfig(**tc), ctx))(
         params, opt, batch)
     out.update(flat(p, arch + "|params"))
@@ -159,19 +196,46 @@ print("OK")
 
 def _initial(arch: str) -> dict:
     jp = jax_init_params(jax_smoke_config(arch), jax.random.PRNGKey(0))
-    return flatten(jax.tree.map(np.asarray, jp))
+    return flatten(open_gates(jax.tree.map(np.asarray, jp)))
 
 
-def _inputs(tmp) -> str:
+def _inputs(tmp, archs) -> str:
     rng = np.random.default_rng(0)
     tok = rng.integers(0, 512, TOKENS).astype(np.int32)  # smoke vocab 512
     data = {"tokens": tok, "labels": np.roll(tok, -1, 1)}
-    for arch in ARCHS:
+    for arch in archs:
         data.update({f"params|{arch}|{k}": v
                      for k, v in _initial(arch).items()})
+        context = stub_context(smoke_config(arch), TOKENS[0], seed=1)
+        if context is not None:
+            data[f"context|{arch}"] = context
     path = str(tmp / "inputs.npz")
     np.savez(path, **data)
     return path
+
+
+def mesh_runs(mesh, tmp, archs, cases):
+    """``cases`` on the mesh's 4 ranks and the JAX package's forward,
+    decode and step of ``archs`` on its 4 devices, at once: (mesh, the
+    ranks' results, JAX's arrays, the inputs)."""
+    inputs = _inputs(tmp, archs)
+    script = (f"import sys; sys.argv = ['', {inputs!r}, "
+              f"{json.dumps(list(archs))!r}, {json.dumps(list(mesh))!r}, "
+              f"'{DECODE_STEPS}', {json.dumps(BASE)!r}, "
+              f"{str(tmp / 'jax.npz')!r}]\n" + _JAX_SCRIPT)
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        jax_run = pool.submit(run_multidevice, script, num_devices=4,
+                              timeout=300)
+        ranks = spawn_ranks(tp_cases, 4, mesh, inputs, cases, timeout_s=300)
+        jax_run.result()
+    return mesh, ranks, dict(np.load(tmp / "jax.npz")), dict(np.load(inputs))
+
+
+def runs_1x2_of(tmp, archs, cases):
+    """``cases`` on a (1, 2) mesh: (the ranks' results, the inputs)."""
+    inputs = _inputs(tmp, archs)
+    return spawn_ranks(tp_cases, 2, (1, 2), inputs, cases, timeout_s=300), \
+        dict(np.load(inputs))
 
 
 @pytest.fixture(scope="module", params=MESHES, ids=["1x4", "2x2"])
@@ -179,37 +243,23 @@ def runs(request, tmp_path_factory):
     """Every case on the mesh's 4 ranks and on JAX's 4 devices, at once:
     (mesh, the ranks' results, JAX's arrays, the inputs)."""
     mesh = request.param
-    tmp = tmp_path_factory.mktemp("tp{}x{}".format(*mesh))
-    inputs = _inputs(tmp)
-    script = (f"import sys; sys.argv = ['', {inputs!r}, "
-              f"{json.dumps(list(ARCHS))!r}, {json.dumps(list(mesh))!r}, "
-              f"'{DECODE_STEPS}', {json.dumps(BASE)!r}, "
-              f"{str(tmp / 'jax.npz')!r}]\n" + _JAX_SCRIPT)
-    with concurrent.futures.ThreadPoolExecutor(1) as pool:
-        jax_run = pool.submit(run_multidevice, script, num_devices=4,
-                              timeout=300)
-        ranks = spawn_ranks(tp_cases, 4, mesh, inputs, _cases(mesh),
-                            timeout_s=300)
-        jax_run.result()
-    return mesh, ranks, dict(np.load(tmp / "jax.npz")), dict(np.load(inputs))
+    return mesh_runs(mesh, tmp_path_factory.mktemp("tp{}x{}".format(*mesh)),
+                     ARCHS, _cases(mesh))
 
 
 @pytest.fixture(scope="module")
 def runs_1x2(tmp_path_factory):
     """granite-3-8b's cases on a (1, 2) mesh, whose 2 KV heads split."""
-    tmp = tmp_path_factory.mktemp("tp1x2")
-    inputs = _inputs(tmp)
     cases = {k: v for k, v in _cases((1, 2)).items()
              if k.endswith("granite-3-8b")}
-    return spawn_ranks(tp_cases, 2, (1, 2), inputs, cases, timeout_s=300), \
-        dict(np.load(inputs))
+    return runs_1x2_of(tmp_path_factory.mktemp("tp1x2"), ARCHS, cases)
 
 
 def _single(arch: str, data: dict) -> dict:
     """The port's single-rank run of the case: logits, decode logits, the
     step's metrics, gradient, parameters and moments (JAX layout)."""
     cfg = tp_config(arch)
-    if arch in ARCHS:
+    if any(k.startswith(f"params|{arch}|") for k in data):
         params = params_from_jax(cfg, nest({
             k.split("|", 2)[2]: v for k, v in data.items()
             if k.startswith(f"params|{arch}|")}), "cpu")
@@ -217,10 +267,13 @@ def _single(arch: str, data: dict) -> dict:
         params = init_params(cfg, torch.Generator().manual_seed(0),
                              device="cpu")
     tokens = torch.from_numpy(data["tokens"]).long()
+    context = tp_context(data, arch, cfg, params)
     out = {}
     with torch.no_grad():
-        out["logits"] = forward(cfg, params, tokens)[0].numpy()
-        cache = init_cache(cfg, params, tokens.shape[0], DECODE_STEPS)
+        out["logits"] = forward(cfg, params, tokens,
+                                context=context)[0].numpy()
+        cache = init_cache(cfg, params, tokens.shape[0], DECODE_STEPS,
+                           context=context)
         dec = []
         for t in range(DECODE_STEPS):
             lg, cache = decode_step(cfg, params, cache, tokens[:, t:t + 1],
@@ -236,8 +289,7 @@ def _single(arch: str, data: dict) -> dict:
             seen["g"] = [g.detach().clone() for g in grads]
 
     params, opt, m = make_train_step(cfg, TrainConfig(**BASE))(
-        params, init_opt_state(params), {"tokens": data["tokens"],
-                                         "labels": data["labels"]},
+        params, init_opt_state(params), tp_batch(data, arch),
         grad_hook=hook)
     out["metrics"] = {k: float(v) for k, v in m.items()}
     out["grads"] = flatten(params_to_jax_layout(
@@ -274,8 +326,7 @@ def _check_step(got: dict, want_metrics: dict, want: dict,
     assert err["update"] <= UPDATE_RTOL, err
 
 
-@pytest.mark.parametrize("arch", ARCHS)
-def test_tp_forward_and_decode_match_jax(runs, arch):
+def check_tp_forward_and_decode_match_jax(runs, arch):
     """Prefill logits and 6 decode steps, gathered over the vocabulary
     blocks, against JAX's forward and decode on the same mesh; every rank
     holds the same bits; each rank's logits are its vocabulary block."""
@@ -293,8 +344,12 @@ def test_tp_forward_and_decode_match_jax(runs, arch):
                                **LOGIT_TOL)
 
 
-@pytest.mark.parametrize("arch", ARCHS + (REPLICATED_ATTN,))
-def test_tp_forward_and_decode_match_single_rank(runs, arch):
+@pytest.mark.parametrize("arch", ARCHS)
+def test_tp_forward_and_decode_match_jax(runs, arch):
+    check_tp_forward_and_decode_match_jax(runs, arch)
+
+
+def check_tp_forward_and_decode_match_single_rank(runs, arch):
     mesh, ranks, _, data = runs
     got = ranks[0][f"model|{arch}"]
     want = single(arch, data)
@@ -302,8 +357,12 @@ def test_tp_forward_and_decode_match_single_rank(runs, arch):
     np.testing.assert_allclose(got["decode"], want["decode"], **STEP_TOL)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
-def test_tp_step_matches_jax(runs, arch):
+@pytest.mark.parametrize("arch", ARCHS + (REPLICATED_ATTN,))
+def test_tp_forward_and_decode_match_single_rank(runs, arch):
+    check_tp_forward_and_decode_match_single_rank(runs, arch)
+
+
+def check_tp_step_matches_jax(runs, arch):
     """One training step on the mesh (ZeRO-1 where the data axis has 2
     ranks) against JAX's step: the metrics, the updated parameters and the
     gathered moments, leaf for leaf in the JAX layout."""
@@ -319,8 +378,12 @@ def test_tp_step_matches_jax(runs, arch):
                         if p.startswith(f"{arch}|{k}|")}, **STEP_TOL)
 
 
-@pytest.mark.parametrize("arch", ARCHS + (REPLICATED_ATTN,))
-def test_tp_step_matches_single_rank(runs, arch):
+@pytest.mark.parametrize("arch", ARCHS)
+def test_tp_step_matches_jax(runs, arch):
+    check_tp_step_matches_jax(runs, arch)
+
+
+def check_tp_step_matches_single_rank(runs, arch):
     """One step against the port's single-rank step: every leaf's
     gradient (each rank's own, gathered) within 1e-5, so no replicated
     leaf's gradient is summed over the model ranks and no block's is
@@ -342,7 +405,11 @@ def test_tp_step_matches_single_rank(runs, arch):
 
 
 @pytest.mark.parametrize("arch", ARCHS + (REPLICATED_ATTN,))
-def test_tp_init_gathers_to_the_single_draw(runs, arch):
+def test_tp_step_matches_single_rank(runs, arch):
+    check_tp_step_matches_single_rank(runs, arch)
+
+
+def check_tp_init_gathers_to_the_single_draw(runs, arch):
     """``gather_params(init_params(..., ctx))`` is bit-equal to
     ``init_params(...)`` from the same seed, and the ranks of a model
     group hold different blocks."""
@@ -357,6 +424,11 @@ def test_tp_init_gathers_to_the_single_draw(runs, arch):
             np.testing.assert_array_equal(got[k], want[k], err_msg=k)
     assert len({r[f"init|{arch}"]["own"] for r in ranks[:mesh[1]]}) == \
         mesh[1]
+
+
+@pytest.mark.parametrize("arch", ARCHS + (REPLICATED_ATTN,))
+def test_tp_init_gathers_to_the_single_draw(runs, arch):
+    check_tp_init_gathers_to_the_single_draw(runs, arch)
 
 
 def test_tp_cache_holds_this_ranks_heads(runs):
@@ -393,14 +465,14 @@ def test_planted_faults_are_caught(runs, fault, arch):
                                **STEP_TOL)
 
 
-@pytest.mark.parametrize("temperature", BATCHER_TEMPERATURES)
-@pytest.mark.parametrize("arch", ["granite-3-8b", "mamba2-130m"])
-def test_tp_batcher_ranks_emit_the_same_tokens(runs, arch, temperature):
+def check_tp_batcher_ranks_emit_the_same_tokens(runs, arch, temperature):
     """A ``ContinuousBatcher`` on every rank of the mesh, fed the same
     requests: greedy and sampled (temperature 0.8, generators seeded
     alike, the gathered logits the same bits on every rank), every rank
     emits the same tokens, those of the single-rank batcher on the whole
-    parameters, and a request is admitted mid-flight."""
+    parameters, and a request is admitted mid-flight.  With a context
+    (two rows of it, one a slot) each rank encodes or projects it on its
+    heads."""
     from torch_tp_ranks import tp_batcher
     mesh, ranks, _, data = runs
     name = f"batcher|{arch}|{temperature}"
@@ -412,9 +484,17 @@ def test_tp_batcher_ranks_emit_the_same_tokens(runs, arch, temperature):
         k.split("|", 2)[2]: v for k, v in data.items()
         if k.startswith(f"params|{arch}|")}), "cpu")
     want = tp_batcher(cfg, params, {"temperature": temperature,
-                                    "requests": BATCHER_REQUESTS})
+                                    "requests": BATCHER_REQUESTS},
+                      context=tp_context(data, arch, cfg, params,
+                                         rows=slice(0, 2)))
     assert got == want
     assert max(got["admitted"].values()) > 0
+
+
+@pytest.mark.parametrize("temperature", BATCHER_TEMPERATURES)
+@pytest.mark.parametrize("arch", BATCHER_ARCHS)
+def test_tp_batcher_ranks_emit_the_same_tokens(runs, arch, temperature):
+    check_tp_batcher_ranks_emit_the_same_tokens(runs, arch, temperature)
 
 
 def _ar(n: int, p: int, itemsize: int = 4) -> int:
@@ -500,35 +580,45 @@ def test_tp_1x2_splits_the_kv_heads(runs_1x2):
 
 
 def test_tensor_parallel_raises_for_item_8b():
-    """MLA, cross-attention and the encoder wait for ROADMAP item 8b: the
-    context, the mesh check and the model refuse them; so does the model
-    for a MoE config on a model axis without expert parallelism."""
+    """What item 8b left out raises: a model axis on a MoE config without
+    expert parallelism (the JAX package's ``moe_dense`` on experts that XLA
+    shards over the model axis) waits for ROADMAP item 8c: the context, the parameters and the model
+    refuse it; every other config, and a MoE config under expert
+    parallelism, takes a model axis."""
     from repro_torch.core.types import MeshConfig
-    from repro_torch.launch.mesh import check_model_axis
-    from repro_torch.parallel import ParallelCtx, make_ctx
-    for arch in ("llama-3.2-vision-90b", "seamless-m4t-medium"):
+    from repro_torch.parallel import ParallelCtx, make_ctx, shard_params
+    for arch in MOE_ARCHS:
         cfg = smoke_config(arch)
-        with pytest.raises(NotImplementedError, match="item 8b"):
-            check_model_axis(MeshConfig((2, 2)), cfg)
-        with pytest.raises(NotImplementedError, match="item 8b"):
+        with pytest.raises(NotImplementedError, match="item 8c"):
             make_ctx(None, MeshConfig((1, 2)), use_ep=False, cfg=cfg)
         ctx = ParallelCtx(tp=2, use_ep=False)
-        with pytest.raises(NotImplementedError, match="item 8b"):
+        with pytest.raises(NotImplementedError, match="item 8c"):
             forward(cfg, {"embed": torch.zeros(1)},
                     torch.zeros((1, 1), dtype=torch.long), ctx=ctx)
-    with pytest.raises(NotImplementedError, match="item 8b"):
-        forward(smoke_config("dbrx-132b"), {"embed": torch.zeros(1)},
-                torch.zeros((1, 1), dtype=torch.long),
-                ctx=ParallelCtx(tp=2, use_ep=False))
-    check_model_axis(MeshConfig((2, 2)), smoke_config("deepseek-v2-236b"))
-    check_model_axis(MeshConfig((2, 2)), smoke_config("granite-3-8b"))
+        with pytest.raises(NotImplementedError, match="item 8c"):
+            init_params(cfg, torch.Generator(), device="meta", ctx=ctx)
+        with pytest.raises(NotImplementedError, match="item 8c"):
+            shard_params({"embed": torch.zeros(1)}, ctx, cfg)
+        init_params(cfg, torch.Generator(), device="meta",
+                    ctx=ParallelCtx(tp=2, use_ep=True))
+    for arch in ("llama-3.2-vision-90b", "seamless-m4t-medium",
+                 "granite-3-8b"):
+        init_params(smoke_config(arch), torch.Generator(), device="meta",
+                    ctx=ParallelCtx(tp=2, use_ep=False))
 
 
 def test_tensor_parallel_is_a_model_axis_without_ep():
-    """A model axis is tensor parallelism where it does not run expert
-    parallelism (``make_ctx`` picks EP for a MoE config, TP for the
-    others: every rank of the cases above took TP)."""
+    """A model axis is tensor parallelism with or without expert
+    parallelism: it splits the layers whether or not it runs expert
+    parallelism of the experts beside them: ``tensor_parallel`` is
+    ``tp > 1``, and ``make_ctx`` picks EP for a MoE config and leaves it
+    off for the others."""
     from repro_torch.parallel import ParallelCtx
+    from repro_torch.parallel.planner import tp_layout
     assert ParallelCtx(tp=2, use_ep=False).tensor_parallel
-    assert not ParallelCtx(tp=2, use_ep=True).tensor_parallel
+    assert ParallelCtx(tp=2, use_ep=True).tensor_parallel
     assert not ParallelCtx(tp=1, use_ep=False).tensor_parallel
+    assert not ParallelCtx(tp=1, use_ep=True).tensor_parallel
+    lay = tp_layout(smoke_config("dbrx-132b"),
+                    ParallelCtx(tp=2, use_ep=True, model_rank=1))
+    assert lay.heads and lay.kv and lay.vocab and lay.rank == 1

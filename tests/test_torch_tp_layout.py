@@ -1,11 +1,13 @@
 """The port's layout rules (``repro_torch.parallel.planner``: ``guarded``,
 ``validate_spec``, ``_leaf_rule``, ``_mamba_head_axis``, ``param_specs``,
-``cache_specs``) against the JAX package's, leaf for leaf, for every
-architecture on both production meshes; and what the port's tensor
-parallelism takes from them (``tp_layout``, ``shard_params``, the decode
-cache).  Ports ``tests/test_planner.py``.  The port's trees are matched to
+``cache_specs``, ``zero1_spec``, ``apply_fsdp``) against the JAX
+package's, leaf for leaf, for every architecture on both production
+meshes; and what the port's model axis takes from them (``tp_layout``,
+``shard_params``, the decode cache).  Ports ``tests/test_planner.py``.  The port's trees are matched to
 the JAX layout through ``bridge.to_jax_layout`` (a JAX leaf stacked over a
 layer group's repeats has one more, unsharded, leading dim)."""
+import functools
+
 import jax
 import jax.numpy as jnp
 import pytest
@@ -18,18 +20,21 @@ from repro.core.types import SHAPES_BY_NAME
 from repro.core.types import SINGLE_POD_MESH as JAX_SINGLE_POD
 from repro.launch.specs import cache_shapes, decode_window
 from repro.models.transformer import init_params as jax_init_params
+from repro.parallel.planner import apply_fsdp as jax_apply_fsdp
 from repro.parallel.planner import cache_specs as jax_cache_specs
 from repro.parallel.planner import param_specs as jax_param_specs
+from repro.parallel.planner import zero1_spec as jax_zero1_spec
 from repro_torch.bridge import layers_to_jax_layout, to_jax_layout
 from repro_torch.configs import ARCHS, get_config, smoke_config
 from repro_torch.core.tree import param_leaves
 from repro_torch.core.types import MeshConfig
 from repro_torch.models import init_cache
 from repro_torch.parallel import ParallelCtx, shard_params
-from repro_torch.parallel.planner import (_with_paths, cache_specs,
-                                          param_shapes, param_specs,
-                                          tp_dims, tp_layout,
-                                          validate_spec)
+from repro_torch.parallel.planner import (_unflatten_like, _with_paths,
+                                          apply_fsdp, cache_specs,
+                                          expert_flags, param_shapes,
+                                          param_specs, tp_dims, tp_layout,
+                                          validate_spec, zero1_spec)
 
 SINGLE_POD = MeshConfig()
 MULTI_POD = MeshConfig(shape=(2, 16, 16), axis_names=("pod", "data",
@@ -37,7 +42,9 @@ MULTI_POD = MeshConfig(shape=(2, 16, 16), axis_names=("pod", "data",
                        data_axes=("pod", "data"), model_axes=("model",))
 MESHES = [(SINGLE_POD, JAX_SINGLE_POD), (MULTI_POD, JAX_MULTI_POD)]
 TP_ARCHS = ("qwen2-0.5b", "granite-3-8b", "h2o-danube-1.8b",
-            "starcoder2-3b", "mamba2-130m")
+            "starcoder2-3b", "mamba2-130m", "deepseek-v2-236b",
+            "llama-3.2-vision-90b", "seamless-m4t-medium", "dbrx-132b",
+            "jamba-1.5-large-398b")
 
 
 def _stacked(specs: list):
@@ -129,29 +136,79 @@ def test_qwen2_attention_replicates_with_note():
 @pytest.mark.parametrize("tp", [2, 4, 16])
 def test_tp_layout_is_what_the_specs_split(arch, tp):
     """``tp_layout``'s flags, which the model code reads, are what
-    ``param_specs`` decides for the leaves they name; ``shard_params``
-    cuts each leaf the specs split to 1/tp along that dim, rank 1 holding
-    the second block."""
+    ``param_specs`` decides for the leaves they name (MLA's head leaves
+    under ``heads``, the shared experts' under ``shared``);
+    ``shard_params`` cuts each leaf the specs split to 1/tp along that
+    dim (the experts of a MoE config, under expert parallelism, to their
+    model rank's E/tp), rank 1 holding the second block."""
     cfg = get_config(arch)
-    ctx = ParallelCtx(tp=tp, use_ep=False, model_rank=1)
+    ctx = ParallelCtx(tp=tp, use_ep=cfg.is_moe, model_rank=1)
     lay = tp_layout(cfg, ctx)
     dims = tp_dims(cfg, ctx)
-    leaves = {"heads": ("wq", "wo"), "kv": ("wk", "wv"),
-              "ffn": ("w_gate", "w_up", "w_down"),
+    full = param_shapes(cfg)
+    experts = dict(zip((p for p, _ in _with_paths(full)),
+                       expert_flags(full)))
+    leaves = {"heads": ("wq", "wo", "w_uq", "w_uk", "w_uv"),
+              "kv": ("wk", "wv"), "ffn": ("w_gate", "w_up", "w_down"),
               "vocab": ("embed", "lm_head"),
               "ssm": ("z_proj", "x_proj", "dt_proj", "conv_x", "A_log",
                       "out_proj")}
     for flag, names in leaves.items():
         split = {dims[p] is not None for p in dims
-                 if p.rsplit("/", 1)[-1] in names}
+                 if p.rsplit("/", 1)[-1] in names and not experts[p]
+                 and "/shared/" not in p}
         assert split <= {getattr(lay, flag)}, (flag, split)
-    full = param_shapes(cfg)
+    shared = {dims[p] is not None for p in dims if "/shared/" in p}
+    assert shared <= {lay.shared}, shared
+    assert {dims[p] for p in dims if experts[p]} <= {0}
     mine = shard_params(full, ctx, cfg)
     for (path, t), (_, s) in zip(_with_paths(full), _with_paths(mine)):
         want = list(t.shape)
         if dims[path] is not None:
             want[dims[path]] //= tp
         assert list(s.shape) == want, path
+
+
+@functools.lru_cache(maxsize=4)
+def _jax_specs(arch: str, mesh: int):
+    jcfg = jax_get_config(arch)
+    shapes = jax.eval_shape(lambda: jax_init_params(
+        jcfg, jax.random.PRNGKey(0), dtype=jnp.bfloat16))
+    return jax_param_specs(jcfg, MESHES[mesh][1]), shapes
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("mesh", [0, 1], ids=["1pod", "2pod"])
+def test_fsdp_and_zero1_specs_equal_jax(arch, mesh):
+    """``apply_fsdp`` of the port's specs, then ``zero1_spec`` of each
+    leaf, equal the JAX package's (``tests/test_planner.py``'s chain),
+    leaf for leaf; ``zero1_spec`` itself equals JAX's on every stacked
+    JAX leaf, and neither uses a mesh axis twice."""
+    port_mesh, jax_mesh = MESHES[mesh]
+    cfg = get_config(arch)
+    shapes = param_shapes(cfg)
+    fsdp = apply_fsdp(param_specs(cfg, port_mesh, shapes=shapes), shapes,
+                      port_mesh)
+    z1 = _unflatten_like(shapes, [
+        zero1_spec(sp, tuple(t.shape), port_mesh)
+        for (_, sp), (_, t) in zip(_with_paths(fsdp), _with_paths(shapes))])
+    jspecs, jshapes = _jax_specs(arch, mesh)
+    jfsdp = jax_apply_fsdp(jspecs, jshapes, jax_mesh)
+    is_p = lambda x: isinstance(x, P)  # noqa: E731
+    jz1 = jax.tree.map(lambda sp, sh: jax_zero1_spec(sp, sh.shape, jax_mesh),
+                       jfsdp, jshapes, is_leaf=is_p)
+    for got, want in ((fsdp, jfsdp), (z1, jz1)):
+        got = to_jax_layout(cfg, got, lambda sp: sp, _stacked)
+        assert [tuple(sp) for sp in jax.tree.leaves(
+            got, is_leaf=lambda x: isinstance(x, tuple))] == _jax(want)
+    for sp, sh in zip(jax.tree.leaves(jspecs, is_leaf=is_p),
+                      jax.tree.leaves(jshapes)):
+        assert zero1_spec(tuple(sp), sh.shape, port_mesh) == \
+            tuple(jax_zero1_spec(sp, sh.shape, jax_mesh))
+    for sp in _port(z1):
+        used = [a for e in sp for a in
+                (e if isinstance(e, tuple) else (e,)) if a]
+        assert len(used) == len(set(used)), sp
 
 
 def test_replicated_leaves_stay_whole():

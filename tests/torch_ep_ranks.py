@@ -14,10 +14,12 @@ from repro_torch.configs import smoke_config
 from repro_torch.core.types import MeshConfig, TrainConfig
 from repro_torch.launch.mesh import mesh_groups
 from repro_torch.launch.train import checksum
-from repro_torch.models import (decode_step, forward, init_cache, moe,
-                                param_leaves)
+from repro_torch.models import (attention as attn, decode_step, forward,
+                                init_cache, init_params, moe, param_leaves)
 from repro_torch.optim import gather_opt_state, init_opt_state
-from repro_torch.parallel import expert_flags, make_ctx, shard_params
+from repro_torch.parallel import (expert_flags, gather_params, make_ctx,
+                                  model_flags, shard_params)
+from repro_torch.serve.step import full_logits
 from repro_torch.train import make_train_step
 from torch_dp_ranks import flatten, nest
 
@@ -36,7 +38,7 @@ def _mesh(world: int, mesh_shape):
     mcfg = MeshConfig(tuple(mesh_shape))
     if mcfg.num_devices != world:
         raise ValueError(f"mesh {mesh_shape} on {world} ranks")
-    return mcfg, mesh_groups(mcfg, moe_config())
+    return mcfg, mesh_groups(mcfg)
 
 
 def _rows(n: int, ctx) -> slice:
@@ -73,6 +75,8 @@ def ep_cases(rank: int, world: int, mesh_shape, inputs_path: str,
             out[name] = _decode(data, case, ctx)
         elif kind == "train":
             out[name] = _train(data, case, ctx)
+        elif kind == "bf16_decode":
+            out[name] = _bf16_decode(data, case, ctx)
         else:
             raise KeyError(kind)
     return out
@@ -92,7 +96,7 @@ def _moe(data, case, ctx) -> dict:
     cfg = moe_config()
     full = {k.split("|", 1)[1]: torch.from_numpy(data[k])
             for k in data.files if k.startswith("moe|")}
-    p = shard_params(full, ctx)
+    p = shard_params(full, ctx, cfg)
     x = torch.from_numpy(data["x"])
     if case["fn"] != "train":
         x = x[:case.get("batch", x.shape[0]), :1]
@@ -119,6 +123,7 @@ def _forward(data, ctx) -> dict:
     with torch.no_grad():
         logits, aux = forward(cfg, params, tokens[_rows(len(tokens), ctx)],
                               ctx=ctx)
+        logits = full_logits(cfg, logits, ctx)  # the vocabulary's blocks
     return {"logits": logits.numpy(), "aux": float(aux)}
 
 
@@ -132,8 +137,64 @@ def _decode(data, case, ctx) -> dict:
         for t in range(case["steps"]):
             lg, cache = decode_step(cfg, params, cache, tokens[:, t:t + 1],
                                     t, ctx=ctx)
-            logits.append(lg[:, 0])
+            logits.append(full_logits(cfg, lg, ctx)[:, 0])
     return {"logits": torch.stack(logits, 1).numpy()}
+
+
+def bf16_decode(cfg, params, tokens, steps: int, ctx=None) -> torch.Tensor:
+    """``steps`` decode steps of ``tokens`` (B, >= steps) teacher-forced
+    into a bf16 cache, the logits of each gathered over the vocabulary:
+    (B, steps, V_pad) f32."""
+    cache = init_cache(cfg, params, tokens.shape[0], steps,
+                       dtype=torch.bfloat16)
+    out = []
+    with torch.no_grad():
+        for t in range(steps):
+            lg, cache = decode_step(cfg, params, cache, tokens[:, t:t + 1],
+                                    t, ctx=ctx)
+            out.append(full_logits(cfg, lg, ctx)[:, 0].float())
+    return torch.stack(out, 1)
+
+
+class SkipAttentionReduce:
+    """A planted fault: the attention's ``reduce_from_model`` skipped on
+    the first of every ``every`` calls (with ``every`` the attention
+    layers of a decode step: the first layer's), each rank going on with
+    its own heads' partial output."""
+
+    def __init__(self, every: int):
+        self.every, self.calls = every, 0
+        self.real = attn.reduce_from_model
+
+    def __call__(self, x, ctx):
+        self.calls += 1
+        return x if (self.calls - 1) % self.every == 0 else \
+            self.real(x, ctx)
+
+    def __enter__(self):
+        attn.reduce_from_model = self
+        return self
+
+    def __exit__(self, *exc):
+        attn.reduce_from_model = self.real
+
+
+def _bf16_decode(data, case, ctx) -> dict:
+    """dbrx's smoke config drawn in bf16 from ``case["seed"]`` (this
+    rank's part), ``bf16_decode`` of this data rank's rows of the tokens:
+    sound, and with ``SkipAttentionReduce`` planted."""
+    cfg = smoke_config(ARCH)
+    params = init_params(cfg, torch.Generator().manual_seed(case["seed"]),
+                         dtype=torch.bfloat16, device="cpu", ctx=ctx)
+    tokens = torch.from_numpy(data["tokens"]).long()
+    tokens = tokens[_rows(len(tokens), ctx)]
+    out = {"logits": bf16_decode(cfg, params, tokens, case["steps"],
+                                 ctx).numpy()}
+    n_attn = sum(s.mixer == "attn" for s in cfg.layer_specs())
+    with SkipAttentionReduce(n_attn):
+        out["fault"] = bf16_decode(cfg, params, tokens, case["steps"],
+                                   ctx).numpy()
+    return out
 
 
 def _train(data, case, ctx) -> dict:
@@ -152,7 +213,8 @@ def _train(data, case, ctx) -> dict:
            "params": flatten(params_to_jax_layout(cfg, params, ctx)),
            "own": checksum(params),
            "dense": checksum([t for t, e in zip(
-               param_leaves(params), expert_flags(params)) if not e])}
+               param_leaves(params), model_flags(params, ctx, cfg))
+               if not e])}
     res["checksum"] = checksum([torch.from_numpy(v)
                                 for v in res["params"].values()])
     for k in ("m", "v"):
@@ -164,8 +226,9 @@ def ep_on_card(rank: int, world: int, seed: int, steps: int) -> dict:
     """dbrx's smoke config in f32 on a (1, world) mesh, every rank on the
     card (``rank_device``), at capacity factor 4 (no dispatch dropped):
     this rank's expert part drawn from ``seed`` on the card (checksummed),
-    the prefill logits of ``card_tokens`` through ``moe_ep_train``, the
-    logits of ``steps`` decode steps through ``moe_ep_decode``, and the
+    the prefill logits of ``card_tokens`` through ``moe_ep_train`` (the
+    attention on this rank's heads), the logits of ``steps`` decode steps
+    through ``moe_ep_decode``, both gathered over the vocabulary, and the
     kernel launches of each."""
     from repro_torch.kernels import launch_counts
     from repro_torch.launch.ranks import rank_device
@@ -183,6 +246,7 @@ def ep_on_card(rank: int, world: int, seed: int, steps: int) -> dict:
     with torch.no_grad():
         n0 = launch_counts()
         logits, _ = forward(cfg, params, tokens, ctx=ctx)
+        logits = full_logits(cfg, logits, ctx)
         torch.cuda.synchronize()
         n1 = launch_counts()
         cache = init_cache(cfg, params, tokens.shape[0], steps)
@@ -190,7 +254,7 @@ def ep_on_card(rank: int, world: int, seed: int, steps: int) -> dict:
         for t in range(steps):
             lg, cache = decode_step(cfg, params, cache, tokens[:, t:t + 1],
                                     t, ctx=ctx)
-            dec.append(lg[:, 0])
+            dec.append(full_logits(cfg, lg, ctx)[:, 0])
         torch.cuda.synchronize()
         n2 = launch_counts()
     experts = [t for t, e in zip(param_leaves(params), expert_flags(params))
@@ -216,9 +280,9 @@ def ep_train_on_card(rank: int, world: int, mesh_shape, seed: int,
     """One f32 training step of dbrx's smoke config on the card over a
     (data, model) mesh of gloo ranks, every MoE layer through
     ``moe_ep_train`` at capacity factor 16 (no dispatch dropped), K5 and
-    its backward kernel on this rank's experts: the step's metrics, this
-    rank's first moments after it (of its experts' parts), which leaves are
-    expert parts, and the kernel launches of the step (none on the CPU,
+    its backward kernel on this rank's experts, the attention on its
+    heads: the step's metrics, the first moments after it gathered from
+    the model ranks, and the kernel launches of the step (none on the CPU,
     where ``device`` "cpu" rehearses it)."""
     from repro_torch.data import make_batches
     from repro_torch.kernels import launch_counts
@@ -233,7 +297,6 @@ def ep_train_on_card(rank: int, world: int, mesh_shape, seed: int,
                    remat=False, capacity_factor=16.0)
     params = init_params(cfg, torch.Generator(device=device).manual_seed(
         seed), device=device, ctx=ctx)
-    flags = expert_flags(params)
     batch = next(make_batches(cfg, 4, 64, seed=1))
     step = make_train_step(cfg, TrainConfig(**tcfg), ctx)
     n0 = launch_counts()
@@ -242,6 +305,6 @@ def ep_train_on_card(rank: int, world: int, mesh_shape, seed: int,
         torch.cuda.synchronize()
     n1 = launch_counts()
     return {"metrics": {k: float(v) for k, v in m.items()},
-            "m": [t.cpu().numpy() for t in param_leaves(opt["m"])],
-            "experts": flags, "model_rank": ctx.model_rank, "tp": ctx.tp,
+            "m": [t.cpu().numpy() for t in param_leaves(
+                gather_params(opt["m"], ctx, cfg))],
             "launches": {k: n1[k] - n0[k] for k in n1 if n1[k] != n0[k]}}

@@ -16,7 +16,7 @@ from repro_torch.core.tree import param_leaves
 from repro_torch.core.types import MeshConfig, TrainConfig
 from repro_torch.launch.mesh import mesh_groups
 from repro_torch.launch.train import checksum
-from repro_torch.models import (decode_step, forward, init_cache,
+from repro_torch.models import (decode_step, encode, forward, init_cache,
                                 init_params)
 from repro_torch.models import attention as attn
 from repro_torch.models import ssm
@@ -24,7 +24,7 @@ from repro_torch.models.modules import rms_norm
 from repro_torch.optim import gather_opt_state, init_opt_state
 from repro_torch.parallel import gather_params, make_ctx, model_flags
 from repro_torch.parallel.planner import _unflatten_like
-from repro_torch.parallel.tensor import reduce_from_model
+from repro_torch.parallel.tensor import copy_to_model, reduce_from_model
 from repro_torch.serve.step import full_logits
 from repro_torch.train import make_train_step
 from torch_dp_ranks import flatten, nest
@@ -43,11 +43,44 @@ def tp_config(name: str):
 
 
 def tp_ctx(world: int, mesh_shape, cfg, remat: bool = False):
+    """This rank's context on the mesh: tensor parallelism, and for a MoE
+    config expert parallelism beside it at capacity factor E (the number
+    of experts: no dispatch is dropped, so the single-rank run, which
+    drops none, is the reference)."""
     mcfg = MeshConfig(tuple(mesh_shape))
     if mcfg.num_devices != world:
         raise ValueError(f"mesh {mesh_shape} on {world} ranks")
-    dgroup, mgroup = mesh_groups(mcfg, cfg)
-    return make_ctx(dgroup, mcfg, model_group=mgroup, remat=remat, cfg=cfg)
+    dgroup, mgroup = mesh_groups(mcfg)
+    kw = {}
+    if cfg.is_moe:
+        kw = dict(capacity_factor=float(cfg.num_experts),
+                  decode_capacity_factor=float(cfg.num_experts))
+    return make_ctx(dgroup, mcfg, model_group=mgroup, remat=remat, cfg=cfg,
+                    **kw)
+
+
+def tp_context(data, arch: str, cfg, params, ctx=None, rows=slice(None)):
+    """The context of ``arch``'s forward and cache from the inputs (key
+    ``context|<arch>``, the stub frames or patches, numpy): the encoder's
+    output of the frames (``encode`` on this rank, ``ctx``), the patches
+    as they are; ``None`` for a config without one."""
+    key = f"context|{arch}"
+    if key not in data:
+        return None
+    c = torch.from_numpy(np.asarray(data[key])[rows])
+    if cfg.is_encoder_decoder:
+        with torch.no_grad():
+            return encode(cfg, params, c, ctx=ctx)
+    return c
+
+
+def tp_batch(data, arch: str) -> dict:
+    """The training batch: ``tokens``, ``labels`` and, for a config with a
+    context, the stub frames or patches (the step encodes the frames)."""
+    batch = {"tokens": data["tokens"], "labels": data["labels"]}
+    if f"context|{arch}" in data:
+        batch["context"] = data[f"context|{arch}"]
+    return batch
 
 
 def _rows(n: int, ctx) -> slice:
@@ -95,22 +128,26 @@ def tp_cases(rank: int, world: int, mesh_shape, inputs_path: str,
             out[name] = _bytes(data, case, cfg, ctx, tokens, labels)
         elif kind == "fault":
             out[name] = _fault(data, case, cfg, ctx, tokens)
+        elif kind == "grad_fault":
+            out[name] = _grad_fault(data, case, cfg, ctx)
         elif kind == "batcher":
-            out[name] = tp_batcher(cfg, _params(data, case["arch"], cfg,
-                                                ctx), case, ctx)
+            params = _params(data, case["arch"], cfg, ctx)
+            out[name] = tp_batcher(cfg, params, case, ctx, tp_context(
+                data, case["arch"], cfg, params, ctx, slice(0, 2)))
         else:
             raise KeyError(kind)
     return out
 
 
-def tp_batcher(cfg, params, case: dict, ctx=None) -> dict:
+def tp_batcher(cfg, params, case: dict, ctx=None, context=None) -> dict:
     """A ``ContinuousBatcher`` of 2 slots over ``case["requests"]`` (the
-    third admitted mid-flight) at ``case["temperature"]``, seed 5: every
-    request's tokens."""
+    third admitted mid-flight) at ``case["temperature"]``, seed 5, over
+    ``context`` (2 rows, for a config with one): every request's
+    tokens."""
     from repro_torch.serve.batcher import ContinuousBatcher
     batcher = ContinuousBatcher(cfg, params, max_slots=2, max_len=24,
                                 temperature=case["temperature"], seed=5,
-                                ctx=ctx)
+                                ctx=ctx, context=context)
     for rid, prompt in enumerate(case["requests"]):
         batcher.submit(prompt, 6, rid)
     done = batcher.run()
@@ -118,8 +155,9 @@ def tp_batcher(cfg, params, case: dict, ctx=None) -> dict:
             "admitted": {r.rid: r.t_admit for r in done}}
 
 
-def _decode(cfg, params, tokens, steps: int, ctx) -> np.ndarray:
-    cache = init_cache(cfg, params, tokens.shape[0], steps)
+def _decode(cfg, params, tokens, steps: int, ctx, context=None
+            ) -> np.ndarray:
+    cache = init_cache(cfg, params, tokens.shape[0], steps, context=context)
     logits = []
     with torch.no_grad():
         for t in range(steps):
@@ -135,13 +173,16 @@ def _model(data, case, cfg, ctx, tokens, labels) -> dict:
     metrics, this rank's gradient gathered (the hook's "local" stage) and
     the updated parameters and moments gathered, in the JAX layout."""
     params = _params(data, case["arch"], cfg, ctx)
+    context = tp_context(data, case["arch"], cfg, params, ctx)
     res = {}
     with torch.no_grad():
-        logits, _ = forward(cfg, params, tokens, ctx=ctx)
+        logits, _ = forward(cfg, params, tokens, context=context, ctx=ctx)
         res["local_vocab"] = logits.shape[-1]
         res["logits"] = full_logits(cfg, logits, ctx).numpy()
-    res["decode"] = _decode(cfg, params, tokens, case["steps"], ctx)
-    cache = init_cache(cfg, params, tokens.shape[0], case["steps"])
+    res["decode"] = _decode(cfg, params, tokens, case["steps"], ctx,
+                            context)
+    cache = init_cache(cfg, params, tokens.shape[0], case["steps"],
+                       context=context)
     res["cache_shapes"] = [tuple(t.shape) for t in param_leaves(cache)]
     tcfg = TrainConfig(**case["tcfg"])
     zero1 = tcfg.zero1 and ctx.dp > 1
@@ -153,8 +194,7 @@ def _model(data, case, cfg, ctx, tokens, labels) -> dict:
             seen["local"] = [g.detach().clone() for g in grads]
 
     step = make_train_step(cfg, tcfg, ctx)
-    params, opt, m = step(params, opt, {"tokens": data["tokens"],
-                                        "labels": data["labels"]},
+    params, opt, m = step(params, opt, tp_batch(data, case["arch"]),
                           grad_hook=hook)
     res["metrics"] = {k: float(v) for k, v in m.items()}
     grads = _unflatten_like(params, seen["local"])
@@ -220,6 +260,70 @@ def _fault(data, case, cfg, ctx, tokens) -> dict:
     return {"logits": full_logits(cfg, logits, ctx).numpy()}
 
 
+def _mla_x_only(real):
+    """MLA with ``copy_to_model`` on its input only: the normed query
+    latent, the KV latent and the rope key enter the heads without it, so
+    each rank's gradient of ``w_dq``, ``w_dkv`` and their norms is only
+    its own heads' share."""
+    def planted(p, cfg_, x, positions, *, window=None, ctx=None):
+        attn.copy_to_model = lambda t, c: t
+        try:
+            return real(p, cfg_, copy_to_model(x, ctx), positions,
+                        window=window, ctx=ctx)
+        finally:
+            attn.copy_to_model = copy_to_model
+    return planted
+
+
+def _gate_before_reduce(real):
+    """Cross-attention with ``tanh(gate_attn)`` applied to each rank's
+    partial sums before ``reduce_from_model``: the same forward, but each
+    rank's gradient of the gate is its own heads' share."""
+    def planted(p, cfg_, x, context, ctx=None):
+        lay = attn._tp_heads(cfg_, ctx)
+        if lay is None:
+            raise AssertionError("the fault needs split heads")
+        q, k, v, sel = attn._tp_qkv(p, cfg_, x, lay, ctx, kv_x=context)
+        if sel is not None:
+            k, v = k[:, :, sel], v[:, :, sel]
+        out = attn.multihead_attention(
+            q, k, v, q_pos=torch.arange(x.shape[1]),
+            k_pos=torch.arange(context.shape[1]), causal=False)
+        out = attn._gated(p, torch.einsum("bshk,hkd->bsd", out, p["wo"]))
+        return reduce_from_model(out, ctx)
+    return planted
+
+
+GRAD_FAULTS = {"mla_x_only": ("mla_forward", _mla_x_only),
+               "gate_before_reduce": ("cross_attention_forward",
+                                      _gate_before_reduce)}
+
+
+def _grad_fault(data, case, cfg, ctx) -> dict:
+    """This rank's gradient (gathered, the JAX layout) of one training
+    step with a planted fault (``GRAD_FAULTS``), the function restored
+    after it."""
+    name, make = GRAD_FAULTS[case["fault"]]
+    params = _params(data, case["arch"], cfg, ctx)
+    seen = {}
+
+    def hook(stage, grads):
+        if stage == "local":
+            seen["local"] = [g.detach().clone() for g in grads]
+
+    tcfg = TrainConfig(**case["tcfg"])
+    opt = init_opt_state(params, ctx if tcfg.zero1 and ctx.dp > 1 else None)
+    real = getattr(attn, name)
+    setattr(attn, name, make(real))
+    try:
+        make_train_step(cfg, tcfg, ctx)(
+            params, opt, tp_batch(data, case["arch"]), grad_hook=hook)
+    finally:
+        setattr(attn, name, real)
+    return {"grads": flatten(params_to_jax_layout(
+        cfg, _unflatten_like(params, seen["local"]), ctx))}
+
+
 def tp_launch_ckpt(rank: int, world: int, arch: str, mesh_shape,
                    ckpt_path: str) -> dict:
     """Restores the checkpoint at ``ckpt_path`` (the JAX layout, written
@@ -244,12 +348,14 @@ def tp_launch_ckpt(rank: int, world: int, arch: str, mesh_shape,
 def tp_on_card(rank: int, world: int, arch: str, mesh_shape,
                seed: int) -> dict:
     """``arch``'s smoke config in f32 on a (data, model) mesh, every rank
-    on the card (``rank_device``): this rank's blocks of the CPU draw from
-    ``seed`` moved to the card, the prefill logits of ``card_tokens``
-    (gathered) and one training step on them (``TrainConfig(remat=
-    False)``), its
-    metrics and the updated parameters and first moments gathered, with
-    the kernel launches of each."""
+    on the card (``rank_device``), a MoE config's experts expert-parallel
+    beside the rest (``tp_ctx``): this rank's blocks of the CPU draw from
+    ``seed`` (the cross-attention gates opened, ``card_params``) moved to
+    the card, the prefill logits of ``card_tokens`` over ``card_context``
+    (encoded on the ranks for the encoder-decoder; gathered) and one
+    training step on them (``TrainConfig(remat=False)``), its metrics and
+    the updated parameters and first moments gathered, with the kernel
+    launches of each."""
     from repro_torch.kernels import launch_counts
     from repro_torch.launch.ranks import rank_device
     from repro_torch.models import tree_map
@@ -259,18 +365,25 @@ def tp_on_card(rank: int, world: int, arch: str, mesh_shape,
     device = rank_device("cuda")
     cfg = smoke_config(arch)
     ctx = tp_ctx(world, mesh_shape, cfg)
-    params = tree_map(lambda t: t.to(device), init_params(
-        cfg, torch.Generator().manual_seed(seed), device="cpu", ctx=ctx))
+    params = tree_map(lambda t: t.to(device), card_params(cfg, seed, ctx))
     tokens = card_tokens(cfg)
+    frames = card_context(cfg)
+    batch = {"tokens": tokens, "labels": torch.roll(tokens, -1, 1)}
     with torch.no_grad():
         n0 = launch_counts()
-        logits, _ = forward(cfg, params, tokens.to(device), ctx=ctx)
+        context = None
+        if frames is not None:
+            batch["context"] = frames
+            context = torch.from_numpy(frames).to(device)
+            if cfg.is_encoder_decoder:
+                context = encode(cfg, params, context, ctx=ctx)
+        logits, _ = forward(cfg, params, tokens.to(device), context=context,
+                            ctx=ctx)
         logits = full_logits(cfg, logits, ctx)
         torch.cuda.synchronize()
         n1 = launch_counts()
     step = make_train_step(cfg, TrainConfig(remat=False), ctx)
-    params, opt, m = step(params, init_opt_state(params), {
-        "tokens": tokens, "labels": torch.roll(tokens, -1, 1)})
+    params, opt, m = step(params, init_opt_state(params), batch)
     torch.cuda.synchronize()
     n2 = launch_counts()
     return {"device": str(device),
@@ -286,10 +399,25 @@ def tp_on_card(rank: int, world: int, arch: str, mesh_shape,
                               if n2[k] != n1[k]}}
 
 
+def card_params(cfg, seed: int, ctx=None):
+    """The CPU draw from ``seed`` (this rank's part under ``ctx``), every
+    ``gate_attn`` opened to 0.8 plus 0.1 a block (``open_gates``)."""
+    from torch_context import open_gates
+    return open_gates(init_params(cfg, torch.Generator().manual_seed(seed),
+                                  device="cpu", ctx=ctx))
+
+
 def card_tokens(cfg) -> torch.Tensor:
     """The prompt of ``tp_on_card``: B 4 x S 64 from a seed."""
     return torch.from_numpy(np.random.default_rng(11).integers(
         0, cfg.vocab_size, (4, 64)))
+
+
+def card_context(cfg):
+    """The stub frames or patches of ``tp_on_card``'s 4 rows (numpy), or
+    ``None``."""
+    from torch_context import stub_context
+    return stub_context(cfg, 4, seed=12)
 
 
 def _stage(w, x):
