@@ -191,6 +191,22 @@ exits non-zero:
    ring and bidir_ring, and two buckets through the ATP schedule with and
    without q8; results against the sum of the four gradients (regenerated
    from their seeds) and across ranks.  Times are gloo over loopback.
+5b. planner: the paradigm's planning layers, plan to execution.  On the
+   host, with the port alone: qwen2-0.5b's DP-4 training demand (B 32 x S
+   512, 64 MiB gradient buckets; ZeRO-1's reduce-scatters, and the
+   all-reduces of plain DP), each task priced by ``select_for_task`` under
+   FlowSim on ``dgx_cluster(1, 4)`` inside ``simulate_iteration``; the
+   iteration written as a Chrome trace (``obs.trace``, link counters
+   included) that ``validate_chrome`` must pass; the predicted iteration
+   time and each bucket's algorithm printed.  On the card, 4 gloo ranks,
+   one 64 MiB bucket of the stand-in gradient each, through every
+   executable of ``IMPLEMENTATIONS``, ``synthesized_collective`` on the
+   port's own ``synthesize_schedule(full_mesh(4), task)`` plain and with
+   ``bits=8`` (K2a, K2b) and ``atp_schedule``: each held to the f64 sum
+   with the collectives' tolerances; each rank's wire bytes against the
+   model's flows out of that rank (exact where the model counts the same
+   bytes, both printed where it cannot); measured seconds beside
+   ``algo_cost``'s prediction (loopback time: printed, not checked).
 6. The kernels line (all ten kernels, launches from the path that runs
    each, and by every path, the data-parallel ones summed over the
    ranks), the card's name and power limit, and last the line
@@ -220,9 +236,15 @@ try:
 
     import torch.distributed as dist
 
+    import networkx
+
     from repro_torch.ccl import primitives as ccl_prim
-    from repro_torch.ccl.synth import atp_schedule
+    from repro_torch.ccl.algorithms import generate_flows
+    from repro_torch.ccl.cost import CostParams
+    from repro_torch.ccl.select import AlphaBeta, FlowSim, select_for_task
+    from repro_torch.ccl.synth import atp_schedule, synthesize_schedule
     from repro_torch.compress import get_codec
+    from repro_torch.compress.codec import codec_spec
     from repro_torch.compress.lowrank import _matrix_shape
     from repro_torch.configs import get_config, smoke_config
     from repro_torch.kernels import (SOURCES, WRAPPERS, _build, launch_counts,
@@ -230,7 +252,10 @@ try:
     from repro_torch.kernels.compress import ops as cops
     from repro_torch.kernels.compress import ref as cref
     from repro_torch.checkpoint import restore_checkpoint
-    from repro_torch.core.types import MeshConfig, TrainConfig
+    from repro_torch.core import hw
+    from repro_torch.core.demand import CommTask
+    from repro_torch.core.demand_builder import DemandParams, build_demand
+    from repro_torch.core.types import MeshConfig, ShapeConfig, TrainConfig
     from repro_torch.data import audio_frames, make_batches, vision_patches
     from repro_torch.kernels.flash_attention import (attention_bwd_ref,
                                                      attention_lse_ref,
@@ -257,12 +282,15 @@ try:
                                     prefill_launches, train_launches,
                                     tree_map)
     from repro_torch.models import moe as moe_mod
+    from repro_torch.net.topology import dgx_cluster, full_mesh
+    from repro_torch.obs.trace import trace_from_report, validate_chrome
     from repro_torch.optim import gather_opt_state, init_opt_state
     from repro_torch.optim.adamw import UPDATE_CHUNK
     from repro_torch.parallel import (ParallelCtx, expert_flags,
                                       flat_layout, make_ctx)
     from repro_torch.parallel.planner import tp_dims, tp_layout
     from repro_torch.serve import make_prefill, make_serve_step
+    from repro_torch.sched.tasks import simulate_iteration
     from repro_torch.serve.batcher import ContinuousBatcher
     from repro_torch.train import make_train_step
 except ImportError as e:  # run outside the repo, or without torch
@@ -285,10 +313,11 @@ MLA_LAYERS = 2          # the dense first layer and one of 160 experts
 # the path); every run of these families opens them first
 GATE = 0.8
 DEVICE = "cuda"
-# H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
-PEAK_BF16_FLOPS = 989e12
-PEAK_F32_FLOPS = 67e12  # CUDA cores, outside the tensor cores
-PEAK_BYTES = 3.35e12
+# H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit), the
+# planner's own (repro_torch.core.hw)
+PEAK_BF16_FLOPS = hw.PEAK_FLOPS_BF16
+PEAK_F32_FLOPS = hw.PEAK_FLOPS_F32  # CUDA cores, outside the tensor cores
+PEAK_BYTES = hw.HBM_BW
 KERNEL_TOL = {torch.float32: dict(atol=2e-5, rtol=2e-5),
               torch.bfloat16: dict(atol=2e-2, rtol=2e-2)}
 # K1's row statistics (f32 in both variants) against attention_lse_ref, as
@@ -888,7 +917,7 @@ _SSD_SWEEP = [(1, 2, 256, 64, 32, 64), (2, 4, 512, 64, 128, 128),
               SSD_LONG_SHAPE, (2, 3, 1000, 64, 64, 200)]
 SSD_PATH_SHAPE = (4, 24, 512, 64, 128, 256)
 SSD_KERNEL_CHUNK = 64  # Q of csrc/ssd_scan_fwd.cu
-PEAK_TF32_FLOPS = 495e12  # tensor cores, dense
+PEAK_TF32_FLOPS = hw.PEAK_FLOPS_TF32  # tensor cores, dense
 # the kernel's three stages, by the names the profiler gives them
 SSD_STAGES = ("chunk_state_kernel", "state_pass_kernel", "chunk_out_kernel")
 
@@ -2164,6 +2193,207 @@ def phase_collectives(n_values: int, seed: int) -> dict:
         check(all(r["launches"][name] > 0 for r in ranks),
               f"kernel {name} not launched in every rank")
     return counts
+
+
+# --------------------------------------------------------------------------
+# 5b. planner: the planning layers, plan to execution
+# --------------------------------------------------------------------------
+
+PLAN_SHAPE = ShapeConfig("plan_dp4", 512, 32, "train")
+PLAN_MESH = MeshConfig(shape=(RING_RANKS, 1))
+
+
+def plan_iteration(dp_params) -> dict:
+    """qwen2-0.5b's DP-4 iteration on ``dgx_cluster(1, 4)``: each comm
+    task priced by ``select_for_task`` under FlowSim inside
+    ``simulate_iteration``; returns the result, the choices and the
+    report dict ``obs.trace`` reads."""
+    topo = dgx_cluster(1, RING_RANKS)
+    demand = build_demand(get_config(ARCH), PLAN_SHAPE, PLAN_MESH,
+                          dp_params=dp_params, bucket_bytes=BUCKET_BYTES)
+    model = FlowSim(topo)
+    choices = {}
+
+    def cost(task):
+        sel = select_for_task(task, model)
+        choices[task.task_id] = {
+            "task_id": task.task_id, "primitive": task.primitive,
+            "size_bytes": task.size_bytes, "group": list(task.group),
+            "algorithm": sel.algorithm, "cost_s": sel.cost}
+        return sel.cost, sel.algorithm
+
+    sim = simulate_iteration(demand, cost, "priority")
+    report = {"jct": sim.jct, "policy": "priority", "cost_model": "flowsim",
+              "choices": [choices[t.task_id] for t in demand.comm_tasks],
+              "timeline": [list(s) for s in sim.timeline],
+              "task_exposed_s": sim.task_exposed_s}
+    return {"sim": sim, "report": report, "topo": topo,
+            "buckets": [c for c in report["choices"]
+                        if c["task_id"].startswith("gbucket")]}
+
+
+def planner_rank(rank: int, world: int, seed: int) -> dict:
+    """One gloo rank: one 64 MiB bucket of its stand-in gradient through
+    every executable, each result held to the f64 sum of the ranks'
+    buckets; the bytes it sent, the seconds and the launches of each."""
+    torch.cuda.set_device(0)
+    n = BUCKET
+    x = _bucket_grad(seed, rank, 0, n)
+    parts = [_bucket_grad(seed, r, 0, n).double() for r in range(world)]
+    truth = sum(parts)
+    sabs = sum(p.abs() for p in parts)
+    amax = max(float(p.abs().max()) for p in parts)
+    del parts
+    task = CommTask("bucket", "all_reduce", BUCKET_BYTES,
+                    tuple(range(world)))
+    synth = synthesize_schedule(full_mesh(world), task)
+    runs = {name: ccl_prim.IMPLEMENTATIONS[name]
+            for name in ccl_prim.IMPLEMENTATIONS}
+    runs["synthesized"] = ccl_prim.make_synthesized(synth)
+    runs["synthesized_q8"] = ccl_prim.make_synthesized(synth, bits=8)
+    runs["atp"] = ccl_prim.make_synthesized(atp_schedule(task))
+    out = {}
+    for name, fn in runs.items():
+        dist.barrier()
+        torch.cuda.synchronize()
+        ex = ccl_prim._permute
+        sent0 = ex.sent_bytes
+        before = launch_counts()
+        t0 = time.perf_counter()
+        got = fn(x)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = _delta(before)
+        err = (got.double() - truth).abs()
+        if name in ("ring_q8", "ring_q4"):
+            # p * absmax / qmax, tests/test_ccl_primitives.py:100-103
+            qmax = 127 if name == "ring_q8" else 7
+            ratio = float(err.max()) / (world * amax / qmax)
+        elif name == "synthesized_q8":  # tests/test_synth.py:_LOWERING
+            ratio = float(err.max()) / (
+                2 * world * float(truth.abs().max()) / 127)
+        else:  # rounding of a sum in any order: eps(f32) x sum of |x|
+            ratio = float((err / (1e-6 * sabs)).max())
+        out[name] = {"seconds": seconds, "sent_bytes": ex.sent_bytes - sent0,
+                     "err_over_tol": ratio, "launches": launches,
+                     "device": str(got.device)}
+        del got, err
+    return {"results": out, "synth": synth}
+
+
+def phase_planner(seed: int) -> dict:
+    """Plan on the host with the port's planning layers, then run the
+    executables the plan chooses among on the card (see the module doc,
+    5b).  Returns the launches of the card run, summed over the ranks."""
+    t0 = time.perf_counter()
+    plans = {"zero1": plan_iteration(None),
+             "plain_dp": plan_iteration(DemandParams(zero1=False))}
+    for label, plan in plans.items():
+        sim = plan["sim"]
+        trace = trace_from_report(plan["report"], topo=plan["topo"])
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_plan_") as tmp:
+            path = trace.write(os.path.join(tmp, f"{label}.trace.json"))
+            with open(path) as f:
+                doc = json.load(f)
+        problems = validate_chrome(doc)
+        check(not problems, f"planner {label}: trace invalid: {problems}")
+        counters = sum(1 for e in doc["traceEvents"] if e["ph"] == "C")
+        emit({"phase": "planner_plan", "plan": label, "arch": ARCH,
+              "shape": dataclasses.asdict(PLAN_SHAPE),
+              "mesh": list(PLAN_MESH.shape), "topology": "dgx_cluster(1, 4)",
+              "networkx": networkx.__version__,
+              "predicted_iteration_s": sim.jct,
+              "compute_s": sim.compute_time, "comm_s": sim.comm_time,
+              "exposed_comm_s": sim.exposed_comm,
+              "buckets": [(c["task_id"], c["primitive"], c["size_bytes"],
+                           c["algorithm"], c["cost_s"])
+                          for c in plan["buckets"]],
+              "trace_events": len(doc["traceEvents"]),
+              "link_counter_events": counters, "trace_problems": problems})
+        check(plan["buckets"] and counters > 0,
+              f"planner {label}: no gradient bucket or no link counters")
+    plan_s = time.perf_counter() - t0
+
+    t1 = time.perf_counter()
+    ranks = spawn_ranks(planner_rank, RING_RANKS, seed, backend="gloo",
+                        timeout_s=600)
+    run_s = time.perf_counter() - t1
+    task = CommTask("bucket", "all_reduce", BUCKET_BYTES,
+                    tuple(range(RING_RANKS)))
+    model = AlphaBeta(CostParams())
+    synth = ranks[0]["synth"]
+    counts = {k: 0 for k in WRAPPERS}
+    for name in ranks[0]["results"]:
+        per = [r["results"][name] for r in ranks]
+        # the model's algorithm for the executable; a schedule is priced
+        # by its own flows (``cost_flowset``)
+        if name in ccl_prim.MODEL_EQUIVALENTS:
+            algo = ccl_prim.MODEL_EQUIVALENTS[name]
+            flows = generate_flows(task, algo).flows
+            predicted = model.cost(task, algo)
+        else:
+            sched = synth if name.startswith("synthesized") else \
+                atp_schedule(task)
+            algo = "synthesized+q8" if name == "synthesized_q8" else \
+                sched.algorithm
+            fs = sched.to_flowset(
+                wire_ratio=codec_spec("q8").wire_ratio
+                if name == "synthesized_q8" else 1.0, algorithm=algo)
+            flows = fs.flows
+            predicted = model.cost_flowset(task, fs, algorithm=algo)
+        out_of = [[f for f in flows if f.src == r] for r in range(RING_RANKS)]
+        model_bytes = [sum(f.size_bytes for f in fl) for fl in out_of]
+        hops = [len(fl) for fl in out_of]
+        sent = [p["sent_bytes"] for p in per]
+        want, gap = planner_wire_bytes(name, model_bytes, hops)
+        worst = max(p["err_over_tol"] for p in per)
+        for p in per:
+            for k, v in p["launches"].items():
+                counts[k] = counts.get(k, 0) + v
+        emit({"phase": "planner_run", "impl": name, "model_as": algo,
+              "ranks": RING_RANKS, "tensors": per[0]["device"],
+              "bucket_bytes": BUCKET_BYTES,
+              "measured_s": max(p["seconds"] for p in per),
+              "predicted_s": predicted,
+              "sent_bytes_by_rank": sent, "model_bytes_by_rank": model_bytes,
+              "bytes_equal_model": sent == model_bytes, "gap": gap,
+              "worst_err_over_tol": worst,
+              "launches": {k: sum(p["launches"].get(k, 0) for p in per)
+                           for k in ("quantize", "dequantize")}})
+        check(per[0]["device"].startswith("cuda"),
+              f"planner {name}: result on {per[0]['device']}")
+        check(worst <= 1.0, f"planner {name}: error {worst}x its tolerance")
+        check(sent == want, f"planner {name}: sent {sent} bytes a rank, "
+                            f"expected {want} ({gap or 'the model'})")
+        if name in ("ring_q8", "ring_q4", "synthesized_q8"):
+            check(all(p["launches"].get("quantize", 0) > 0
+                      and p["launches"].get("dequantize", 0) > 0
+                      for p in per),
+                  f"planner {name}: K2a/K2b not launched on every rank")
+    wall = time.perf_counter() - t0
+    emit({"phase": "planner", "plan_s": plan_s, "run_s": run_s,
+          "wall_s": wall, "launches": counts})
+    return counts
+
+
+def planner_wire_bytes(name: str, model_bytes, hops):
+    """The bytes each rank must send for executable ``name``, and where
+    they differ from the model's flows, the source of the gap.  Ring, bidir
+    ring and the schedules send exactly the model's bytes.  A quantized
+    hop also sends its f32 scale, which the codec's wire ratio leaves out:
+    4 bytes a hop.  ``recursive_doubling`` exchanges the whole payload at
+    each of its log2(p) steps, where the ``halving_doubling`` it is priced
+    as halves it: log2(p) x n against 2n(p-1)/p."""
+    if name in ("ring_q8", "ring_q4", "synthesized_q8"):
+        return ([m + 4 * h for m, h in zip(model_bytes, hops)],
+                "one f32 scale a hop beside the codes (codec_spec's wire "
+                "ratio counts the codes only)")
+    if name == "recursive_doubling":
+        steps = int(math.log2(RING_RANKS))
+        return ([steps * BUCKET_BYTES] * RING_RANKS,
+                "recursive doubling sends n at each of log2(p) steps; "
+                "halving_doubling's flows halve the payload each step")
+    return list(model_bytes), None
 
 
 # --------------------------------------------------------------------------
@@ -5384,6 +5614,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     emit({"phase": "env", "python": sys.version.split()[0],
           "torch": torch.__version__, "cuda": torch.version.cuda,
+          "networkx": networkx.__version__,
           "device": torch.cuda.get_device_name(0)})
     rng = np.random.default_rng(SEED)
     phase_build()
@@ -5408,6 +5639,7 @@ def main() -> int:
     paths["codecs"] = codecs["counts"]
     paths["codecs_real"] = phase_codecs_real(SEED + 9)
     paths["collectives"] = phase_collectives(n_values, SEED + 7)
+    paths["planner"] = phase_planner(SEED + 11)
 
     # each kernel's launches are read from the path that runs it
     main_path = {"flash_attention": ARCH, "flash_attention_bwd": "training",

@@ -1,7 +1,8 @@
 """Model and training configuration types of the PyTorch port.
 
-A copy of ``LayerSpec``, ``_round_up``, ``ModelConfig``, ``TrainConfig`` and
-``MeshConfig`` from ``repro.core.types``: that module holds no JAX code, but
+A copy of ``LayerSpec``, ``_round_up``, ``ModelConfig``, ``ShapeConfig`` (and
+its named workload shapes), ``TrainConfig``, ``MeshConfig`` and the two named
+meshes from ``repro.core.types``: that module holds no JAX code, but
 importing anything under ``repro`` runs ``repro/__init__.py``, which imports
 jax.  The fields and derived properties are kept identical, so a config built
 here compares equal field by field with its JAX twin.
@@ -222,6 +223,26 @@ class ModelConfig:
 
 
 @dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: Literal["train", "prefill", "decode"]
+    # decode shapes attend against a cache of ``seq_len`` and produce 1 token.
+
+
+TRAIN_4K = ShapeConfig("train_4k", 4_096, 256, "train")
+PREFILL_32K = ShapeConfig("prefill_32k", 32_768, 32, "prefill")
+DECODE_32K = ShapeConfig("decode_32k", 32_768, 128, "decode")
+LONG_500K = ShapeConfig("long_500k", 524_288, 1, "decode")
+
+INPUT_SHAPES: Tuple[ShapeConfig, ...] = (
+    TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)
+
+SHAPES_BY_NAME = {s.name: s for s in INPUT_SHAPES}
+
+
+@dataclass(frozen=True)
 class TrainConfig:
     """Training hyper-parameters, field for field the JAX package's.
     ``zero1`` decides a data-parallel step's gradient sync, as the JAX
@@ -274,3 +295,9 @@ class MeshConfig:
     @property
     def dp(self) -> int:
         return math.prod(self.axis_size(a) for a in self.data_axes)
+
+
+SINGLE_POD_MESH = MeshConfig()
+MULTI_POD_MESH = MeshConfig(
+    shape=(2, 16, 16), axis_names=("pod", "data", "model"),
+    data_axes=("pod", "data"), model_axes=("model",))

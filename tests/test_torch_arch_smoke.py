@@ -50,8 +50,19 @@ def test_forward_shapes_and_finite(arch):
         assert float(aux) > 0.0  # load-balance loss active
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+# the other half: tests/test_torch_arch_smoke_train.py (a run's workers
+# spread the two files)
+TRAIN_ARCHS = ARCHS[:5]
+
+
+@pytest.mark.parametrize("arch", TRAIN_ARCHS)
 def test_train_step_reduces_loss_and_finite(arch):
+    check_train_step_reduces_loss(arch)
+
+
+def check_train_step_reduces_loss(arch):
+    """Five steps on one batch: every loss finite, the last below the
+    first."""
     cfg = smoke_config(arch)
     tcfg = TrainConfig(learning_rate=5e-3, warmup_steps=1, total_steps=20,
                        remat=False, weight_decay=0.0)

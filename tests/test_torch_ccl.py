@@ -9,7 +9,10 @@ fattree schedules, q8 in the send loop, ATP, broadcast, all-gather), plus
 the 2D torus on 2 x 4.  The same numpy inputs go to both sides: the JAX
 results come from ``helpers.run_multidevice`` (8 forced host devices), the
 port's from one ``spawn_ranks`` of 8 ranks; the schedules are built once by
-``repro.ccl.synth`` and handed to the port as copies.
+``repro.ccl.synth`` and handed to the port as copies.  The port's own
+synthesizer (``repro_torch.ccl.synth``) builds the same schedules, move for
+move, and the port runs those too (labels ``port-<name>``, which the JAX
+side skips): bit-equal to its runs of the reference's.
 
 The port's hop algebra and f32 arithmetic are the JAX package's, so every
 result, lossless or quantized, is expected bit-equal to JAX's; on top of
@@ -71,8 +74,11 @@ def _inputs() -> dict:
     xi = np.arange(P * 48, dtype=np.float32).reshape(P, 48) - 150.0
     for name in ("ring8", "mesh8", "fattree", "atp", "broadcast"):
         data[f"synth|{name}|float32"] = xi
+        data[f"synth|port-{name}|float32"] = xi
     data["synth_q8|fattree|float32"] = xi
+    data["synth_q8|port-fattree|float32"] = xi
     data["gather|all_gather|float32"] = xi
+    data["gather|port-all_gather|float32"] = xi
     data["torus|2x4|float32"] = np.arange(P * 10, dtype=np.float32
                                           ).reshape(P, 10) - 33.0
     return data
@@ -92,6 +98,30 @@ def _schedules() -> dict:
         full_mesh(8), CommTask("b", "broadcast", 48 * 4, tuple(range(P))))
     scheds["all_gather"] = synthesize_schedule(
         full_mesh(8), CommTask("g", "all_gather", nbytes, tuple(range(P))))
+    return scheds
+
+
+def _own_schedules() -> dict:
+    """The schedules of ``_schedules`` from the port's own synthesizer."""
+    from repro_torch.ccl import synth
+    from repro_torch.core.demand import CommTask as PortTask
+    from repro_torch.net import topology
+
+    nbytes = P * 48 * 4
+    topos = {"ring8": topology.ring(8), "mesh8": topology.full_mesh(8),
+             "fattree": topology.fat_tree(2, 4, oversub=8.0,
+                                          hosts_per_rack=1)}
+    scheds = {name: synth.synthesize_schedule(topo, PortTask(
+        "t", "all_reduce", nbytes, tuple(topo.accelerators)))
+        for name, topo in topos.items()}
+    scheds["atp"] = atp_schedule(PortTask("t", "all_reduce", nbytes,
+                                          tuple(range(P))))
+    scheds["broadcast"] = synth.synthesize_schedule(
+        topology.full_mesh(8), PortTask("b", "broadcast", 48 * 4,
+                                        tuple(range(P))))
+    scheds["all_gather"] = synth.synthesize_schedule(
+        topology.full_mesh(8), PortTask("g", "all_gather", nbytes,
+                                        tuple(range(P))))
     return scheds
 
 
@@ -127,6 +157,8 @@ def run(body, y, out_extra=0):
 out = {}
 for key in data.files:
     kind, label, dt = key.split("|")
+    if label.startswith("port-"):  # the port's own schedules: port only
+        continue
     y = jnp.asarray(data[key]).astype(dt)
     if kind == "ar":
         got = run(lambda v: IMPLEMENTATIONS[label](v, "x", 8), y)
@@ -174,8 +206,9 @@ def runs(tmp_path_factory):
         f"{str(tmp / 'schedules.pkl')!r}, {str(tmp / 'jax.npz')!r}]\n"
         + _JAX_SCRIPT, num_devices=P)
     jax_out = dict(np.load(tmp / "jax.npz"))
-    ranks = spawn_ranks(ccl_cases, P, str(tmp / "inputs.npz"),
-                        {k: _port_schedule(v) for k, v in scheds.items()},
+    port_scheds = {k: _port_schedule(v) for k, v in scheds.items()}
+    port_scheds.update({f"port-{k}": v for k, v in _own_schedules().items()})
+    ranks = spawn_ranks(ccl_cases, P, str(tmp / "inputs.npz"), port_scheds,
                         timeout_s=300)
     port = {k: np.stack([r[k] for r in ranks]) for k in data}
     return data, port, jax_out
@@ -301,6 +334,27 @@ def test_schedule_program_equals_jax(name):
     sched = _schedules()[name]
     assert prim._schedule_program(_port_schedule(sched)) == \
         jprim._schedule_program(sched)
+
+
+@pytest.mark.parametrize("name", ["ring8", "mesh8", "fattree", "atp",
+                                  "broadcast", "all_gather"])
+def test_own_schedule_equals_jax(name):
+    """The port's synthesizer makes ``_port_schedule`` of the reference's
+    schedule, move for move."""
+    assert _own_schedules()[name] == _port_schedule(_schedules()[name])
+
+
+@pytest.mark.parametrize("key", [
+    "synth|{}|float32".format(n) for n in ("ring8", "mesh8", "fattree",
+                                           "atp", "broadcast")] + [
+    "synth_q8|fattree|float32", "gather|all_gather|float32"])
+def test_own_schedule_runs_bit_equal(runs, key):
+    """The port's run of its own schedule is bit-equal, rank by rank, to
+    its run of the reference's (q8 in the send loop included)."""
+    kind, name, dt = key.split("|")
+    port = runs[1]
+    np.testing.assert_array_equal(port[f"{kind}|port-{name}|{dt}"],
+                                  port[key])
 
 
 def test_atp_schedule_equals_jax():

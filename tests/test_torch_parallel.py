@@ -204,11 +204,16 @@ def _inputs(tmp) -> str:
     return path
 
 
-@pytest.fixture(scope="module", params=[2, 4], ids=["dp2", "dp4"])
+@pytest.fixture(scope="module", params=[2], ids=["dp2"])
 def runs(request, tmp_path_factory):
+    """Every case on 2 ranks and on JAX's 2 devices (4 of each:
+    ``tests/test_torch_parallel_dp4.py``)."""
+    return dp_runs(request.param, tmp_path_factory)
+
+
+def dp_runs(n: int, tmp_path_factory):
     """Every case on N ranks and, where it has one, its JAX twin on N
     devices: (N, the ranks' results, JAX's arrays)."""
-    n = request.param
     tmp = tmp_path_factory.mktemp(f"dp{n}")
     inputs = _inputs(tmp)
     ranks = spawn_ranks(dp_cases, n, inputs, CASES, timeout_s=300)

@@ -118,3 +118,23 @@ def fail_on_rank_one(rank: int, world: int) -> int:
     if rank == 1:
         raise ValueError("rank one fails")
     return rank
+
+
+def synth_sent_bytes(rank: int, world: int, inputs_path: str,
+                     schedules: dict) -> dict:
+    """``ccl_cases`` for the synthesized kinds, with the bytes this rank
+    put on the wire for each case (``_permute.sent_bytes``): returns
+    ``{key: (result, sent_bytes)}``."""
+    data = np.load(inputs_path)
+    out = {}
+    for key in data.files:
+        kind, label, _ = key.split("|")
+        x = torch.from_numpy(data[key][rank])
+        before = prim._permute.sent_bytes
+        if kind == "gather":
+            got = prim.synthesized_collective(x, schedules[label])
+        else:
+            got = prim.make_synthesized(
+                schedules[label], bits=8 if kind == "synth_q8" else None)(x)
+        out[key] = (_f32(got), prim._permute.sent_bytes - before)
+    return out
