@@ -175,7 +175,12 @@ exits non-zero:
    single-card step.  Wall and device ms, wire and staged bytes (held to
    ``tp_forward_bytes`` / ``tp_encode_bytes``), launches a rank (held to
    ``prefill_launches`` / ``encode_launches`` / ``ep_launches`` /
-   ``train_launches``), bytes of parameters and peak memory a rank.
+   ``train_launches``), bytes of parameters and peak memory a rank.  At
+   a token whose router logits nearly tie (within ``ROUTER_TIE``) the
+   model axis may pick the (k+1)-th expert: tp_mla re-runs its
+   single-card reference with rank 0's experts at those tokens
+   (``_forced_routes``) and holds every position to it, the ties
+   counted.
 4. codecs (K2a, K2b, K3, K4): a stand-in gradient of qwen2-0.5b at full
    width and depth (one seeded tensor per parameter) through the q8, q4,
    topk and lowrank codecs over two error-feedback steps, held to the JAX
@@ -194,11 +199,13 @@ exits non-zero:
 5b. planner: the paradigm's planning layers, plan to execution.  On the
    host, with the port alone: qwen2-0.5b's DP-4 training demand (B 32 x S
    512, 64 MiB gradient buckets; ZeRO-1's reduce-scatters, and the
-   all-reduces of plain DP), each task priced by ``select_for_task`` under
-   FlowSim on ``dgx_cluster(1, 4)`` inside ``simulate_iteration``; the
-   iteration written as a Chrome trace (``obs.trace``, link counters
-   included) that ``validate_chrome`` must pass; the predicted iteration
-   time and each bucket's algorithm printed.  On the card, 4 gloo ranks,
+   all-reduces of plain DP) planned by the co-design engine's
+   ``codesign.plan_iteration`` (packed placement, each task priced by
+   ``select_for_task`` under FlowSim on ``dgx_cluster(1, 4)`` inside
+   ``simulate_iteration``); the ``CodesignReport`` written as a Chrome
+   trace (``to_trace``, link counters included) that ``validate_chrome``
+   must pass; the predicted iteration time and each bucket's algorithm
+   printed.  On the card, 4 gloo ranks,
    one 64 MiB bucket of the stand-in gradient each, through every
    executable of ``IMPLEMENTATIONS``, ``synthesized_collective`` on the
    port's own ``synthesize_schedule(full_mesh(4), task)`` plain and with
@@ -207,6 +214,22 @@ exits non-zero:
    model's flows out of that rank (exact where the model counts the same
    bytes, both printed where it cannot); measured seconds beside
    ``algo_cost``'s prediction (loopback time: printed, not checked).
+5c. codesign: the co-design engine on the host (under 30 s): ``search``
+   over the placement and the all-reduces' error budget of the planner's
+   plain-DP iteration (best JCT, attribution, codecs, telemetry; its trace
+   validated), ``plan_cluster`` of two DP-4 tenants sharing the uplinks of
+   ``dgx_cluster(2, 4)`` (naive against staggered JCT, contended links),
+   ``plan_serving`` of qwen2-0.5b under the JAX serving tests' spec (TTFT
+   and TPOT percentiles, goodput) and ``ClusterDynamics`` over an
+   arrival, a link failure and a departure (each event's dirty set and
+   regret); then ``obs.probe.probe_suite`` on 4 gloo ranks sharing the
+   card: every executable of ``MODEL_EQUIVALENTS`` (K2a, K2b in the
+   quantized ones) at 64 MiB and 1 MiB, each rank reducing its quarter of
+   the probe buffer; each result held to the f64 sum, each rank's wire
+   bytes to the model's flows of that operand, the seconds printed beside
+   ``algo_cost``'s for the whole size, with ``model_vs_measured``'s
+   summary, the probes' trace validated, and the search's executable's
+   measured seconds beside its price.
 6. The kernels line (all ten kernels, launches from the path that runs
    each, and by every path, the data-parallel ones summed over the
    ranks), the card's name and power limit, and last the line
@@ -241,7 +264,7 @@ try:
     from repro_torch.ccl import primitives as ccl_prim
     from repro_torch.ccl.algorithms import generate_flows
     from repro_torch.ccl.cost import CostParams
-    from repro_torch.ccl.select import AlphaBeta, FlowSim, select_for_task
+    from repro_torch.ccl.select import AlphaBeta
     from repro_torch.ccl.synth import atp_schedule, synthesize_schedule
     from repro_torch.compress import get_codec
     from repro_torch.compress.codec import codec_spec
@@ -251,10 +274,11 @@ try:
                                      reset_launch_counts)
     from repro_torch.kernels.compress import ops as cops
     from repro_torch.kernels.compress import ref as cref
+    from repro_torch import codesign
     from repro_torch.checkpoint import restore_checkpoint
     from repro_torch.core import hw
     from repro_torch.core.demand import CommTask
-    from repro_torch.core.demand_builder import DemandParams, build_demand
+    from repro_torch.core.demand_builder import DemandParams
     from repro_torch.core.types import MeshConfig, ShapeConfig, TrainConfig
     from repro_torch.data import audio_frames, make_batches, vision_patches
     from repro_torch.kernels.flash_attention import (attention_bwd_ref,
@@ -282,15 +306,18 @@ try:
                                     prefill_launches, train_launches,
                                     tree_map)
     from repro_torch.models import moe as moe_mod
-    from repro_torch.net.topology import dgx_cluster, full_mesh
-    from repro_torch.obs.trace import trace_from_report, validate_chrome
+    from repro_torch.net.topology import dgx_cluster, fat_tree, full_mesh
+    from repro_torch.obs import probe as obs_probe
+    from repro_torch.obs.trace import (trace_from_cluster, trace_from_dynamics,
+                                       trace_from_search, trace_from_serving,
+                                       validate_chrome)
     from repro_torch.optim import gather_opt_state, init_opt_state
     from repro_torch.optim.adamw import UPDATE_CHUNK
     from repro_torch.parallel import (ParallelCtx, expert_flags,
                                       flat_layout, make_ctx)
     from repro_torch.parallel.planner import tp_dims, tp_layout
     from repro_torch.serve import make_prefill, make_serve_step
-    from repro_torch.sched.tasks import simulate_iteration
+    from repro_torch.sched.arrivals import PoissonArrivals
     from repro_torch.serve.batcher import ContinuousBatcher
     from repro_torch.train import make_train_step
 except ImportError as e:  # run outside the repo, or without torch
@@ -2203,33 +2230,20 @@ PLAN_SHAPE = ShapeConfig("plan_dp4", 512, 32, "train")
 PLAN_MESH = MeshConfig(shape=(RING_RANKS, 1))
 
 
-def plan_iteration(dp_params) -> dict:
-    """qwen2-0.5b's DP-4 iteration on ``dgx_cluster(1, 4)``: each comm
-    task priced by ``select_for_task`` under FlowSim inside
-    ``simulate_iteration``; returns the result, the choices and the
-    report dict ``obs.trace`` reads."""
-    topo = dgx_cluster(1, RING_RANKS)
-    demand = build_demand(get_config(ARCH), PLAN_SHAPE, PLAN_MESH,
-                          dp_params=dp_params, bucket_bytes=BUCKET_BYTES)
-    model = FlowSim(topo)
-    choices = {}
+def plan_dp4(dp_params):
+    """qwen2-0.5b's DP-4 iteration on ``dgx_cluster(1, 4)``, through the
+    co-design engine's ``plan_iteration``: the mesh placed (packed), each
+    comm task priced by ``select_for_task`` under FlowSim on the
+    topology, the iteration scheduled by ``simulate_iteration``; returns
+    the ``CodesignReport``."""
+    return codesign.plan_iteration(
+        get_config(ARCH), PLAN_SHAPE, PLAN_MESH, dgx_cluster(1, RING_RANKS),
+        dp_params=dp_params, bucket_bytes=BUCKET_BYTES)
 
-    def cost(task):
-        sel = select_for_task(task, model)
-        choices[task.task_id] = {
-            "task_id": task.task_id, "primitive": task.primitive,
-            "size_bytes": task.size_bytes, "group": list(task.group),
-            "algorithm": sel.algorithm, "cost_s": sel.cost}
-        return sel.cost, sel.algorithm
 
-    sim = simulate_iteration(demand, cost, "priority")
-    report = {"jct": sim.jct, "policy": "priority", "cost_model": "flowsim",
-              "choices": [choices[t.task_id] for t in demand.comm_tasks],
-              "timeline": [list(s) for s in sim.timeline],
-              "task_exposed_s": sim.task_exposed_s}
-    return {"sim": sim, "report": report, "topo": topo,
-            "buckets": [c for c in report["choices"]
-                        if c["task_id"].startswith("gbucket")]}
+def _buckets(report) -> list:
+    """The gradient buckets' choices of a plan."""
+    return [c for c in report.choices if c.task_id.startswith("gbucket")]
 
 
 def planner_rank(rank: int, world: int, seed: int) -> dict:
@@ -2286,11 +2300,12 @@ def phase_planner(seed: int) -> dict:
     executables the plan chooses among on the card (see the module doc,
     5b).  Returns the launches of the card run, summed over the ranks."""
     t0 = time.perf_counter()
-    plans = {"zero1": plan_iteration(None),
-             "plain_dp": plan_iteration(DemandParams(zero1=False))}
+    plans = {"zero1": plan_dp4(None),
+             "plain_dp": plan_dp4(DemandParams(zero1=False))}
+    topo = dgx_cluster(1, RING_RANKS)
     for label, plan in plans.items():
-        sim = plan["sim"]
-        trace = trace_from_report(plan["report"], topo=plan["topo"])
+        buckets = _buckets(plan)
+        trace = plan.to_trace(topo=topo)
         with tempfile.TemporaryDirectory(prefix="chip_smoke_plan_") as tmp:
             path = trace.write(os.path.join(tmp, f"{label}.trace.json"))
             with open(path) as f:
@@ -2302,15 +2317,16 @@ def phase_planner(seed: int) -> dict:
               "shape": dataclasses.asdict(PLAN_SHAPE),
               "mesh": list(PLAN_MESH.shape), "topology": "dgx_cluster(1, 4)",
               "networkx": networkx.__version__,
-              "predicted_iteration_s": sim.jct,
-              "compute_s": sim.compute_time, "comm_s": sim.comm_time,
-              "exposed_comm_s": sim.exposed_comm,
-              "buckets": [(c["task_id"], c["primitive"], c["size_bytes"],
-                           c["algorithm"], c["cost_s"])
-                          for c in plan["buckets"]],
+              "engine": "codesign.plan_iteration",
+              "placement": list(plan.placement.devices),
+              "predicted_iteration_s": plan.jct,
+              "compute_s": plan.compute_time, "comm_s": plan.comm_time,
+              "exposed_comm_s": plan.exposed_comm,
+              "buckets": [(c.task_id, c.primitive, c.size_bytes,
+                           c.algorithm, c.cost_s) for c in buckets],
               "trace_events": len(doc["traceEvents"]),
               "link_counter_events": counters, "trace_problems": problems})
-        check(plan["buckets"] and counters > 0,
+        check(buckets and counters > 0,
               f"planner {label}: no gradient bucket or no link counters")
     plan_s = time.perf_counter() - t0
 
@@ -2376,24 +2392,301 @@ def phase_planner(seed: int) -> dict:
     return counts
 
 
-def planner_wire_bytes(name: str, model_bytes, hops):
-    """The bytes each rank must send for executable ``name``, and where
-    they differ from the model's flows, the source of the gap.  Ring, bidir
+def planner_wire_bytes(name: str, model_bytes, hops, n=None):
+    """The bytes each rank must send for executable ``name`` on a payload
+    of ``n`` bytes a rank, and where they differ from the model's flows,
+    the source of the gap.  Ring, bidir
     ring and the schedules send exactly the model's bytes.  A quantized
     hop also sends its f32 scale, which the codec's wire ratio leaves out:
     4 bytes a hop.  ``recursive_doubling`` exchanges the whole payload at
     each of its log2(p) steps, where the ``halving_doubling`` it is priced
-    as halves it: log2(p) x n against 2n(p-1)/p."""
+    as halves it: log2(p) x n against 2n(p-1)/p.  ``n`` defaults to the
+    planner's bucket."""
+    n = BUCKET_BYTES if n is None else n
     if name in ("ring_q8", "ring_q4", "synthesized_q8"):
         return ([m + 4 * h for m, h in zip(model_bytes, hops)],
                 "one f32 scale a hop beside the codes (codec_spec's wire "
                 "ratio counts the codes only)")
     if name == "recursive_doubling":
         steps = int(math.log2(RING_RANKS))
-        return ([steps * BUCKET_BYTES] * RING_RANKS,
+        return ([steps * n] * RING_RANKS,
                 "recursive doubling sends n at each of log2(p) steps; "
                 "halving_doubling's flows halve the payload each step")
     return list(model_bytes), None
+
+
+# --------------------------------------------------------------------------
+# 5c. codesign: the co-design engine on the host, the probe on the card
+# --------------------------------------------------------------------------
+
+CODESIGN_SIZES = (BUCKET_BYTES, 2 ** 20)   # the plan's bucket, and 1 MiB
+CODESIGN_BUDGET = 8                        # search's plan evaluations
+CODESIGN_HOST_S = 30.0                     # the host part's budget
+
+
+def _link(link) -> str:
+    return "->".join(map(str, link))
+
+
+def _trace_check(label: str, trace) -> int:
+    """``validate_chrome`` must pass ``trace``; returns its events."""
+    doc = trace.to_chrome()
+    problems = validate_chrome(doc)
+    check(not problems, f"codesign {label}: trace invalid: {problems}")
+    return len(doc["traceEvents"])
+
+
+def codesign_search():
+    """``search`` over qwen2-0.5b's DP-4 plain-DP iteration (64 MiB
+    buckets) on ``dgx_cluster(1, 4)``: placement and the all-reduces'
+    error budget (0, or 0.01, which admits ``ring+q8``) free."""
+    topo = dgx_cluster(1, RING_RANKS)
+    problem = codesign.CodesignProblem(
+        get_config(ARCH), PLAN_SHAPE, PLAN_MESH, topo,
+        dp_params=DemandParams(zero1=False),
+        space=codesign.PlanSpace(
+            placement=codesign.Search(),
+            error_budget=codesign.Choice(0.0, {"all_reduce": 0.01}),
+            bucket_bytes=codesign.Fixed(BUCKET_BYTES)))
+    return codesign.search(problem, budget=CODESIGN_BUDGET), topo
+
+
+def codesign_cluster():
+    """Two DP-4 tenants of qwen2-0.5b on ``dgx_cluster(2, 4)``, each on two
+    cards of each host, so that their gradient bursts share the hosts'
+    uplinks: ``plan_cluster``'s naive and staggered plans."""
+    topo = dgx_cluster(2, RING_RANKS)
+    mesh = MeshConfig(shape=(RING_RANKS,), axis_names=("data",),
+                      data_axes=("data",), model_axes=())
+    half = RING_RANKS // 2
+    jobs = [codesign.JobSpec(
+        name, get_config(ARCH), PLAN_SHAPE, mesh, policy="serial",
+        devices=topo.hosts[0][k:k + half] + topo.hosts[1][k:k + half],
+        dp_params=DemandParams(zero1=False))
+        for name, k in (("tenantA", 0), ("tenantB", half))]
+    return codesign.plan_cluster(jobs, topo, grid=6), topo
+
+
+def codesign_serving():
+    """qwen2-0.5b served disaggregated (2 prefill, 2 decode cards) on a
+    16-card fat-tree, under the spec of the JAX package's serving tests
+    (``tests/test_serving.py::_spec``: Poisson 25 requests/s of 128 prompt
+    and 8 decode tokens, seed 3, SLO 0.5 s TTFT / 0.05 s TPOT, 1 s)."""
+    topo = fat_tree(16)
+    spec = codesign.ServingSpec(
+        name="svc", cfg=get_config(ARCH), prefill_devices=2,
+        decode_devices=2,
+        arrivals=PoissonArrivals(rate_rps=25.0, prompt_tokens=128,
+                                 decode_tokens=8, seed=3),
+        slo=codesign.ServingSLO(ttft_s=0.5, tpot_s=0.05), horizon_s=1.0)
+    return codesign.plan(codesign.serving_problem(spec, topo)), topo
+
+
+def codesign_dynamics():
+    """``ClusterDynamics`` over two DP-2 tenants of qwen2-0.5b on a
+    4-host fat-tree with two uplinks a rack, through a three-event trace:
+    a third tenant arrives, an uplink of rack 0 fails, the tenant
+    departs; each incremental answer priced against a full re-search."""
+    topo = fat_tree(num_hosts=4, gpus_per_host=2, hosts_per_rack=1,
+                    racks_per_pod=1, agg_redundancy=2, nic_bw=2e9,
+                    agg_bw=8e9, oversub=4.0, pcie_bw=4e9)
+    mesh = MeshConfig(shape=(2,), axis_names=("data",), data_axes=("data",),
+                      model_axes=())
+
+    def job(name, devices):
+        return codesign.JobSpec(name, get_config(ARCH), PLAN_SHAPE, mesh,
+                                policy="serial", devices=devices,
+                                dp_params=DemandParams(zero1=False))
+
+    dyn = codesign.ClusterDynamics([job("a", (0, 4)), job("b", (2, 6))],
+                                   topo, grid=4, compare_full=True)
+    events = [codesign.Event("job_arrive", time=1.0, job=job("c", (1, 5))),
+              codesign.Event("link_fail", time=2.0, link=("tor0", "agg0.0")),
+              codesign.Event("job_depart", time=3.0, name="c")]
+    return dyn.run(events), topo
+
+
+def codesign_host() -> dict:
+    """The engine on the host (``CODESIGN_HOST_S`` of budget): search,
+    cluster, serving and dynamics, one line each, every trace validated.
+    Returns what the card part compares with: the executable the search
+    chose for the buckets and the plan's price of one bucket."""
+    t0 = time.perf_counter()
+    res, topo = codesign_search()
+    best = res.best
+    buckets = _buckets(best)
+    algos = sorted({c.algorithm for c in buckets})
+    executable = {v: k for k, v in ccl_prim.MODEL_EQUIVALENTS.items()}
+    emit({"phase": "codesign_search", "arch": ARCH,
+          "shape": dataclasses.asdict(PLAN_SHAPE),
+          "mesh": list(PLAN_MESH.shape), "topology": "dgx_cluster(1, 4)",
+          "budget": CODESIGN_BUDGET, "evaluated": res.evaluated,
+          "truncated": res.truncated, "best_jct_s": best.jct,
+          "best_placement": {"strategy": best.placement.strategy,
+                             "devices": list(best.placement.devices)},
+          "best_error_budget": best.error_budget,
+          "attribution_s": res.attribution,
+          "codecs": best.codecs_by_primitive(),
+          "algorithms": best.algorithms_by_primitive(),
+          "bucket_algorithms": algos, "telemetry": res.telemetry,
+          "trace_events": _trace_check("search", trace_from_search(
+              res, topo=topo))})
+    plain = plan_dp4(DemandParams(zero1=False))
+    check(best.jct <= plain.jct + 1e-12,
+          f"codesign search: best {best.jct} s worse than the planner's "
+          f"plain DP {plain.jct} s, a point of its space")
+    check(len(algos) == 1 and algos[0] in executable,
+          f"codesign search: buckets priced as {algos}, not one executable")
+
+    crep, ctopo = codesign_cluster()
+    emit({"phase": "codesign_cluster", "topology": "dgx_cluster(2, 4)",
+          "tenants": {jp.spec.name: list(jp.devices) for jp in crep.jobs},
+          "solo_jct_s": crep.solo_jct, "naive_jct_s": crep.naive_jct,
+          "staggered_jct_s": crep.staggered_jct, "phases_s": crep.phases,
+          "naive_worst_stretch": crep.naive_worst_stretch,
+          "staggered_worst_stretch": crep.staggered_worst_stretch,
+          "stagger_speedup": crep.stagger_speedup,
+          "contended_links": {_link(k): v for k, v in crep.contended.items()},
+          "trace_events": _trace_check("cluster", trace_from_cluster(
+              crep, topo=ctopo))})
+    check(crep.contended and crep.staggered_worst_stretch
+          <= crep.naive_worst_stretch + 1e-12,
+          "codesign cluster: no shared link, or staggering made it worse")
+
+    srep, stopo = codesign_serving()
+    emit({"phase": "codesign_serving", "arch": ARCH,
+          "topology": "fat_tree(16)", "requests": len(srep.requests),
+          "offered_rps": srep.offered_rps,
+          "ttft_s": {"p50": srep.ttft_p50, "p95": srep.ttft_p95,
+                     "p99": srep.ttft_p99},
+          "tpot_s": {"p50": srep.tpot_p50, "p99": srep.tpot_p99},
+          "goodput_rps": srep.goodput, "slo_attainment": srep.slo_attainment,
+          "kv_bytes_per_request": srep.kv_bytes_per_request,
+          "trace_events": _trace_check("serving", trace_from_serving(
+              srep, topo=stopo))})
+    check(srep.requests and 0 < srep.goodput <= srep.offered_rps + 1e-9,
+          "codesign serving: no request served or goodput out of range")
+
+    drep, dtopo = codesign_dynamics()
+    emit({"phase": "codesign_dynamics",
+          "events": [{"kind": r.kind, "target": r.target, "mode": r.mode,
+                      "dirty_jobs": r.dirty_jobs,
+                      "dirty_links": [_link(k) for k in r.dirty_links],
+                      "regret": r.regret, "replan_s": r.replan_s,
+                      "full_replan_s": r.full_replan_s,
+                      "worst_stretch": r.worst_stretch}
+                     for r in drep.records],
+          "final_jct_s": drep.final.staggered_jct,
+          "worst_regret": drep.worst_regret,
+          "incremental_speedup": drep.incremental_speedup,
+          "trace_events": _trace_check("dynamics", trace_from_dynamics(
+              drep, topo=dtopo))})
+    check([r.kind for r in drep.records]
+          == ["job_arrive", "link_fail", "job_depart"]
+          and all(r.regret is not None and math.isfinite(r.regret)
+                  for r in drep.records),
+          "codesign dynamics: an event was not applied or has no regret")
+    host_s = time.perf_counter() - t0
+    check(host_s < CODESIGN_HOST_S,
+          f"codesign: the host part took {host_s:.1f} s")
+    return {"executable": executable[algos[0]], "algorithm": algos[0],
+            "bucket_model_s": buckets[0].cost_s, "host_s": host_s}
+
+
+def codesign_rank(rank: int, world: int, sizes, device: str) -> dict:
+    """One gloo rank: ``obs.probe.probe_suite`` over every executable of
+    ``MODEL_EQUIVALENTS`` at ``sizes`` (warmup 1, repeats 3) on this
+    rank's slice of the probe buffer on ``device``; the probes, each
+    probe's check and the launches."""
+    dev = rank_device(device)
+    reset_launch_counts()
+    probes = obs_probe.probe_suite(tuple(ccl_prim.MODEL_EQUIVALENTS), sizes,
+                                   device=dev, warmup=1, repeats=3)
+    return {"probes": [p.to_dict() for p in probes],
+            "checks": list(obs_probe.probe_suite.checks),
+            "launches": launch_counts()}
+
+
+def phase_codesign(seed: int) -> dict:
+    """The co-design engine on the host (``codesign_host``), then
+    ``obs.probe`` timing every executable all-reduce on the card: 4 gloo
+    ranks, each reducing its quarter of the probe buffer (the JAX
+    package's operand, ROADMAP R6) of 64 MiB and 1 MiB.  Each probe's
+    result against the f64 sum, its wire bytes a rank against the model's
+    flows of the operand, its seconds beside ``algo_cost``'s for the whole
+    size; ``model_vs_measured``'s summary and the probes' trace.  Returns
+    the launches, summed over the ranks."""
+    del seed  # the probe's buffer is deterministic
+    t0 = time.perf_counter()
+    host = codesign_host()
+    t1 = time.perf_counter()
+    ranks = spawn_ranks(codesign_rank, RING_RANKS, CODESIGN_SIZES, DEVICE,
+                        backend="gloo", timeout_s=600)
+    probe_s = time.perf_counter() - t1
+    head = ranks[0]["probes"]
+    check(all(r["probes"] == head for r in ranks),
+          "codesign probe: the ranks returned different probes")
+    probes = [obs_probe.CollectiveProbe.from_dict(d) for d in head]
+    group = tuple(range(RING_RANKS))
+    measured = {}
+    for i, pr in enumerate(probes):
+        checks = [r["checks"][i] for r in ranks]
+        operand = checks[0]["operand_bytes"]
+        flows = generate_flows(CommTask("probe", "all_reduce", operand,
+                                        group), pr.algorithm).flows
+        out_of = [[f for f in flows if f.src == r] for r in group]
+        model_bytes = [sum(f.size_bytes for f in fl) for fl in out_of]
+        want, gap = planner_wire_bytes(pr.impl, model_bytes,
+                                       [len(fl) for fl in out_of], operand)
+        sent = [c["sent_bytes"] for c in checks]
+        worst = max(c["err_over_tol"] for c in checks)
+        emit({"phase": "codesign_probe", "impl": pr.impl,
+              "model_as": pr.algorithm, "ranks": RING_RANKS,
+              "size_bytes": pr.size_bytes, "operand_bytes_per_rank": operand,
+              "measured_s": pr.measured_s, "runs_s": pr.runs_s,
+              "modeled_s": pr.modeled_s, "ratio": pr.ratio,
+              "model_terms": pr.model_terms,
+              "sent_bytes_by_rank": sent, "model_bytes_by_rank": model_bytes,
+              "gap": gap, "max_abs_err": max(c["max_abs_err"]
+                                             for c in checks),
+              "worst_err_over_tol": worst, "device_kind": pr.device_kind,
+              "tensors": checks[0]["device"]})
+        check(all(c["device"].startswith("cuda") for c in checks),
+              f"codesign probe {pr.impl}: result on {checks[0]['device']}")
+        check(worst <= 1.0, f"codesign probe {pr.impl} {pr.size_bytes}: "
+                            f"error {worst}x its tolerance")
+        check(operand * RING_RANKS == pr.size_bytes,
+              f"codesign probe {pr.impl}: operand {operand} B a rank")
+        check(sent == want, f"codesign probe {pr.impl} {pr.size_bytes}: sent "
+                            f"{sent} bytes a rank, expected {want} "
+                            f"({gap or 'the model'})")
+        measured[(pr.impl, pr.size_bytes)] = pr
+    counts: dict = {}
+    for r in ranks:
+        for k, v in r["launches"].items():
+            counts[k] = counts.get(k, 0) + v
+    check(all(r["launches"].get("quantize", 0) > 0
+              and r["launches"].get("dequantize", 0) > 0 for r in ranks),
+          "codesign probe: K2a/K2b not launched on every rank")
+    mm = obs_probe.model_vs_measured(probes)
+    chosen = measured[(host["executable"], BUCKET_BYTES)]
+    emit({"phase": "codesign_probe_summary", "count": mm["count"],
+          **{k: mm[k] for k in ("geomean_ratio", "mean_abs_log2_err",
+                                "min_ratio", "max_ratio")},
+          "model": "ccl.cost.algo_cost, CostParams() (50 GB/s links), "
+                   "priced at size_bytes",
+          "search_bucket_algorithm": host["algorithm"],
+          "search_executable": host["executable"],
+          "search_bucket_model_s": host["bucket_model_s"],
+          "executable_measured_s": chosen.measured_s,
+          "executable_modeled_s": chosen.modeled_s,
+          "trace_events": _trace_check("probe", obs_probe.probes_to_trace(
+              probes)),
+          "launches": {k: counts.get(k, 0)
+                       for k in ("quantize", "dequantize")}})
+    emit({"phase": "codesign", "host_s": host["host_s"], "probe_s": probe_s,
+          "wall_s": time.perf_counter() - t0, "launches": counts})
+    return counts
 
 
 # --------------------------------------------------------------------------
@@ -5154,26 +5447,66 @@ def _tpf_context(cfg, params, seed: int, rows, ctx=None):
 
 # a token whose k-th and (k+1)-th router logits lie this close may take
 # another expert under the rounding of the model axis's sums (~1e-5 of the
-# router's input): its logits are held out of PARITY_TOL and counted
+# router's input): the single-card reference is re-run with the experts
+# the model-axis run took there (``_forced_routes``), and the ties counted
 ROUTER_TIE = 1e-3
 
 
+def _router_gap(p, cfg_, x):
+    """Each token's gap between its k-th and (k+1)-th router logits."""
+    top = (x.float() @ p["router"]).topk(cfg_.top_k + 1, dim=-1).values
+    return top[..., -2] - top[..., -1]
+
+
 def _router_gaps(run):
-    """``run()`` with ``models.moe.route`` recording each token's gap
-    between its k-th and (k+1)-th router logits: (the result, the gaps of
-    every call on the host, in order; empty without MoE layers)."""
-    real, gaps = moe_mod.route, []
+    """``run()`` with ``models.moe.route`` recording each call's router gap
+    of every token (``_router_gap``) and the experts it picked: (the
+    result, the gaps and the picks of every call on the host, in order;
+    empty without MoE layers)."""
+    real, gaps, picks = moe_mod.route, [], []
 
     def recording(p, cfg_, x, ctx=None):
-        top = (x.float() @ p["router"]).topk(cfg_.top_k + 1, dim=-1).values
-        gaps.append((top[..., -2] - top[..., -1]).cpu())
-        return real(p, cfg_, x, ctx)
+        gaps.append(_router_gap(p, cfg_, x).cpu())
+        ids, weights, aux = real(p, cfg_, x, ctx)
+        picks.append(ids.cpu())
+        return ids, weights, aux
 
     moe_mod.route = recording
     try:
-        return run(), gaps
+        return run(), gaps, picks
     finally:
         moe_mod.route = real
+
+
+def _forced_routes(run, picks):
+    """``run()`` with the i-th call of ``models.moe.route`` taking, at each
+    token whose own router gap is below ``ROUTER_TIE``, the experts
+    ``picks[i]`` holds there (those a model-axis run took), their weights
+    the softmax of the call's own logits over them, normalised as
+    ``route`` normalises its own; every other token keeps its own experts
+    and weights.  Returns (the result, the tokens whose experts changed)."""
+    real, calls, changed = moe_mod.route, iter(picks), [0]
+
+    def forcing(p, cfg_, x, ctx=None):
+        ids, weights, aux = real(p, cfg_, x, ctx)
+        want = next(calls).to(ids.device)
+        tie = (_router_gap(p, cfg_, x) < ROUTER_TIE)[..., None]
+        new = torch.where(tie, want, ids)
+        w = torch.softmax(x.float() @ p["router"], dim=-1).gather(-1, new)
+        w = w / torch.clamp(w.sum(dim=-1, keepdim=True), min=1e-9)
+        changed[0] += int((new.sort(-1).values != ids.sort(-1).values)
+                          .any(-1).sum())
+        return new, torch.where(tie, w.to(x.dtype), weights), aux
+
+    moe_mod.route = forcing
+    try:
+        out = run()
+    finally:
+        moe_mod.route = real
+    if next(calls, None) is not None:
+        raise ValueError("the forced run called route fewer times than "
+                         "the run whose picks it takes")
+    return out, changed[0]
 
 
 def _ties(gap):
@@ -5196,7 +5529,7 @@ def _tp_reference(cfg, seed: int, dtype, tokens, first=None,
     out = {"tokens": tokens}
     with torch.no_grad():
         context = _tpf_context(cfg, params, seed, slice(0, len(tokens)))
-        logits, gaps = _router_gaps(lambda: make_prefill(cfg)(
+        logits, gaps, _ = _router_gaps(lambda: make_prefill(cfg)(
             params, tokens.to(DEVICE), context))
         out["prefill"] = logits.cpu()
         out["prefill_gap"] = torch.stack(gaps).amin(0) if gaps else None
@@ -5215,7 +5548,7 @@ def _tp_reference(cfg, seed: int, dtype, tokens, first=None,
                     fed.append(tok.cpu())
                     logits.append(lg[:, 0].cpu())
 
-            _, gaps = _router_gaps(decode)
+            _, gaps, _ = _router_gaps(decode)
             out["decode"] = torch.stack(logits, 1)
             out["fed"] = torch.cat(fed, 1)
             # (steps x MoE layers, slots, 1) -> (slots, steps)
@@ -5228,6 +5561,48 @@ def _tp_reference(cfg, seed: int, dtype, tokens, first=None,
     del params, context
     _release()
     return out
+
+
+def _tp_forced_reference(cfg, seed: int, ref: dict, run: dict) -> dict:
+    """The single-card f32 run of ``_tp_reference`` made again with the
+    experts that the model-axis run took at the router ties
+    (``_forced_routes`` over ``run``'s picks, rank 0's): prefill logits of
+    ``ref["tokens"]`` and the decode teacher-forced over ``ref["fed"]``,
+    each with the count of tokens whose experts changed.  Host tensors;
+    frees the card."""
+    params = _tpf_params(cfg, seed, torch.float32, None, DEVICE)
+    out = {}
+    with torch.no_grad():
+        context = _tpf_context(cfg, params, seed, slice(0, len(ref["tokens"])))
+        logits, out["prefill_forced"] = _forced_routes(
+            lambda: make_prefill(cfg)(params, ref["tokens"].to(DEVICE),
+                                      context), run["prefill_picks"])
+        out["prefill"] = logits.cpu()
+        del logits, context
+        context = _tpf_context(cfg, params, seed, slice(None))
+        (got, _), out["decode_forced"] = _forced_routes(
+            lambda: _ep_teacher_decode(cfg, params, make_serve_step(cfg),
+                                       ref["fed"], DEVICE, context),
+            run["decode_picks"])
+        out["decode"] = got.cpu()
+        del got
+    del params, context
+    _release()
+    return out
+
+
+def _tie_parity(got, forced, gap, v: int, changed: int) -> dict:
+    """``got`` (the model-axis run's logits) against the forced reference
+    at every position (PARITY_TOL and the greedy token, no position held
+    out), with the count of router ties and of forced tokens."""
+    return {**_logit_err(got, forced, v), "router_ties": int(
+        _ties(gap).sum()), "forced_positions": changed}
+
+
+def _picks_sum(picks) -> int:
+    """A checksum of a run's picked experts, to hold the ranks' alike."""
+    return sum(int((p.long() * (1 + torch.arange(p.numel()).view(
+        p.shape))).sum()) for p in picks)
 
 
 def tpf_rank(rank: int, world: int, name: str, cfg, seed: int,
@@ -5243,7 +5618,10 @@ def tpf_rank(rank: int, world: int, name: str, cfg, seed: int,
     its frames, ZeRO-1 on the data axis) held leaf by leaf to the
     single-card step that rank 0 runs first.  Launches, exchange seconds
     and bytes, device and wall ms of each; peak memory and bytes of
-    parameters a rank."""
+    parameters a rank.  For a MoE config the experts each route call
+    picked are recorded (``_router_gaps``), and rank 0 saves its f32
+    logits and picks beside ``ref_path`` for the check at the router ties
+    (``_tp_forced_reference``)."""
     _, _, seq, serve_bf16, step_mesh = TPF_PHASES[name]
     dev = rank_device(device)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -5265,26 +5643,38 @@ def tpf_rank(rank: int, world: int, name: str, cfg, seed: int,
         out["encode"] = {"launches": _delta(n0), **_exchange_delta(ex0),
                          "device_ms": enc_ms, "wall_ms": enc_wall}
         n0, ex0 = launch_counts(), _exchange()
-        logits, ms, wall = _timed(lambda: make_prefill(cfg, ctx)(
-            params, ref["tokens"].to(dev), context))
+        (logits, ms, wall), _, picks = _router_gaps(lambda: _timed(
+            lambda: make_prefill(cfg, ctx)(params, ref["tokens"].to(dev),
+                                           context)))
         out["prefill"] = {**_logit_err(logits.cpu(), ref["prefill"],
                                        cfg.vocab_size,
                                        _ties(ref["prefill_gap"])),
                           "launches": _delta(n0), **_exchange_delta(ex0),
                           "device_ms": ms, "wall_ms": wall,
-                          "checksum": launch_train.checksum([logits])}
+                          "checksum": launch_train.checksum([logits]),
+                          "picks": _picks_sum(picks)}
+        kept = {"prefill": logits.cpu(), "prefill_picks": picks} \
+            if cfg.is_moe else {}
         del logits, context
         context = _tpf_context(cfg, params, seed, slice(None), ctx)
         n0, ex0 = launch_counts(), _exchange()
-        got, ms = _ep_teacher_decode(cfg, params, make_serve_step(cfg, ctx),
-                                     ref["fed"], dev, context)
+        (got, ms), _, picks = _router_gaps(lambda: _ep_teacher_decode(
+            cfg, params, make_serve_step(cfg, ctx), ref["fed"], dev,
+            context))
         out["decode"] = {**_logit_err(got.cpu(), ref["decode"],
                                       cfg.vocab_size,
                                       _ties(ref["decode_gap"])),
                          "launches": _delta(n0), **_exchange_delta(ex0),
                          "step_ms": ms,
-                         "checksum": launch_train.checksum([got])}
+                         "checksum": launch_train.checksum([got]),
+                         "picks": _picks_sum(picks)}
+        if cfg.is_moe:
+            kept.update(decode=got.cpu(), decode_picks=picks)
         del got, context
+    if rank == 0 and cfg.is_moe:
+        torch.save(kept, os.path.join(os.path.dirname(ref_path),
+                                      "rank0.pt"))
+    del kept
     del params
     out["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
     _release()
@@ -5381,6 +5771,17 @@ def phase_tp_family(name: str, rng, seed: int) -> dict:
         ranks = spawn_ranks(tpf_rank, TP_RANKS, name, cfg, seed, path,
                             DEVICE, backend="gloo", timeout_s=900)
         ranks_s = time.perf_counter() - t1
+        tie_err, forced_s = {}, 0.0
+        if cfg.is_moe:  # G3: every position, the ties' experts forced
+            t2 = time.perf_counter()
+            run0 = torch.load(os.path.join(tmp, "rank0.pt"))
+            forced = _tp_forced_reference(cfg, seed, refs["f32"], run0)
+            tie_err = {case: _tie_parity(
+                run0[case], forced[case], refs["f32"][case + "_gap"],
+                cfg.vocab_size, forced[case + "_forced"])
+                for case in ("prefill", "decode")}
+            del run0, forced
+            forced_s = time.perf_counter() - t2
     tp = TP_RANKS
     head = ranks[0]
     moe = "train" if cfg.is_moe else None
@@ -5427,11 +5828,19 @@ def phase_tp_family(name: str, rng, seed: int) -> dict:
                         greedy_equal=all(p["greedy_equal"] for p in per),
                         tol=PARITY_TOL, identical_on_all_ranks=same)
             if cfg.is_moe:
-                line.update({k: per[0][k] for k in (
-                    "router_ties", "positions_beyond_tol",
-                    "max_abs_err_at_ties")}, router_tie=ROUTER_TIE)
+                # every position against the single card re-run with the
+                # experts rank 0 took at the ties; the unforced reference's
+                # errors at the ties beside it
+                line.update(tie_err[case], router_tie=ROUTER_TIE,
+                            against="single card, router ties forced to "
+                                    "the model axis's experts",
+                            unforced={k: per[0][k] for k in (
+                                "positions_beyond_tol",
+                                "max_abs_err_at_ties")})
+                check(len({p["picks"] for p in per}) == 1,
+                      f"{name} {case}: the ranks picked different experts")
             check(same, f"{name} {case}: the ranks hold different logits")
-            check(all(p["excess"] <= 0 for p in per),
+            check(line["excess"] <= 0,
                   f"{name} {case}: beyond {PARITY_TOL}: max |err| "
                   f"{line['max_abs_err']}")
             check(line["greedy_equal"], f"{name} {case}: greedy tokens "
@@ -5539,6 +5948,7 @@ def phase_tp_family(name: str, rng, seed: int) -> dict:
         counts += [p["launches"] for p in per]
     emit({"phase": name + "_total", "seconds": time.perf_counter() - t0,
           "reference_s": ref_s, "ranks_s": ranks_s,
+          "forced_reference_s": forced_s,
           "param_bytes_per_rank": [r["param_bytes"] for r in ranks],
           "peak_memory_bytes_per_rank": [r["peak_memory_bytes"]
                                          for r in ranks]})
@@ -5640,6 +6050,7 @@ def main() -> int:
     paths["codecs_real"] = phase_codecs_real(SEED + 9)
     paths["collectives"] = phase_collectives(n_values, SEED + 7)
     paths["planner"] = phase_planner(SEED + 11)
+    paths["codesign"] = phase_codesign(SEED + 13)
 
     # each kernel's launches are read from the path that runs it
     main_path = {"flash_attention": ARCH, "flash_attention_bwd": "training",

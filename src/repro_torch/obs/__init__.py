@@ -7,10 +7,11 @@ The observability layer of the five-layer engine, copied from
     (Perfetto) export; ``python -m repro_torch.obs.export`` converts
     persisted report JSON;
   * ``obs.meters`` — deterministic counters threaded through FlowSim
-    memoization and the synthesizer's cache.
-
-The JAX package's ``obs.probe`` (wall-clock spans of the executable
-collectives next to their model predictions) has no counterpart here yet.
+    memoization and the synthesizer's cache;
+  * ``obs.probe``  — wall-clock spans of the port's executable
+    collectives on the ranks of a ``torch.distributed`` group, next to
+    ``ccl.cost``'s predictions (imported by name: it is the one module
+    here that runs collectives).
 """
 from repro_torch.obs.meters import Meters
 from repro_torch.obs.trace import (EXPOSED_CNAME, Trace, timeline_tracks,

@@ -455,12 +455,14 @@ def test_cost_terms_sum_to_algo_cost():
 
 
 def test_the_port_imports_no_jax():
-    """The port's planning layers alone, in a fresh interpreter: no jax
-    and no ``repro`` module is loaded."""
+    """The port's planning layers, its co-design engine and its probe
+    alone, in a fresh interpreter: no jax and no ``repro`` module is
+    loaded."""
     code = ("import sys\n"
             "import repro_torch.ccl.select, repro_torch.sched, "
             "repro_torch.obs.export, repro_torch.ccl.synth, "
-            "repro_torch.core.demand_builder, repro_torch.net\n"
+            "repro_torch.core.demand_builder, repro_torch.net, "
+            "repro_torch.codesign, repro_torch.obs.probe\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]\n"
             "assert not bad, bad\nprint('clean')\n")

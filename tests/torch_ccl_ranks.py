@@ -138,3 +138,28 @@ def synth_sent_bytes(rank: int, world: int, inputs_path: str,
                 schedules[label], bits=8 if kind == "synth_q8" else None)(x)
         out[key] = (_f32(got), prim._permute.sent_bytes - before)
     return out
+
+
+class FakeClock:
+    """A clock that advances ``step`` seconds a reading: probes timed by it
+    measure ``step`` a run, in either package."""
+
+    def __init__(self, step: float = 1e-3):
+        self.t, self.step = 0.0, step
+
+    def __call__(self) -> float:
+        self.t += self.step
+        return self.t
+
+
+def probe_ranks(rank: int, world: int, impls, sizes, fake: bool) -> dict:
+    """``obs.probe.probe_suite`` on this CPU rank (a fake clock where
+    ``fake``): the probes as dicts, each probe's check, and this rank's
+    slice of the probe buffer of the first size."""
+    from repro_torch.obs import probe
+
+    clock = FakeClock() if fake else probe.time.perf_counter
+    probes = probe.probe_suite(impls, sizes, device="cpu", clock=clock)
+    return {"probes": [p.to_dict() for p in probes],
+            "checks": list(probe.probe_suite.checks),
+            "operand": probe.probe_operand(sizes[0], world, rank).numpy()}
