@@ -237,6 +237,7 @@ exits non-zero:
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -301,8 +302,12 @@ try:
     from repro_torch.launch import train as launch_train
     from repro_torch.launch.mesh import mesh_groups
     from repro_torch.launch.ranks import rank_device, spawn_ranks
-    from repro_torch.models import (encode, encode_launches, ep_launches,
-                                    init_cache, init_params, param_leaves,
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.launch.analysis import record_collectives
+    from repro_torch.models import (decode_step, encode, encode_launches,
+                                    ep_launches, forward, init_cache,
+                                    init_params, param_leaves,
                                     prefill_launches, train_launches,
                                     tree_map)
     from repro_torch.models import moe as moe_mod
@@ -315,7 +320,9 @@ try:
     from repro_torch.optim.adamw import UPDATE_CHUNK
     from repro_torch.parallel import (ParallelCtx, expert_flags,
                                       flat_layout, make_ctx)
-    from repro_torch.parallel.planner import tp_dims, tp_layout
+    from repro_torch.parallel import fsdp as fsdp_mod
+    from repro_torch.parallel.planner import (BUCKET_VALUES, _with_paths,
+                                              tp_dims, tp_layout)
     from repro_torch.serve import make_prefill, make_serve_step
     from repro_torch.sched.arrivals import PoissonArrivals
     from repro_torch.serve.batcher import ContinuousBatcher
@@ -2909,7 +2916,7 @@ def phase_serving(rng, cfg, *, prefill_batch: int, prefill_lens,
 # --------------------------------------------------------------------------
 
 TRAIN_PARITY_BATCH, TRAIN_PARITY_SEQ = 2, 256
-TRAIN_STEPS = 20
+TRAIN_STEPS = 10  # the loss falls below 0.9 of its start within 4
 # overfitting one fixed batch in 20 steps: warmup over the first 5
 TRAIN_TCFG = dict(learning_rate=1e-3, warmup_steps=5, total_steps=20,
                   microbatches=TRAIN_MICROBATCHES, remat=True,
@@ -3191,8 +3198,8 @@ def run_family_training(seed: int) -> dict:
 # --------------------------------------------------------------------------
 
 DP_PARITY_BATCH, DP_PARITY_SEQ = 8, 256
-DP_STEPS = 5
-DP_Q8_STEPS = 3
+DP_STEPS = 4      # the loss falls below 0.9 of its start at the 4th
+DP_Q8_STEPS = 2
 # the f32 parity step at lr 1e-3 from the first step: AdamW's first update
 # is about lr x sign(g), a hundred times the 1e-5 bounds, so an update that
 # is skipped or wrong shows (``_update_err``)
@@ -3300,12 +3307,13 @@ def _rank_ctx(world: int, **kw):
 
 
 def dp_parity_rank(rank: int, world: int, seed: int) -> dict:
-    """One f32 step (TF32 off) of plain DP on ``ring`` and one of ZeRO-1,
-    each from the same parameters on the global batch; rank 0 first runs
-    the single-card step on the whole batch and holds each DP step to it:
-    loss and grad_norm within rtol 1e-4, m and v within 1e-5 of their max
-    (``_tree_err``), the parameters through their update
-    (``_update_err``)."""
+    """One f32 step (TF32 off) of plain DP on ``ring``, one of ZeRO-1 and
+    one of FSDP (``parallel.fsdp``), each from the same parameters on the
+    global batch; rank 0 first runs the single-card step on the whole
+    batch and holds each DP step to it: loss and grad_norm within rtol
+    1e-4, m and v within 1e-5 of their max (``_tree_err``), the parameters
+    through their update (``_update_err``); FSDP also to ZeRO-1's step
+    the same ways."""
     device = rank_device(DEVICE)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3328,10 +3336,13 @@ def dp_parity_rank(rank: int, world: int, seed: int) -> dict:
     torch.cuda.synchronize()
     dist.barrier()
     out = {}
-    for mode in ("zero1", "ring"):
+    kept = None  # rank 0: ZeRO-1's parameters, m, v and metrics, for FSDP
+    for mode in ("zero1", "ring", "fsdp"):
         zero1 = mode == "zero1"
-        ctx = _rank_ctx(world, remat=False)
-        params = fresh()
+        fsdp = mode == "fsdp"
+        ctx = _rank_ctx(world, remat=False, **(
+            dict(cfg=cfg, fsdp=True) if fsdp else {}))
+        params = fsdp_mod.fsdp_shard(fresh(), ctx) if fsdp else fresh()
         opt = init_opt_state(params, ctx if zero1 else None)
         step = make_train_step(cfg, TrainConfig(zero1=zero1,
                                                 **DP_PARITY_TCFG), ctx)
@@ -3345,7 +3356,11 @@ def dp_parity_rank(rank: int, world: int, seed: int) -> dict:
                "metrics": {k: float(v) for k, v in m.items()},
                "opt_state_bytes": sum(
                    t.numel() * 4 for t in param_leaves(opt["m"])) * 2}
-        full = gather_opt_state(opt, ctx, params) if zero1 else opt
+        if fsdp:  # the whole tree, gathered from the shards
+            params = fsdp_mod.fsdp_gather(params, ctx)
+            full = {k: fsdp_mod.fsdp_gather(opt[k], ctx) for k in ("m", "v")}
+        else:
+            full = gather_opt_state(opt, ctx, params) if zero1 else opt
         res["checksums"] = {"params": launch_train.checksum(params),
                             "m": launch_train.checksum(full["m"]),
                             "v": launch_train.checksum(full["v"])}
@@ -3359,6 +3374,19 @@ def dp_parity_rank(rank: int, world: int, seed: int) -> dict:
             res["params"] = _update_err(
                 p0, params, sp, full["m"], full["v"],
                 TrainConfig(**DP_PARITY_TCFG), res["metrics"]["lr"])
+            if zero1:
+                kept = (params, full["m"], full["v"], res["metrics"])
+            if fsdp:
+                zp, zm, zv, zmet = kept
+                res["vs_zero1"] = {
+                    "rel_err": {k: abs(res["metrics"][k] - zmet[k])
+                                / abs(zmet[k]) for k in ("loss", "grad_norm")},
+                    "trees": {"m": _tree_err(full["m"], zm),
+                              "v": _tree_err(full["v"], zv)},
+                    "params": _update_err(
+                        p0, params, zp, full["m"], full["v"],
+                        TrainConfig(**DP_PARITY_TCFG), res["metrics"]["lr"])}
+                del kept, zp, zm, zv
         del params, opt, full, step
         torch.cuda.empty_cache()
         out[mode] = res
@@ -3366,11 +3394,12 @@ def dp_parity_rank(rank: int, world: int, seed: int) -> dict:
 
 
 def phase_dp_parity(seed: int) -> None:
-    """DP-4 in f32 against the single-card step, both on the card."""
+    """DP-4 in f32 (ZeRO-1, plain DP, FSDP) against the single-card step,
+    all on the card; FSDP against ZeRO-1 too."""
     t0 = time.perf_counter()
     ranks = spawn_ranks(dp_parity_rank, RING_RANKS, seed, backend="gloo",
                         timeout_s=900)
-    for mode in ("zero1", "ring"):
+    for mode in ("zero1", "ring", "fsdp"):
         per = [r[mode] for r in ranks]
         head = per[0]
         same = all(p["checksums"] == head["checksums"] for p in per)
@@ -3386,8 +3415,17 @@ def phase_dp_parity(seed: int) -> None:
               "wire_bytes_per_rank": head["wire_bytes"],
               "staged_bytes_per_rank": head["staged_bytes"],
               "opt_state_bytes_per_rank": head["opt_state_bytes"],
-              "launches_per_rank": [p["launches"] for p in per]})
+              "launches_per_rank": [p["launches"] for p in per],
+              **({"vs_zero1": head["vs_zero1"]} if mode == "fsdp" else {})})
         check(same, f"dp_parity {mode}: ranks hold different parameters")
+        if mode == "fsdp":  # FSDP against the ZeRO-1 step, the same bounds
+            vs = head["vs_zero1"]
+            errs = {k: v["err_over_max"] for k, v in vs["trees"].items()}
+            check(max(vs["rel_err"].values()) <= 1e-4 and
+                  max(errs.values()) <= 1e-5 and
+                  vs["params"]["adamw_over_lr"] <= 1e-3 and
+                  vs["params"]["update_rel_err"] <= 1e-2,
+                  f"dp_parity fsdp: off the ZeRO-1 step: {vs}")
         check(max(head["rel_err"].values()) <= 1e-4,
               f"dp_parity {mode}: loss or grad_norm beyond rtol 1e-4 of "
               f"the single-card step: {head['rel_err']}")
@@ -3406,7 +3444,8 @@ def phase_dp_parity(seed: int) -> None:
 
 def phase_dp_training(seed: int) -> dict:
     """ZeRO-1 bf16 training through the launcher's ``run``: 4 ranks share
-    the card, 5 steps on one batch of B 8 x S 512 in 2 microbatches, remat,
+    the card, ``DP_STEPS`` steps on one batch of B 8 x S 512 in 2
+    microbatches, remat,
     bf16 gradients; a checkpoint written under a temporary directory and
     restored here.  Returns the launch counts of every rank's steps,
     summed."""
@@ -4413,7 +4452,8 @@ TP_TRAIN_TCFG = dict(learning_rate=3e-3, warmup_steps=10,
                      microbatches=TP_TRAIN_MICROBATCHES, remat=True,
                      grad_dtype="bf16")
 # short requests: a decode step is ~81 ring all-reduces over gloo (granite)
-TP_REQUESTS = dict(prompt_lens=(6, 12), new_tokens=6, max_len=24)
+# short requests: a TP decode step is ~0.9 s of gloo loopback
+TP_REQUESTS = dict(prompt_lens=(4, 8), new_tokens=4, max_len=16)
 PIPE_STAGES, PIPE_MICROBATCHES, PIPE_V = 4, 8, 2
 PIPE_MB_SHAPE = (1, 256)       # a microbatch: B 1 x S 256 of granite's d
 CMM_ROWS = 2 * 256             # x (2 x 256, 4096) against W (4096, 12800/4)
@@ -4470,6 +4510,35 @@ def tp_forward_bytes(cfg, tp: int, rows: int, seq: int, itemsize: int,
     if gather and lay.vocab:
         total += (tp - 1) * rows * seq * (cfg.padded_vocab // tp) * itemsize
     return total
+
+
+def fsdp_wire_bytes(cfg, params, ctx, microbatches: int, remat: bool,
+                    grad_itemsize: int) -> int:
+    """Wire bytes a rank of one FSDP training step on a data-only mesh
+    (``parallel.fsdp``; ``params``: this rank's shards): (dp - 1) shards
+    of each sharded leaf in its unit's ring all-gather at every use (a
+    layer's once a microbatch, again in the recompute under ``remat``; the
+    embedding also as the tied LM head) and in the ring reduce-scatter of
+    its gradient once a forward use; the replicated leaves' gradient
+    all-reduce in the planner's buckets (``grad_itemsize``: the synced
+    gradient's); the metrics' and the clip norm's gathers of 3 f32 and one
+    f64."""
+    dp = ctx.dp
+    total = 0
+    replicated = 0
+    for path, t in _with_paths(params):
+        if fsdp_mod._dim(ctx, path) is None:
+            replicated += t.numel()
+            continue
+        layer = path.startswith(("/layers/", "/cross/", "/encoder/layers/"))
+        uses = 1 + (path == "/embed" and cfg.tie_embeddings)
+        shard = (dp - 1) * t.numel() * t.element_size()
+        total += microbatches * uses * shard * (
+            (2 if layer and remat else 1) + 1)
+    for lo in range(0, replicated, BUCKET_VALUES):
+        n = min(BUCKET_VALUES, replicated - lo)
+        total += 2 * (dp - 1) * -(-n // dp) * grad_itemsize
+    return total + (dp - 1) * (3 * 4 + 8)
 
 
 def tp_encode_bytes(cfg, tp: int, rows: int, itemsize: int) -> int:
@@ -4793,6 +4862,11 @@ def phase_tp_parity(rng, seed: int) -> dict:
     return _ep_sum(counts)
 
 
+# each rank's first prefill in tp_serving: its collectives by kind, their
+# result bytes and its wire bytes (what dryrun_card predicts)
+TP_SERVING_PREFILL: list = []
+
+
 def tp_serving_rank(rank: int, world: int, cfg, seed: int, ref_path: str,
                     device: str) -> dict:
     """bf16 on a (1, 4) mesh: prefill B 2 x S 256 through
@@ -4814,12 +4888,18 @@ def tp_serving_rank(rank: int, world: int, cfg, seed: int, ref_path: str,
         for i in range(3):
             dist.barrier()
             n0, ex0 = launch_counts(), _exchange()
-            logits, ms, wall = _timed(lambda: prefill(params, tokens))
+            with record_collectives() if i == 0 else \
+                    contextlib.nullcontext() as coll:
+                logits, ms, wall = _timed(lambda: prefill(params, tokens))
             out["prefill_ms"].append(ms)
             out["prefill_wall_ms"].append(wall)
-            if i == 0:
+            if i == 0:  # the first call's, which dryrun_card predicts
                 out["prefill"] = {"launches": _delta(n0),
-                                  **_exchange_delta(ex0)}
+                                  **_exchange_delta(ex0),
+                                  "collectives": {
+                                      "count": coll.count_by_kind,
+                                      "bytes": coll.bytes_by_kind,
+                                      "sent": coll.sent_bytes}}
         out["prefill_tokens"] = _token_check(
             logits[:, -1:].cpu(), {"decode": ref["prefill"][:, -1:]},
             slice(None), cfg.vocab_size)
@@ -4857,6 +4937,9 @@ def phase_tp_serving(rng, seed: int) -> dict:
         ranks_s = time.perf_counter() - t1
     head = ranks[0]
     tp = TP_RANKS
+    TP_SERVING_PREFILL[:] = [dict(r["prefill"]["collectives"],
+                                  wire_bytes=r["prefill"]["wire_bytes"])
+                             for r in ranks]
     steps = head["batcher"]["steps"]
     step_ms = [m for r in ranks for m in r["batcher"]["step_ms"]]
     want_prefill_bytes = tp_forward_bytes(cfg, tp, TP_BATCH, TP_SEQ, 2)
@@ -5066,6 +5149,11 @@ def phase_tp_mamba(rng, seed: int) -> dict:
                               "batcher")])
 
 
+# tp_training's seed, first step's loss and grad_norm, wire bytes and
+# peaks a rank: the ZeRO-1 step that fsdp_tp is held to
+TP_TRAINING_FIRST: dict = {}
+
+
 def tp_training_rank(rank: int, world: int, cfg, seed: int,
                      device: str) -> dict:
     """bf16 ZeRO-1 training on a (2, 2) mesh: 5 steps of
@@ -5101,8 +5189,9 @@ def tp_training_rank(rank: int, world: int, cfg, seed: int,
         steps.append({"wall_ms": 1e3 * (time.perf_counter() - t0),
                       "compute_ms": marks["start"].elapsed_time(
                           marks["local"]),
-                      "loss": float(m["loss"]), "launches": _delta(n0),
-                      **_exchange_delta(ex0)})
+                      "loss": float(m["loss"]),
+                      "grad_norm": float(m["grad_norm"]),
+                      "launches": _delta(n0), **_exchange_delta(ex0)})
     return {"steps": steps,
             "params": sum(t.numel() for t in param_leaves(params)),
             "opt_state_bytes": 2 * 4 * opt["m"].numel(),
@@ -5117,6 +5206,11 @@ def phase_tp_training(seed: int) -> dict:
     ranks = spawn_ranks(tp_training_rank, TP_RANKS, cfg, seed, DEVICE,
                         backend="gloo", timeout_s=900)
     head = ranks[0]
+    TP_TRAINING_FIRST.update(
+        seed=seed, metrics={k: head["steps"][0][k]
+                            for k in ("loss", "grad_norm")},
+        wire_bytes=[r["steps"][0]["wire_bytes"] for r in ranks],
+        peak_memory_bytes=[r["peak_memory_bytes"] for r in ranks])
     losses = [s["loss"] for s in head["steps"]]
     wall = [s["wall_ms"] for r in ranks for s in r["steps"][1:]]
     emit({"phase": "tp_training", "arch": cfg.name, "dtype": "bfloat16",
@@ -5403,14 +5497,18 @@ def run_tp(rng, seed: int) -> dict:
 # phase -> (arch, layers kept (0: all), prefill S, bf16 serving, step mesh)
 TPF_PHASES = {"tp_mla": (MLA_ARCH, MLA_LAYERS, 256, False, None),
               "tp_cross": (VISION_ARCH, VISION_LAYERS, 256, True, None),
-              "tp_encdec": (ENC_DEC_ARCH, 0, 1024, False, (2, 2))}
+              # 6 + 6 of its 12 + 12 layers: the script's time limit
+              "tp_encdec": (ENC_DEC_ARCH, 6, 1024, False, (2, 2))}
 TPF_STEP_BATCH, TPF_STEP_SEQ = 4, 256
 
 
 def _tpf_config(name: str):
     arch, layers, _, _, _ = TPF_PHASES[name]
     cfg = get_config(arch)
-    return dataclasses.replace(cfg, num_layers=layers) if layers else cfg
+    if not layers:
+        return cfg
+    return dataclasses.replace(cfg, num_layers=layers, **(
+        {"encoder_layers": layers} if cfg.is_encoder_decoder else {}))
 
 
 def _tpf_ctx(cfg, mesh_shape):
@@ -5964,6 +6062,530 @@ def run_tp_families(rng, seed: int) -> dict:
             for i, name in enumerate(TPF_PHASES)}
 
 
+# --------------------------------------------------------------------------
+# the dry-run and FSDP (ROADMAP item 13b)
+# --------------------------------------------------------------------------
+
+# the dry-run's host pool: started after the build, on CPUs of its own
+# (the last DRYRUN_WORKERS of this process's); the card's phases and the
+# ranks they start keep the others.  Sharing all CPUs with them, it slowed
+# the host-bound phases by 1.2-2x.
+DRYRUN_WORKERS = 2
+# the 16 x 16 sweep's shapes, in the JAX package's cost mode (``unroll``:
+# attention chunks of 2048, 4x fewer ops on the meta device); prefill_32k
+# is the CLI's (``python -m repro_torch.launch.dryrun --shape
+# prefill_32k``: 100-400 s of host an arch)
+DRYRUN_SHAPES = ("train_4k", "decode_32k", "long_500k")
+# one arch of each family, and MLA: the extrapolation held to the sweep
+DRYRUN_FAMILIES = ("granite-3-8b", "mamba2-130m", "dbrx-132b",
+                   "seamless-m4t-medium", "llama-3.2-vision-90b",
+                   "jamba-1.5-large-398b", "deepseek-v2-236b")
+DRYRUN_FSDP = {"dbrx-132b", "llama-3.2-vision-90b", "deepseek-v2-236b",
+               "jamba-1.5-large-398b"}
+# dryrun_card: qwen2-0.5b on one card, bf16
+CARD_SHAPES = {"prefill": ShapeConfig("card_prefill", 512, 4, "prefill"),
+               "decode": ShapeConfig("card_decode", 512, 4, "decode"),
+               "train": ShapeConfig("card_train", TRAIN_SEQ, TRAIN_BATCH,
+                                    "train")}
+CARD_TRAIN = dict(microbatches=TRAIN_MICROBATCHES, remat=True,
+                  grad_dtype="bf16")
+# the caching allocator's rounding: every block a multiple of 512 bytes,
+# and a block of more than 1 MiB keeps a remainder of up to 1 MiB that it
+# does not split off (CUDACachingAllocator's ``kSmallSize``)
+ALLOC_ROUND = 512
+ALLOC_UNSPLIT = 2 ** 20
+
+
+def alloc_slack(tensors) -> int:
+    """The most the allocator may hold above ``tensors``' bytes."""
+    return sum(ALLOC_ROUND + (ALLOC_UNSPLIT if t.untyped_storage().nbytes()
+                              > ALLOC_UNSPLIT else 0) for t in tensors)
+# fsdp: qwen2-0.5b whole on (4, 1); granite-3-8b 4 layers on (2, 2);
+# deepseek-v2-236b 2 layers, f32 prefill B 1 x S 4096 on the chunked path
+FSDP_SEQ = TRAIN_SEQ
+FSDP_STEPS = 5
+FSDP_TCFG = dict(learning_rate=3e-3, warmup_steps=10, total_steps=FSDP_STEPS,
+                 **CARD_TRAIN)  # the launcher's, as dp_training runs it
+SKIP_SHAPE = (1, 4096)
+
+
+def _dryrun_worker_init(cpus) -> None:
+    os.sched_setaffinity(0, cpus)
+    torch.set_num_threads(1)
+
+
+def dryrun_job(kind: str, args: tuple) -> dict:
+    """One job of the dry-run's pool (a process of its own, on a fake
+    world): "sweep" (arch, shape, multi_pod) the full-depth run and its
+    analysis; "extrapolate" (arch, shape) ``measure_costs``; "program"
+    (arch, shape name, build keywords) one rank's counts."""
+    from repro_torch.launch import dryrun as dr
+    t0 = time.perf_counter()
+    if kind == "extrapolate":
+        return {"costs": dr.measure_costs(*args),
+                "seconds": time.perf_counter() - t0}
+    if kind == "sweep":
+        arch, shape, mp = args
+        program, meta = dr.build_dryrun(arch, shape, multi_pod=mp,
+                                        unroll=True)
+    else:
+        arch, shape, kw = args
+        program, meta = dr.build_dryrun(arch, shape, **kw)
+    acc = program()
+    costs = dr._cost_vector(acc)
+    mem = dr.memory_summary(acc)
+    return {"meta": meta, "costs": costs, "memory": mem,
+            "analysis": dr.analyse(meta, mem, costs)
+            if kind == "sweep" else None,
+            "argument_bytes": acc.argument_bytes,
+            "temp_bytes": acc.temp_bytes,
+            "collectives": {"count": acc.collectives.count_by_kind,
+                            "bytes": acc.collectives.bytes_by_kind,
+                            "sent": acc.collectives.sent_bytes},
+            "seconds": time.perf_counter() - t0}
+
+
+def _dryrun_jobs() -> dict:
+    """Every job of the pool, by key, the longest (training) first."""
+    from repro_torch.configs import ARCHS
+    jobs = {}
+    for shape in DRYRUN_SHAPES:
+        for arch in ARCHS:
+            jobs[("sweep", arch, shape, "16x16")] = ("sweep",
+                                                     (arch, shape, False))
+        if shape == "train_4k":
+            for arch in ARCHS:
+                jobs[("sweep", arch, shape, "2x16x16")] = (
+                    "sweep", (arch, shape, True))
+    for arch in DRYRUN_FAMILIES:
+        jobs[("extrapolate", arch)] = ("extrapolate", (arch, "decode_32k"))
+    one = MeshConfig((1, 1))
+    qwen, granite = get_config(ARCH), get_config(TP_ARCH)
+    for k, shape in CARD_SHAPES.items():
+        jobs[("card", k)] = ("program", (ARCH, shape.name, dict(
+            mesh=one, shape=shape, cfg_override=qwen,
+            **(CARD_TRAIN if k == "train" else {}))))
+    tp_shape = ShapeConfig("tp_prefill", TP_SEQ, TP_BATCH, "prefill")
+    granite4 = dataclasses.replace(granite, num_layers=TP_TRAIN_LAYERS)
+    train = ShapeConfig("fsdp_train", FSDP_SEQ, TRAIN_BATCH, "train")
+    tp_train = ShapeConfig("fsdp_tp_train", TP_TRAIN_SEQ, TP_TRAIN_BATCH,
+                           "train")
+    for r in range(TP_RANKS):
+        jobs[("tp_serving", r)] = ("program", (TP_ARCH, "tp_prefill", dict(
+            mesh=MeshConfig((1, TP_RANKS)), shape=tp_shape, rank=r,
+            cfg_override=granite, gather_logits=True)))
+        jobs[("fsdp_qwen", r)] = ("program", (ARCH, "fsdp_train", dict(
+            mesh=MeshConfig((RING_RANKS, 1)), shape=train, rank=r,
+            fsdp=True, cfg_override=qwen, **CARD_TRAIN)))
+        jobs[("fsdp_granite", r)] = ("program", (TP_ARCH, "fsdp_tp_train",
+                                                 dict(
+            mesh=MeshConfig((2, TP_RANKS // 2)), shape=tp_train, rank=r,
+            fsdp=True, cfg_override=granite4,
+            microbatches=TP_TRAIN_MICROBATCHES, remat=True,
+            grad_dtype="bf16")))
+    return jobs
+
+
+def start_dryrun():
+    """The dry-run's pool of spawned processes (each job on a fake world
+    of its own) on the last ``DRYRUN_WORKERS`` CPUs of this process, which
+    keeps the others (and passes them to the ranks it starts); its futures
+    by key.  ``phase_dryrun`` collects them and gives the CPUs back."""
+    import concurrent.futures
+    import multiprocessing
+    cpus = sorted(os.sched_getaffinity(0))
+    mine = cpus[-DRYRUN_WORKERS:] if len(cpus) > 2 * DRYRUN_WORKERS \
+        else cpus
+    pool = concurrent.futures.ProcessPoolExecutor(
+        DRYRUN_WORKERS, mp_context=multiprocessing.get_context("spawn"),
+        initializer=_dryrun_worker_init, initargs=(mine,))
+    futures = {key: pool.submit(dryrun_job, *job)
+               for key, job in _dryrun_jobs().items()}
+    if mine != cpus:
+        os.sched_setaffinity(0, cpus[:-DRYRUN_WORKERS])
+    return pool, futures, time.perf_counter(), cpus
+
+
+def phase_dryrun(pool, futures, t0: float, cpus) -> dict:
+    """The production meshes on the host: one line a combination, the
+    four configs above 4 GiB a device under FSDP, the extrapolation equal
+    to the full-depth count for a config of each family.  Returns every
+    job's result by key."""
+    t_wait = time.perf_counter()
+    try:
+        got = {key: f.result() for key, f in futures.items()}
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+        os.sched_setaffinity(0, cpus)
+    waited = time.perf_counter() - t_wait
+    sweep = sorted(k for k in got if k[0] == "sweep")
+    for key in sweep:
+        a = got[key]["analysis"]
+        emit({"phase": "dryrun", "arch": key[1], "shape": key[2],
+              "mesh": key[3], "fsdp": a["fsdp"],
+              "swa_variant": a["swa_variant"],
+              "param_bytes": a["param_bytes"],
+              "flops_per_device": a["flops_per_device"],
+              "bytes_per_device": a["bytes_per_device"],
+              "collective_bytes_per_device":
+                  a["collective_bytes_per_device"],
+              "collectives_by_kind": a["collectives_by_kind"],
+              "collective_counts": a["collective_counts"],
+              "wire_bytes_per_device": got[key]["costs"]["wire_bytes"],
+              "roofline": a["roofline"], "dominant": a["dominant"],
+              "useful_flops_ratio": a["useful_flops_ratio"],
+              "argument_gib": a["memory"]["argument_size_in_bytes"] / 2**30,
+              "temp_gib": a["memory"]["temp_size_in_bytes"] / 2**30,
+              "seconds": got[key]["seconds"]})
+        check(a["fsdp"] == (key[1] in DRYRUN_FSDP),
+              f"dryrun {key}: fsdp={a['fsdp']}")
+        check(all(math.isfinite(v) and v >= 0 for v in a["roofline"].values())
+              and a["flops_per_device"] > 0,
+              f"dryrun {key}: {a['roofline']}")
+    exact = {}
+    for arch in DRYRUN_FAMILIES:
+        want = got[("sweep", arch, "decode_32k", "16x16")]["costs"]
+        ext = got[("extrapolate", arch)]["costs"]
+        diff = {k: (ext.get(k), want.get(k)) for k in set(ext) | set(want)
+                if ext.get(k) != want.get(k)}
+        exact[arch] = not diff
+        check(not diff, f"dryrun {arch}: the extrapolation differs from "
+                        f"the full-depth count: {diff}")
+    emit({"phase": "dryrun_total", "combinations": len(sweep),
+          "extrapolation_exact": exact,
+          "host_seconds": sum(v["seconds"] for v in got.values()),
+          "workers": DRYRUN_WORKERS, "waited_s": waited,
+          "since_start_s": time.perf_counter() - t0})
+    return got
+
+
+def _card_args(cfg, kind: str, seed: int):
+    """qwen2-0.5b's arguments of ``kind`` on the card, bf16, as the
+    dry-run builds them: (the step as a function, the argument tensors)."""
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = init_params(cfg, gen, dtype=torch.bfloat16, device=dev)
+    shape = CARD_SHAPES[kind]
+    rng = np.random.default_rng(seed)
+
+    def ids(*dims):
+        return torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, dims).astype(np.int32)).to(dev)
+
+    if kind == "train":
+        opt = init_opt_state(params)
+        batch = {"tokens": ids(shape.global_batch, shape.seq_len),
+                 "labels": ids(shape.global_batch, shape.seq_len)}
+        step = make_train_step(cfg, TrainConfig(**CARD_TRAIN))
+        return (lambda: step(params, opt, batch),
+                list(param_leaves(params)) + list(param_leaves(opt))
+                + list(batch.values()))
+    if kind == "decode":
+        cache = init_cache(cfg, params, shape.global_batch, shape.seq_len,
+                           torch.bfloat16)
+        tokens = ids(shape.global_batch, 1)
+        return (lambda: decode_step(cfg, params, cache, tokens,
+                                    shape.seq_len - 1)[0],
+                list(param_leaves(params)) + list(param_leaves(cache))
+                + [tokens])
+    tokens = ids(shape.global_batch, shape.seq_len)
+    return (lambda: forward(cfg, params, tokens)[0],
+            list(param_leaves(params)) + [tokens])
+
+
+def phase_dryrun_card(got: dict, seed: int) -> dict:
+    """The dry-run's predictions against runs on the card: (i) qwen2-0.5b
+    prefill, decode step and training step on one card: the argument
+    bytes against the allocator's, the device ms against the roofline's
+    compute term, the predicted peak beside the measured one; (ii)
+    granite's TP prefill on (1, 4) (``tp_serving``'s run): each rank's
+    predicted wire bytes and collectives by kind against the measured."""
+    t0 = time.perf_counter()
+    cfg = get_config(ARCH)
+    launches = {}
+    for kind in CARD_SHAPES:
+        pred = got[("card", kind)]
+        _release()
+        base = torch.cuda.memory_allocated()
+        fn, args = _card_args(cfg, kind, seed)
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated() - base
+        with torch.no_grad() if kind != "train" else \
+                contextlib.nullcontext():
+            fn()  # warm
+            torch.cuda.reset_peak_memory_stats()
+            n0 = launch_counts()
+            _, ms, wall = _timed(fn)
+            launches[kind] = _delta(n0)
+        peak = torch.cuda.max_memory_allocated() - base
+        compute_ms = 1e3 * pred["costs"]["flops"] / hw.PEAK_FLOPS_BF16
+        predicted_peak = pred["argument_bytes"] + pred["temp_bytes"]
+        emit({"phase": "dryrun_card", "arch": ARCH, "kind": kind,
+              "dtype": "bfloat16", "batch": CARD_SHAPES[kind].global_batch,
+              "seq": CARD_SHAPES[kind].seq_len,
+              "argument_bytes_predicted": pred["argument_bytes"],
+              "argument_bytes_allocated": held, "tensors": len(args),
+              "allocator_slack_max": alloc_slack(args),
+              "flops_predicted": pred["costs"]["flops"],
+              "roofline_compute_ms": compute_ms,
+              "roofline_memory_ms": 1e3 * pred["costs"]["bytes"] / hw.HBM_BW,
+              "device_ms": ms, "wall_ms": wall,
+              "peak_bytes_predicted": predicted_peak,
+              "peak_bytes_measured": peak,
+              "peak_ratio_measured_over_predicted": peak / predicted_peak,
+              "launches": launches[kind]})
+        check(0 <= held - pred["argument_bytes"] <= alloc_slack(args),
+              f"dryrun_card {kind}: {held} bytes allocated for "
+              f"{pred['argument_bytes']} predicted ({len(args)} tensors, "
+              f"the allocator's rounding at most {alloc_slack(args)})")
+        check(ms >= compute_ms, f"dryrun_card {kind}: {ms} ms is faster "
+              f"than the counted FLOPs allow ({compute_ms} ms)")
+        del fn, args
+    measured = TP_SERVING_PREFILL
+    check(len(measured) == TP_RANKS, "dryrun_card: no tp_serving prefill "
+                                     "was measured")
+    rows = []
+    for r, m in enumerate(measured):
+        pred = got[("tp_serving", r)]["collectives"]
+        rows.append({"rank": r, "wire_predicted": pred["sent"],
+                     "wire_measured": m["sent"],
+                     "counts_predicted": pred["count"],
+                     "counts_measured": m["count"],
+                     "result_bytes_predicted": pred["bytes"],
+                     "result_bytes_measured": m["bytes"]})
+        check(pred["sent"] == m["sent"] == m["wire_bytes"],
+              f"dryrun_card tp rank {r}: wire {pred['sent']} predicted, "
+              f"{m['sent']} / {m['wire_bytes']} measured")
+        check(pred["count"] == m["count"] and pred["bytes"] == m["bytes"],
+              f"dryrun_card tp rank {r}: {pred['count']} / {pred['bytes']}"
+              f" predicted, {m['count']} / {m['bytes']} measured")
+    emit({"phase": "dryrun_card_tp", "arch": TP_ARCH, "mesh": [1, TP_RANKS],
+          "batch": TP_BATCH, "seq": TP_SEQ, "ranks": rows,
+          "seconds": time.perf_counter() - t0})
+    return _ep_sum(list(launches.values()))
+
+
+def _fsdp_ctx(cfg, mesh_shape, **kw):
+    mesh_cfg = MeshConfig(tuple(mesh_shape))
+    dgroup, mgroup = mesh_groups(mesh_cfg)
+    return make_ctx(dgroup, mesh_cfg, model_group=mgroup, cfg=cfg, **kw)
+
+
+def _shard_bytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in param_leaves(tree))
+
+
+def fsdp_qwen_rank(rank: int, world: int, seed: int, device: str) -> dict:
+    """qwen2-0.5b whole on (4, 1), bf16: ``FSDP_STEPS`` FSDP steps on one
+    batch as ``dp_training`` runs them (its f32 step is ``dp_parity``'s
+    third mode): losses, wire bytes, launches and the bytes a rank
+    holds."""
+    dev = rank_device(device)
+    cfg = get_config(ARCH)
+    tcfg = TrainConfig(**FSDP_TCFG)
+    ctx = _fsdp_ctx(cfg, (world, 1), remat=True, fsdp=True)
+    batch = next(make_batches(cfg, TRAIN_BATCH, FSDP_SEQ, seed=seed))
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    whole = init_params(cfg, gen, dtype=torch.bfloat16, device=dev)
+    out = {"replicated_bytes": _shard_bytes(whole) + 2 * 4 * sum(
+        t.numel() for t in param_leaves(whole))}
+    params = fsdp_mod.fsdp_shard(whole, ctx)
+    del whole
+    _release()
+    opt = init_opt_state(params)
+    out["held_bytes"] = _shard_bytes(params) + _shard_bytes(opt["m"]) + \
+        _shard_bytes(opt["v"])
+    out["formula_bytes"] = fsdp_wire_bytes(
+        cfg, params, ctx, tcfg.microbatches, tcfg.remat, 2)
+    step = make_train_step(cfg, tcfg, ctx)
+    torch.cuda.reset_peak_memory_stats()
+    out["steps"] = []
+    for _ in range(FSDP_STEPS):
+        dist.barrier()
+        n0, ex0 = launch_counts(), _exchange()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, batch)
+        torch.cuda.synchronize()
+        out["steps"].append({"wall_ms": 1e3 * (time.perf_counter() - t0),
+                             "loss": float(m["loss"]),
+                             "launches": _delta(n0),
+                             **_exchange_delta(ex0)})
+    out["checksum_trained"] = launch_train.checksum(
+        fsdp_mod.fsdp_gather(params, ctx))
+    out["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    return out
+
+
+def fsdp_granite_rank(rank: int, world: int, cfg, seed: int,
+                      device: str) -> dict:
+    """granite-3-8b, 4 layers, bf16 on (2, 2): the FSDP x TP step from
+    ``tp_training``'s parameters on its batch (its ``seed``), whose first
+    ZeRO-1 step it is held to: metrics, wire bytes, peak memory a rank."""
+    dev = rank_device(device)
+    tcfg = TrainConfig(**TP_TRAIN_TCFG)
+    batch = next(make_batches(cfg, TP_TRAIN_BATCH, TP_TRAIN_SEQ, seed=seed))
+    ctx = _fsdp_ctx(cfg, (2, world // 2), remat=True, fsdp=True)
+    params = fsdp_mod.fsdp_shard(
+        _tp_params(cfg, seed, torch.bfloat16, ctx, dev), ctx)
+    opt = init_opt_state(params)
+    _release()
+    torch.cuda.reset_peak_memory_stats()
+    step = make_train_step(cfg, tcfg, ctx)
+    dist.barrier()
+    n0, ex0 = launch_counts(), _exchange()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params, opt, m = step(params, opt, batch)
+    torch.cuda.synchronize()
+    return {"wall_ms": 1e3 * (time.perf_counter() - t0),
+            "metrics": {k: float(v) for k, v in m.items()},
+            "launches": _delta(n0), **_exchange_delta(ex0),
+            "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+
+
+def fsdp_rank(rank: int, world: int, seed: int, gcfg, gseed: int,
+              device: str) -> dict:
+    """Both FSDP paths on the same 4 ranks: ``fsdp_qwen_rank`` on (4, 1),
+    then ``fsdp_granite_rank`` on (2, 2)."""
+    qwen = fsdp_qwen_rank(rank, world, seed, device)
+    _release()
+    return {"qwen": qwen,
+            "granite": fsdp_granite_rank(rank, world, gcfg, gseed, device)}
+
+
+def phase_causal_skip(seed: int) -> dict:
+    """deepseek-v2-236b, 2 layers, f32 prefill B 1 x S 4096: MLA on the
+    chunked path, with ``causal_skip`` off and on (``ParallelCtx``):
+    logits within PARITY_TOL, FLOPs (counted on the meta device) and
+    device ms.  Returns the launch counts."""
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config(MLA_ARCH), num_layers=MLA_LAYERS)
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = init_params(cfg, gen, dtype=torch.float32, device=dev)
+    tokens = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, SKIP_SHAPE)).to(dev)
+    meta = init_params(cfg, torch.Generator(), device="meta")
+    out = {}
+    logits = {}
+    with torch.no_grad():
+        for skip in (False, True):
+            ctx = ParallelCtx(causal_skip=skip)
+            with FlopCounterMode(display=False) as fc:
+                forward(cfg, meta, tokens.to("meta"), ctx=ctx)
+            n0 = launch_counts()
+            lg, ms, wall = _timed(lambda: forward(cfg, params, tokens,
+                                                  ctx=ctx)[0])
+            logits[skip] = lg.float().cpu()
+            out["skip" if skip else "uniform"] = {
+                "flops": fc.get_total_flops(), "device_ms": ms,
+                "wall_ms": wall, "launches": _delta(n0)}
+            del lg
+    v = cfg.vocab_size
+    diff = (logits[True] - logits[False])[..., :v]
+    out["max_abs_logit_diff"] = float(diff.abs().max())
+    within = bool(torch.allclose(logits[True][..., :v],
+                                 logits[False][..., :v], **PARITY_TOL))
+    del params, logits
+    _release()
+    emit({"phase": "causal_skip", "arch": MLA_ARCH, "layers": MLA_LAYERS,
+          "dtype": "float32", "shape": list(SKIP_SHAPE), **out,
+          "flops_ratio": out["skip"]["flops"] / out["uniform"]["flops"],
+          "seconds": time.perf_counter() - t0})
+    check(within, f"causal_skip: logits differ by "
+                  f"{out['max_abs_logit_diff']}")
+    check(out["skip"]["flops"] < out["uniform"]["flops"],
+          "causal_skip: no FLOPs saved")
+    return _ep_sum([out[k]["launches"] for k in ("uniform", "skip")])
+
+
+def phase_fsdp(got: dict, seed: int) -> dict:
+    """FSDP on 4 gloo ranks sharing the card: qwen2-0.5b's bf16 steps on
+    (4, 1) against the dry-run and the formula, granite 4 layers FSDP x TP
+    on (2, 2) against ``tp_training``'s first step.  Returns the launch
+    counts."""
+    t0 = time.perf_counter()
+    cfg = get_config(ARCH)
+    gcfg = dataclasses.replace(get_config(TP_ARCH),
+                               num_layers=TP_TRAIN_LAYERS)
+    zero1 = TP_TRAINING_FIRST
+    check("seed" in zero1, "fsdp_tp: tp_training did not run")
+    both = spawn_ranks(fsdp_rank, RING_RANKS, seed, gcfg, zero1["seed"],
+                       DEVICE, backend="gloo", timeout_s=900)
+    ranks = [r["qwen"] for r in both]
+    granite = [r["granite"] for r in both]
+    head = ranks[0]
+    losses = [s["loss"] for s in head["steps"]]
+    want_k1 = {k: n for k, n in train_launches(
+        cfg, TRAIN_MICROBATCHES, True, FSDP_SEQ).items()
+        if k.startswith("flash_attention")}
+    share = [r["held_bytes"] / r["replicated_bytes"] for r in ranks]
+    pred = [got[("fsdp_qwen", r)]["collectives"]["sent"]
+            for r in range(RING_RANKS)]
+    emit({"phase": "fsdp", "arch": ARCH, "mesh": [RING_RANKS, 1],
+          "backend": "gloo", "dtype": "bfloat16", "batch": TRAIN_BATCH,
+          "seq": FSDP_SEQ,
+          "microbatches": TRAIN_MICROBATCHES, "remat": True,
+          "losses": losses,
+          "step_wall_ms": [[s["wall_ms"] for s in r["steps"]]
+                           for r in ranks],
+          "exchange_s": [[s["exchange_s"] for s in r["steps"]]
+                         for r in ranks],
+          "wire_bytes_per_step": [r["steps"][-1]["wire_bytes"]
+                                  for r in ranks],
+          "wire_bytes_predicted": pred,
+          "wire_bytes_formula": [r["formula_bytes"] for r in ranks],
+          "held_share_of_replicated": share,
+          "peak_memory_bytes_per_rank": [r["peak_memory_bytes"]
+                                         for r in ranks],
+          "launches_per_rank_step": [r["steps"][-1]["launches"]
+                                     for r in ranks],
+          "want_k1_per_step": want_k1})
+    check(len({r["checksum_trained"] for r in ranks}) == 1,
+          "fsdp: the ranks' gathered parameters differ")
+    check(all(math.isfinite(x) for x in losses) and
+          losses[-1] <= 0.9 * losses[0],
+          f"fsdp training did not fit its batch: {losses}")
+    check(max(share) <= 0.26, f"fsdp: a rank holds {share} of the "
+                              f"replicated parameters and state")
+    for r, p in zip(ranks, pred):
+        for s in r["steps"]:
+            k1 = {k: n for k, n in s["launches"].items()
+                  if k.startswith("flash_attention")}
+            check(k1 == want_k1, f"fsdp step launched {k1}, want {want_k1}")
+            check(s["wire_bytes"] == p == r["formula_bytes"],
+                  f"fsdp wire bytes {s['wire_bytes']} a step, predicted "
+                  f"{p}, formula {r['formula_bytes']}")
+    gpred = [got[("fsdp_granite", r)]["collectives"]["sent"]
+             for r in range(TP_RANKS)]
+    g0 = granite[0]
+    rel = {k: abs(g0["metrics"][k] - zero1["metrics"][k])
+           / abs(zero1["metrics"][k]) for k in ("loss", "grad_norm")}
+    emit({"phase": "fsdp_tp", "arch": gcfg.name, "layers": gcfg.num_layers,
+          "mesh": [2, TP_RANKS // 2], "dtype": "bfloat16",
+          "batch": TP_TRAIN_BATCH, "seq": TP_TRAIN_SEQ,
+          "metrics": g0["metrics"], "zero1_metrics": zero1["metrics"],
+          "rel_err": rel, "wall_ms": [r["wall_ms"] for r in granite],
+          "exchange_s": [r["exchange_s"] for r in granite],
+          "wire_bytes": [r["wire_bytes"] for r in granite],
+          "wire_bytes_predicted": gpred,
+          "zero1_wire_bytes": zero1["wire_bytes"],
+          "peak_memory_bytes_per_rank": [r["peak_memory_bytes"]
+                                         for r in granite],
+          "zero1_peak_memory_bytes_per_rank": zero1["peak_memory_bytes"],
+          "launches": [r["launches"] for r in granite]})
+    check(rel["loss"] <= 1e-3 and rel["grad_norm"] <= 2e-2,
+          f"fsdp_tp: the FSDP x TP step is off tp_training's first ZeRO-1 "
+          f"step: {rel}")
+    for r, p in zip(granite, gpred):
+        check(r["wire_bytes"] == p,
+              f"fsdp_tp wire bytes {r['wire_bytes']}, predicted {p}")
+    emit({"phase": "fsdp_total", "seconds": time.perf_counter() - t0})
+    return _ep_sum([s["launches"] for r in ranks for s in r["steps"]]
+                   + [r["launches"] for r in granite])
+
+
 def run_paths(rng) -> dict:
     """The three serving paths; returns each path's launch counts."""
     paths = {}
@@ -6028,6 +6650,7 @@ def main() -> int:
           "device": torch.cuda.get_device_name(0)})
     rng = np.random.default_rng(SEED)
     phase_build()
+    dryrun = start_dryrun()  # the host's meta runs, on CPUs of their own
     timings = phase_kernels(rng)
     timings["flash_attention_bwd"] = phase_bwd_kernel(rng)
     timings["ssd_scan"] = phase_ssd_kernel(rng)
@@ -6051,6 +6674,10 @@ def main() -> int:
     paths["collectives"] = phase_collectives(n_values, SEED + 7)
     paths["planner"] = phase_planner(SEED + 11)
     paths["codesign"] = phase_codesign(SEED + 13)
+    paths["causal_skip"] = phase_causal_skip(SEED + 52)
+    predicted = phase_dryrun(*dryrun)
+    paths["dryrun_card"] = phase_dryrun_card(predicted, SEED + 50)
+    paths["fsdp"] = phase_fsdp(predicted, SEED + 51)
 
     # each kernel's launches are read from the path that runs it
     main_path = {"flash_attention": ARCH, "flash_attention_bwd": "training",

@@ -33,6 +33,18 @@ tensors go as they are.
 ``all_to_all`` (with ``AllToAll``, its autograd form) is the MoE dispatch
 of expert parallelism (``repro_torch.models.moe``), built from the same
 permutes.
+
+Recording.  Every collective of this module is one call of the kind the
+JAX package's HLO would hold (all-reduce, all-gather, reduce-scatter,
+all-to-all, collective-permute).  While a recorder is registered
+(``launch.analysis.record_collectives``) each outermost call, the one a
+caller made and not one of the permutes or rings inside it, hands it its
+kind and its result (the reference's result-shape convention); with no
+recorder the check is one test of an empty list.
+
+A payload on the ``meta`` device (the dry-run: shapes only, on a
+``fake`` world) is counted and not sent: ``_permute`` adds its bytes to
+``sent_bytes`` and returns empty tensors of the sources' shapes.
 """
 from __future__ import annotations
 
@@ -46,11 +58,38 @@ import torch.distributed as dist
 from repro_torch.kernels.compress.ops import wire_codec
 
 
+_RECORDERS: List[Callable] = []  # launch.analysis.record_collectives
+_DEPTH = [0]  # collectives of this module running, outermost first
+
+
+def _recorded(kind) -> Callable:
+    """Hands ``kind`` (or ``kind(*args, **kwargs)``) and the result of
+    each outermost call of the decorated collective to every recorder."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            if not _RECORDERS:
+                return fn(*args, **kwargs)
+            _DEPTH[0] += 1
+            try:
+                out = fn(*args, **kwargs)
+            finally:
+                _DEPTH[0] -= 1
+            if _DEPTH[0] == 0:
+                name = kind(*args, **kwargs) if callable(kind) else kind
+                for record in list(_RECORDERS):
+                    record(name, out)
+            return out
+        return call
+    return wrap
+
+
 def _peer(group, r: int) -> int:
     """Global rank of group rank ``r`` (P2POp addresses global ranks)."""
     return r if group is None else dist.get_global_rank(group, r)
 
 
+@_recorded("collective-permute")
 def _permute(tensors: Sequence[torch.Tensor], perm, group
              ) -> Optional[List[torch.Tensor]]:
     """One ``lax.ppermute`` over ``perm`` (pairs of group ranks, each rank
@@ -64,6 +103,12 @@ def _permute(tensors: Sequence[torch.Tensor], perm, group
     if dst is None and src is None:
         return None
     device = tensors[0].device
+    if device.type == "meta":  # shapes only (the dry-run): no transport
+        if dst is not None:
+            _permute.sent_bytes += sum(t.numel() * t.element_size()
+                                       for t in tensors)
+        return [torch.empty_like(t) for t in tensors] \
+            if src is not None else None
     stage = device.type == "cuda" and dist.get_backend(group) == "gloo"
     if stage:  # the payload is ready: what follows is transport
         torch.cuda.current_stream(device).synchronize()
@@ -117,6 +162,7 @@ def _ring(p: int, step: int):
     return [(i, (i + step) % p) for i in range(p)]
 
 
+@_recorded("all-reduce")
 def ring_all_reduce(x: torch.Tensor, group=None) -> torch.Tensor:
     """Ring All-Reduce: (p-1) reduce-scatter + (p-1) all-gather hops.
     Per-rank wire bytes: 2 n (p-1)/p, bandwidth-optimal."""
@@ -143,6 +189,7 @@ def ring_all_reduce(x: torch.Tensor, group=None) -> torch.Tensor:
     return out.reshape(-1)[:n].reshape(x.shape)
 
 
+@_recorded("all-reduce")
 def bidir_ring_all_reduce(x: torch.Tensor, group=None) -> torch.Tensor:
     """Two opposite half-rings (NCCL dual-channel): halves the per-link
     bytes, using both directions of a link."""
@@ -175,6 +222,7 @@ def _ring_all_reduce_left(x: torch.Tensor, group) -> torch.Tensor:
     return out.reshape(-1)[:n].reshape(x.shape)
 
 
+@_recorded("all-gather")
 def ring_all_gather(x: torch.Tensor, group=None) -> torch.Tensor:
     """All-Gather via p-1 neighbour passes; result stacked on a new axis 0."""
     idx, p = _rank_size(group)
@@ -188,6 +236,7 @@ def ring_all_gather(x: torch.Tensor, group=None) -> torch.Tensor:
     return out
 
 
+@_recorded("reduce-scatter")
 def ring_reduce_scatter(x: torch.Tensor, group=None) -> torch.Tensor:
     """x: (p, ...) per-peer chunks; returns this rank's OWN reduced chunk
     (rank i ends holding sum_j x_j[i])."""
@@ -203,6 +252,7 @@ def ring_reduce_scatter(x: torch.Tensor, group=None) -> torch.Tensor:
     return buf
 
 
+@_recorded("all-reduce")
 def compressed_ring_all_reduce(x: torch.Tensor, group=None,
                                bits: int = 8) -> torch.Tensor:
     """Quantized ring All-Reduce (the executable face of the ``ring+q8`` /
@@ -245,6 +295,7 @@ def compressed_ring_all_reduce(x: torch.Tensor, group=None,
     return out.reshape(-1)[:n].reshape(x.shape).to(x.dtype)
 
 
+@_recorded("all-reduce")
 def latency_bound_all_reduce(x: torch.Tensor, group=None) -> torch.Tensor:
     """Recursive doubling: log2(p) exchanges of the FULL payload.
     Latency-optimal for tiny payloads."""
@@ -261,6 +312,7 @@ def latency_bound_all_reduce(x: torch.Tensor, group=None) -> torch.Tensor:
     return acc
 
 
+@_recorded("all-to-all")
 def all_to_all(x: torch.Tensor, group=None) -> torch.Tensor:
     """``lax.all_to_all(x, axis, split_axis=0, concat_axis=0,
     tiled=False)``: x is (p, ...), chunk i goes to rank i, and chunk j of
@@ -293,6 +345,7 @@ class AllToAll(torch.autograd.Function):
         return all_to_all(grad.contiguous(), ctx.group), None
 
 
+@_recorded("all-reduce")
 def torus2d_all_reduce(x: torch.Tensor, row_group, col_group
                        ) -> torch.Tensor:
     """Dimension-ordered 2D-torus All-Reduce: ring AR within ``row_group``
@@ -359,6 +412,9 @@ def _schedule_program(schedule) -> list:
     return program
 
 
+@_recorded(lambda x, schedule, *a, **k: {
+    "all_reduce": "all-reduce", "all_gather": "all-gather"}.get(
+        schedule.primitive, "collective-permute"))
 def synthesized_collective(x: torch.Tensor, schedule, group=None,
                            bits: Optional[int] = None) -> torch.Tensor:
     """Execute a synthesized schedule: one exchange per compiled sub-batch,

@@ -24,6 +24,10 @@ from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
                                                      attention_lse_ref,
                                                      attention_ref)
 
+# devices whose tensors take the plain version: the host, and the meta
+# device (shapes only: the dry-run, ``launch.dryrun``)
+PLAIN_DEVICES = ("cpu", "meta")
+
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attn_fwd.cu"
 BWD_SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attn_bwd.cu"
 
@@ -178,7 +182,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window=None):
     on CUDA tensors through ``FlashAttention`` where autograd records.
     """
     strides = _check(q, k, v, window)
-    if q.device.type == "cpu":
+    if q.device.type in PLAIN_DEVICES:
         return attention_ref(q, k, v, causal=causal, window=window)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or
                                     v.requires_grad):
@@ -195,7 +199,7 @@ def flash_attention_stats(q, k, v, *, causal: bool = True, window=None):
     lse), lse (B, H, Sq) f32 as ``ref.attention_lse_ref`` defines it (+inf
     for a row that keeps no key).  On CUDA tensors one launch of K1."""
     strides = _check(q, k, v, window)
-    if q.device.type == "cpu":
+    if q.device.type in PLAIN_DEVICES:
         return (attention_ref(q, k, v, causal=causal, window=window),
                 attention_lse_ref(q, k, causal=causal, window=window))
     return _launch_fwd(q, k, v, strides, causal, window, stats=True)
@@ -233,7 +237,7 @@ def flash_attention_bwd(q, k, v, o, lse, dout, *, causal: bool = True,
             not lse.is_contiguous():
         raise ValueError(f"lse must be contiguous f32 {(b, h, sq)}; got "
                          f"{lse.dtype} {tuple(lse.shape)}")
-    if q.device.type == "cpu":
+    if q.device.type in PLAIN_DEVICES:
         return attention_bwd_ref(q, k, v, o, lse, dout, causal=causal,
                                  window=window)
     device = q.device

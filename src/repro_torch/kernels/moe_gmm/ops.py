@@ -23,6 +23,10 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.moe_gmm.ref import moe_gmm_bwd_ref, moe_gmm_ref
 
+# devices whose tensors take the plain version: the host, and the meta
+# device (shapes only: the dry-run, ``launch.dryrun``)
+PLAIN_DEVICES = ("cpu", "meta")
+
 SOURCE = Path(__file__).resolve().parent / "csrc" / "moe_gmm.cu"
 BWD_SOURCE = Path(__file__).resolve().parent / "csrc" / "moe_gmm_bwd.cu"
 BWD_LAUNCHES_PER_CALL = 2  # dx, dw (a split dx sums its parts in-kernel)
@@ -197,7 +201,7 @@ class MoeGmm(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w, expanded):
         xe = _expand(x, w, expanded)
-        out = moe_gmm_ref(xe, w) if x.device.type == "cpu" \
+        out = moe_gmm_ref(xe, w) if x.device.type in PLAIN_DEVICES \
             else _launch_fwd(xe, w)
         ctx.save_for_backward(x, w)
         ctx.expanded = expanded
@@ -221,7 +225,7 @@ def moe_gmm(x, w, *, expanded: bool = False):
     autograd records."""
     xe = _expand(x, w, expanded)
     _check(xe, w)
-    if x.device.type == "cpu":
+    if x.device.type in PLAIN_DEVICES:
         return moe_gmm_ref(xe, w)
     if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
         return MoeGmm.apply(x, w, expanded)
@@ -251,7 +255,7 @@ def moe_gmm_bwd(x, w, dy, *, expanded: bool = False):
         raise ValueError(f"dy {dy.dtype} {tuple(dy.shape)} does not match "
                          f"the output of x {tuple(xe.shape)} and w "
                          f"{tuple(w.shape)}")
-    if x.device.type == "cpu":
+    if x.device.type in PLAIN_DEVICES:
         return moe_gmm_bwd_ref(x, w, dy, expanded=expanded)
     if x.device.type != "cuda":
         raise ValueError(f"no moe_gmm_bwd for device {x.device}")

@@ -23,6 +23,10 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ssd_scan.ref import (check_chunk, ssd_scan_bwd_ref,
                                               ssd_scan_ref)
 
+# devices whose tensors take the plain version: the host, and the meta
+# device (shapes only: the dry-run, ``launch.dryrun``)
+PLAIN_DEVICES = ("cpu", "meta")
+
 SOURCE = Path(__file__).resolve().parent / "csrc" / "ssd_scan_fwd.cu"
 BWD_SOURCE = Path(__file__).resolve().parent / "csrc" / "ssd_scan_bwd.cu"
 
@@ -143,7 +147,7 @@ class SsdScan(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, dt, a, b, c, chunk):
-        if x.device.type == "cpu":
+        if x.device.type in PLAIN_DEVICES:
             y, work = ssd_scan_ref(x, dt, a, b, c, chunk=chunk), None
         else:
             y, work = _launch_fwd(x, dt, a, b, c)
@@ -171,7 +175,7 @@ def ssd_scan(x, dt, a, b, c, *, chunk: int = 128):
     records (f32 only: the backward kernel's dtype)."""
     _check(x, dt, a, b, c)
     check_chunk(x.shape[2], chunk)
-    if x.device.type == "cpu":
+    if x.device.type in PLAIN_DEVICES:
         return ssd_scan_ref(x, dt, a, b, c, chunk=chunk)
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (x, dt, a, b, c)):
@@ -188,7 +192,7 @@ def ssd_scan_workspace(x, dt, a, b, c):
     K6, on CPU tensors the plain version and no workspace (the plain
     backward recomputes the states)."""
     _check(x, dt, a, b, c)
-    if x.device.type == "cpu":
+    if x.device.type in PLAIN_DEVICES:
         return ssd_scan_ref(x, dt, a, b, c, chunk=x.shape[2]), None
     return _launch_fwd(x, dt, a, b, c)
 
@@ -209,7 +213,7 @@ def ssd_scan_bwd(x, dt, a, b, c, dy, *, chunk: int = 128, workspace=None):
     if dy.shape != x.shape:
         raise ValueError(f"dy {tuple(dy.shape)} must have x's shape "
                          f"{tuple(x.shape)}")
-    if x.device.type == "cpu":
+    if x.device.type in PLAIN_DEVICES:
         return ssd_scan_bwd_ref(x, dt, a, b, c, dy, chunk=chunk)
     if x.device.type != "cuda":
         raise ValueError(f"no ssd_scan_bwd for device {x.device}")

@@ -146,18 +146,26 @@ def _plain_attention(q, k, v, *, q_pos, k_pos, causal, window):
 
 
 def _flash_attention_chunked(q, k, v, *, q_pos, k_pos, causal, window,
-                             q_chunk=_Q_CHUNK, kv_chunk=_KV_CHUNK):
+                             q_chunk=_Q_CHUNK, kv_chunk=_KV_CHUNK,
+                             causal_skip: bool = False,
+                             unroll: bool = False):
     """Flash-style online-softmax attention in plain PyTorch: port of the
-    JAX package's ``_flash_attention_jnp`` in its default form (a uniform
-    double loop over q and kv chunks, so every chunk pair is computed, as
-    the double ``lax.scan``; ``causal_skip`` and ``unroll`` are the
-    planner's and the dry-run's and are not ported).
+    JAX package's ``_flash_attention_jnp``.  By default a uniform double
+    loop over q and kv chunks, so every chunk pair is computed, as the
+    double ``lax.scan`` (twice the causal FLOPs).  ``causal_skip`` (with
+    ``causal``): each q chunk runs over the kv chunks it can see, from the
+    first that its window reaches to the last that holds a key at or below
+    its last position (exact-causal FLOPs, as the JAX package's Python loop
+    over q chunks).  ``unroll``: both chunks 2048, the JAX package's
+    dry-run cost mode (its loops are Python loops here anyway).
 
     q: (B,Sq,KV,G,hd); k, v: (B,Sk,KV,hd); q_pos (Sq,), k_pos (Sk,).
     Ragged tails are padded: padded keys get the largest int32 position
     (the causal mask drops them) and a validity mask (for the other masks);
     padded queries are cut from the output.  Scores and the running max,
     sum and accumulator are f32; the output takes q's dtype."""
+    if unroll:
+        q_chunk = kv_chunk = 2048
     b, sq, nkv, g, hd = q.shape
     sk = k.shape[1]
     vd = v.shape[-1]
@@ -181,7 +189,12 @@ def _flash_attention_chunked(q, k, v, *, q_pos, k_pos, causal, window,
         m = torch.full((b, q_chunk, nkv, g), NEG_INF, device=q.device)
         l = torch.zeros((b, q_chunk, nkv, g), device=q.device)
         acc = torch.zeros((b, q_chunk, nkv, g, vd), device=q.device)
-        for j in range(0, sk + sk_pad, kv_chunk):
+        lo, hi = 0, sk + sk_pad
+        if causal_skip and causal:
+            if window is not None:
+                lo = max(0, (i - int(window)) // kv_chunk * kv_chunk)
+            hi = min(-(-(i + q_chunk) // kv_chunk) * kv_chunk, hi)
+        for j in range(lo, hi, kv_chunk):
             kp = k_pos[j:j + kv_chunk]
             s = torch.einsum("bqkgh,bskh->bqkgs", q_blk,
                              k[:, j:j + kv_chunk].float()) * scale
@@ -214,13 +227,16 @@ def kernel_attention(q, k, v, *, causal, window=None):
     return out.transpose(1, 2)
 
 
-def multihead_attention(q, k, v, *, q_pos, k_pos, causal, window=None):
+def multihead_attention(q, k, v, *, q_pos, k_pos, causal, window=None,
+                        causal_skip=False, unroll=False):
     """q: (B,Sq,H,hd) ungrouped; k, v: (B,Sk,KV,hd).
 
     Dispatch rule of repro/models/attention.py:228-243 minus the TPU's
     Sq % 128 tiling condition (the CUDA kernel masks its own ragged edge),
     with the device in place of ``use_pallas``.  The kernel assumes
-    contiguous positions 0..S-1, as prefill and training give."""
+    contiguous positions 0..S-1, as prefill and training give.
+    ``causal_skip``, ``unroll``: the chunked path's (the kernel and the
+    plain path ignore them, as in the JAX package)."""
     if q.is_cuda and q.shape[1] == k.shape[1] and \
             q.shape[-1] == v.shape[-1]:
         return kernel_attention(q, k, v, causal=causal, window=window)
@@ -230,7 +246,9 @@ def multihead_attention(q, k, v, *, q_pos, k_pos, causal, window=None):
                                causal=causal, window=window)
     else:
         out = _flash_attention_chunked(qg, k, v, q_pos=q_pos, k_pos=k_pos,
-                                       causal=causal, window=window)
+                                       causal=causal, window=window,
+                                       causal_skip=causal_skip,
+                                       unroll=unroll)
     b, s = q.shape[:2]
     return out.reshape(b, s, q.shape[2], v.shape[-1])
 
@@ -286,9 +304,10 @@ def _tp_qkv(p: dict, cfg: ModelConfig, x, lay, ctx, kv_x=None):
 
 
 def gqa_forward(p: dict, cfg: ModelConfig, x, positions, *, window=None,
-                ctx=None):
+                ctx=None, causal_skip=False, unroll=False):
     """x: (B,S,d); positions: (S,) absolute positions.  ``ctx``: a
-    tensor-parallel context (the module's docstring)."""
+    tensor-parallel context (the module's docstring).  ``causal_skip``,
+    ``unroll``: ``multihead_attention``'s."""
     lay = _tp_heads(cfg, ctx)
     if lay is None:
         q, k, v = _project_qkv(p, cfg, x)
@@ -300,7 +319,8 @@ def gqa_forward(p: dict, cfg: ModelConfig, x, positions, *, window=None,
     k = apply_rope(k, positions, cfg.rope_theta)
     win = window if window is not None else cfg.sliding_window
     out = multihead_attention(q, k, v, q_pos=positions, k_pos=positions,
-                              causal=True, window=win)
+                              causal=True, window=win,
+                              causal_skip=causal_skip, unroll=unroll)
     return _out_proj(out, p, None if lay is None else ctx)
 
 
@@ -318,7 +338,7 @@ def _out_proj(out, p: dict, ctx):
 
 
 def cross_attention_forward(p: dict, cfg: ModelConfig, x, context,
-                            ctx=None):
+                            ctx=None, unroll=False):
     """Cross-attention: queries from x (B,S,d), keys and values from the
     context (B,T,d).  No RoPE, no mask (Llama-3.2-Vision / enc-dec
     style).  ``ctx``: as ``gqa_forward``'s (the module's docstring)."""
@@ -331,7 +351,8 @@ def cross_attention_forward(p: dict, cfg: ModelConfig, x, context,
             k, v = k[:, :, sel], v[:, :, sel]
     out = multihead_attention(
         q, k, v, q_pos=torch.arange(x.shape[1], device=x.device),
-        k_pos=torch.arange(context.shape[1], device=x.device), causal=False)
+        k_pos=torch.arange(context.shape[1], device=x.device), causal=False,
+        unroll=unroll)
     return _gated(p, _out_proj(out, p, None if lay is None else ctx))
 
 
@@ -480,11 +501,13 @@ def _tp_mla(cfg: ModelConfig, ctx):
 
 
 def mla_forward(p: dict, cfg: ModelConfig, x, positions, *, window=None,
-                ctx=None):
+                ctx=None, causal_skip=False, unroll=False):
     """Decompressed MLA for train and prefill: per-head K/V materialized
     from the latent, then ``multihead_attention`` (whose scale is
     1/sqrt(head_dim + qk_rope_head_dim), the q head dim).  ``ctx``: this
-    rank's heads (the module's docstring)."""
+    rank's heads (the module's docstring).  ``causal_skip``, ``unroll``:
+    ``multihead_attention``'s (MLA always takes the plain or chunked
+    path)."""
     tctx = _tp_mla(cfg, ctx)
     q_nope, q_rope = _mla_q(p, cfg, x, positions, tctx)
     c, k_rope = _mla_latent(p, cfg, x, positions, tctx)
@@ -494,7 +517,8 @@ def mla_forward(p: dict, cfg: ModelConfig, x, positions, *, window=None,
     k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
         *k_nope.shape[:3], cfg.qk_rope_head_dim)], dim=-1)
     out = multihead_attention(q, k, v, q_pos=positions, k_pos=positions,
-                              causal=True, window=window)
+                              causal=True, window=window,
+                              causal_skip=causal_skip, unroll=unroll)
     return _out_proj(out, p, tctx)
 
 

@@ -63,6 +63,10 @@ def init_moe(cfg: ModelConfig, dtype, device,
     lo, hi = expert_range(e, ctx) if sharded_experts(ctx) else (0, e)
 
     def stack(name, in_dim, out_dim):
+        if torch.device(device).type == "meta":  # shapes only: draw nothing
+            w = torch.empty((hi - lo, in_dim, out_dim), dtype=dtype,
+                            device=device)
+            return ffn_slice(name, w, ctx) if sharded_experts(ctx) else w
         kept = []
         for i in range(e):
             w = dense_init(in_dim, (out_dim,), dtype, device, generator)

@@ -56,6 +56,7 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm
 from repro_torch.models.modules import (dense_init, embed_init, ffn_apply,
                                         init_ffn, init_norm, rms_norm, whole)
+from repro_torch.parallel.fsdp import gather_tree
 from repro_torch.parallel.planner import (check_tensor_parallel, tp_cut,
                                           tp_layout)
 from repro_torch.parallel.tensor import copy_to_model, vocab_embed
@@ -213,43 +214,53 @@ def _tp_vocab(cfg: ModelConfig, ctx):
 
 
 def _embed(cfg: ModelConfig, params: dict, tokens, ctx):
+    embed = gather_tree(params["embed"], ctx, "/embed")
     lay = _tp_vocab(cfg, ctx)
     if lay is None:
-        return params["embed"][tokens]
+        return embed[tokens]
     lo, _ = lay.block(cfg.padded_vocab)
-    return vocab_embed(params["embed"], tokens, lo, ctx)
+    return vocab_embed(embed, tokens, lo, ctx)
 
 
 def _lm_head(cfg: ModelConfig, params: dict, x, ctx=None) -> torch.Tensor:
-    x = rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
+    x = rms_norm(x, gather_tree(params["final_norm"]["scale"], ctx,
+                                "/final_norm/scale"), cfg.norm_eps)
     lay = _tp_vocab(cfg, ctx)
     lo, hi = (0, cfg.padded_vocab) if lay is None else \
         lay.block(cfg.padded_vocab)
     if lay is not None:
         x = copy_to_model(x, ctx)
     if cfg.tie_embeddings:
-        logits = x @ params["embed"].T
+        logits = x @ gather_tree(params["embed"], ctx, "/embed").T
     else:
-        logits = x @ params["lm_head"]
+        logits = x @ gather_tree(params["lm_head"], ctx, "/lm_head")
     return logits + _vocab_bias(cfg, logits.dtype, logits.device, lo, hi)
 
 
 def _apply_layer(lp: dict, spec: LayerSpec, cfg: ModelConfig, x,
-                 positions, window, ctx=None, context=None, cross_lp=None
+                 positions, window, ctx=None, context=None, cross_lp=None,
+                 paths=("", "")
                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """One decoder (or encoder) layer over the whole sequence; returns (x,
     aux_loss), aux_loss None without a MoE FFN.  ``cross_lp``: the
-    encoder-decoder's cross block, after the self-attention."""
+    encoder-decoder's cross block, after the self-attention.  ``paths``:
+    where ``lp`` and ``cross_lp`` sit in the parameter tree, whose shards
+    an FSDP ``ctx`` gathers here (under ``remat`` again in the
+    recompute)."""
+    lp = gather_tree(lp, ctx, paths[0])
+    if cross_lp is not None:
+        cross_lp = gather_tree(cross_lp, ctx, paths[1])
     h = rms_norm(x, lp["norm1"]["scale"], cfg.norm_eps)
     if spec.mixer == "attn" and cfg.attention == "mla":
         h = attn.mla_forward(lp["mixer"], cfg, h, positions, window=window,
-                             ctx=ctx)
+                             ctx=ctx, **_chunk_flags(ctx))
     elif spec.mixer == "attn":
         h = attn.gqa_forward(lp["mixer"], cfg, h, positions, window=window,
-                             ctx=ctx)
+                             ctx=ctx, **_chunk_flags(ctx))
     elif spec.mixer == "cross_attn":
         h = attn.cross_attention_forward(lp["mixer"], cfg, h, context,
-                                         ctx=ctx)
+                                         ctx=ctx,
+                                         **_chunk_flags(ctx, cross=True))
     else:
         h = ssm.mamba_forward(lp["mixer"], cfg, h, ctx=ctx)
     x = x + h
@@ -266,6 +277,19 @@ def _apply_layer(lp: dict, spec: LayerSpec, cfg: ModelConfig, x,
             y = ffn_apply(lp["ffn"], h2, cfg.ffn_act, _tp_ffn(cfg, ctx))
         x = x + y
     return x, aux
+
+
+def _chunk_flags(ctx, cross: bool = False) -> dict:
+    """The chunked attention's keywords that the context sets
+    (``ParallelCtx.causal_skip``, ``unroll_layers``): ``causal_skip`` and
+    ``unroll`` where set (cross-attention takes ``unroll`` only), none
+    where not."""
+    flags = {}
+    if getattr(ctx, "causal_skip", False) and not cross:
+        flags["causal_skip"] = True
+    if getattr(ctx, "unroll_layers", False):
+        flags["unroll"] = True
+    return flags
 
 
 def _tp_ffn(cfg: ModelConfig, ctx):
@@ -320,9 +344,10 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     win = window if window is not None else cfg.sliding_window
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for spec, lp, cross_lp in zip(cfg.layer_specs(), params["layers"],
-                                  _cross_blocks(cfg, params)):
-        args = (lp, spec, cfg, x, positions, win, ctx, context, cross_lp)
+    for i, (spec, lp, cross_lp) in enumerate(zip(
+            cfg.layer_specs(), params["layers"], _cross_blocks(cfg, params))):
+        args = (lp, spec, cfg, x, positions, win, ctx, context, cross_lp,
+                (f"/layers/{i}", f"/cross/{i}"))
         if remat:
             x, a = checkpoint(_apply_layer, *args, use_reentrant=False)
         else:
@@ -344,13 +369,16 @@ def encode(cfg: ModelConfig, params: dict, frames: torch.Tensor, *,
     enc = params["encoder"]
     x = _context(cfg, params, frames)
     positions = torch.arange(x.shape[1], device=x.device)
-    for lp in enc["layers"]:
-        args = (lp, ENCODER_SPEC, cfg, x, positions, cfg.sliding_window, ctx)
+    for i, lp in enumerate(enc["layers"]):
+        args = (lp, ENCODER_SPEC, cfg, x, positions, cfg.sliding_window, ctx,
+                None, None, (f"/encoder/layers/{i}", ""))
         if remat:
             x, _ = checkpoint(_apply_layer, *args, use_reentrant=False)
         else:
             x, _ = _apply_layer(*args)
-    return rms_norm(x, enc["final_norm"]["scale"], cfg.norm_eps)
+    return rms_norm(x, gather_tree(enc["final_norm"]["scale"], ctx,
+                                   "/encoder/final_norm/scale"),
+                    cfg.norm_eps)
 
 
 def _init_layer_cache(cfg: ModelConfig, spec: LayerSpec, lp: dict,
@@ -370,7 +398,7 @@ def _init_layer_cache(cfg: ModelConfig, spec: LayerSpec, lp: dict,
 
 def init_cache(cfg: ModelConfig, params: dict, batch: int, max_len: int,
                dtype=torch.float32, *, context=None,
-               window: Optional[int] = None) -> dict:
+               window: Optional[int] = None, ctx=None) -> dict:
     """Decode cache on the parameters' device, one dict per layer, slot
     (batch) axis first: {"k", "v"} for GQA attention, {"c", "k_rope"} (the
     latent) for MLA, conv histories and the SSM state for Mamba, and for a
@@ -380,23 +408,30 @@ def init_cache(cfg: ModelConfig, params: dict, batch: int, max_len: int,
     f32 whatever the parameters' dtype, like the JAX package (the SSM
     state is f32 always).  Each layer's cache has the KV heads of its
     ``wk`` and the SSM heads of its ``A_log``: on a tensor-parallel rank's
-    parameters, that rank's part (``parallel.planner.cache_specs``)."""
+    parameters, that rank's part (``parallel.planner.cache_specs``).  An
+    FSDP ``ctx`` gathers each layer's shards first."""
     win = window if window is not None else cfg.sliding_window
     device = params["embed"].device
     context = _context(cfg, params, context)
     cache = {"layers": [
-        _init_layer_cache(cfg, spec, lp, batch, max_len, dtype, device,
-                          context, win)
-        for spec, lp in zip(cfg.layer_specs(), params["layers"])]}
+        _init_layer_cache(cfg, spec, gather_tree(lp, ctx, f"/layers/{i}"),
+                          batch, max_len, dtype, device, context, win)
+        for i, (spec, lp) in enumerate(zip(cfg.layer_specs(),
+                                           params["layers"]))]}
     if cfg.is_encoder_decoder:
-        cache["cross"] = [attn.init_cross_cache(cp, cfg, context, dtype)
-                          for cp in params["cross"]]
+        cache["cross"] = [
+            attn.init_cross_cache(gather_tree(cp, ctx, f"/cross/{i}"), cfg,
+                                  context, dtype)
+            for i, cp in enumerate(params["cross"])]
     return cache
 
 
 def _decode_layer(lp: dict, spec: LayerSpec, cfg: ModelConfig, x, lcache,
-                  pos, window, ctx=None, cross_lp=None, cross_cache=None
-                  ) -> torch.Tensor:
+                  pos, window, ctx=None, cross_lp=None, cross_cache=None,
+                  i: int = 0) -> torch.Tensor:
+    lp = gather_tree(lp, ctx, f"/layers/{i}")
+    if cross_lp is not None:
+        cross_lp = gather_tree(cross_lp, ctx, f"/cross/{i}")
     h = rms_norm(x, lp["norm1"]["scale"], cfg.norm_eps)
     if spec.mixer == "attn" and cfg.attention == "mla":
         h, _ = attn.mla_decode(lp["mixer"], cfg, h, lcache, pos, ctx=ctx)
@@ -439,8 +474,9 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict,
     win = window if window is not None else cfg.sliding_window
     x = _embed(cfg, params, tokens, ctx)
     cross_caches = cache.get("cross") or [None] * cfg.num_layers
-    for spec, lp, lc, cross_lp, cc in zip(
+    for i, (spec, lp, lc, cross_lp, cc) in enumerate(zip(
             cfg.layer_specs(), params["layers"], cache["layers"],
-            _cross_blocks(cfg, params), cross_caches):
-        x = _decode_layer(lp, spec, cfg, x, lc, pos, win, ctx, cross_lp, cc)
+            _cross_blocks(cfg, params), cross_caches)):
+        x = _decode_layer(lp, spec, cfg, x, lc, pos, win, ctx, cross_lp, cc,
+                          i)
     return _lm_head(cfg, params, x, ctx), cache

@@ -72,7 +72,9 @@ def gather_opt_state(state: Dict[str, Any], ctx: ParallelCtx, params: Any
 def global_norm(tree, *, acc: torch.dtype = torch.float64,
                 ctx: Optional[ParallelCtx] = None,
                 split: Optional[Sequence[bool]] = None,
-                sharded: bool = False) -> torch.Tensor:
+                sharded: bool = False,
+                data_split: Optional[Sequence[bool]] = None
+                ) -> torch.Tensor:
     """sqrt of the sum of squares of every leaf, returned in f32.  Each
     leaf's norm accumulates in ``acc``, f64 by default: a departure from
     the JAX package, whose norm is f32 throughout.  PyTorch's f32 norm on
@@ -88,18 +90,39 @@ def global_norm(tree, *, acc: torch.dtype = torch.float64,
     part of a leaf split over the model axis (``parallel.model_flags``):
     those squares are summed over ``ctx``'s model ranks, the other leaves'
     (the same on every model rank) counted once.  ``sharded``: the leaves are this rank's
-    ZeRO-1 shard, and the sum is taken over ``ctx``'s data ranks too."""
+    ZeRO-1 shard, and the sum is taken over ``ctx``'s data ranks too.
+    ``data_split``: one flag a leaf, set where the leaf is this rank's FSDP
+    shard (``parallel.fsdp.sharded_flags``), whose squares are summed
+    over the data ranks as well."""
     leaves = tree if isinstance(tree, list) else list(param_leaves(tree))
     norms = torch.stack([_norm(t, acc) for t in leaves])
-    if split is not None and ctx is not None and ctx.tp > 1:
-        mask = torch.tensor(split, device=norms.device)
-        squares = norms[~mask].square().sum() + ctx.model_allsum(
-            norms[mask].square().sum())
+    model = split is not None and ctx is not None and ctx.tp > 1
+    if data_split is not None and ctx is not None and ctx.dp > 1:
+        sq = norms.square()
+        m = split if model else [False] * len(leaves)
+
+        def part(want_m, want_d):
+            return _take(sq, [a == want_m and b == want_d
+                              for a, b in zip(m, data_split)]).sum()
+        both = torch.stack([part(True, False), part(True, True)])
+        both = ctx.model_allsum(both) if model else both
+        squares = part(False, False) + both[0] + ctx.allsum(
+            part(False, True) + both[1])
+    elif model:
+        squares = _take(norms, [not f for f in split]).square().sum() + \
+            ctx.model_allsum(_take(norms, split).square().sum())
     else:
         squares = norms.square().sum()
     if sharded:  # each rank's sum, then theirs
         squares = ctx.allsum(squares)
     return squares.sqrt().to(torch.float32)
+
+
+def _take(x: torch.Tensor, flags: Sequence[bool]) -> torch.Tensor:
+    """The entries of ``x`` whose flag is set, in order (an index list, not
+    a boolean mask, whose result size a meta tensor cannot know)."""
+    idx = [i for i, f in enumerate(flags) if f]
+    return x[torch.tensor(idx, dtype=torch.long, device=x.device)]
 
 
 # values of one piece of the update: the update holds four f32 temporaries
@@ -181,17 +204,19 @@ def _updates(flat_p: List[torch.Tensor], flat_g: Sequence[torch.Tensor],
 def adamw_update(params: Any, grads: Any, state: Dict[str, Any],
                  tcfg: TrainConfig, lr: torch.Tensor,
                  ctx: Optional[ParallelCtx] = None,
-                 split: Optional[Sequence[bool]] = None
+                 split: Optional[Sequence[bool]] = None,
+                 data_split: Optional[Sequence[bool]] = None
                  ) -> Tuple[Any, Dict[str, Any], Dict[str, torch.Tensor]]:
     """One clipped AdamW step.  ``grads``: a tree like ``params``, or the
     list of its leaves in order.  Updates params, m and v in place and
     returns (params, state, {"grad_norm": the norm before clipping}).
-    ``ctx``, ``split``: a model-parallel rank's (``global_norm``)."""
+    ``ctx``, ``split``, ``data_split``: a model-parallel or FSDP rank's
+    (``global_norm``)."""
     flat_p = list(param_leaves(params))
     flat_g: Sequence[torch.Tensor] = grads if isinstance(grads, list) \
         else list(param_leaves(grads))
     m, v = list(param_leaves(state["m"])), list(param_leaves(state["v"]))
-    gnorm = global_norm(flat_g, ctx=ctx, split=split)
+    gnorm = global_norm(flat_g, ctx=ctx, split=split, data_split=data_split)
     step = state["step"] + 1
     with torch.no_grad():
         for group in _pieces(flat_p, flat_g, m, v):

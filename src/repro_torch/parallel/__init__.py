@@ -1,8 +1,8 @@
 """Parallel strategies of the port (``repro.parallel``): the data axes,
-plain DP and ZeRO-1, tensor parallelism of every layer over a model axis
-and expert parallelism of the MoE layers beside it (``planner``,
-``tensor``), collective matmul (``collective_matmul``) and the GPipe and
-interleaved pipelines (``pipeline``)."""
+plain DP, ZeRO-1 and FSDP (``fsdp``), tensor parallelism of every layer
+over a model axis and expert parallelism of the MoE layers beside it
+(``planner``, ``tensor``), collective matmul (``collective_matmul``) and
+the GPipe and interleaved pipelines (``pipeline``)."""
 from repro_torch.parallel.planner import (  # noqa: F401
     BUCKET_BYTES,
     FlatLayout,

@@ -25,8 +25,8 @@ instead, and the step and the layers call the collectives themselves
   the port's trees: one tuple of mesh axes (or ``None``) a dim;
   ``tp_layout`` is what they decide for the model code of a rank;
   ``zero1_spec`` and ``apply_fsdp`` are the JAX package's optimizer-state
-  and FSDP specs on those tuples (specs only: FSDP's gathers on demand are
-  not run, ROADMAP item 13b);
+  and FSDP specs on those tuples (``parallel.fsdp`` runs the latter:
+  ``make_ctx(..., fsdp=True)``);
 - ``microbatch_rows`` is the batch shard of ``batch_specs``;
 - ``shard_params`` cuts a rank's part out of the full parameters (under
   expert parallelism its experts, model rank m holding experts
@@ -75,7 +75,11 @@ class ParallelCtx:
     over the model axis (``models.moe.moe_apply``), with the JAX package's
     capacity factors and ``ep_weight_stationary`` decode; a model axis
     splits every other leaf that ``param_specs`` puts on it
-    (``tensor_parallel``), with or without it.
+    (``tensor_parallel``), with or without it.  ``causal_skip`` and
+    ``unroll_layers``: the chunked attention's (``models.attention``).
+    ``fsdp``: where set, each leaf's dim that ``apply_fsdp`` shards over
+    the data axes, by path (``parallel.fsdp.fsdp_layout``): the leaves are
+    this rank's shards, gathered before each layer runs.
     """
 
     group: Any = None
@@ -92,6 +96,9 @@ class ParallelCtx:
     decode_capacity_factor: float = 4.0
     ep_weight_stationary: bool = False
     grad_all_reduce: str = "ring"
+    causal_skip: bool = False
+    unroll_layers: bool = False
+    fsdp: Optional[dict] = None
 
     @property
     def ep_axis(self) -> str:
@@ -139,7 +146,9 @@ def make_ctx(group, mesh_cfg: MeshConfig, *, model_group=None,
              decode_capacity_factor: float = 4.0,
              ep_weight_stationary: bool = False,
              grad_all_reduce: str = "ring",
-             cfg: Optional[ModelConfig] = None) -> ParallelCtx:
+             cfg: Optional[ModelConfig] = None,
+             causal_skip: bool = False, unroll_layers: bool = False,
+             fsdp: bool = False) -> ParallelCtx:
     """The context of this rank in ``group`` (the data axes of
     ``mesh_cfg``) and ``model_group`` (its model axis);
     ``repro_torch.launch.mesh.mesh_groups`` builds both.
@@ -150,7 +159,9 @@ def make_ctx(group, mesh_cfg: MeshConfig, *, model_group=None,
     with a model axis of 1 expert parallelism would only add capacity drops
     (the JAX package's default, ``True``, drops tokens there too; pass
     ``use_ep=True`` for that).  A model axis without it on a MoE config
-    raises (``check_tensor_parallel``: ROADMAP item 8c)."""
+    raises (``check_tensor_parallel``: ROADMAP item 8c).  ``fsdp``
+    (which needs ``cfg``): the parameters are sharded over the data axes
+    as ``apply_fsdp`` says (``parallel.fsdp``)."""
     if grad_all_reduce not in prim.IMPLEMENTATIONS:
         raise KeyError(f"unknown all-reduce {grad_all_reduce!r}; known: "
                        f"{sorted(prim.IMPLEMENTATIONS)}")
@@ -167,6 +178,12 @@ def make_ctx(group, mesh_cfg: MeshConfig, *, model_group=None,
                    or dist.get_world_size(model_group) != tp):
         raise ValueError(f"a model axis of {tp} needs its model group "
                          f"(launch.mesh.mesh_groups)")
+    if fsdp and cfg is None:
+        raise ValueError("make_ctx(fsdp=True) needs the config")
+    layout = None
+    if fsdp:
+        from repro_torch.parallel.fsdp import fsdp_layout
+        layout = fsdp_layout(cfg, mesh_cfg)
     return ParallelCtx(
         group=group, rank=dist.get_rank(group), dp=dp,
         data_axes=tuple(mesh_cfg.data_axes),
@@ -176,7 +193,8 @@ def make_ctx(group, mesh_cfg: MeshConfig, *, model_group=None,
         remat=remat, use_ep=use_ep, capacity_factor=capacity_factor,
         decode_capacity_factor=decode_capacity_factor,
         ep_weight_stationary=ep_weight_stationary,
-        grad_all_reduce=grad_all_reduce)
+        grad_all_reduce=grad_all_reduce, causal_skip=causal_skip,
+        unroll_layers=unroll_layers, fsdp=layout)
 
 
 # ---------------------------------------------------------------------------
@@ -415,8 +433,8 @@ def apply_fsdp(specs, shapes, mesh_cfg: MeshConfig):
     """The JAX package's FSDP (ZeRO-3) specs: each leaf of ``specs`` (the
     port's tree of ``param_specs``) also over the data axes on its first
     free dim they divide (``zero1_spec``; ``shapes``: the leaves' full
-    shapes).  Specs only: the port does not run FSDP's gathers of the
-    weights on demand, which go with the dry-run (ROADMAP item 13b)."""
+    shapes).  ``parallel.fsdp`` shards the leaves so and gathers them on
+    demand, as XLA does under these specs."""
     return _unflatten_like(shapes, [
         zero1_spec(sp, tuple(t.shape), mesh_cfg)
         for (_, sp), (_, t) in zip(_with_paths(specs), _with_paths(shapes))])

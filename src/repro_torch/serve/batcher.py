@@ -49,7 +49,8 @@ class ContinuousBatcher:
         self.max_len = max_len
         self.device = params["embed"].device
         self.cache = init_cache(cfg, params, max_slots, max_len,
-                                dtype=cache_dtype, context=context)
+                                dtype=cache_dtype, context=context,
+                                ctx=ctx)
         self.pos = np.zeros(max_slots, np.int64)  # next write position
         self.slot_req: List[Optional[Request]] = [None] * max_slots
         self.slot_pending: List[List[int]] = [[] for _ in range(max_slots)]

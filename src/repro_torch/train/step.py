@@ -48,6 +48,16 @@ own leaves, and the clip's norm sums the parts' squares over the model
 ranks (``parallel.model_flags``, ``optim.global_norm``).  An
 encoder-decoder's encoder runs inside the loss on the same context, as
 the JAX step's ``encode(..., ctx=ctx)``.
+
+FSDP (a context of ``make_ctx(..., fsdp=True)``): the parameters are this
+rank's shards over the data axes (``parallel.fsdp``), the model gathers
+each layer's before it runs, and the gather's backward reduce-scatters the
+gradient: each sharded leaf's gradient comes out of the backward already
+summed over the data ranks, on this rank's shard.  The step all-reduces
+the gradient of the leaves left replicated (no free dim the data axes
+divide), sums the clip norm's squares of the shards over the data ranks,
+and runs AdamW on the shards, its m and v shaped like them
+(``init_opt_state(params)``, without the ZeRO-1 ``ctx``).
 """
 from __future__ import annotations
 
@@ -61,6 +71,7 @@ from repro_torch.core.tree import param_leaves, tree_map
 from repro_torch.models.transformer import encode, forward
 from repro_torch.optim.adamw import adamw_shard_update, adamw_update
 from repro_torch.optim.schedule import lr_schedule
+from repro_torch.parallel.fsdp import sharded_flags
 from repro_torch.parallel.planner import (ParallelCtx, flat_layout,
                                           microbatch_rows, model_flags,
                                           tp_layout)
@@ -107,7 +118,8 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
     remat = tcfg.remat
     nmb = max(1, tcfg.microbatches)
     dp = ctx.dp if ctx is not None else 1
-    zero1 = dp > 1 and tcfg.zero1
+    fsdp = ctx is not None and bool(ctx.fsdp)
+    zero1 = dp > 1 and tcfg.zero1 and not fsdp
     split = ctx is not None and ctx.tp > 1
     lay = tp_layout(cfg, ctx)
     vocab_ctx = ctx if lay is not None and lay.vocab else None
@@ -134,6 +146,7 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
                              "ctx)")
         device = params["embed"].device
         sharded = model_flags(params, ctx, cfg) if split else None
+        dsplit = sharded_flags(params, ctx) if fsdp else None
         tokens, labels = _on(batch["tokens"], device), \
             _on(batch["labels"], device)
         context = batch.get("context")
@@ -178,7 +191,9 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
             params, opt_state, opt_metrics = _zero1_update(
                 params, grads, opt_state, tcfg, lr, ctx, grad_hook, sharded)
         else:
-            if dp > 1:
+            if fsdp:
+                grads = _sync_replicated(grads, dsplit, ctx)
+            elif dp > 1:
                 layout = flat_layout(grads, ctx)
                 flat = layout.flatten(grads)
                 del grads
@@ -188,12 +203,30 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
             if grad_hook is not None:
                 grad_hook("synced", grads)
             params, opt_state, opt_metrics = adamw_update(
-                params, grads, opt_state, tcfg, lr, ctx, sharded)
+                params, grads, opt_state, tcfg, lr, ctx, sharded,
+                data_split=dsplit)
         metrics = {"ce": ce, "aux": aux, "loss": loss, "lr": lr,
                    **opt_metrics}
         return params, opt_state, metrics
 
     return train_step
+
+
+def _sync_replicated(grads: list, dsplit, ctx) -> list:
+    """FSDP: the gradients of the leaves that are not sharded over the
+    data axes (``dsplit`` False) all-reduced over the data group, in the
+    planner's buckets; the shards' gradients are sums already."""
+    rep = [i for i, f in enumerate(dsplit) if not f]
+    if ctx.dp == 1 or not rep:
+        return grads
+    sub = [grads[i] for i in rep]
+    layout = flat_layout(sub, ctx)
+    synced = layout.unflatten(layout.all_reduce(
+        layout.flatten(sub), ctx.grad_all_reduce, ctx.group))
+    grads = list(grads)
+    for i, g in zip(rep, synced):
+        grads[i] = g
+    return grads
 
 
 def _zero1_update(params, grads, opt_state, tcfg, lr, ctx, grad_hook,
