@@ -1122,6 +1122,20 @@ GMM_DS_PREFILL = (160, 512, 5120, 1536, True)
 GMM_DS_PREFILL_DOWN = (160, 512, 1536, 5120, False)
 GMM_DS_DECODE = (160, 4, 5120, 1536, True)
 GMM_DS_PARITY_PREFILL = (160, 256, 5120, 1536, True)
+# a model axis of 4 without expert parallelism (moe_dense): a rank's E/4
+# experts over all of its tokens, dbrx's prefill (B 2 x S 256) and 4-slot
+# decode, deepseek's prefill (tp_mla: B 2 x S 256)
+GMM_DENSE_PREFILL = (4, 512, 6144, 10752, True)
+GMM_DENSE_PREFILL_DOWN = (4, 512, 10752, 6144, False)
+GMM_DENSE_DECODE = (4, 4, 6144, 10752, True)
+GMM_DS_DENSE_PREFILL = (40, 512, 5120, 1536, True)
+GMM_DS_DENSE_PREFILL_DOWN = (40, 512, 1536, 5120, False)
+GMM_PATH_SHAPES = (GMM_DECODE, GMM_DECODE_DOWN, GMM_PREFILL,
+                   GMM_PARITY_PREFILL, GMM_EP_PREFILL, GMM_EP_WS,
+                   GMM_DS_PREFILL, GMM_DS_PREFILL_DOWN, GMM_DS_DECODE,
+                   GMM_DS_PARITY_PREFILL, GMM_DENSE_PREFILL,
+                   GMM_DENSE_PREFILL_DOWN, GMM_DENSE_DECODE,
+                   GMM_DS_DENSE_PREFILL, GMM_DS_DENSE_PREFILL_DOWN)
 
 
 def _gmm_inputs(rng, gen, e, c, d, f, expand, dtype, w_scale):
@@ -1158,13 +1172,13 @@ def phase_gmm_kernel(rng) -> dict:
               (GMM_DS_PREFILL_DOWN, torch.bfloat16),
               (GMM_DS_DECODE, torch.bfloat16),
               (GMM_DS_PARITY_PREFILL, torch.float32)]
+    cases += [(s, torch.bfloat16) for s in (
+        GMM_DENSE_PREFILL, GMM_DENSE_PREFILL_DOWN, GMM_DENSE_DECODE,
+        GMM_DS_DENSE_PREFILL, GMM_DS_DENSE_PREFILL_DOWN)]
     errs = {}
     for shape, dtype in cases:
         e, c, d, f, expand = shape
-        path = shape in (GMM_DECODE, GMM_DECODE_DOWN, GMM_PREFILL,
-                         GMM_PARITY_PREFILL, GMM_EP_PREFILL, GMM_EP_WS,
-                         GMM_DS_PREFILL, GMM_DS_PREFILL_DOWN, GMM_DS_DECODE,
-                         GMM_DS_PARITY_PREFILL)
+        path = shape in GMM_PATH_SHAPES
         # the path's weights have the model's scale (dense_init: 1/sqrt(d));
         # the sweep's that of tests/test_kernels.py:108
         x, w = _gmm_inputs(rng, gen, *shape, dtype,
@@ -1193,6 +1207,11 @@ def phase_gmm_kernel(rng) -> dict:
                 (GMM_DS_PREFILL, torch.bfloat16): "wgmma",
                 (GMM_DS_PREFILL_DOWN, torch.bfloat16): "wgmma",
                 (GMM_DS_DECODE, torch.bfloat16): "wgmma_swap",
+                (GMM_DENSE_PREFILL, torch.bfloat16): "wgmma",
+                (GMM_DENSE_PREFILL_DOWN, torch.bfloat16): "wgmma",
+                (GMM_DENSE_DECODE, torch.bfloat16): "wgmma_swap",
+                (GMM_DS_DENSE_PREFILL, torch.bfloat16): "wgmma",
+                (GMM_DS_DENSE_PREFILL_DOWN, torch.bfloat16): "wgmma",
                 (_GMM_UNALIGNED, torch.bfloat16): "mma_sync"
                 }.get((shape, dtype))
         check(want in (None, variant),
@@ -1207,7 +1226,11 @@ def phase_gmm_kernel(rng) -> dict:
                                ("prefill", GMM_PREFILL, 5),
                                ("ep_prefill", GMM_EP_PREFILL, 10),
                                ("ep_ws_decode", GMM_EP_WS, 20),
-                               ("deepseek_prefill", GMM_DS_PREFILL, 5)):
+                               ("deepseek_prefill", GMM_DS_PREFILL, 5),
+                               ("dense_prefill", GMM_DENSE_PREFILL, 5),
+                               ("dense_decode", GMM_DENSE_DECODE, 20),
+                               ("deepseek_dense_prefill",
+                                GMM_DS_DENSE_PREFILL, 5)):
         x, w = _gmm_inputs(rng, gen, *shape, torch.bfloat16,
                            shape[2] ** -0.5)
         ms = cuda_ms(lambda: moe_gmm(x, w), iters)
@@ -1368,6 +1391,9 @@ def phase_ssd_bwd_kernel(rng) -> dict:
 GMM_BWD_PATH = (16, 512, 6144, 10752, True)
 GMM_BWD_DOWN = (16, 512, 10752, 6144, False)
 GMM_BWD_EP = (8, 160, 6144, 10752, False)
+# a rank of the (1, 2) training step without expert parallelism: 8 of
+# dbrx's 16 experts over all B 2 x S 256 tokens
+GMM_BWD_DENSE = (8, 512, 6144, 10752, True)
 _GMM_BWD_SWEEP = [(3, 77, 100, 60, True), (4, 256, 512, 384, False),
                   (160, 8, 64, 48, True), (2, 63, 200, 1000, False)]
 # the path shapes take the wgmma variant (ops.gmm_bwd_variant); its two
@@ -1412,7 +1438,7 @@ def phase_gmm_bwd_kernel(rng) -> dict:
     cases = [(s, dt) for dt in (torch.float32, torch.bfloat16)
              for s in _GMM_BWD_SWEEP]
     cases += [(GMM_BWD_PATH, torch.bfloat16), (GMM_BWD_DOWN, torch.bfloat16),
-              (GMM_BWD_EP, torch.bfloat16)]
+              (GMM_BWD_EP, torch.bfloat16), (GMM_BWD_DENSE, torch.bfloat16)]
     errs = {}
     for shape, dtype in cases:
         e, c, d, f, expand = shape
@@ -1462,7 +1488,7 @@ def phase_gmm_bwd_kernel(rng) -> dict:
         check(bitwise, f"moe_gmm_bwd: two calls differ at {shape}")
         check(per_call == GMM_BWD_LAUNCHES,
               f"moe_gmm_bwd launched {per_call} kernels a call")
-        if shape in (GMM_BWD_PATH, GMM_BWD_DOWN, GMM_BWD_EP):
+        if shape in (GMM_BWD_PATH, GMM_BWD_DOWN, GMM_BWD_EP, GMM_BWD_DENSE):
             check(variant == "wgmma",
                   f"moe_gmm_bwd took {variant} at the path shape {shape}")
         del x, w, dy, got, refs
@@ -1471,7 +1497,8 @@ def phase_gmm_bwd_kernel(rng) -> dict:
     timings = {}
     for name, shape, iters in (("training", GMM_BWD_PATH, 3),
                                ("training_down", GMM_BWD_DOWN, 3),
-                               ("ep_training", GMM_BWD_EP, 5)):
+                               ("ep_training", GMM_BWD_EP, 5),
+                               ("dense_training", GMM_BWD_DENSE, 3)):
         e, c, d, f, expand = shape
         x, w, dy = _gmm_bwd_inputs(rng, gen, *shape, torch.bfloat16)
         xe = x.expand(e, c, d) if expand else x
@@ -3696,7 +3723,7 @@ EP_DECODE_DIFF_BOUND = 2.3
 def _ep_ctx(cfg, mesh_shape, **kw):
     mesh_cfg = MeshConfig(tuple(mesh_shape))
     dgroup, mgroup = mesh_groups(mesh_cfg)
-    return make_ctx(dgroup, mesh_cfg, model_group=mgroup, **kw)
+    return make_ctx(dgroup, mesh_cfg, model_group=mgroup, cfg=cfg, **kw)
 
 
 def _top2(logits, v: int):
@@ -3735,7 +3762,9 @@ def _ep_teacher_decode(cfg, params, serve, tokens, device, context=None):
 def _ep_reference(cfg, seed: int, tokens, first, steps: int, emulate=None):
     """The single-card dense run of ``cfg`` drawn from ``seed`` on the
     card: prefill logits of ``tokens`` and ``steps`` greedy decode steps of
-    ``EP_SLOTS`` slots from the ``first`` tokens; with ``emulate`` (a
+    ``EP_SLOTS`` slots from the ``first`` tokens, each with every token's
+    router gap (``_router_gaps``, the least over the MoE layers; G3's ties
+    of the runs without expert parallelism); with ``emulate`` (a
     capacity factor) also the prefill through ``moe_ep_train_ref`` on
     ``EP_RANKS`` model ranks.  Returns host tensors; frees the card."""
     dtype = torch.float32 if emulate is not None else torch.bfloat16
@@ -3743,16 +3772,28 @@ def _ep_reference(cfg, seed: int, tokens, first, steps: int, emulate=None):
     params = init_params(cfg, gen, dtype=dtype, device=DEVICE)
     out = {}
     with torch.no_grad():
-        out["prefill"] = make_prefill(cfg)(params, tokens.to(DEVICE)).cpu()
+        logits, gaps, _ = _router_gaps(lambda: make_prefill(cfg)(
+            params, tokens.to(DEVICE)))
+        out["prefill"] = logits.cpu()
+        out["prefill_gap"] = torch.stack(gaps).amin(0)
+        del logits
         serve = make_serve_step(cfg)
         cache = init_cache(cfg, params, EP_SLOTS, steps, dtype=dtype)
         tok, fed, logits = first.to(DEVICE), [first], []
-        for t in range(steps):
-            tok, lg, cache = serve(params, cache, tok, t)
-            fed.append(tok.cpu())
-            logits.append(lg[:, 0].cpu())
+
+        def decode():
+            nonlocal tok, cache
+            for t in range(steps):
+                tok, lg, cache = serve(params, cache, tok, t)
+                fed.append(tok.cpu())
+                logits.append(lg[:, 0].cpu())
+
+        _, gaps, _ = _router_gaps(decode)
         out["decode"] = torch.stack(logits, 1)
         out["fed"] = torch.cat(fed, 1)
+        # (steps x MoE layers, slots, 1) -> (slots, steps)
+        out["decode_gap"] = torch.stack(gaps).view(
+            steps, -1, EP_SLOTS).amin(1).T
         if emulate is not None:
             dropped = []
             real = moe_mod.moe_apply
@@ -3780,16 +3821,76 @@ def _ep_rank_params(cfg, seed: int, dtype, ctx, device):
     return init_params(cfg, gen, dtype=dtype, device=device, ctx=ctx)
 
 
+def _no_ep_run(cfg, params, ctx, ref: dict, dev, keep: str) -> dict:
+    """Prefill of this data rank's rows of the reference's prompts and the
+    teacher-forced decode of its slots on a model axis without expert
+    parallelism (``moe_dense`` on the rank's experts), each against the
+    same rows of the single-card logits (the router ties counted and held
+    out; ``_logit_err``), with its launches and a checksum.  A rank of
+    model index 0 saves its logits and the experts each route call picked
+    (``_router_gaps``) to ``keep``, for the check at the ties
+    (``_tp_forced_reference``)."""
+    b = ref["tokens"].shape[0] // ctx.dp
+    rows = slice(ctx.rank * b, (ctx.rank + 1) * b)
+    n = EP_SLOTS // ctx.dp
+    slots = slice(ctx.rank * n, (ctx.rank + 1) * n)
+    v = cfg.vocab_size
+    out, kept = {}, {}
+    with torch.no_grad():
+        n0 = launch_counts()
+        logits, _, picks = _router_gaps(lambda: make_prefill(cfg, ctx)(
+            params, ref["tokens"][rows].to(dev)))
+        torch.cuda.synchronize()
+        out["prefill"] = {**_logit_err(logits.cpu(), ref["prefill"][rows], v,
+                                       _ties(ref["prefill_gap"][rows])),
+                          "launches": _delta(n0),
+                          "checksum": launch_train.checksum([logits])}
+        kept.update(prefill=logits.cpu(), prefill_picks=picks)
+        del logits
+        n0 = launch_counts()
+        (got, _), _, picks = _router_gaps(lambda: _ep_teacher_decode(
+            cfg, params, make_serve_step(cfg, ctx), ref["fed"][slots], dev))
+        out["decode"] = {**_logit_err(got.cpu(), ref["decode"][slots], v,
+                                      _ties(ref["decode_gap"][slots])),
+                         "launches": _delta(n0),
+                         "checksum": launch_train.checksum([got])}
+        kept.update(decode=got.cpu(), decode_picks=picks)
+        del got
+    if ctx.model_rank == 0:
+        torch.save(kept, keep)
+    return out
+
+
+def _no_ep_kept(paths) -> dict:
+    """The saved runs of ``_no_ep_run`` of a mesh's data ranks (in order)
+    as one run over every row: each call's picks and the logits
+    concatenated on the batch dim."""
+    runs = [torch.load(p) for p in paths]
+    out = {k: torch.cat([r[k] for r in runs]) for k in ("prefill",
+                                                        "decode")}
+    for k in ("prefill_picks", "decode_picks"):
+        out[k] = [torch.cat(calls) for calls in zip(*(r[k] for r in runs))]
+    return out
+
+
 def ep_parity_rank(rank: int, world: int, cfg, seed: int, ref_path: str,
                    device: str) -> dict:
     """f32 (TF32 off) on a (1, 4) mesh: this rank's expert part drawn from
     the seed; EP prefill at capacity factor 16 against the single-card
     dense logits, at 1.25 against the plain emulation; EP decode (teacher
-    forced) against the dense decode.  Then on a (2, 2) mesh, on the
-    parameters drawn again in the weight-stationary layout, the
-    weight-stationary decode of this data rank's slots against the same
-    rows of the dense decode.  Launches of each, and a checksum of the
-    logits (the same on every rank of a data index)."""
+    forced) against the dense decode; then, on the same parameters (a
+    model axis without expert parallelism cuts the experts into the same
+    blocks), the prefill and decode without expert parallelism
+    (``_no_ep_run``).  Then on a (2, 2) mesh, on the parameters drawn
+    again in the weight-stationary layout, the weight-stationary decode of
+    this data rank's slots against the same rows of the dense decode, and
+    on the parameters drawn again for a model axis of 2 without expert
+    parallelism (the ranks in turn: 8 experts a rank in f32 fill the card
+    beside the main process), its prefill and decode.  Launches of each,
+    and a checksum of the logits (the same on every rank of a data
+    index)."""
+    # four ranks of ~16 GB each and the main process: no fragmentation
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
     dev = rank_device(device)
     torch.backends.cuda.matmul.allow_tf32 = False
     ref = torch.load(ref_path)
@@ -3813,7 +3914,12 @@ def ep_parity_rank(rank: int, world: int, cfg, seed: int, ref_path: str,
     out["decode"] = _logit_err(got.cpu(), ref["decode"], cfg.vocab_size)
     out["decode"]["launches"] = _delta(n0)
     out["decode"]["checksum"] = launch_train.checksum([got])
-    del params, got
+    del got
+    tmp = os.path.dirname(ref_path)
+    ctx = _ep_ctx(cfg, (1, world), remat=False, use_ep=False)
+    out["no_ep"] = _no_ep_run(cfg, params, ctx, ref, dev,
+                              os.path.join(tmp, "no_ep_1x4_0.pt"))
+    del params
     _release()
     ctx = _ep_ctx(cfg, (2, world // 2), remat=False,
                   ep_weight_stationary=True)
@@ -3829,6 +3935,16 @@ def ep_parity_rank(rank: int, world: int, cfg, seed: int, ref_path: str,
     out["decode_ws"]["launches"] = _delta(n0)
     out["decode_ws"]["checksum"] = launch_train.checksum([got])
     out["data_rank"] = ctx.rank
+    del params, got
+    _release()
+    ctx = _ep_ctx(cfg, (2, world // 2), remat=False, use_ep=False)
+    for turn in range(world):  # one draw's transient copies at a time
+        if rank == turn:
+            params = _ep_rank_params(cfg, seed, torch.float32, ctx, dev)
+            torch.cuda.synchronize()
+        dist.barrier()
+    out["no_ep_2x2"] = _no_ep_run(cfg, params, ctx, ref, dev, os.path.join(
+        tmp, f"no_ep_2x2_{ctx.rank}.pt"))
     out["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
     return out
 
@@ -3857,7 +3973,10 @@ def _logit_err(got, want, v: int, ties=None) -> dict:
 def phase_ep_parity(rng, seed: int) -> dict:
     """dbrx-132b at full width, 2 layers, f32: EP on 4 ranks (mesh (1, 4),
     and the weight-stationary decode on (2, 2)) against the single-card
-    dense run (freed first: 31 GB) and the plain emulation."""
+    dense run (freed first: 31 GB) and the plain emulation; the model
+    axis without expert parallelism on (1, 4) and (2, 2) against the
+    single-card run, every position, re-run with the experts the mesh
+    took at the router ties (G3: ``_tp_forced_reference``)."""
     t0 = time.perf_counter()
     cfg = dataclasses.replace(get_config(MOE_ARCH),
                               num_layers=MOE_PARITY_LAYERS)
@@ -3873,6 +3992,18 @@ def phase_ep_parity(rng, seed: int) -> dict:
         torch.save(ref, path)
         ranks = spawn_ranks(ep_parity_rank, EP_RANKS, cfg, seed, path,
                             DEVICE, backend="gloo", timeout_s=600)
+        t1 = time.perf_counter()
+        forced = {}
+        for name, dp, stem in (("no_ep", 1, "no_ep_1x4"),
+                               ("no_ep_2x2", 2, "no_ep_2x2")):
+            run = _no_ep_kept([os.path.join(tmp, f"{stem}_{d}.pt")
+                               for d in range(dp)])
+            got = _tp_forced_reference(cfg, seed, ref, run)
+            forced[name] = {case: _tie_parity(
+                run[case], got[case], ref[case + "_gap"], cfg.vocab_size,
+                got[case + "_forced"]) for case in ("prefill", "decode")}
+            del run, got
+        forced_s = time.perf_counter() - t1
     head = ranks[0]
     per_layer = 3 * MOE_PARITY_LAYERS
     for name in ("no_drop", "drop", "decode", "decode_ws"):
@@ -3905,13 +4036,54 @@ def phase_ep_parity(rng, seed: int) -> dict:
         check(all(r[name]["launches"].get("moe_gmm") == want for r in ranks),
               f"ep_parity {name}: K5 launches a rank "
               f"{[r[name]['launches'] for r in ranks]}, want {want}")
+    want_launches = {
+        "prefill": {k: n for k, n in {**prefill_launches(cfg),
+                                      **ep_launches(cfg)}.items() if n},
+        "decode": {k: n * EP_PARITY_STEPS
+                   for k, n in ep_launches(cfg).items()}}
+    dense = []
+    for name, dp in (("no_ep", 1), ("no_ep_2x2", 2)):
+        for case in ("prefill", "decode"):
+            per = [r[name][case] for r in ranks]
+            # the ranks of one data index hold the same logits
+            same = all(len({p["checksum"] for p, r in zip(per, ranks)
+                            if r["data_rank"] == d or dp == 1}) == 1
+                       for d in range(dp))
+            line = forced[name][case]
+            emit({"phase": "ep_parity", "arch": cfg.name,
+                  "case": f"{name}_{case}", "path": "moe_dense",
+                  "dtype": "float32", "layers": cfg.num_layers,
+                  "mesh": [dp, EP_RANKS // dp], "backend": "gloo",
+                  "experts_a_rank": cfg.num_experts * dp // EP_RANKS,
+                  "against": "single card, router ties forced to the "
+                             "mesh's experts", **line,
+                  "router_tie": ROUTER_TIE,
+                  "unforced": {k: max((p[k] for p in per
+                                       if p[k] is not None), default=None)
+                               for k in ("max_abs_err", "router_ties",
+                                         "positions_beyond_tol",
+                                         "max_abs_err_at_ties")},
+                  "tol": PARITY_TOL, "identical_across_model_ranks": same,
+                  "launches_per_rank": [p["launches"] for p in per],
+                  "want_launches": want_launches[case]})
+            check(same, f"ep_parity {name} {case}: ranks hold different "
+                        f"logits")
+            check(line["excess"] <= 0 and line["greedy_equal"],
+                  f"ep_parity {name} {case}: beyond {PARITY_TOL} or "
+                  f"greedy tokens differ from the single card's: {line}")
+            check(all(p["launches"] == want_launches[case] for p in per),
+                  f"ep_parity {name} {case}: launched "
+                  f"{[p['launches'] for p in per]}, want "
+                  f"{want_launches[case]}")
+            dense += [p["launches"] for p in per]
     emit({"phase": "ep_parity_total", "seconds": time.perf_counter() - t0,
-          "reference_s": ref_s,
+          "reference_s": ref_s, "forced_reference_s": forced_s,
           "dropped_share_at_1.25": ref["dropped_share"],
           "peak_memory_bytes_per_rank": [r["peak_memory_bytes"]
                                          for r in ranks]})
     return _ep_sum([r[k]["launches"] for r in ranks
-                    for k in ("no_drop", "drop", "decode", "decode_ws")])
+                    for k in ("no_drop", "drop", "decode", "decode_ws")]
+                   + dense)
 
 
 def _ep_sum(deltas) -> dict:
@@ -3970,7 +4142,10 @@ def ep_serving_rank(rank: int, world: int, cfg, seed: int, ref_path: str,
     of 4 slots through ``make_serve_step(cfg, ctx=ctx)`` (teacher forced by
     the reference's greedy tokens), with launches, exchange seconds and
     bytes of each; then the same decode with the first layer's attention
-    all-reduce skipped (``SkipAttentionReduce``), its max |logit diff|."""
+    all-reduce skipped (``SkipAttentionReduce``), its max |logit diff|;
+    then the same prefill and decode on the same parameters without
+    expert parallelism (``moe_dense`` on the rank's 4 experts); then, on
+    the same ranks, ``ep_ws_rank``'s decodes on (2, 2)."""
     dev = rank_device(device)
     ref = torch.load(ref_path)
     ctx = _ep_ctx(cfg, (1, world), remat=False)
@@ -4019,6 +4194,32 @@ def ep_serving_rank(rank: int, world: int, cfg, seed: int, ref_path: str,
                                         ref["fed"], dev)
         out["fault_max_abs_logit_diff"] = _token_check(
             bad.cpu(), ref, slice(None), cfg.vocab_size)["max_abs_logit_diff"]
+        del bad
+        dctx = _ep_ctx(cfg, (1, world), remat=False, use_ep=False)
+        prefill = make_prefill(cfg, dctx)
+        out["dense_prefill_ms"] = []
+        for i in range(3):
+            dist.barrier()
+            n0, ex0 = launch_counts(), _exchange()
+            logits, ms, _ = _timed(lambda: prefill(params, tokens))
+            out["dense_prefill_ms"].append(ms)
+            if i == 0:
+                out["dense_prefill"] = {"launches": _delta(n0),
+                                        **_exchange_delta(ex0)}
+        out["dense_prefill_tokens"] = _token_check(
+            logits[:, -1:].cpu(), {"decode": ref["prefill"][:, -1:]},
+            slice(None), cfg.vocab_size)
+        del logits
+        dist.barrier()
+        n0, ex0 = launch_counts(), _exchange()
+        got, ms = _ep_teacher_decode(cfg, params,
+                                     make_serve_step(cfg, ctx=dctx),
+                                     ref["fed"], dev)
+        out["dense_decode"] = {"launches": _delta(n0),
+                               **_exchange_delta(ex0), "step_ms": ms}
+        out["dense_tokens"] = _token_check(got.cpu(), ref, slice(None),
+                                           cfg.vocab_size)
+        del got
     out["param_bytes"] = param_bytes
     out["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
     out["capacity"] = {"prefill": moe_mod.capacity_for(
@@ -4026,6 +4227,9 @@ def ep_serving_rank(rank: int, world: int, cfg, seed: int, ref_path: str,
         ctx.capacity_factor),
         "decode": moe_mod.capacity_for(EP_SLOTS, cfg.top_k, cfg.num_experts,
                                        ctx.decode_capacity_factor)}
+    del params
+    _release()
+    out["ws_decode"] = ep_ws_rank(rank, world, cfg, seed, ref_path, device)
     return out
 
 
@@ -4100,8 +4304,9 @@ def _ep_decode_bytes(cfg, dp: int, tp: int, ws: bool) -> int:
 
 def phase_ep_serving(rng, seed: int) -> dict:
     """dbrx-132b at full width, 4 layers, bf16: the single-card dense run
-    (28.6 GB, freed first), then EP serving on (1, 4) and the
-    weight-stationary and EP decode on (2, 2), 4 gloo ranks each."""
+    (28.6 GB, freed first), then EP serving on (1, 4) and the same
+    without expert parallelism (``moe_dense`` on a rank's 4 experts), and
+    the weight-stationary and EP decode on (2, 2), 4 gloo ranks each."""
     t0 = time.perf_counter()
     cfg = dataclasses.replace(get_config(MOE_ARCH),
                               num_layers=MOE_SERVE_LAYERS)
@@ -4119,10 +4324,7 @@ def phase_ep_serving(rng, seed: int) -> dict:
         ranks = spawn_ranks(ep_serving_rank, EP_RANKS, cfg, seed, path,
                             DEVICE, backend="gloo", timeout_s=600)
         serving_s = time.perf_counter() - t1
-        t1 = time.perf_counter()
-        ws_ranks = spawn_ranks(ep_ws_rank, EP_RANKS, cfg, seed, path,
-                               DEVICE, backend="gloo", timeout_s=600)
-        ws_s = time.perf_counter() - t1
+    ws_ranks = [r["ws_decode"] for r in ranks]
 
     tp = EP_RANKS
     head = ranks[0]
@@ -4197,6 +4399,68 @@ def phase_ep_serving(rng, seed: int) -> dict:
               f"with the first attention all-reduce skipped {bad}: want "
               f"the sound run <= {EP_DECODE_DIFF_BOUND} < the faulted one")
 
+    want_dense = {"prefill": tp_forward_bytes(cfg, tp, EP_BATCH, EP_SEQ, 2,
+                                              moe="dense"),
+                  "decode": EP_SERVE_STEPS * tp_forward_bytes(
+                      cfg, tp, EP_SLOTS, 1, 2, moe="dense")}
+    want_dense_decode = {k: n * EP_SERVE_STEPS
+                         for k, n in ep_launches(cfg).items()}
+    dense_ms = [m for r in ranks for m in r["dense_decode"]["step_ms"]]
+    emit({"phase": "ep_serving", "arch": cfg.name, "case": "no_ep",
+          "path": "moe_dense", "dtype": "bfloat16",
+          "layers": cfg.num_layers, "mesh": [1, tp], "backend": "gloo",
+          "experts_a_rank": cfg.num_experts // tp,
+          "prefill_batch": EP_BATCH, "prefill_seq": EP_SEQ,
+          "slots": EP_SLOTS, "steps": EP_SERVE_STEPS,
+          "prefill_ms": [r["dense_prefill_ms"] for r in ranks],
+          "decode_step_ms_p50": float(np.percentile(dense_ms, 50)),
+          "decode_step_ms_p99": float(np.percentile(dense_ms, 99)),
+          "ep_decode_step_ms_p50": float(np.percentile(decode_ms, 50)),
+          "ep_decode_step_ms_p99": float(np.percentile(decode_ms, 99)),
+          "prefill_exchange_s": [r["dense_prefill"]["exchange_s"]
+                                 for r in ranks],
+          "prefill_wire_bytes": [r["dense_prefill"]["wire_bytes"]
+                                 for r in ranks],
+          "prefill_wire_bytes_formula": want_dense["prefill"],
+          "moe_wire_bytes_a_layer": _ring_ar_bytes(
+              EP_BATCH * EP_SEQ * cfg.d_model, tp),
+          "decode_exchange_s": [r["dense_decode"]["exchange_s"]
+                                for r in ranks],
+          "decode_wire_bytes": [r["dense_decode"]["wire_bytes"]
+                                for r in ranks],
+          "decode_wire_bytes_formula": want_dense["decode"],
+          "prefill_tokens": head["dense_prefill_tokens"],
+          "tokens": [r["dense_tokens"] for r in ranks],
+          "decode_max_abs_logit_diff": [
+              r["dense_tokens"]["max_abs_logit_diff"] for r in ranks],
+          "decode_diff_bound": EP_DECODE_DIFF_BOUND,
+          "launches_per_rank": {"prefill": [r["dense_prefill"]["launches"]
+                                            for r in ranks],
+                                "decode": [r["dense_decode"]["launches"]
+                                           for r in ranks]}})
+    for r in ranks:
+        check(r["dense_prefill"]["launches"] == want_prefill,
+              f"ep_serving no_ep prefill launched "
+              f"{r['dense_prefill']['launches']}, want {want_prefill}")
+        check(r["dense_decode"]["launches"] == want_dense_decode,
+              f"ep_serving no_ep decode launched "
+              f"{r['dense_decode']['launches']}, want {want_dense_decode}")
+        for case in ("prefill", "decode"):
+            got = r["dense_" + case]["wire_bytes"]
+            check(got == want_dense[case],
+                  f"ep_serving no_ep {case} wire bytes {got}, want "
+                  f"{want_dense[case]} (tp_forward_bytes, moe='dense')")
+        check(r["dense_tokens"]["mismatches"] == 0 and
+              r["dense_prefill_tokens"]["mismatches"] == 0,
+              f"ep_serving no_ep: greedy tokens differ from the dense run "
+              f"where its margin exceeds {EP_MARGIN_ULPS} bf16 ulps: "
+              f"{r['dense_tokens']} {r['dense_prefill_tokens']}")
+        check(r["dense_tokens"]["max_abs_logit_diff"] <=
+              EP_DECODE_DIFF_BOUND,
+              f"ep_serving no_ep (G2): bf16 decode max |logit diff| "
+              f"{r['dense_tokens']['max_abs_logit_diff']} beyond "
+              f"{EP_DECODE_DIFF_BOUND}")
+
     for name in ("ws", "ep"):
         per = [r[name] for r in ws_ranks]
         ms = [m for p in per for m in p["step_ms"]]
@@ -4231,10 +4495,10 @@ def phase_ep_serving(rng, seed: int) -> dict:
                   f"ep_ws_decode {name}: greedy tokens differ from the "
                   f"dense run: {p['tokens']}")
     emit({"phase": "ep_serving_total", "seconds": time.perf_counter() - t0,
-          "reference_s": ref_s, "serving_ranks_s": serving_s,
-          "ws_ranks_s": ws_s})
+          "reference_s": ref_s, "ranks_s": serving_s})
     return {"ep_serving": _ep_sum(
-        [r[k]["launches"] for r in ranks for k in ("prefill", "decode")]),
+        [r[k]["launches"] for r in ranks for k in (
+            "prefill", "decode", "dense_prefill", "dense_decode")]),
         "ep_ws_decode": _ep_sum([r[k]["launches"] for r in ws_ranks
                                  for k in ("ws", "ep")])}
 
@@ -4249,6 +4513,9 @@ EP_TRAIN_SMOKE_BATCH, EP_TRAIN_SMOKE_SEQ = 4, 64
 EP_TRAIN_TCFG = dict(microbatches=1, remat=False, learning_rate=1e-3,
                      warmup_steps=1, total_steps=EP_TRAIN_STEPS,
                      grad_dtype="bf16", zero1=False)
+# the same step without expert parallelism (moe_dense on a rank's 8
+# experts over all 512 tokens): fewer steps, the script's time limit
+DENSE_TRAIN_STEPS = 3
 
 
 def ep_training_rank(rank: int, world: int, cfg, seed: int,
@@ -4257,7 +4524,9 @@ def ep_training_rank(rank: int, world: int, cfg, seed: int,
     dbrx's smoke config (this rank's experts drawn from ``seed``), then
     ``EP_TRAIN_STEPS`` bf16 steps of ``cfg`` on one batch, each with its
     launches, wall ms (CUDA events), exchange seconds and bytes; the
-    peak memory of this rank."""
+    peak memory of this rank.  Then the same without expert parallelism
+    (``moe_dense`` on the rank's experts): the smoke step, and
+    ``DENSE_TRAIN_STEPS`` bf16 steps of ``cfg``."""
     # the two ranks hold ~37 GB each of the card's 80: no fragmentation
     os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
     dev = rank_device(device)
@@ -4272,6 +4541,12 @@ def ep_training_rank(rank: int, world: int, cfg, seed: int,
                               ctx)(params, init_opt_state(params), batch)
     out = {"smoke": {k: float(v) for k, v in m.items()}}
     del params, m
+    ctx = _ep_ctx(small, (1, world), remat=False, use_ep=False)
+    params = _ep_rank_params(small, seed, torch.float32, ctx, dev)
+    _, _, m = make_train_step(small, TrainConfig(remat=False, zero1=False),
+                              ctx)(params, init_opt_state(params), batch)
+    out["dense_smoke"] = {k: float(v) for k, v in m.items()}
+    del params, m
     _release()
 
     ctx = _ep_ctx(cfg, (1, world), remat=False,
@@ -4282,8 +4557,34 @@ def ep_training_rank(rank: int, world: int, cfg, seed: int,
     batch = next(make_batches(cfg, MOE_TRAIN_BATCH, MOE_TRAIN_SEQ,
                               seed=seed + 1))
     step = make_train_step(cfg, TrainConfig(**EP_TRAIN_TCFG), ctx)
-    out["steps"] = []
-    for _ in range(EP_TRAIN_STEPS):
+    out["steps"] = _train_steps(step, params, opt, batch, EP_TRAIN_STEPS)
+    out["params"] = sum(t.numel() for t in param_leaves(params))
+    out["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    out["peak_reserved_bytes"] = torch.cuda.max_memory_reserved()
+    out["capacity"] = moe_mod.capacity_for(
+        MOE_TRAIN_BATCH * MOE_TRAIN_SEQ // world, cfg.top_k,
+        cfg.num_experts, EP_TRAIN_FACTOR)
+    del params, opt, step
+    _release()
+
+    ctx = _ep_ctx(cfg, (1, world), remat=False, use_ep=False)
+    torch.cuda.reset_peak_memory_stats()
+    params = _ep_rank_params(cfg, seed + 1, torch.bfloat16, ctx, dev)
+    opt = init_opt_state(params)
+    step = make_train_step(cfg, TrainConfig(**EP_TRAIN_TCFG), ctx)
+    out["dense_steps"] = _train_steps(step, params, opt, batch,
+                                      DENSE_TRAIN_STEPS)
+    out["dense_peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    out["dense_peak_reserved_bytes"] = torch.cuda.max_memory_reserved()
+    return out
+
+
+def _train_steps(step, params, opt, batch, n: int) -> list:
+    """``n`` steps of ``step`` on ``batch`` (the parameters and state
+    updated in turn), each's wall ms (CUDA events), loss, grad_norm,
+    launches, exchange seconds and bytes."""
+    out = []
+    for _ in range(n):
         dist.barrier()
         n0, ex0 = launch_counts(), _exchange()
         a = torch.cuda.Event(enable_timing=True)
@@ -4292,27 +4593,23 @@ def ep_training_rank(rank: int, world: int, cfg, seed: int,
         params, opt, m = step(params, opt, batch)
         b.record()
         torch.cuda.synchronize()
-        out["steps"].append({"ms": a.elapsed_time(b),
-                             "loss": float(m["loss"]),
-                             "grad_norm": float(m["grad_norm"]),
-                             "launches": _delta(n0),
-                             **_exchange_delta(ex0)})
-    out["params"] = sum(t.numel() for t in param_leaves(params))
-    out["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
-    out["peak_reserved_bytes"] = torch.cuda.max_memory_reserved()
-    out["capacity"] = moe_mod.capacity_for(
-        MOE_TRAIN_BATCH * MOE_TRAIN_SEQ // world, cfg.top_k,
-        cfg.num_experts, EP_TRAIN_FACTOR)
+        out.append({"ms": a.elapsed_time(b), "loss": float(m["loss"]),
+                    "grad_norm": float(m["grad_norm"]),
+                    "launches": _delta(n0), **_exchange_delta(ex0)})
     return out
 
 
-def ep_train_bytes(cfg, tp: int, capacity: int) -> int:
+def ep_train_bytes(cfg, tp: int, capacity: int, dense: bool = False) -> int:
     """Wire bytes a rank a training step (bf16) of a config of GQA and MoE
     layers (dbrx-132b's) on a (1, tp) mesh: per MoE layer the two
     all-to-alls forward and their two transposes backward
     (``_ep_a2a_bytes`` each way), the sequence gather of the output
     forward and of the gradients of x and of the routing weights backward
-    (ring all-gathers of a rank's B x S/tp rows); the model axis's
+    (ring all-gathers of a rank's B x S/tp rows), or with ``dense`` (no
+    expert parallelism: ``moe_dense``) the all-reduce of the experts'
+    partial output forward, and backward of the gradients of x and of the
+    (B S, E) combine weights, where the axis splits the experts; the
+    model axis's
     all-reduces of the (B, S, d) activations, forward the embedding's and
     each attention's, backward the gradients of the LM head's input and of
     each attention's (and of K and V where their heads do not split); the
@@ -4331,8 +4628,11 @@ def ep_train_bytes(cfg, tp: int, capacity: int) -> int:
     model = (2 if lay.vocab else 0) * _ring_ar_bytes(n, tp) + n_attn * (
         2 * _ring_ar_bytes(n, tp) + kv)
     loss = (tp - 1) * b * s * 4 + _ring_bytes(2 * b * s, tp, 4)
-    return n_moe * (2 * _ep_a2a_bytes(cfg, tp, capacity) + gathers) \
-        + model + loss + (tp - 1) * 8
+    moe = 2 * _ep_a2a_bytes(cfg, tp, capacity) + gathers
+    if dense:
+        moe = lay.experts * (2 * _ring_ar_bytes(n, tp) + _ring_ar_bytes(
+            b * s * cfg.num_experts, tp))
+    return n_moe * moe + model + loss + (tp - 1) * 8
 
 
 def phase_ep_training(seed: int) -> dict:
@@ -4344,6 +4644,10 @@ def phase_ep_training(seed: int) -> dict:
     batch of B 2 x S 256: the loss falls, each step's wire bytes equal
     ``ep_train_bytes``, each rank's launches a step ``train_launches`` (K5
     and K5-bwd on its 8 experts); step ms, exchange, peak memory a rank.
+    The same without expert parallelism (``moe_dense`` on a rank's 8
+    experts over all its tokens): the smoke step against the single-card
+    step (no drops on either side), and ``DENSE_TRAIN_STEPS`` steps at
+    full width, their bytes ``ep_train_bytes(..., dense=True)``.
     Returns the launch counts, summed over the ranks."""
     t0 = time.perf_counter()
     small = smoke_config(MOE_ARCH)
@@ -4368,6 +4672,12 @@ def phase_ep_training(seed: int) -> dict:
     finally:
         moe_mod.moe_apply = real
     ref = {k: float(v) for k, v in ref.items()}
+    del params
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    params = init_params(small, gen, dtype=torch.float32, device=DEVICE)
+    _, _, dense_ref = make_train_step(small, TrainConfig(
+        remat=False, zero1=False))(params, init_opt_state(params), batch)
+    dense_ref = {k: float(v) for k, v in dense_ref.items()}
     del params
     _release()
 
@@ -4416,13 +4726,55 @@ def phase_ep_training(seed: int) -> dict:
     check(all(s["launches"] == want_launches for r in ranks
               for s in r["steps"]),
           f"EP training launches differ from {want_launches}")
-    return _ep_sum(s["launches"] for r in ranks for s in r["steps"])
+
+    dense_rel = [{k: abs(r["dense_smoke"][k] - dense_ref[k]) / abs(
+        dense_ref[k]) for k in ("loss", "grad_norm")} for r in ranks]
+    want_dense = ep_train_bytes(cfg, tp, 0, dense=True)
+    dense_losses = [s["loss"] for s in ranks[0]["dense_steps"]]
+    dense_ms = [s["ms"] for r in ranks for s in r["dense_steps"]]
+    emit({"phase": "ep_training", "case": "no_ep", "path": "moe_dense",
+          "arch": cfg.name, "dtype": "bfloat16", "layers": cfg.num_layers,
+          "mesh": [1, tp], "backend": "gloo", "batch": MOE_TRAIN_BATCH,
+          "seq": MOE_TRAIN_SEQ, "experts_a_rank": cfg.num_experts // tp,
+          "smoke_parity": {"arch": small.name, "dtype": "float32",
+                           "rel_err": dense_rel, "ref": dense_ref},
+          "losses": dense_losses, "step_ms": dense_ms,
+          "step_ms_p50": float(np.percentile(dense_ms, 50)),
+          "ep_step_ms_p50": float(np.percentile(step_ms, 50)),
+          "exchange_s": [s["exchange_s"] for s in ranks[0]["dense_steps"]],
+          "wire_bytes": [s["wire_bytes"] for s in ranks[0]["dense_steps"]],
+          "want_wire_bytes": want_dense,
+          "staged_bytes": ranks[0]["dense_steps"][0]["staged_bytes"],
+          "launches_a_step": [r["dense_steps"][0]["launches"]
+                              for r in ranks],
+          "want_launches": want_launches,
+          "peak_memory_bytes_a_rank": [r["dense_peak_memory_bytes"]
+                                       for r in ranks],
+          "peak_reserved_bytes_a_rank": [r["dense_peak_reserved_bytes"]
+                                         for r in ranks],
+          "seconds_with_ep": time.perf_counter() - t0})
+    check(all(e["loss"] <= 1e-5 and e["grad_norm"] <= 1e-5
+              for e in dense_rel),
+          f"training without EP disagrees with the single-card step: "
+          f"{dense_rel}")
+    check(all(np.isfinite(dense_losses)) and
+          dense_losses[-1] < dense_losses[0],
+          f"training without EP did not lower the loss: {dense_losses}")
+    check(all(s["wire_bytes"] == want_dense for r in ranks
+              for s in r["dense_steps"]),
+          f"training without EP: wire bytes differ from {want_dense}")
+    check(all(s["launches"] == want_launches for r in ranks
+              for s in r["dense_steps"]),
+          f"training without EP: launches differ from {want_launches}")
+    return _ep_sum(s["launches"] for r in ranks
+                   for s in r["steps"] + r["dense_steps"])
 
 
 def run_ep(rng, seed: int) -> dict:
     """The expert-parallel paths (4 gloo ranks on the card, dbrx-132b at
-    full width; training on 2); returns each phase's launch counts,
-    summed over the ranks."""
+    full width; training on 2), each beside the same model axis without
+    expert parallelism; returns each phase's launch counts, summed over
+    the ranks."""
     _release()
     counts = {"ep_parity": phase_ep_parity(rng, seed)}
     counts.update(phase_ep_serving(rng, seed + 1))
@@ -4482,9 +4834,12 @@ def tp_forward_bytes(cfg, tp: int, rows: int, seq: int, itemsize: int,
     shared experts, the Mamba out-projection) and, for Mamba, the gated
     norm's mean square (f32); per MoE layer, ``moe`` "train" the two
     all-to-alls at ``capacity`` and the sequence gather of the output,
-    "decode" the model-axis all-reduce of the tokens (``None``: the MoE
-    layers' routed part not counted); with ``gather``, the logits'
-    all-gather (serve).  The encoder's are ``tp_encode_bytes``."""
+    "decode" the model-axis all-reduce of the tokens, "dense" (no expert
+    parallelism: ``moe_dense``) one all-reduce of the routed and the
+    shared experts' partials together where the axis splits either
+    (``None``: the MoE layers' routed part not counted); with ``gather``,
+    the logits' all-gather (serve).  The encoder's are
+    ``tp_encode_bytes``."""
     lay = tp_layout(cfg, ParallelCtx(tp=tp, use_ep=cfg.is_moe))
     n = rows * seq * cfg.d_model
 
@@ -4500,7 +4855,9 @@ def tp_forward_bytes(cfg, tp: int, rows: int, seq: int, itemsize: int,
             total += ar(n) + ar(rows * seq, 4)
         if spec.ffn == "dense" and lay.ffn:
             total += ar(n)
-        if spec.ffn == "moe":
+        if spec.ffn == "moe" and moe == "dense":
+            total += ar(n) if lay.experts or lay.shared else 0
+        elif spec.ffn == "moe":
             total += ar(n) if lay.shared else 0
             if moe == "decode":
                 total += ar(n)
@@ -5497,8 +5854,8 @@ def run_tp(rng, seed: int) -> dict:
 # phase -> (arch, layers kept (0: all), prefill S, bf16 serving, step mesh)
 TPF_PHASES = {"tp_mla": (MLA_ARCH, MLA_LAYERS, 256, False, None),
               "tp_cross": (VISION_ARCH, VISION_LAYERS, 256, True, None),
-              # 6 + 6 of its 12 + 12 layers: the script's time limit
-              "tp_encdec": (ENC_DEC_ARCH, 6, 1024, False, (2, 2))}
+              # 4 + 4 of its 12 + 12 layers: the script's time limit
+              "tp_encdec": (ENC_DEC_ARCH, 4, 1024, False, (2, 2))}
 TPF_STEP_BATCH, TPF_STEP_SEQ = 4, 256
 
 
@@ -5511,16 +5868,16 @@ def _tpf_config(name: str):
         {"encoder_layers": layers} if cfg.is_encoder_decoder else {}))
 
 
-def _tpf_ctx(cfg, mesh_shape):
+def _tpf_ctx(cfg, mesh_shape, use_ep=None):
     """A rank's context: the model axis, and for a MoE config expert
-    parallelism beside it at capacity factor E / top_k (a shard's
-    capacity is its token count: no dispatch dropped, as in the dense
-    single-card run)."""
+    parallelism beside it (unless ``use_ep`` is False) at capacity factor
+    E / top_k (a shard's capacity is its token count: no dispatch
+    dropped, as in the dense single-card run)."""
     kw = {}
     if cfg.is_moe:
         f = cfg.num_experts / cfg.top_k
         kw = dict(capacity_factor=f, decode_capacity_factor=f)
-    return _tp_ctx(cfg, mesh_shape, remat=False, **kw)
+    return _tp_ctx(cfg, mesh_shape, remat=False, use_ep=use_ep, **kw)
 
 
 def _tpf_params(cfg, seed: int, dtype, ctx, device):
@@ -5719,7 +6076,8 @@ def tpf_rank(rank: int, world: int, name: str, cfg, seed: int,
     parameters a rank.  For a MoE config the experts each route call
     picked are recorded (``_router_gaps``), and rank 0 saves its f32
     logits and picks beside ``ref_path`` for the check at the router ties
-    (``_tp_forced_reference``)."""
+    (``_tp_forced_reference``); then the same prefill and decode without
+    expert parallelism (``_tpf_no_ep``), on the same parameters."""
     _, _, seq, serve_bf16, step_mesh = TPF_PHASES[name]
     dev = rank_device(device)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -5773,6 +6131,16 @@ def tpf_rank(rank: int, world: int, name: str, cfg, seed: int,
         torch.save(kept, os.path.join(os.path.dirname(ref_path),
                                       "rank0.pt"))
     del kept
+    if cfg.is_moe:
+        # the same parameters without expert parallelism: the model axis
+        # cuts the experts into the blocks expert parallelism holds
+        dctx = _tpf_ctx(cfg, (1, world), use_ep=False)
+        for case in ("prefill", "decode"):
+            out[case + "_no_ep"] = _tpf_no_ep(
+                case, cfg, params, dctx, ref, seed, dev,
+                os.path.join(os.path.dirname(ref_path),
+                             f"rank0_no_ep_{case}.pt") if rank == 0
+                else None)
     del params
     out["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
     _release()
@@ -5839,10 +6207,47 @@ def tpf_rank(rank: int, world: int, name: str, cfg, seed: int,
     return out
 
 
+def _tpf_no_ep(case: str, cfg, params, ctx, ref: dict, seed: int, dev,
+               keep):
+    """``tpf_rank``'s prefill or teacher-forced decode (``case``) on a
+    model axis without expert parallelism (``moe_dense`` on the rank's
+    experts over all its tokens), against the single-card logits (ties
+    held out and counted), with its launches, exchange and times; the
+    logits and the experts of each route call saved to ``keep`` (rank
+    0), for the check at the router ties."""
+    v = cfg.vocab_size
+    with torch.no_grad():
+        context = _tpf_context(cfg, params, seed, slice(
+            0, len(ref["tokens"])) if case == "prefill" else slice(None),
+            ctx)
+        dist.barrier()
+        n0, ex0 = launch_counts(), _exchange()
+        if case == "prefill":
+            (got, ms, wall), _, picks = _router_gaps(lambda: _timed(
+                lambda: make_prefill(cfg, ctx)(
+                    params, ref["tokens"].to(dev), context)))
+            times = {"device_ms": ms, "wall_ms": wall}
+        else:
+            (got, ms), _, picks = _router_gaps(lambda: _ep_teacher_decode(
+                cfg, params, make_serve_step(cfg, ctx), ref["fed"], dev,
+                context))
+            times = {"step_ms": ms}
+        out = {**_logit_err(got.cpu(), ref[case], v,
+                            _ties(ref[case + "_gap"])),
+               "launches": _delta(n0), **_exchange_delta(ex0), **times,
+               "checksum": launch_train.checksum([got]),
+               "picks": _picks_sum(picks)}
+    if keep is not None:
+        torch.save({case: got.cpu(), case + "_picks": picks}, keep)
+    return out
+
+
 def phase_tp_family(name: str, rng, seed: int) -> dict:
     """Phase ``name`` of ``TPF_PHASES`` on 4 gloo ranks sharing the card:
     the single-card references (f32, and bf16 for serving) made first and
-    freed, then ``tpf_rank``; prints each case's errors, wire bytes against
+    freed, then ``tpf_rank``; prints each case's errors (a MoE config's
+    also without expert parallelism, each held at the router ties to a
+    single-card run re-made with the mesh's experts), wire bytes against
     ``tp_forward_bytes`` (and the encoder's ``tp_encode_bytes``), launches
     a rank against ``prefill_launches`` / ``encode_launches`` /
     ``train_launches``, times and memory; returns the launch counts,
@@ -5878,6 +6283,16 @@ def phase_tp_family(name: str, rng, seed: int) -> dict:
                 run0[case], forced[case], refs["f32"][case + "_gap"],
                 cfg.vocab_size, forced[case + "_forced"])
                 for case in ("prefill", "decode")}
+            # and without expert parallelism, the ties forced to the
+            # experts that run took
+            run0 = {k: t for case in ("prefill", "decode") for k, t in
+                    torch.load(os.path.join(
+                        tmp, f"rank0_no_ep_{case}.pt")).items()}
+            forced = _tp_forced_reference(cfg, seed, refs["f32"], run0)
+            tie_err.update({case + "_no_ep": _tie_parity(
+                run0[case], forced[case], refs["f32"][case + "_gap"],
+                cfg.vocab_size, forced[case + "_forced"])
+                for case in ("prefill", "decode")})
             del run0, forced
             forced_s = time.perf_counter() - t2
     tp = TP_RANKS
@@ -5899,20 +6314,37 @@ def phase_tp_family(name: str, rng, seed: int) -> dict:
         "prefill": {k: n for k, n in prefill_launches(cfg, seq).items() if n},
         "decode": {k: n * TP_PARITY_STEPS
                    for k, n in ep_launches(cfg).items() if n}}
+    cases = ["encode", "prefill", "decode"]
+    if cfg.is_moe:  # the same model axis without expert parallelism
+        cases += ["prefill_no_ep", "decode_no_ep"]
+        want_bytes.update(
+            prefill_no_ep=tp_forward_bytes(cfg, tp, TP_BATCH, seq, 4,
+                                           moe="dense"),
+            decode_no_ep=TP_PARITY_STEPS * tp_forward_bytes(
+                cfg, tp, TP_SLOTS, 1, 4, moe="dense"))
+        want_launches.update(
+            prefill_no_ep=want_launches["prefill"],
+            decode_no_ep={k: n * TP_PARITY_STEPS
+                          for k, n in ep_launches(cfg).items() if n})
     counts = []
-    for case in ("encode", "prefill", "decode"):
+    for case in cases:
         per = [r[case] for r in ranks]
+        decode = case.startswith("decode")
         line = {"phase": name, "arch": cfg.name, "case": case,
                 "dtype": "float32", "layers": cfg.num_layers,
                 "mesh": [1, tp], "backend": "gloo", "batch": TP_BATCH,
-                "seq": seq if case != "decode" else 1,
+                "seq": 1 if decode else seq,
                 "wire_bytes_per_rank": [p["wire_bytes"] for p in per],
                 "wire_bytes_formula": want_bytes[case],
                 "staged_bytes_per_rank": [p["staged_bytes"] for p in per],
                 "exchange_s": [p["exchange_s"] for p in per],
                 "launches_per_rank": [p["launches"] for p in per],
                 "want_launches": want_launches[case]}
-        if case == "decode":
+        if case.endswith("no_ep"):
+            line.update(path="moe_dense",
+                        experts_a_rank=cfg.num_experts // tp
+                        if cfg.num_experts % tp == 0 else cfg.num_experts)
+        if decode:
             line.update(slots=TP_SLOTS, steps=TP_PARITY_STEPS,
                         step_ms_p50=float(np.percentile(
                             [m for p in per for m in p["step_ms"]], 50)))
@@ -6069,8 +6501,10 @@ def run_tp_families(rng, seed: int) -> dict:
 # the dry-run's host pool: started after the build, on CPUs of its own
 # (the last DRYRUN_WORKERS of this process's); the card's phases and the
 # ranks they start keep the others.  Sharing all CPUs with them, it slowed
-# the host-bound phases by 1.2-2x.
-DRYRUN_WORKERS = 2
+# the host-bound phases by 1.2-2x; one worker (~460-560 s of host) still
+# ends long before the card's phases reach ``phase_dryrun``, and leaves
+# them one CPU more.
+DRYRUN_WORKERS = 1
 # the 16 x 16 sweep's shapes, in the JAX package's cost mode (``unroll``:
 # attention chunks of 2048, 4x fewer ops on the meta device); prefill_32k
 # is the CLI's (``python -m repro_torch.launch.dryrun --shape

@@ -1,2 +1,3 @@
 """The model configs of the ten architectures + registry."""
-from repro_torch.configs.registry import ARCHS, get_config, smoke_config  # noqa: F401
+from repro_torch.configs.registry import (  # noqa: F401
+    ARCHS, get_config, list_archs, smoke_config)

@@ -32,6 +32,10 @@ def get_config(arch: str) -> ModelConfig:
     return mod.CONFIG
 
 
+def list_archs() -> List[str]:
+    return list(ARCHS)
+
+
 def smoke_config(arch: str) -> ModelConfig:
     """Reduced variant of the same family: 2 layers, d_model<=256, <=4
     experts — field for field what ``repro.configs.smoke_config`` gives."""

@@ -27,6 +27,8 @@ from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
 # devices whose tensors take the plain version: the host, and the meta
 # device (shapes only: the dry-run, ``launch.dryrun``)
 PLAIN_DEVICES = ("cpu", "meta")
+# the plain version, by the name the JAX package's ops module gives it
+reference = attention_ref
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attn_fwd.cu"
 BWD_SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attn_bwd.cu"

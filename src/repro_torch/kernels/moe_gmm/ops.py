@@ -26,6 +26,8 @@ from repro_torch.kernels.moe_gmm.ref import moe_gmm_bwd_ref, moe_gmm_ref
 # devices whose tensors take the plain version: the host, and the meta
 # device (shapes only: the dry-run, ``launch.dryrun``)
 PLAIN_DEVICES = ("cpu", "meta")
+# the plain version, by the name the JAX package's ops module gives it
+reference = moe_gmm_ref
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "moe_gmm.cu"
 BWD_SOURCE = Path(__file__).resolve().parent / "csrc" / "moe_gmm_bwd.cu"

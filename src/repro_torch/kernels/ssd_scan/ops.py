@@ -26,6 +26,8 @@ from repro_torch.kernels.ssd_scan.ref import (check_chunk, ssd_scan_bwd_ref,
 # devices whose tensors take the plain version: the host, and the meta
 # device (shapes only: the dry-run, ``launch.dryrun``)
 PLAIN_DEVICES = ("cpu", "meta")
+# the plain version, by the name the JAX package's ops module gives it
+reference = ssd_scan_ref
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "ssd_scan_fwd.cu"
 BWD_SOURCE = Path(__file__).resolve().parent / "csrc" / "ssd_scan_bwd.cu"

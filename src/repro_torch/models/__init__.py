@@ -3,7 +3,7 @@ cross-attention decoders and the encoder-decoder stack, with the JAX
 package's exports and its ``ssm`` and ``moe`` submodules, plus
 ``prefill_launches``, ``encode_launches``, ``train_launches`` and
 ``ep_launches``, the kernel launches a prefill, an encoder pass, a
-training step and a rank's expert-parallel forward or decode step make on
+training step and a rank's forward or decode step on a model axis make on
 the card, and (from ``repro_torch.core.tree``) the tree helpers
 ``param_leaves`` and ``tree_map``."""
 from repro_torch.core.tree import param_leaves, tree_map  # noqa: F401

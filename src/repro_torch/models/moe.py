@@ -2,8 +2,11 @@
 ``repro.models.moe``).
 
 - ``moe_dense`` computes every expert on every token and masks by routing
-  weight: exact, no capacity drops; the single-device path, and under
-  data parallelism each rank's.
+  weight: exact, no capacity drops; the single-device path, under data
+  parallelism each rank's, and on a model axis without expert
+  parallelism each rank's on its E/tp experts (``param_specs``' split)
+  over all of its tokens, the partial outputs summed over the model ranks
+  with the shared experts' in one all-reduce.
 - ``moe_ep_train`` (training and prefill): the sequence sharded over the
   model axis, a capacity dispatch, one ``all_to_all`` to the experts'
   ranks, the three expert products, one ``all_to_all`` back, the weighted
@@ -29,6 +32,14 @@ FFN over the whole sequence: on a model axis each rank computes its
 column block of them and the ranks' partial products are summed
 (``_shared``, tensor parallelism beside the experts' expert parallelism,
 as ``param_specs`` lays out a MoE config).
+
+Without expert parallelism the collectives of a model axis decide the
+gradients: the tokens enter the experts (and the split shared experts)
+through ``copy_to_model``, so their gradient sums the ranks' parts; the
+router reads the whole tokens without it (its part of the gradient is
+whole on every rank); and the combine weights pass ``copy_to_model``
+after the load-balance loss is taken, so that the router's gradient sums
+the ranks' columns of them and counts the loss's share once.
 """
 from __future__ import annotations
 
@@ -46,21 +57,24 @@ from repro_torch.models.modules import (_gelu, dense_init, ffn_apply,
                                         init_ffn, whole)
 from repro_torch.parallel.planner import (expert_range, ffn_slice,
                                           sharded_experts, tp_layout)
+from repro_torch.parallel.tensor import copy_to_model, reduce_from_model
 
 
 def init_moe(cfg: ModelConfig, dtype, device,
              generator: torch.Generator, ctx=None, cut=whole) -> dict:
     """The MoE layer's parameters drawn from ``generator``.  With an
-    expert-parallel ``ctx`` only this rank's part of each expert weight is
-    kept (``parallel.shard_params``'s layout), but every expert is drawn,
-    one at a time, so that the generator runs through the full sequence:
-    the part is bit-equal to the slice of the full draw, and no rank
-    holds all experts of a layer.  ``cut``: as ``modules.init_ffn``'s, on
-    the shared experts (a tensor-parallel rank's column block)."""
+    expert-parallel ``ctx``, or a model axis that splits the experts
+    without it (``TPLayout.experts``), only this rank's part of each
+    expert weight is kept (``parallel.shard_params``'s layout), but every
+    expert is drawn, one at a time, so that the generator runs through the
+    full sequence: the part is bit-equal to the slice of the full draw,
+    and no rank holds all experts of a layer.  ``cut``: as
+    ``modules.init_ffn``'s, on the shared experts (a tensor-parallel
+    rank's column block)."""
     d = cfg.d_model
     ff = cfg.moe_d_ff or cfg.d_ff
     e = cfg.num_experts
-    lo, hi = expert_range(e, ctx) if sharded_experts(ctx) else (0, e)
+    lo, hi = expert_range(e, ctx) if _split_experts(cfg, ctx) else (0, e)
 
     def stack(name, in_dim, out_dim):
         if torch.device(device).type == "meta":  # shapes only: draw nothing
@@ -126,24 +140,60 @@ def _expert_ffn(p: dict, cfg: ModelConfig, x_e: torch.Tensor,
     return gmm(act(g) * u, p["w_down"])
 
 
+def _split_experts(cfg: ModelConfig, ctx) -> bool:
+    """Whether a rank of ``ctx`` holds a block of the experts: expert
+    parallelism, or a model axis that splits them without it."""
+    lay = tp_layout(cfg, ctx)
+    return sharded_experts(ctx) or (lay is not None and lay.experts)
+
+
 def moe_dense(p: dict, cfg: ModelConfig, x: torch.Tensor, ctx=None,
               gmm=moe_gmm) -> Tuple[torch.Tensor, torch.Tensor]:
     """Computes every expert for every token, masks by routing weight.
     Exact (no capacity drops).  ``gmm``: the expert products (K5; its plain
-    version for a reference)."""
+    version for a reference).
+
+    On a model axis (``ctx`` without expert parallelism) ``p``'s experts
+    are this rank's block where the axis splits them
+    (``TPLayout.experts``): the rank computes them on all of its tokens,
+    weights them by its columns of the combine weights, and the partial
+    output is summed over the model ranks together with the split shared
+    experts' partial, in one all-reduce.  Where the experts are
+    replicated every rank computes every expert, and only a split shared
+    part is summed."""
     ids, weights, aux = route(p, cfg, x, ctx)
     shp = x.shape
     xt = x.reshape(-1, shp[-1])
     e = cfg.num_experts
-    # every expert reads the same tokens: K5 takes them as a view of expert
-    # stride 0, and its gradient sums over the experts, never materialized
-    y_all = _expert_ffn(p, cfg, xt, gmm=gmm, expanded=True)
     w_full = torch.zeros((xt.shape[0], e), dtype=x.dtype, device=x.device)
     w_full.scatter_(1, ids.reshape(-1, cfg.top_k),
                     weights.reshape(-1, cfg.top_k))
-    y = torch.einsum("te,etd->td", w_full, y_all)
-    y = y + _shared(p, cfg, xt, ctx)
+    lay = tp_layout(cfg, ctx)
+    split = lay is not None and lay.experts
+    shared = "shared" in p and lay is not None and lay.shared
+    xm = copy_to_model(xt, ctx) if split or shared else xt
+    # every expert reads the same tokens: K5 takes them as a view of expert
+    # stride 0, and its gradient sums over the experts, never materialized
+    y_all = _expert_ffn(p, cfg, xm if split else xt, gmm=gmm, expanded=True)
+    routed = torch.einsum("te,etd->td", _rank_weights(w_full, lay, ctx)
+                          if split else w_full, y_all)
+    partial, rest = ([routed], []) if split else ([], [routed])
+    if "shared" in p:
+        (partial if shared else rest).append(ffn_apply(
+            p["shared"], xm if shared else xt, cfg.ffn_act))
+    y = sum(rest)
+    if partial:
+        y = y + reduce_from_model(sum(partial), ctx)
     return y.reshape(shp), aux
+
+
+def _rank_weights(w_full: torch.Tensor, lay, ctx) -> torch.Tensor:
+    """This rank's columns of the combine weights (T, E), its experts'
+    (``lay.block``).  They pass ``copy_to_model`` first: each rank's
+    gradient holds only its own columns, and the sum over the model ranks
+    is the whole gradient that the router's needs."""
+    lo, hi = lay.block(w_full.shape[1])
+    return copy_to_model(w_full, ctx)[:, lo:hi]
 
 
 def _shared(p: dict, cfg: ModelConfig, xt: torch.Tensor,
@@ -490,7 +540,8 @@ def moe_apply(p: dict, cfg: ModelConfig, x: torch.Tensor, *, ctx=None,
               decode: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """(y, aux_loss).  ``ctx``: a ``parallel.ParallelCtx`` or ``None``;
     without expert parallelism (``ctx.use_ep``) every rank runs
-    ``moe_dense`` on its own tokens, else ``moe_ep_train`` (training and
+    ``moe_dense`` on its own tokens (on a model axis, its experts), in
+    decode too, else ``moe_ep_train`` (training and
     prefill), ``moe_ep_decode`` or, with ``ctx.ep_weight_stationary``,
     ``moe_ep_decode_ws`` (``decode=True``), at the context's capacity
     factors."""

@@ -25,8 +25,10 @@ the residual stream stays whole on every rank, and the layers sum their
 partial products over the model ranks (``parallel.tensor``): GQA, MLA,
 cross-attention, the encoder-decoder's cross blocks and the encoder's
 layers on their heads, the dense FFN and the shared experts on their
-columns, Mamba on its heads, and the MoE experts, under expert
-parallelism, on the same model axis (``models.moe``).  Where the
+columns, Mamba on its heads, and the MoE experts on the same model axis
+(``models.moe``): under expert parallelism each rank's experts on the
+tokens dispatched to them, without it (``moe_dense``) on all of its
+tokens.  Where the
 vocabulary splits, the embedding is looked up on this rank's rows and
 summed (``vocab_embed``), the LM head (with tied embeddings, the
 embedding's rows) gives this rank's block of the logits and its
@@ -57,8 +59,7 @@ from repro_torch.models import ssm
 from repro_torch.models.modules import (dense_init, embed_init, ffn_apply,
                                         init_ffn, init_norm, rms_norm, whole)
 from repro_torch.parallel.fsdp import gather_tree
-from repro_torch.parallel.planner import (check_tensor_parallel, tp_cut,
-                                          tp_layout)
+from repro_torch.parallel.planner import tp_cut, tp_layout
 from repro_torch.parallel.tensor import copy_to_model, vocab_embed
 
 
@@ -114,8 +115,10 @@ def train_launches(cfg: ModelConfig, microbatches: int = 1,
     kernel once per such layer and microbatch: flash attention's
     ``LAUNCHES_PER_CALL`` per attention, the SSD scan's
     ``BWD_LAUNCHES_PER_CALL`` per Mamba layer, the grouped GEMM's
-    ``BWD_LAUNCHES_PER_CALL`` per expert product (three a MoE layer).  An
-    expert-parallel rank launches as many on its own experts."""
+    ``BWD_LAUNCHES_PER_CALL`` per expert product (three a MoE layer).  A
+    rank of a model axis launches as many on its own experts, with expert
+    parallelism on the tokens dispatched to them, without it on all of
+    its tokens."""
     fwd = prefill_launches(cfg, seq_len)
     n_attn = fwd["flash_attention"] + encode_launches(cfg)["flash_attention"]
     n_ssd = fwd["ssd_scan"] // SSD_LAUNCHES
@@ -131,10 +134,12 @@ def train_launches(cfg: ModelConfig, microbatches: int = 1,
 
 
 def ep_launches(cfg: ModelConfig) -> dict:
-    """K5 launches of one rank in one expert-parallel forward
-    (``moe_ep_train``) or decode step (``moe_ep_decode``,
-    ``moe_ep_decode_ws``): three (gate, up, down) per MoE layer on its own
-    experts, whatever the mesh."""
+    """K5 launches of one rank of a model axis in one forward or decode
+    step: three (gate, up, down) per MoE layer on its own experts,
+    whatever the mesh; under expert parallelism (``moe_ep_train``,
+    ``moe_ep_decode``, ``moe_ep_decode_ws``) on the tokens dispatched to
+    them, without it (``moe_dense``) on all of the rank's tokens (every
+    expert where the axis does not split them)."""
     return {"moe_gmm": 3 * sum(s.ffn == "moe" for s in cfg.layer_specs())}
 
 
@@ -164,17 +169,16 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
                 dtype=torch.float32, device="cuda", ctx=None) -> dict:
     """Random parameters in the JAX package's layout, drawn from
     ``generator`` (which must live on ``device``).  With an
-    expert-parallel ``ctx`` each MoE layer keeps only this rank's part of
-    its experts (``parallel.shard_params``'s layout; ``models.moe.
-    init_moe`` draws the rest and drops it); on a model axis every other
+    expert-parallel ``ctx``, or a model axis that splits the experts
+    without it, each MoE layer keeps only this rank's part of its experts
+    (``parallel.shard_params``'s layout; ``models.moe.init_moe`` draws
+    the rest and drops it); on a model axis every other
     leaf is drawn whole and only this rank's block of it kept
     (``parallel.planner.tp_cut``): both bit-equal to the same part of the
     full draw."""
     dev = resolve_device(device)
     cut = whole
     if ctx is not None and ctx.tensor_parallel:
-        check_tensor_parallel(cfg, ctx.use_ep)
-
         def cut(name, w):
             return tp_cut(name, w, cfg, ctx)
     params = {
@@ -334,11 +338,10 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
     ``repro_torch.parallel.ParallelCtx``, whose data ranks share the MoE
     router's load statistics (``models.moe.route``) and whose MoE layers
     run expert-parallel over its model axis where ``ctx.use_ep``
-    (``models.moe.moe_ep_train``); a tensor-parallel ``ctx`` (the module's
+    (``models.moe.moe_ep_train``), else ``moe_dense`` on the rank's
+    experts; a tensor-parallel ``ctx`` (the module's
     docstring) returns this rank's vocabulary block of the logits (B, S,
     V_pad/tp) where the vocabulary splits."""
-    if ctx is not None and ctx.tensor_parallel:
-        check_tensor_parallel(cfg, ctx.use_ep)
     context = _context(cfg, params, context)
     x = _embed(cfg, params, tokens, ctx)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
@@ -469,8 +472,6 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict,
     this rank's 1/dp of the batch.  A tensor-parallel one runs on this
     rank's blocks and cache and returns its vocabulary block of the logits,
     as ``forward``."""
-    if ctx is not None and ctx.tensor_parallel:
-        check_tensor_parallel(cfg, ctx.use_ep)
     win = window if window is not None else cfg.sliding_window
     x = _embed(cfg, params, tokens, ctx)
     cross_caches = cache.get("cross") or [None] * cfg.num_layers

@@ -7,11 +7,15 @@ from repro_torch.parallel.planner import (  # noqa: F401
     BUCKET_BYTES,
     FlatLayout,
     ParallelCtx,
+    batch_specs,
+    cache_specs,
     expert_flags,
     flat_layout,
     gather_params,
     make_ctx,
     microbatch_rows,
     model_flags,
+    param_specs,
     shard_params,
+    validate_spec,
 )

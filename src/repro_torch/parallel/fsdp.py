@@ -69,7 +69,8 @@ def _layout(cfg: ModelConfig, mesh_cfg: MeshConfig) -> Layout:
 def _dim(ctx, path: str) -> Optional[int]:
     """The dim of the leaf at ``path`` that ``ctx`` holds a shard of."""
     dim, expert = ctx.fsdp[path]
-    if ctx.dp == 1 or (expert and ctx.ep_weight_stationary):
+    if ctx.dp == 1 or (expert and ctx.use_ep
+                       and ctx.ep_weight_stationary):
         return None
     return dim
 

@@ -19,7 +19,10 @@ instead, and the step and the layers call the collectives themselves
 - ``make_ctx`` builds the context from the groups and a ``MeshConfig``: a
   model axis runs tensor parallelism (``ParallelCtx.tensor_parallel``) of
   every leaf ``param_specs`` splits, and for a MoE config expert
-  parallelism of the experts beside it;
+  parallelism of the experts beside it, or without it (``use_ep=False``)
+  ``moe_dense`` on the experts that ``param_specs`` puts on the model
+  axis (each rank its E/tp over all of its tokens, the partial outputs
+  summed over the model ranks);
 - ``param_specs`` and ``cache_specs`` are the JAX package's layout rules
   (``guarded``, ``_leaf_rule``, ``_mamba_head_axis``), leaf for leaf, on
   the port's trees: one tuple of mesh axes (or ``None``) a dim;
@@ -27,21 +30,19 @@ instead, and the step and the layers call the collectives themselves
   ``zero1_spec`` and ``apply_fsdp`` are the JAX package's optimizer-state
   and FSDP specs on those tuples (``parallel.fsdp`` runs the latter:
   ``make_ctx(..., fsdp=True)``);
-- ``microbatch_rows`` is the batch shard of ``batch_specs``;
+- ``batch_specs`` is the JAX package's spec of the batch, and
+  ``microbatch_rows`` the rows it gives a rank;
 - ``shard_params`` cuts a rank's part out of the full parameters (under
   expert parallelism its experts, model rank m holding experts
   ``m E/tp .. (m+1) E/tp - 1`` and, weight-stationary, its slice of the
   ffn dim over the data axes; of every other leaf that ``param_specs``
-  puts on the model axis the m-th of tp equal blocks of that dim), and
+  puts on the model axis, the experts too without expert parallelism,
+  the m-th of tp equal blocks of that dim), and
   ``gather_params`` puts it back together;
 - ``FlatLayout`` is the gradient of this rank's leaves flattened into the
   planner's 64 MiB buckets, with the chunk of each bucket that
   ``ring_reduce_scatter`` leaves on this rank: the ZeRO-1 shard of the
   optimizer state.
-
-A MoE config on a model axis without expert parallelism (the JAX
-package's ``moe_dense`` on experts that XLA shards over the model axis) is
-not ported: ROADMAP item 8c.
 """
 from __future__ import annotations
 
@@ -73,9 +74,10 @@ class ParallelCtx:
     names the entry of ``ccl.primitives.IMPLEMENTATIONS`` that carries a
     plain-DP gradient sync.  ``use_ep``: the MoE layers run expert-parallel
     over the model axis (``models.moe.moe_apply``), with the JAX package's
-    capacity factors and ``ep_weight_stationary`` decode; a model axis
-    splits every other leaf that ``param_specs`` puts on it
-    (``tensor_parallel``), with or without it.  ``causal_skip`` and
+    capacity factors and ``ep_weight_stationary`` decode (neither read
+    without it); a model axis splits every other leaf that ``param_specs``
+    puts on it (``tensor_parallel``), with or without it, and without it
+    the experts too (``moe_dense``).  ``causal_skip`` and
     ``unroll_layers``: the chunked attention's (``models.attention``).
     ``fsdp``: where set, each leaf's dim that ``apply_fsdp`` shards over
     the data axes, by path (``parallel.fsdp.fsdp_layout``): the leaves are
@@ -128,18 +130,6 @@ class ParallelCtx:
         return prim.ring_all_gather(x, self.model_group).sum(dim=0)
 
 
-def check_tensor_parallel(cfg: ModelConfig, use_ep: bool) -> None:
-    """Raises for a MoE config on a model axis without expert parallelism
-    (``use_ep`` False): the JAX package runs ``moe_dense`` there on
-    experts that XLA shards over the model axis, which the port has not
-    ported (ROADMAP item 8c)."""
-    if cfg.is_moe and not use_ep:
-        raise NotImplementedError(
-            f"a model axis without expert parallelism on {cfg.name}'s MoE "
-            f"layers (moe_dense on experts split over the model axis) is "
-            f"not ported yet: ROADMAP item 8c")
-
-
 def make_ctx(group, mesh_cfg: MeshConfig, *, model_group=None,
              remat: bool = True, use_ep: Optional[bool] = None,
              capacity_factor: float = 1.25,
@@ -159,7 +149,8 @@ def make_ctx(group, mesh_cfg: MeshConfig, *, model_group=None,
     with a model axis of 1 expert parallelism would only add capacity drops
     (the JAX package's default, ``True``, drops tokens there too; pass
     ``use_ep=True`` for that).  A model axis without it on a MoE config
-    raises (``check_tensor_parallel``: ROADMAP item 8c).  ``fsdp``
+    runs ``moe_dense`` on the rank's experts (``TPLayout.experts``) over
+    all of its tokens.  ``fsdp``
     (which needs ``cfg``): the parameters are sharded over the data axes
     as ``apply_fsdp`` says (``parallel.fsdp``)."""
     if grad_all_reduce not in prim.IMPLEMENTATIONS:
@@ -168,8 +159,6 @@ def make_ctx(group, mesh_cfg: MeshConfig, *, model_group=None,
     tp = mesh_cfg.tp
     if use_ep is None:
         use_ep = tp > 1 and (cfg is None or cfg.is_moe)
-    if tp > 1 and cfg is not None:
-        check_tensor_parallel(cfg, use_ep)
     dp = dist.get_world_size(group)
     if dp != mesh_cfg.dp:
         raise ValueError(f"the group has {dp} ranks, the mesh's data axes "
@@ -371,6 +360,15 @@ def _bspec(mesh_cfg: MeshConfig) -> Axis:
     return axes if len(axes) > 1 else axes[0]
 
 
+def batch_specs(mesh_cfg: MeshConfig) -> dict:
+    """The JAX package's specs of a training batch: the batch dim of the
+    tokens, the labels and the context over the data axes
+    (``microbatch_rows`` gives a rank its rows)."""
+    b = _bspec(mesh_cfg)
+    return {"tokens": (b, None), "labels": (b, None),
+            "context": (b, None, None)}
+
+
 def cache_specs(cfg: ModelConfig, mesh_cfg: MeshConfig, batch: int,
                 cache_shapes, notes: Optional[List[str]] = None):
     """Specs of the decode cache (``cache_shapes``: the port's cache tree
@@ -446,9 +444,11 @@ class TPLayout:
     of ``tp``): the query heads (``wq``, ``bq``, ``wo``; of MLA ``w_uq``,
     ``w_uk``, ``w_uv`` and ``wo``), the KV heads (``wk``, ``wv``, ``bk``,
     ``bv``), the dense FFN's hidden dim, the shared experts' hidden dim
-    (``shared``), the vocabulary (``embed``, ``lm_head``) and the Mamba
-    heads (``_mamba_head_axis``).  Cross-attention and the encoder read
-    ``heads`` and ``kv`` as self-attention does."""
+    (``shared``), the vocabulary (``embed``, ``lm_head``), the Mamba
+    heads (``_mamba_head_axis``) and the experts of a MoE layer
+    (``experts``: ``moe_expert``, which ``moe_dense`` reads without expert
+    parallelism; expert parallelism needs them split).  Cross-attention
+    and the encoder read ``heads`` and ``kv`` as self-attention does."""
 
     rank: int
     tp: int
@@ -458,6 +458,7 @@ class TPLayout:
     vocab: bool
     ssm: bool
     shared: bool
+    experts: bool
 
     def block(self, n: int) -> Tuple[int, int]:
         """[lo, hi): this rank's block of a dim of ``n`` split tp ways."""
@@ -480,7 +481,8 @@ def tp_layout(cfg: ModelConfig, ctx: Optional[ParallelCtx]
         ffn=cfg.d_ff > 0 and cfg.d_ff % tp == 0,
         vocab=cfg.padded_vocab % tp == 0,
         ssm=bool(cfg.ssm_num_heads) and cfg.ssm_num_heads % tp == 0,
-        shared=shared > 0 and shared % tp == 0)
+        shared=shared > 0 and shared % tp == 0,
+        experts=cfg.is_moe and cfg.num_experts % tp == 0)
 
 
 def _tp_mesh(tp: int, axis: str) -> MeshConfig:
@@ -550,7 +552,10 @@ def expert_flags(tree, _expert: bool = False) -> List[bool]:
 
 
 def sharded_experts(ctx: Optional[ParallelCtx]) -> bool:
-    """Whether ``ctx`` keeps a part of each expert weight on a rank."""
+    """Whether ``ctx`` keeps a part of each expert weight on a rank under
+    expert parallelism (``expert_shard``); a model axis without it cuts
+    the experts as ``param_specs`` does (``tp_cut``), and
+    ``ep_weight_stationary`` means nothing there."""
     return ctx is not None and ctx.use_ep and (
         ctx.tp > 1 or (ctx.ep_weight_stationary and ctx.dp > 1))
 
@@ -594,36 +599,36 @@ def model_flags(params, ctx: Optional[ParallelCtx],
     ``param_leaves`` order: set where the leaf is this rank's part of a
     leaf split over the model axis: the experts under expert parallelism
     (``expert_flags``) and every other leaf that ``param_specs`` puts on
-    the model axis (which needs ``cfg``).  The other leaves are the same
-    on every model rank."""
+    the model axis (which needs ``cfg``), the experts too where it splits
+    them.  The other leaves are the same on every model rank."""
     experts = expert_flags(params)
+    if not sharded_experts(ctx):
+        experts = [False] * len(experts)
     if ctx is not None and ctx.tensor_parallel:
         dims = tp_dims(cfg, ctx)
         return [e or dims[path] is not None
                 for (path, _), e in zip(_with_paths(params), experts)]
-    if sharded_experts(ctx):
-        return experts
-    return [False] * len(experts)
+    return experts
 
 
 def _split(ctx: Optional[ParallelCtx], cfg: Optional[ModelConfig],
            what: str) -> bool:
     """Whether ``ctx``'s model axis splits the leaves (raising where it
-    has no config, or where the layout is not ported)."""
+    has no config)."""
     if ctx is None or not ctx.tensor_parallel:
         return False
     if cfg is None:
         raise ValueError(f"{what}: a model axis needs the config")
-    check_tensor_parallel(cfg, ctx.use_ep)
     return True
 
 
 def shard_params(params, ctx: Optional[ParallelCtx],
                  cfg: Optional[ModelConfig] = None):
     """The tree with each leaf that ``ctx`` splits replaced by this rank's
-    part: each expert weight (of a dict holding a ``router``) by
-    ``expert_shard``; on a model axis (which needs ``cfg``) every other
-    leaf that ``param_specs`` puts on it by its block (``tp_cut``).  Every
+    part: under expert parallelism each expert weight (of a dict holding a
+    ``router``) by ``expert_shard``; on a model axis (which needs ``cfg``)
+    every other leaf that ``param_specs`` puts on it, without expert
+    parallelism the experts too, by its block (``tp_cut``).  Every
     other leaf is the same tensor; with nothing split, the tree itself."""
     split = _split(ctx, cfg, "shard_params")
     experts = sharded_experts(ctx)

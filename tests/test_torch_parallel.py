@@ -361,15 +361,33 @@ def test_ranks_identical_after_two_steps(runs, name):
 def test_model_axis_and_expert_parallel_raise():
     """A model axis > 1 runs every layer tensor-parallel and the MoE
     layers' experts expert-parallel beside it (tests/test_torch_tp.py,
-    tests/test_torch_moe_ep.py): ``make_ctx`` picks EP for a MoE config
-    and takes every config; a context of a model axis without expert
-    parallelism for a MoE config is ROADMAP item 8c and raises."""
-    with pytest.raises(NotImplementedError, match="item 8c"):
-        make_ctx(None, MeshConfig((1, 2)), use_ep=False,
-                 cfg=smoke_config("dbrx-132b"))
-    with pytest.raises(NotImplementedError, match="item 8c"):
-        make_ctx(None, MeshConfig((1, 2)), use_ep=False,
-                 cfg=smoke_config("deepseek-v2-236b"))
+    tests/test_torch_moe_ep.py), or without expert parallelism
+    ``moe_dense`` on the rank's experts
+    (tests/test_torch_tp_moe_dense.py): ``make_ctx`` picks EP for a MoE
+    config and builds the context without it where asked; its layout
+    splits the experts over the model axis, and ``ep_weight_stationary``
+    means nothing there.  What raises is a mesh that the group does not
+    match."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import fake_world, mesh_groups
+    from repro_torch.parallel.planner import sharded_experts, tp_layout
+    mcfg = MeshConfig((1, 2))
+    fake_world(2, rank=1)
+    try:
+        dgroup, mgroup = mesh_groups(mcfg)
+        for arch in ("dbrx-132b", "deepseek-v2-236b"):
+            cfg = smoke_config(arch)
+            assert make_ctx(dgroup, mcfg, model_group=mgroup, cfg=cfg).use_ep
+            ctx = make_ctx(dgroup, mcfg, model_group=mgroup, use_ep=False,
+                           ep_weight_stationary=True, cfg=cfg)
+            assert not ctx.use_ep and ctx.tensor_parallel
+            assert ctx.model_rank == 1 and not sharded_experts(ctx)
+            assert tp_layout(cfg, ctx).experts
+        with pytest.raises(ValueError, match="model group"):
+            make_ctx(dgroup, mcfg, use_ep=False, cfg=cfg)
+    finally:
+        dist.destroy_process_group()
 
 
 def test_zero1_without_sharded_state_raises():

@@ -27,6 +27,7 @@ and 1e-5 against the single-rank run, the training step
 gradients 1e-5, parameters through their update).
 """
 import concurrent.futures
+import dataclasses
 import json
 
 import jax
@@ -49,8 +50,8 @@ from repro_torch.parallel.planner import _unflatten_like
 from repro_torch.train import make_train_step
 from torch_context import open_gates, stub_context
 from torch_dp_ranks import flatten, nest, update_errors
-from torch_tp_ranks import (REPLICATED_ATTN, tp_batch, tp_cases, tp_config,
-                            tp_context)
+from torch_tp_ranks import (REPLICATED_ATTN, VARIANTS, tp_batch, tp_cases,
+                            tp_config, tp_context)
 
 ARCHS = ("qwen2-0.5b", "granite-3-8b", "starcoder2-3b", "mamba2-130m")
 BATCHER_ARCHS = ("granite-3-8b", "mamba2-130m")
@@ -113,8 +114,10 @@ from repro.optim.adamw import init_opt_state
 from repro.parallel.planner import make_ctx, param_specs
 from repro.train.step import make_train_step
 
-inputs, archs_json, mesh_json, steps, tcfg_json, out_path = sys.argv[1:7]
+(inputs, archs_json, mesh_json, steps, tcfg_json, out_path, use_ep_json,
+ variants_json) = sys.argv[1:9]
 data = np.load(inputs)
+use_ep, variants = json.loads(use_ep_json), json.loads(variants_json)
 dp, tp = json.loads(mesh_json)
 mesh = jax.make_mesh((dp, tp), ("data", "model"),
                      axis_types=(AxisType.Auto,) * 2)
@@ -140,10 +143,15 @@ def flat(tree, prefix):
 
 out = {}
 for arch in json.loads(archs_json):
-    cfg = smoke_config(arch)
+    if arch in variants:
+        base, fields = variants[arch]
+        cfg = dataclasses.replace(smoke_config(base), name=arch, **fields)
+    else:
+        cfg = smoke_config(arch)
     # MoE configs: expert parallelism beside the tensor parallelism, at
-    # capacity factor E (no dispatch dropped)
-    ctx = make_ctx(mesh, mcfg, remat=False, use_ep=cfg.is_moe)
+    # capacity factor E (no dispatch dropped), unless use_ep says otherwise
+    ctx = make_ctx(mesh, mcfg, remat=False,
+                   use_ep=cfg.is_moe if use_ep is None else use_ep)
     if cfg.is_moe:
         ctx = dataclasses.replace(
             ctx, capacity_factor=float(cfg.num_experts),
@@ -194,8 +202,17 @@ print("OK")
 """
 
 
+def jax_tp_config(name: str):
+    """The JAX package's config of ``tp_config(name)``."""
+    if name in VARIANTS:
+        arch, fields = VARIANTS[name]
+        return dataclasses.replace(jax_smoke_config(arch), name=name,
+                                   **fields)
+    return jax_smoke_config(name)
+
+
 def _initial(arch: str) -> dict:
-    jp = jax_init_params(jax_smoke_config(arch), jax.random.PRNGKey(0))
+    jp = jax_init_params(jax_tp_config(arch), jax.random.PRNGKey(0))
     return flatten(open_gates(jax.tree.map(np.asarray, jp)))
 
 
@@ -206,7 +223,7 @@ def _inputs(tmp, archs) -> str:
     for arch in archs:
         data.update({f"params|{arch}|{k}": v
                      for k, v in _initial(arch).items()})
-        context = stub_context(smoke_config(arch), TOKENS[0], seed=1)
+        context = stub_context(tp_config(arch), TOKENS[0], seed=1)
         if context is not None:
             data[f"context|{arch}"] = context
     path = str(tmp / "inputs.npz")
@@ -214,15 +231,17 @@ def _inputs(tmp, archs) -> str:
     return path
 
 
-def mesh_runs(mesh, tmp, archs, cases):
+def mesh_runs(mesh, tmp, archs, cases, use_ep=None):
     """``cases`` on the mesh's 4 ranks and the JAX package's forward,
     decode and step of ``archs`` on its 4 devices, at once: (mesh, the
-    ranks' results, JAX's arrays, the inputs)."""
+    ranks' results, JAX's arrays, the inputs).  ``use_ep``: the JAX
+    context's (``None``: for the MoE configs)."""
     inputs = _inputs(tmp, archs)
     script = (f"import sys; sys.argv = ['', {inputs!r}, "
               f"{json.dumps(list(archs))!r}, {json.dumps(list(mesh))!r}, "
               f"'{DECODE_STEPS}', {json.dumps(BASE)!r}, "
-              f"{str(tmp / 'jax.npz')!r}]\n" + _JAX_SCRIPT)
+              f"{str(tmp / 'jax.npz')!r}, {json.dumps(use_ep)!r}, "
+              f"{json.dumps(VARIANTS)!r}]\n" + _JAX_SCRIPT)
     with concurrent.futures.ThreadPoolExecutor(1) as pool:
         jax_run = pool.submit(run_multidevice, script, num_devices=4,
                               timeout=300)
@@ -584,27 +603,36 @@ def test_tp_1x2_splits_the_kv_heads(runs_1x2):
 
 
 def test_tensor_parallel_raises_for_item_8b():
-    """What item 8b left out raises: a model axis on a MoE config without
-    expert parallelism (the JAX package's ``moe_dense`` on experts that XLA
-    shards over the model axis) waits for ROADMAP item 8c: the context, the parameters and the model
-    refuse it; every other config, and a MoE config under expert
-    parallelism, takes a model axis."""
-    from repro_torch.core.types import MeshConfig
-    from repro_torch.parallel import ParallelCtx, make_ctx, shard_params
+    """What a model axis still refuses, and what it takes since the MoE
+    configs run without expert parallelism too: the layout of a tree
+    needs its config, and expert parallelism needs an axis that divides
+    the experts; without expert parallelism every MoE config (also one
+    whose experts the axis does not divide, replicated then) initialises
+    on meta with its rank's block of the experts, and ``shard_params``
+    cuts the same blocks out of the whole draw."""
+    from repro_torch.parallel import ParallelCtx, shard_params
     for arch in MOE_ARCHS:
         cfg = smoke_config(arch)
-        with pytest.raises(NotImplementedError, match="item 8c"):
-            make_ctx(None, MeshConfig((1, 2)), use_ep=False, cfg=cfg)
-        ctx = ParallelCtx(tp=2, use_ep=False)
-        with pytest.raises(NotImplementedError, match="item 8c"):
-            forward(cfg, {"embed": torch.zeros(1)},
-                    torch.zeros((1, 1), dtype=torch.long), ctx=ctx)
-        with pytest.raises(NotImplementedError, match="item 8c"):
-            init_params(cfg, torch.Generator(), device="meta", ctx=ctx)
-        with pytest.raises(NotImplementedError, match="item 8c"):
-            shard_params({"embed": torch.zeros(1)}, ctx, cfg)
-        init_params(cfg, torch.Generator(), device="meta",
-                    ctx=ParallelCtx(tp=2, use_ep=True))
+        ctx = ParallelCtx(tp=2, use_ep=False, model_rank=1)
+        with pytest.raises(ValueError, match="needs the config"):
+            shard_params({"embed": torch.zeros(1)}, ctx)
+        meta = init_params(cfg, torch.Generator(), device="meta", ctx=ctx)
+        full = init_params(cfg, torch.Generator().manual_seed(2),
+                           device="cpu")
+        mine = init_params(cfg, torch.Generator().manual_seed(2),
+                           device="cpu", ctx=ctx)
+        for a, b, c in zip(param_leaves(meta), param_leaves(mine),
+                           param_leaves(shard_params(full, ctx, cfg))):
+            assert a.shape == b.shape
+            torch.testing.assert_close(b, c, rtol=0, atol=0)
+        e = meta["layers"][-1]["ffn"]["w_gate"].shape[0]
+        assert e == cfg.num_experts // 2
+        odd = dataclasses.replace(cfg, num_experts=3)
+        with pytest.raises(ValueError, match="do not split"):
+            init_params(odd, torch.Generator(), device="meta",
+                        ctx=ParallelCtx(tp=2, use_ep=True))
+        meta = init_params(odd, torch.Generator(), device="meta", ctx=ctx)
+        assert meta["layers"][-1]["ffn"]["w_gate"].shape[0] == 3
     for arch in ("llama-3.2-vision-90b", "seamless-m4t-medium",
                  "granite-3-8b"):
         init_params(smoke_config(arch), torch.Generator(), device="meta",

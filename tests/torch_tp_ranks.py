@@ -19,7 +19,7 @@ from repro_torch.launch.train import checksum
 from repro_torch.models import (decode_step, encode, forward, init_cache,
                                 init_params)
 from repro_torch.models import attention as attn
-from repro_torch.models import ssm
+from repro_torch.models import moe, ssm
 from repro_torch.models.modules import rms_norm
 from repro_torch.optim import gather_opt_state, init_opt_state
 from repro_torch.parallel import gather_params, make_ctx, model_flags
@@ -32,19 +32,26 @@ from torch_dp_ranks import flatten, nest
 # qwen2-0.5b's smoke config with the full config's 14 query heads: at tp 4
 # its attention is replicated, as qwen2-0.5b's is at tp 4 and 16
 REPLICATED_ATTN = "qwen2-0.5b-14h"
+# dbrx-132b's smoke config with 6 experts: a model axis of 4 does not
+# divide them, and ``param_specs`` replicates them (``guarded``)
+REPLICATED_EXPERTS = "dbrx-132b-e6"
+# name -> (the arch whose smoke config it changes, the fields changed)
+VARIANTS = {REPLICATED_ATTN: ("qwen2-0.5b", {"num_heads": 14}),
+            REPLICATED_EXPERTS: ("dbrx-132b", {"num_experts": 6})}
 
 
 def tp_config(name: str):
-    """The smoke config of ``name`` (or of ``REPLICATED_ATTN``)."""
-    if name == REPLICATED_ATTN:
-        return dataclasses.replace(smoke_config("qwen2-0.5b"), num_heads=14,
-                                   name=REPLICATED_ATTN)
+    """The smoke config of ``name`` (or of one of the ``VARIANTS``)."""
+    if name in VARIANTS:
+        arch, fields = VARIANTS[name]
+        return dataclasses.replace(smoke_config(arch), name=name, **fields)
     return smoke_config(name)
 
 
-def tp_ctx(world: int, mesh_shape, cfg, remat: bool = False):
+def tp_ctx(world: int, mesh_shape, cfg, remat: bool = False, use_ep=None):
     """This rank's context on the mesh: tensor parallelism, and for a MoE
-    config expert parallelism beside it at capacity factor E (the number
+    config expert parallelism beside it (unless ``use_ep`` is False:
+    ``moe_dense`` on the rank's experts) at capacity factor E (the number
     of experts: no dispatch is dropped, so the single-rank run, which
     drops none, is the reference)."""
     mcfg = MeshConfig(tuple(mesh_shape))
@@ -56,7 +63,7 @@ def tp_ctx(world: int, mesh_shape, cfg, remat: bool = False):
         kw = dict(capacity_factor=float(cfg.num_experts),
                   decode_capacity_factor=float(cfg.num_experts))
     return make_ctx(dgroup, mcfg, model_group=mgroup, remat=remat, cfg=cfg,
-                    **kw)
+                    use_ep=use_ep, **kw)
 
 
 def tp_context(data, arch: str, cfg, params, ctx=None, rows=slice(None)):
@@ -107,15 +114,15 @@ def tp_cases(rank: int, world: int, mesh_shape, inputs_path: str,
     rank of a (data, model) mesh.  ``inputs_path``: an .npz of the JAX
     package's parameters (``params|<arch>|<path>``) and the ``tokens`` and
     ``labels`` (B, S).  ``cases``: name -> {"kind": "model" | "init" |
-    "bytes" | "fault", "arch", ...}.  Returns name -> this rank's results
-    as numpy."""
+    "bytes" | "fault", "arch", ...; "use_ep": ``tp_ctx``'s, optional}.
+    Returns name -> this rank's results as numpy."""
     data = np.load(inputs_path)
     tokens = torch.from_numpy(data["tokens"]).long()
     labels = torch.from_numpy(data["labels"]).long()
     out = {}
     for name, case in cases.items():
         cfg = tp_config(case["arch"])
-        ctx = tp_ctx(world, mesh_shape, cfg)
+        ctx = tp_ctx(world, mesh_shape, cfg, use_ep=case.get("use_ep"))
         kind = case["kind"]
         if kind == "model":
             out[name] = _model(data, case, cfg, ctx, tokens, labels)
@@ -294,16 +301,38 @@ def _gate_before_reduce(real):
     return planted
 
 
-GRAD_FAULTS = {"mla_x_only": ("mla_forward", _mla_x_only),
-               "gate_before_reduce": ("cross_attention_forward",
-                                      _gate_before_reduce)}
+def _weights_no_copy(real):
+    """``moe_dense``'s combine weights cut to the rank's columns without
+    ``copy_to_model``: each rank's gradient of the router is then only its
+    own experts' share of the combine."""
+    def planted(w_full, lay, ctx):
+        lo, hi = lay.block(w_full.shape[1])
+        return w_full[:, lo:hi]
+    return planted
+
+
+def _router_copy(real):
+    """The router reading the tokens through ``copy_to_model``: the
+    router's part of their gradient, whole on every rank, is then summed
+    over the model ranks."""
+    def planted(p, cfg_, x, ctx=None):
+        return real(p, cfg_, copy_to_model(x, ctx), ctx)
+    return planted
+
+
+# name -> (module, the function replaced, its planted version of it)
+GRAD_FAULTS = {"mla_x_only": (attn, "mla_forward", _mla_x_only),
+               "gate_before_reduce": (attn, "cross_attention_forward",
+                                      _gate_before_reduce),
+               "weights_no_copy": (moe, "_rank_weights", _weights_no_copy),
+               "router_copy": (moe, "route", _router_copy)}
 
 
 def _grad_fault(data, case, cfg, ctx) -> dict:
     """This rank's gradient (gathered, the JAX layout) of one training
     step with a planted fault (``GRAD_FAULTS``), the function restored
     after it."""
-    name, make = GRAD_FAULTS[case["fault"]]
+    module, name, make = GRAD_FAULTS[case["fault"]]
     params = _params(data, case["arch"], cfg, ctx)
     seen = {}
 
@@ -313,13 +342,13 @@ def _grad_fault(data, case, cfg, ctx) -> dict:
 
     tcfg = TrainConfig(**case["tcfg"])
     opt = init_opt_state(params, ctx if tcfg.zero1 and ctx.dp > 1 else None)
-    real = getattr(attn, name)
-    setattr(attn, name, make(real))
+    real = getattr(module, name)
+    setattr(module, name, make(real))
     try:
         make_train_step(cfg, tcfg, ctx)(
             params, opt, tp_batch(data, case["arch"]), grad_hook=hook)
     finally:
-        setattr(attn, name, real)
+        setattr(module, name, real)
     return {"grads": flatten(params_to_jax_layout(
         cfg, _unflatten_like(params, seen["local"]), ctx))}
 
