@@ -4,8 +4,11 @@
     python3 chip_smoke.py
 
 Needs one CUDA card, the CUDA toolkit (nvcc) and nothing else of the repo
-but ``src/repro_torch``.  Phases, each printing JSON lines; any failure
-exits non-zero:
+but ``src/repro_torch``.  Phases, each printing JSON lines and then a
+line {"phase": "clock", "after": ..., "t_s": seconds since the start};
+any failure exits non-zero.  The multi-rank phases share one pool of four
+rank processes (``launch.ranks.RankPool``), each phase a process group of
+its own:
 
 1. build: compiles every kernel source from ``src/repro_torch`` with nvcc
    into ``build/`` (one nvcc per source, all started together).
@@ -87,9 +90,10 @@ exits non-zero:
    the gradients of x and the three expert stacks through the kernels
    against the plain version's; dbrx-132b at full width, 1 layer, 20 bf16
    steps of B 2 x S 256 (one microbatch, no remat), checked as qwen2's.
-3c. data-parallel training, qwen2-0.5b at full width and depth, 4 gloo
-   ranks sharing the card (the main process frees its tensors first):
-   dp_parity, one f32 step of ZeRO-1 and one of plain DP on ``ring`` (B 8
+3c. data-parallel training, qwen2-0.5b at full width, 4 gloo ranks
+   sharing the card (the main process frees its tensors first), 8 of its
+   24 layers in dp_parity and dp_q8 (``DP_LAYERS``), all 24 through the
+   launcher: dp_parity, one f32 step of ZeRO-1 and one of plain DP on ``ring`` (B 8
    x S 256, lr 1e-3 from the first step) against the single-card step on
    the whole batch (loss and grad_norm within rtol 1e-4; m and v within
    1e-5 of their max; params within 1e-3 x lr of AdamW written out from
@@ -142,11 +146,12 @@ exits non-zero:
    ctx)`` and 8 teacher-forced decode steps of 4 slots within PARITY_TOL
    of the single-card run, greedy tokens equal, one training step (B 4 x S
    256, ZeRO-1 on (2, 2)) held as dp_parity holds its own; tp_serving,
-   granite-3-8b at full width and depth (40 layers), bf16, (1, 4): prefill
+   granite-3-8b at full width, 10 of its 40 layers, bf16, (1, 4): prefill
    and a 4-slot ContinuousBatcher over 6 requests (one admitted
    mid-flight), greedy tokens equal to the single-card run's where its
    top-2 margin exceeds 8 bf16 ulps, max |logit diff| printed; tp_mamba,
-   mamba2-130m whole on (1, 4) (6 of 24 SSD heads a rank): f32 parity,
+   mamba2-130m, 8 of its 24 layers, on (1, 4) (6 of 24 SSD heads a
+   rank): f32 parity,
    then bf16 serving; tp_training, granite-3-8b at full width, 4 layers,
    bf16, (2, 2), ZeRO-1, B 8 x S 512 in 2 microbatches, remat, 5 steps:
    the loss falls; cmm, ``ag_matmul`` and ``matmul_rs`` at granite's FFN
@@ -230,6 +235,23 @@ exits non-zero:
    ``algo_cost``'s for the whole size, with ``model_vs_measured``'s
    summary, the probes' trace validated, and the search's executable's
    measured seconds beside its price.
+5d. seq_decode (at the end, after the dry-run's pool): decode on a cache
+   whose slot axis is split over the data axes (``parallel.sequence``, the
+   long-context layout of ``cache_specs``), 4 gloo ranks sharing the card,
+   each drawing only its block of the cache from a generator seeded a
+   block: qwen2-0.5b whole on (4, 1), its native 524,288-slot cache
+   (1/4 a rank) and long_500k's ring of 8,192 (the SWA variant, the owner
+   of the new slot moving across the ring's wrap), and deepseek-v2-236b at
+   full width, 2 layers, on (2, 2), its latent cache of 524,288 positions
+   beside the heads and experts (K5) of the model axis; 8 steps each.
+   f32 within PARITY_TOL of the single card holding the whole cache (made
+   first and freed), greedy tokens equal; every rank's logits bit-equal;
+   bf16's max |logit diff| within twice the single card's own bf16 error;
+   the cache a rank (the allocator's delta) 1/dp of the whole; each
+   step's wire bytes the combine's formula (``combine_bytes``) plus the
+   model axis's all-reduces, and the dry-run's prediction; decode ms
+   p50/p99 a rank beside the single card's step; the card's name and power
+   limit on each line.
 6. The kernels line (all ten kernels, launches from the path that runs
    each, and by every path, the data-parallel ones summed over the
    ranks), the card's name and power limit, and last the line
@@ -301,7 +323,7 @@ try:
         BWD_LAUNCHES_PER_CALL as SSD_BWD_LAUNCHES
     from repro_torch.launch import train as launch_train
     from repro_torch.launch.mesh import mesh_groups
-    from repro_torch.launch.ranks import rank_device, spawn_ranks
+    from repro_torch.launch.ranks import RankPool, rank_device
     from torch.utils.flop_counter import FlopCounterMode
 
     from repro_torch.launch.analysis import record_collectives
@@ -323,6 +345,9 @@ try:
     from repro_torch.parallel import fsdp as fsdp_mod
     from repro_torch.parallel.planner import (BUCKET_VALUES, _with_paths,
                                               tp_dims, tp_layout)
+    from repro_torch.parallel.sequence import SlotBlock, combine_bytes
+    from repro_torch.launch.specs import SWA_VARIANT_WINDOW
+    from repro_torch.serve.step import full_logits
     from repro_torch.serve import make_prefill, make_serve_step
     from repro_torch.sched.arrivals import PoissonArrivals
     from repro_torch.serve.batcher import ContinuousBatcher
@@ -422,8 +447,39 @@ LOWRANK_RANK = 4
 CODEC_REGIME = {"q8": 0.02, "q4": 0.25, "topk": 1.0, "lowrank": 1.0}
 
 
+# one pool of rank processes for every multi-rank phase (``run_ranks``):
+# the imports, the card's context and the kernels' loading once, not once
+# a phase.  The ranks allocate in expandable segments from their start, as
+# the EP phases' ranks ask (a setting that must precede a process's first
+# allocation).
+RANK_ENV = {"PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"}
+_POOL: list = []
+
+
+def run_ranks(fn, world: int, *args, **kw) -> list:
+    """``fn(rank, world, *args)`` on the first ``world`` processes of the
+    script's ``RankPool`` (started at the first call), each rank in a
+    process group of its own, as ``spawn_ranks`` runs it."""
+    if not _POOL:
+        _POOL.append(RankPool(RING_RANKS, env=RANK_ENV))
+    return _POOL[0].run(fn, world, *args, **kw)
+
+
+def close_ranks() -> None:
+    while _POOL:
+        _POOL.pop().close()
+
+
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
+
+
+def nvidia_smi_card() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
 
 
 def check(cond: bool, msg: str) -> None:
@@ -2224,7 +2280,7 @@ def phase_collectives(n_values: int, seed: int) -> dict:
     and without q8.  The times are gloo over loopback, staged through the
     host, and say nothing of NCCL or NVLink."""
     t0 = time.perf_counter()
-    ranks = spawn_ranks(collective_rank, RING_RANKS, n_values, seed,
+    ranks = run_ranks(collective_rank, RING_RANKS, n_values, seed,
                         backend="gloo", timeout_s=900)
     wall = time.perf_counter() - t0
     counts = {k: sum(r["launches"][k] for r in ranks) for k in WRAPPERS}
@@ -2365,7 +2421,7 @@ def phase_planner(seed: int) -> dict:
     plan_s = time.perf_counter() - t0
 
     t1 = time.perf_counter()
-    ranks = spawn_ranks(planner_rank, RING_RANKS, seed, backend="gloo",
+    ranks = run_ranks(planner_rank, RING_RANKS, seed, backend="gloo",
                         timeout_s=600)
     run_s = time.perf_counter() - t1
     task = CommTask("bucket", "all_reduce", BUCKET_BYTES,
@@ -2654,7 +2710,7 @@ def phase_codesign(seed: int) -> dict:
     t0 = time.perf_counter()
     host = codesign_host()
     t1 = time.perf_counter()
-    ranks = spawn_ranks(codesign_rank, RING_RANKS, CODESIGN_SIZES, DEVICE,
+    ranks = run_ranks(codesign_rank, RING_RANKS, CODESIGN_SIZES, DEVICE,
                         backend="gloo", timeout_s=600)
     probe_s = time.perf_counter() - t1
     head = ranks[0]["probes"]
@@ -3225,6 +3281,10 @@ def run_family_training(seed: int) -> dict:
 # --------------------------------------------------------------------------
 
 DP_PARITY_BATCH, DP_PARITY_SEQ = 8, 256
+# dp_parity and dp_q8 run qwen2-0.5b at full width, cut to 8 of its 24
+# layers (the script's time limit: their steps move the gradient over gloo
+# loopback); dp_training and fsdp run it whole
+DP_LAYERS = 8
 DP_STEPS = 4      # the loss falls below 0.9 of its start at the 4th
 DP_Q8_STEPS = 2
 # the f32 parity step at lr 1e-3 from the first step: AdamW's first update
@@ -3328,6 +3388,10 @@ def _exchange_delta(before: tuple) -> dict:
             "staged_bytes": now[2] - before[2]}
 
 
+def _dp_config():
+    return dataclasses.replace(get_config(ARCH), num_layers=DP_LAYERS)
+
+
 def _rank_ctx(world: int, **kw):
     mesh_cfg = MeshConfig((world, 1))
     return make_ctx(mesh_groups(mesh_cfg)[0], mesh_cfg, **kw)
@@ -3344,7 +3408,7 @@ def dp_parity_rank(rank: int, world: int, seed: int) -> dict:
     device = rank_device(DEVICE)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = get_config(ARCH)
+    cfg = _dp_config()
     batch = next(make_batches(cfg, DP_PARITY_BATCH, DP_PARITY_SEQ,
                               seed=seed))
 
@@ -3424,13 +3488,14 @@ def phase_dp_parity(seed: int) -> None:
     """DP-4 in f32 (ZeRO-1, plain DP, FSDP) against the single-card step,
     all on the card; FSDP against ZeRO-1 too."""
     t0 = time.perf_counter()
-    ranks = spawn_ranks(dp_parity_rank, RING_RANKS, seed, backend="gloo",
+    ranks = run_ranks(dp_parity_rank, RING_RANKS, seed, backend="gloo",
                         timeout_s=900)
     for mode in ("zero1", "ring", "fsdp"):
         per = [r[mode] for r in ranks]
         head = per[0]
         same = all(p["checksums"] == head["checksums"] for p in per)
-        emit({"phase": "dp_parity", "arch": ARCH, "sync": mode,
+        emit({"phase": "dp_parity", "arch": ARCH, "layers": DP_LAYERS,
+              "sync": mode,
               "ranks": RING_RANKS, "backend": "gloo", "dtype": "float32",
               "batch": DP_PARITY_BATCH, "seq": DP_PARITY_SEQ,
               "metrics": head["metrics"], "single": head["single"],
@@ -3613,7 +3678,7 @@ def dp_q8_rank(rank: int, world: int, seed: int) -> dict:
     and after the sync, and (inside the hook, before AdamW's buffers
     exist) syncs it again: ``_real_gradient_syncs``."""
     device = rank_device(DEVICE)
-    cfg = get_config(ARCH)
+    cfg = _dp_config()
     gen = torch.Generator(device=device).manual_seed(seed)
     params = init_params(cfg, gen, dtype=torch.float32, device=device)
     ctx = _rank_ctx(world, remat=True, grad_all_reduce="ring_q8")
@@ -3654,12 +3719,13 @@ def phase_dp_q8(seed: int) -> dict:
     """Plain DP on ring_q8 over 4 ranks; returns the kernel launches of
     every rank's steps, summed."""
     t0 = time.perf_counter()
-    ranks = spawn_ranks(dp_q8_rank, RING_RANKS, seed, backend="gloo",
+    ranks = run_ranks(dp_q8_rank, RING_RANKS, seed, backend="gloo",
                         timeout_s=900)
     head = ranks[0]
     counts = {k: sum(r["launches"][k] for r in ranks) for k in WRAPPERS}
     same = len({r["real_gradient"]["synced_checksum"] for r in ranks}) == 1
-    emit({"phase": "dp_q8", "arch": ARCH, "sync": "ring_q8",
+    emit({"phase": "dp_q8", "arch": ARCH, "layers": DP_LAYERS,
+          "sync": "ring_q8",
           "ranks": RING_RANKS, "backend": "gloo", "dtype": "float32",
           "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
           "microbatches": TRAIN_MICROBATCHES, "remat": True,
@@ -3990,7 +4056,7 @@ def phase_ep_parity(rng, seed: int) -> dict:
     with tempfile.TemporaryDirectory(prefix="ep_parity_") as tmp:
         path = os.path.join(tmp, "ref.pt")
         torch.save(ref, path)
-        ranks = spawn_ranks(ep_parity_rank, EP_RANKS, cfg, seed, path,
+        ranks = run_ranks(ep_parity_rank, EP_RANKS, cfg, seed, path,
                             DEVICE, backend="gloo", timeout_s=600)
         t1 = time.perf_counter()
         forced = {}
@@ -4321,7 +4387,7 @@ def phase_ep_serving(rng, seed: int) -> dict:
         path = os.path.join(tmp, "ref.pt")
         torch.save(ref, path)
         t1 = time.perf_counter()
-        ranks = spawn_ranks(ep_serving_rank, EP_RANKS, cfg, seed, path,
+        ranks = run_ranks(ep_serving_rank, EP_RANKS, cfg, seed, path,
                             DEVICE, backend="gloo", timeout_s=600)
         serving_s = time.perf_counter() - t1
     ws_ranks = [r["ws_decode"] for r in ranks]
@@ -4684,7 +4750,7 @@ def phase_ep_training(seed: int) -> dict:
     cfg = dataclasses.replace(get_config(MOE_ARCH),
                               num_layers=MOE_TRAIN_LAYERS)
     t1 = time.perf_counter()
-    ranks = spawn_ranks(ep_training_rank, EP_TRAIN_RANKS, cfg, seed, DEVICE,
+    ranks = run_ranks(ep_training_rank, EP_TRAIN_RANKS, cfg, seed, DEVICE,
                         backend="gloo", timeout_s=900)
     ranks_s = time.perf_counter() - t1
     rel = [{k: abs(r["smoke"][k] - ref[k]) / abs(ref[k])
@@ -4789,6 +4855,8 @@ def run_ep(rng, seed: int) -> dict:
 TP_ARCH = "granite-3-8b"
 TP_RANKS = 4
 TP_PARITY_LAYERS = 2           # f32: 3.2 GB whole, the step's state 4x that
+TP_SERVE_LAYERS = 10           # of 40: the script's time limit
+TP_MAMBA_LAYERS = 8            # of mamba2-130m's 24: the same
 TP_TRAIN_LAYERS = 4            # 1.20 B parameters: AdamW's state fits
 TP_BATCH, TP_SEQ = 2, 256      # the prefill: B 2 x S 256
 TP_SLOTS = 4
@@ -5141,7 +5209,7 @@ def phase_tp_parity(rng, seed: int) -> dict:
     with tempfile.TemporaryDirectory(prefix="tp_parity_") as tmp:
         path = os.path.join(tmp, "ref.pt")
         torch.save(ref, path)
-        ranks = spawn_ranks(tp_parity_rank, TP_RANKS, cfg, seed, path,
+        ranks = run_ranks(tp_parity_rank, TP_RANKS, cfg, seed, path,
                             DEVICE, backend="gloo", timeout_s=900)
     counts = []
     for mesh in ("1x4", "2x2"):
@@ -5273,11 +5341,16 @@ def tp_serving_rank(rank: int, world: int, cfg, seed: int, ref_path: str,
     return out
 
 
+def _tp_serve_config():
+    return dataclasses.replace(get_config(TP_ARCH),
+                               num_layers=TP_SERVE_LAYERS)
+
+
 def phase_tp_serving(rng, seed: int) -> dict:
-    """granite-3-8b at full width and depth (40 layers, 16.75 GB in bf16),
-    bf16: the single-card run (freed first), then TP serving on (1, 4)."""
+    """granite-3-8b at full width, 10 of its 40 layers, bf16: the
+    single-card run (freed first), then TP serving on (1, 4)."""
     t0 = time.perf_counter()
-    cfg = get_config(TP_ARCH)
+    cfg = _tp_serve_config()
     tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size,
                                            (TP_BATCH, TP_SEQ)))
     requests = _tp_requests(rng, cfg)
@@ -5289,7 +5362,7 @@ def phase_tp_serving(rng, seed: int) -> dict:
         path = os.path.join(tmp, "ref.pt")
         torch.save(ref, path)
         t1 = time.perf_counter()
-        ranks = spawn_ranks(tp_serving_rank, TP_RANKS, cfg, seed, path,
+        ranks = run_ranks(tp_serving_rank, TP_RANKS, cfg, seed, path,
                             DEVICE, backend="gloo", timeout_s=900)
         ranks_s = time.perf_counter() - t1
     head = ranks[0]
@@ -5424,10 +5497,11 @@ def tp_mamba_rank(rank: int, world: int, cfg, seed: int, ref_path: str,
 
 
 def phase_tp_mamba(rng, seed: int) -> dict:
-    """mamba2-130m at full size on (1, 4): f32 parity, then bf16
-    serving, against single-card runs (made first)."""
+    """mamba2-130m at full width, 8 of its 24 layers, on (1, 4): f32
+    parity, then bf16 serving, against single-card runs (made first)."""
     t0 = time.perf_counter()
-    cfg = get_config(SSM_ARCH)
+    cfg = dataclasses.replace(get_config(SSM_ARCH),
+                              num_layers=TP_MAMBA_LAYERS)
     tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size,
                                            (TP_BATCH, TP_SEQ)))
     first = torch.from_numpy(rng.integers(0, cfg.vocab_size, (TP_SLOTS, 1)))
@@ -5439,7 +5513,7 @@ def phase_tp_mamba(rng, seed: int) -> dict:
     with tempfile.TemporaryDirectory(prefix="tp_mamba_") as tmp:
         path = os.path.join(tmp, "ref.pt")
         torch.save(refs, path)
-        ranks = spawn_ranks(tp_mamba_rank, TP_RANKS, cfg, seed, path,
+        ranks = run_ranks(tp_mamba_rank, TP_RANKS, cfg, seed, path,
                             DEVICE, backend="gloo", timeout_s=900)
     head = ranks[0]
     tp = TP_RANKS
@@ -5560,7 +5634,7 @@ def phase_tp_training(seed: int) -> dict:
     t0 = time.perf_counter()
     cfg = dataclasses.replace(get_config(TP_ARCH),
                               num_layers=TP_TRAIN_LAYERS)
-    ranks = spawn_ranks(tp_training_rank, TP_RANKS, cfg, seed, DEVICE,
+    ranks = run_ranks(tp_training_rank, TP_RANKS, cfg, seed, DEVICE,
                         backend="gloo", timeout_s=900)
     head = ranks[0]
     TP_TRAINING_FIRST.update(
@@ -5748,7 +5822,7 @@ def phase_tp_cmm_pipeline(seed: int) -> dict:
     granite layers, 4 gloo ranks on the card."""
     t0 = time.perf_counter()
     cfg = get_config(TP_ARCH)
-    ranks = spawn_ranks(tp_cmm_pipeline_rank, TP_RANKS, cfg, seed, DEVICE,
+    ranks = run_ranks(tp_cmm_pipeline_rank, TP_RANKS, cfg, seed, DEVICE,
                         backend="gloo", timeout_s=900)
     p = TP_RANKS
     for name in ("ag_matmul", "matmul_rs"):
@@ -6271,7 +6345,7 @@ def phase_tp_family(name: str, rng, seed: int) -> dict:
         path = os.path.join(tmp, "ref.pt")
         torch.save(refs, path)
         t1 = time.perf_counter()
-        ranks = spawn_ranks(tpf_rank, TP_RANKS, name, cfg, seed, path,
+        ranks = run_ranks(tpf_rank, TP_RANKS, name, cfg, seed, path,
                             DEVICE, backend="gloo", timeout_s=900)
         ranks_s = time.perf_counter() - t1
         tie_err, forced_s = {}, 0.0
@@ -6599,6 +6673,10 @@ def _dryrun_jobs() -> dict:
         jobs[("card", k)] = ("program", (ARCH, shape.name, dict(
             mesh=one, shape=shape, cfg_override=qwen,
             **(CARD_TRAIN if k == "train" else {}))))
+    for name, (arch, _, mesh, _, _, shape) in SEQ_CASES.items():
+        jobs[("seq_decode", name)] = ("program", (arch, shape, dict(
+            mesh=MeshConfig(mesh), cfg_override=_seq_config(name),
+            shape=ShapeConfig(shape, SEQ_SLOTS, 1, "decode"), fsdp=False)))
     tp_shape = ShapeConfig("tp_prefill", TP_SEQ, TP_BATCH, "prefill")
     granite4 = dataclasses.replace(granite, num_layers=TP_TRAIN_LAYERS)
     train = ShapeConfig("fsdp_train", FSDP_SEQ, TRAIN_BATCH, "train")
@@ -6607,7 +6685,7 @@ def _dryrun_jobs() -> dict:
     for r in range(TP_RANKS):
         jobs[("tp_serving", r)] = ("program", (TP_ARCH, "tp_prefill", dict(
             mesh=MeshConfig((1, TP_RANKS)), shape=tp_shape, rank=r,
-            cfg_override=granite, gather_logits=True)))
+            cfg_override=_tp_serve_config(), gather_logits=True)))
         jobs[("fsdp_qwen", r)] = ("program", (ARCH, "fsdp_train", dict(
             mesh=MeshConfig((RING_RANKS, 1)), shape=train, rank=r,
             fsdp=True, cfg_override=qwen, **CARD_TRAIN)))
@@ -6945,7 +7023,7 @@ def phase_fsdp(got: dict, seed: int) -> dict:
                                num_layers=TP_TRAIN_LAYERS)
     zero1 = TP_TRAINING_FIRST
     check("seed" in zero1, "fsdp_tp: tp_training did not run")
-    both = spawn_ranks(fsdp_rank, RING_RANKS, seed, gcfg, zero1["seed"],
+    both = run_ranks(fsdp_rank, RING_RANKS, seed, gcfg, zero1["seed"],
                        DEVICE, backend="gloo", timeout_s=900)
     ranks = [r["qwen"] for r in both]
     granite = [r["granite"] for r in both]
@@ -7070,7 +7148,297 @@ def run_context_paths(rng) -> dict:
     return paths
 
 
+# --------------------------------------------------------------------------
+# 5d. seq_decode: the long-context cache split over the data axes
+# --------------------------------------------------------------------------
+
+SEQ_RANKS = 4
+SEQ_STEPS = 8
+SEQ_SLOTS = 524_288  # long_500k's context
+# name -> (arch, layers (0: all of them), mesh, decode window, first
+# position, the dry-run's shape name).  "full": qwen2-0.5b's native
+# full-attention cache of 524,288 slots; "ring": long_500k's own policy
+# for it (``decode_window``: the SWA variant's ring of 8,192), from 4
+# positions before a wrap of the ring, so that the new slot's owner moves
+# from rank 3 to rank 0 (consecutive positions near the end of the context
+# stay in rank 3's block); "mla": deepseek-v2-236b's latent cache of
+# 524,288 positions, cut to 2 layers as ``tp_mla`` (the dense first layer
+# and one MoE layer), the model axis splitting its heads and experts
+SEQ_CASES = {
+    "full": (ARCH, 0, (4, 1), None, SEQ_SLOTS - SEQ_STEPS, "seq_full"),
+    "ring": (ARCH, 0, (4, 1), SWA_VARIANT_WINDOW,
+             63 * SWA_VARIANT_WINDOW - 4, "long_500k"),
+    "mla": (MLA_ARCH, MLA_LAYERS, (2, 2), None, SEQ_SLOTS - SEQ_STEPS,
+            "long_500k"),
+}
+# the split's bf16 logits against the single card's bf16 run: within this
+# many times the single card's own bf16 error against its f32 run
+SEQ_BF16_FACTOR = 2.0
+
+
+def _seq_config(name: str):
+    arch, layers = SEQ_CASES[name][:2]
+    cfg = get_config(arch)
+    return dataclasses.replace(cfg, num_layers=layers) if layers else cfg
+
+
+def seq_fill(cache: dict, seed: int, dp: int) -> None:
+    """Fill a decode cache from ``seed``: each leaf of each layer as ``dp``
+    blocks of its slot axis, block b f32 N(0, 1) from a generator seeded
+    for (layer, leaf, b), cast to the leaf's dtype.  A rank's
+    ``SlotBlock`` draws its own block alone (no rank holds the whole
+    cache); the single card's whole cache draws every block, so both hold
+    the same values."""
+    for i, lc in enumerate(cache["layers"]):
+        split = isinstance(lc, SlotBlock)
+        for j, t in enumerate(lc.values()):
+            n = t.shape[1] if split else t.shape[1] // dp
+            for b in ([lc.lo // n] if split else range(dp)):
+                gen = torch.Generator(device=t.device).manual_seed(
+                    ((seed * 100 + i) * 10 + j) * 100 + b)
+                x = torch.randn((t.shape[0], n, *t.shape[2:]),
+                                generator=gen, device=t.device)
+                (t if split else t[:, b * n:(b + 1) * n]).copy_(x)
+                del x
+
+
+def _seq_params(cfg, seed: int, dtype, ctx, device):
+    """``_tp_params``; a MoE config's ranks draw in turn (each draws an
+    expert leaf whole before it keeps its block: 5 GB in f32)."""
+    if ctx is None or not cfg.is_moe:
+        return _tp_params(cfg, seed, dtype, ctx, device)
+    params = None
+    for r in range(dist.get_world_size()):
+        if r == dist.get_rank():
+            params = _tp_params(cfg, seed, dtype, ctx, device)
+            _release()
+        dist.barrier()
+    return params
+
+
+def _seq_decode(cfg, params, cache, fed, p0: int, win, ctx, device,
+                first=None):
+    """``SEQ_STEPS`` decode steps at positions p0, p0 + 1, ...: greedy
+    from ``first`` (1, 1), or teacher-forced over ``fed`` (1, steps).
+    Returns (the logits over the whole vocabulary (1, steps, V_pad) on the
+    host, the tokens fed, each step's device ms, each step's wire
+    bytes)."""
+    tok = first
+    logits, toks, ms, wire = [], [], [], []
+    with torch.no_grad():
+        for t in range(SEQ_STEPS):
+            x = (fed[:, t:t + 1] if fed is not None else tok).to(device)
+            toks.append(x.cpu())
+            ex0 = _exchange()
+            (lg, cache), m, _ = _timed(lambda: decode_step(
+                cfg, params, cache, x, p0 + t, ctx=ctx, window=win))
+            wire.append(_exchange_delta(ex0)["wire_bytes"])
+            ms.append(m)
+            lg = full_logits(cfg, lg, ctx)[:, 0]
+            tok = lg[:, :cfg.vocab_size].argmax(-1, keepdim=True)
+            logits.append(lg.float().cpu())
+    return torch.stack(logits, 1), torch.cat(toks, 1), ms, wire
+
+
+def _seq_reference(name: str, seed: int, dtype, first=None, fed=None
+                   ) -> dict:
+    """The single card holding the whole cache of case ``name`` (filled by
+    ``seq_fill`` as the mesh's blocks): its logits, the tokens fed, each
+    step's device ms and the cache's bytes.  Host tensors; frees the
+    card."""
+    cfg = _seq_config(name)
+    _, _, mesh, win, p0, _ = SEQ_CASES[name]
+    params = _tp_params(cfg, seed, dtype, None, DEVICE)
+    cache = init_cache(cfg, params, 1, SEQ_SLOTS, dtype, window=win)
+    seq_fill(cache, seed, mesh[0])
+    logits, toks, ms, _ = _seq_decode(cfg, params, cache, fed, p0, win,
+                                      None, DEVICE, first)
+    out = {"logits": logits, "fed": toks, "step_ms": ms,
+           "cache_bytes": sum(t.numel() * t.element_size()
+                              for t in param_leaves(cache))}
+    del params, cache
+    _release()
+    return out
+
+
+def seq_decode_rank(rank: int, world: int, seed: int, ref_path: str,
+                    device: str) -> dict:
+    """Every case of ``SEQ_CASES`` on this rank of its mesh, f32 then
+    bf16, teacher-forced over the single card's greedy tokens: the
+    logits, each step's device ms and wire bytes, the launches, the
+    cache's bytes (the allocator's delta) and layout."""
+    dev = rank_device(device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    refs = torch.load(ref_path)
+    out = {}
+    for name, (_, _, mesh, win, p0, _) in SEQ_CASES.items():
+        cfg = _seq_config(name)
+        ctx = _tpf_ctx(cfg, mesh)
+        out[name] = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            params = _seq_params(cfg, seed, dtype, ctx, dev)
+            torch.cuda.synchronize()
+            a0 = torch.cuda.memory_allocated()
+            cache = init_cache(cfg, params, 1, SEQ_SLOTS, dtype, window=win,
+                               ctx=ctx)
+            held = torch.cuda.memory_allocated() - a0
+            seq_fill(cache, seed, mesh[0])
+            dist.barrier()
+            n0 = launch_counts()
+            logits, _, ms, wire = _seq_decode(cfg, params, cache,
+                                              refs[name]["fed"], p0, win,
+                                              ctx, dev)
+            out[name][str(dtype)[6:]] = {
+                "logits": logits.numpy(), "step_ms": ms, "wire_bytes": wire,
+                "launches": _delta(n0), "cache_bytes": held,
+                "cache_slack": alloc_slack(list(param_leaves(cache))),
+                "blocks": [isinstance(lc, SlotBlock)
+                           for lc in cache["layers"]],
+                "slots": [next(iter(lc.values())).shape[1]
+                          for lc in cache["layers"]]}
+            del params, cache
+            _release()
+    return out
+
+
+def phase_seq_decode(got: dict, seed: int) -> dict:
+    """Decode on a cache whose slot axis is split over the data axes
+    (``parallel.sequence``), 4 gloo ranks sharing the card, each drawing
+    only its block of the cache: qwen2-0.5b whole on (4, 1), its native
+    524,288-slot cache and long_500k's ring of 8,192; deepseek-v2-236b at
+    full width, 2 layers, on (2, 2), its latent cache of 524,288
+    positions.  f32 within PARITY_TOL of the single card holding the whole
+    cache (made first and freed) at every step, its greedy tokens equal;
+    every rank's logits bit-equal; bf16 within ``SEQ_BF16_FACTOR`` times
+    the single card's own bf16 error; the cache a rank 1/dp of the
+    whole; each step's wire bytes the combine's formula plus the model
+    axis's decode all-reduces, and the dry-run's prediction.  Returns the
+    launch counts."""
+    t0 = time.perf_counter()
+    card = nvidia_smi_card()
+    rng = np.random.default_rng(seed)
+    refs = {}
+    for name in SEQ_CASES:
+        cfg = _seq_config(name)
+        first = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, 1)))
+        f32 = _seq_reference(name, seed, torch.float32, first=first)
+        bf16 = _seq_reference(name, seed, torch.bfloat16, fed=f32["fed"])
+        refs[name] = {"fed": f32["fed"], "f32": f32["logits"],
+                      "bf16": bf16["logits"], "step_ms": bf16["step_ms"],
+                      "cache_bytes": bf16["cache_bytes"]}
+    with tempfile.TemporaryDirectory(prefix="seq_decode_") as tmp:
+        path = os.path.join(tmp, "ref.pt")
+        torch.save({k: {"fed": v["fed"]} for k, v in refs.items()}, path)
+        ranks = run_ranks(seq_decode_rank, SEQ_RANKS, seed, path, DEVICE,
+                            backend="gloo", timeout_s=900)
+    launches = []
+    for name, (arch, _, mesh, win, p0, _) in SEQ_CASES.items():
+        cfg = _seq_config(name)
+        dp, tp = mesh
+        ref, v = refs[name], cfg.vocab_size
+        per = [r[name] for r in ranks]
+        f32 = [_logit_err(torch.from_numpy(p["float32"]["logits"]),
+                          ref["f32"], v) for p in per]
+        bit_equal = {dt: all(np.array_equal(p[dt]["logits"],
+                                            per[0][dt]["logits"])
+                             for p in per)
+                     for dt in ("float32", "bfloat16")}
+        own_bf16 = float((ref["bf16"] - ref["f32"])[..., :v].abs().max())
+        bf16_diff = max(float((torch.from_numpy(p["bfloat16"]["logits"])
+                               - ref["bf16"])[..., :v].abs().max())
+                        for p in per)
+        bound = SEQ_BF16_FACTOR * own_bf16
+        combine = combine_bytes(cfg, dp, tp, 1, SEQ_SLOTS, win)
+        want = {dt: combine + (tp_forward_bytes(
+            cfg, tp, 1, 1, size, gather=False,
+            moe="decode" if cfg.is_moe else None) if tp > 1 else 0)
+            for dt, size in (("float32", 4), ("bfloat16", 2))}
+        predicted = got[("seq_decode", name)]["collectives"]["sent"]
+        share = ref["cache_bytes"] // dp
+        ms = [m for p in per for m in p["bfloat16"]["step_ms"]]
+        k5 = {"moe_gmm": ep_launches(cfg)["moe_gmm"] * SEQ_STEPS} \
+            if cfg.is_moe else {}
+        emit({"phase": "seq_decode", "case": name, "arch": arch,
+              "layers": cfg.num_layers, "mesh": [dp, tp], "backend": "gloo",
+              "card": card, "window": win,
+              "positions": [p0, p0 + SEQ_STEPS - 1],
+              "slots": SEQ_SLOTS if win is None else win,
+              "slots_per_rank": per[0]["bfloat16"]["slots"],
+              "f32": {"max_abs_err": max(e["max_abs_err"] for e in f32),
+                      "excess": max(e["excess"] for e in f32),
+                      "greedy_equal": all(e["greedy_equal"] for e in f32),
+                      "tol": PARITY_TOL},
+              "bit_equal": bit_equal,
+              "bf16_max_abs_logit_diff": bf16_diff,
+              "bf16_bound": bound, "single_card_bf16_err": own_bf16,
+              "decode_step_ms_p50": float(np.percentile(ms, 50)),
+              "decode_step_ms_p99": float(np.percentile(ms, 99)),
+              "single_card_step_ms_p50": float(np.percentile(
+                  ref["step_ms"], 50)),
+              "cache_bytes_per_rank": [p["bfloat16"]["cache_bytes"]
+                                       for p in per],
+              "whole_cache_bytes": ref["cache_bytes"],
+              "whole_over_dp": share,
+              "wire_bytes_per_step": [p["bfloat16"]["wire_bytes"][0]
+                                      for p in per],
+              "f32_wire_bytes_per_step": [p["float32"]["wire_bytes"][0]
+                                          for p in per],
+              "combine_bytes": combine, "formula": want,
+              "dryrun_predicted": predicted,
+              "launches_per_rank": [p["bfloat16"]["launches"] for p in per]})
+        for r, p in enumerate(per):
+            check(f32[r]["excess"] <= 0 and f32[r]["greedy_equal"],
+                  f"seq_decode {name} rank {r}: f32 beyond {PARITY_TOL} or "
+                  f"greedy tokens differ: {f32[r]}")
+            b = p["bfloat16"]
+            check(share <= b["cache_bytes"] <= share + b["cache_slack"],
+                  f"seq_decode {name} rank {r}: cache {b['cache_bytes']} B, "
+                  f"want 1/{dp} of {ref['cache_bytes']}")
+            check(all(b["blocks"]) and all(n * dp == (win or SEQ_SLOTS)
+                                           for n in b["slots"]),
+                  f"seq_decode {name} rank {r}: cache not split: "
+                  f"{b['slots']}")
+            for dt in ("float32", "bfloat16"):
+                check(p[dt]["wire_bytes"] == [want[dt]] * SEQ_STEPS,
+                      f"seq_decode {name} rank {r} {dt}: wire bytes "
+                      f"{p[dt]['wire_bytes']}, want {want[dt]}")
+                check(p[dt]["launches"] == k5,
+                      f"seq_decode {name} rank {r} {dt}: launched "
+                      f"{p[dt]['launches']}, want {k5}")
+                launches.append(p[dt]["launches"])
+            check(want["bfloat16"] == predicted,
+                  f"seq_decode {name}: the dry-run predicts {predicted} "
+                  f"wire bytes a step, the formula {want['bfloat16']}")
+        check(all(bit_equal.values()),
+              f"seq_decode {name}: the ranks' logits differ: {bit_equal}")
+        check(bf16_diff <= bound,
+              f"seq_decode {name}: bf16 max |logit diff| {bf16_diff} "
+              f"beyond {bound}")
+    emit({"phase": "seq_decode_total", "card": card,
+          "seconds": time.perf_counter() - t0})
+    return _ep_sum(launches)
+
+
+class _Clock:
+    """Prints the seconds since the script started after each phase, on a
+    line of its own: {"phase": "clock", "after": name, "t_s": ...}."""
+
+    def __init__(self):
+        self.t0 = time.perf_counter()
+
+    def __call__(self, after: str) -> None:
+        emit({"phase": "clock", "after": after,
+              "t_s": time.perf_counter() - self.t0})
+
+
 def main() -> int:
+    try:
+        return _main()
+    finally:
+        close_ranks()
+
+
+def _main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script checks the "
               "port on the card only", file=sys.stderr)
@@ -7083,35 +7451,58 @@ def main() -> int:
           "networkx": networkx.__version__,
           "device": torch.cuda.get_device_name(0)})
     rng = np.random.default_rng(SEED)
+    clock = _Clock()
     phase_build()
+    clock("build")
     dryrun = start_dryrun()  # the host's meta runs, on CPUs of their own
     timings = phase_kernels(rng)
+    clock("kernels")
     timings["flash_attention_bwd"] = phase_bwd_kernel(rng)
     timings["ssd_scan"] = phase_ssd_kernel(rng)
     timings["moe_gmm"] = phase_gmm_kernel(rng)
     timings["ssd_scan_bwd"] = phase_ssd_bwd_kernel(rng)
     timings["moe_gmm_bwd"] = phase_gmm_bwd_kernel(rng)
+    clock("bwd_kernels")
     n_values = gradient_values()
     timings.update(phase_compress_kernels(n_values))
+    clock("compress_kernels")
     paths = run_paths(rng)
+    clock("paths")
     paths.update(run_context_paths(rng))
+    clock("context_paths")
     paths["training"] = run_training(SEED + 8)
+    clock("training")
     paths.update(run_family_training(SEED + 30))
+    clock("family_training")
     paths.update(run_dp(SEED + 10))
+    clock("dp")
     paths.update(run_ep(rng, SEED + 12))
+    clock("ep")
     paths.update(run_tp(rng, SEED + 20))
+    clock("tp")
     paths.update(run_tp_families(rng, SEED + 40))
+    clock("tp_families")
     codecs = phase_codecs(SEED + 6)
     check(codecs["values"] == n_values, "gradient size changed")
     paths["codecs"] = codecs["counts"]
     paths["codecs_real"] = phase_codecs_real(SEED + 9)
+    clock("codecs")
     paths["collectives"] = phase_collectives(n_values, SEED + 7)
+    clock("collectives")
     paths["planner"] = phase_planner(SEED + 11)
+    clock("planner")
     paths["codesign"] = phase_codesign(SEED + 13)
+    clock("codesign")
     paths["causal_skip"] = phase_causal_skip(SEED + 52)
+    clock("causal_skip")
     predicted = phase_dryrun(*dryrun)
+    clock("dryrun")
     paths["dryrun_card"] = phase_dryrun_card(predicted, SEED + 50)
+    clock("dryrun_card")
     paths["fsdp"] = phase_fsdp(predicted, SEED + 51)
+    clock("fsdp")
+    paths["seq_decode"] = phase_seq_decode(predicted, SEED + 54)
+    clock("seq_decode")
 
     # each kernel's launches are read from the path that runs it
     main_path = {"flash_attention": ARCH, "flash_attention_bwd": "training",
@@ -7144,12 +7535,9 @@ def main() -> int:
             if key != "path":
                 entry[key] = extra
         kernels.append(entry)
+    close_ranks()
     emit({"kernels": kernels})
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()
-    print(smi[0], flush=True)
+    print(nvidia_smi_card(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

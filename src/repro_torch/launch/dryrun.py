@@ -22,9 +22,12 @@ rank holds.  It never asks for a card.
 - the batch: the train step takes the global batch on every rank and
   picks its rows (``parallel.microbatch_rows``); prefill and decode take
   the rank's rows where the data axes divide the batch, else all of them;
-- the decode cache is the port's ``init_cache`` over the rank's
-  parameters, its slots cut over the data axes where the batch is not
-  (``long_500k``'s batch of 1: ``cache_specs``' sequence-sharded cache).
+- the decode cache is the port's ``init_cache(..., ctx=)`` over the
+  rank's parameters: its rows where the data axes divide the batch, else
+  its block of the self-attention and MLA slots (``long_500k``'s batch of
+  1: ``cache_specs``' sequence-sharded cache), so that the decode step
+  runs the sequence split's program with its combine's all-gathers
+  (``parallel.sequence``), the one XLA compiles under those specs.
 
 Eager counting visits every layer, so the full-depth run is exact;
 ``measure_costs`` keeps the JAX package's extrapolation from one and two
@@ -62,8 +65,7 @@ from repro_torch.models.transformer import (decode_step, forward, init_cache,
                                             init_params)
 from repro_torch.optim.adamw import init_opt_state
 from repro_torch.parallel.fsdp import fsdp_shard
-from repro_torch.parallel.planner import (_axis_size, _bspec, _leaf_rule,
-                                          make_ctx, tp_dims)
+from repro_torch.parallel.planner import _leaf_rule, make_ctx, tp_dims
 from repro_torch.serve.step import make_prefill
 from repro_torch.train.step import make_train_step
 
@@ -120,26 +122,16 @@ def _rows(n: int, dp: int) -> int:
     return n // dp if n % dp == 0 else n
 
 
-def _local_cache(cfg, shape: ShapeConfig, params, ctx, mcfg: MeshConfig):
-    """This rank's decode cache: ``init_cache`` over its parameters and its
-    rows of the batch, the slots of the self-attention and MLA caches cut
-    over the data axes where the batch is not divisible."""
-    dp = _axis_size(mcfg, _bspec(mcfg))
-    b = shape.global_batch
-    rows = _rows(b, dp)
+def _local_cache(cfg, shape: ShapeConfig, params, ctx):
+    """This rank's decode cache: ``init_cache`` over its parameters, the
+    global batch and ``ctx``, which shards it as ``cache_specs`` does (the
+    rows over the data axes where they divide the batch, else the slots of
+    the self-attention and MLA caches)."""
+    rows = _rows(shape.global_batch, ctx.dp)
     context = context_spec(cfg, rows, torch.bfloat16)
-    cache = init_cache(cfg, params, rows, shape.seq_len, torch.bfloat16,
-                       context=context, window=decode_window(cfg, shape),
-                       ctx=ctx)
-    if b % dp == 0:
-        return cache
-
-    def cut(t):
-        n = t.shape[1]
-        return t[:, :n // dp].clone() if n % dp == 0 else t
-    cache["layers"] = [{k: cut(t) if k in ("k", "v", "c", "k_rope") else t
-                        for k, t in lc.items()} for lc in cache["layers"]]
-    return cache
+    return init_cache(cfg, params, shape.global_batch, shape.seq_len,
+                      torch.bfloat16, context=context,
+                      window=decode_window(cfg, shape), ctx=ctx)
 
 
 def build_dryrun(arch: str, shape_name: str, *, multi_pod: bool = False,
@@ -207,7 +199,7 @@ def build_dryrun(arch: str, shape_name: str, *, multi_pod: bool = False,
                            cfg=cfg, causal_skip=causal_skip,
                            unroll_layers=unroll, fsdp=bool(fsdp),
                            ep_weight_stationary=ws_decode)
-            return _run(cfg, shape, mcfg, ctx, bool(fsdp), microbatches,
+            return _run(cfg, shape, ctx, bool(fsdp), microbatches,
                         grad_dtype, remat, gather_logits)
         finally:
             dist.destroy_process_group()
@@ -215,7 +207,7 @@ def build_dryrun(arch: str, shape_name: str, *, multi_pod: bool = False,
     return program, meta
 
 
-def _run(cfg, shape: ShapeConfig, mcfg: MeshConfig, ctx, fsdp: bool,
+def _run(cfg, shape: ShapeConfig, ctx, fsdp: bool,
          microbatches: int, grad_dtype: str, remat: bool,
          gather_logits: bool) -> Account:
     if ctx.tensor_parallel:  # built once per config, outside the counts
@@ -247,7 +239,7 @@ def _run(cfg, shape: ShapeConfig, mcfg: MeshConfig, ctx, fsdp: bool,
         return measure(lambda: _no_grad(
             lambda p, t, c: forward(cfg, p, t, context=c, ctx=ctx)[0],
             params, tokens, context), args)
-    cache = _local_cache(cfg, shape, params, ctx, mcfg)
+    cache = _local_cache(cfg, shape, params, ctx)
     tokens = ins["tokens"][:rows].clone()
     args += list(param_leaves(cache)) + [tokens]
     win = decode_window(cfg, shape)

@@ -76,14 +76,14 @@ def input_specs(cfg: ModelConfig, shape: ShapeConfig,
     return {"tokens": spec(b, 1), "pos": spec()}
 
 
-def cache_shapes(cfg: ModelConfig, shape: ShapeConfig, param_shapes,
+def cache_shapes(cfg: ModelConfig, shape: ShapeConfig, params_shapes,
                  dtype=torch.bfloat16) -> dict:
     """The decode cache of this workload on the meta device: the port's
-    ``models.init_cache`` over ``param_shapes`` (meta parameters of the
+    ``models.init_cache`` over ``params_shapes`` (meta parameters of the
     full model) with the decode window and the meta context; the port's
     layout, one dict a layer (no group-stacking dim)."""
     from repro_torch.models.transformer import init_cache
     ctx_s = context_spec(cfg, shape.global_batch, dtype)
-    return init_cache(cfg, param_shapes, shape.global_batch, shape.seq_len,
+    return init_cache(cfg, params_shapes, shape.global_batch, shape.seq_len,
                       dtype, context=ctx_s,
                       window=decode_window(cfg, shape))

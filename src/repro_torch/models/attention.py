@@ -44,7 +44,12 @@ block of ``w_uq``, ``w_uk``, ``w_uv`` and ``wo``: the normed query latent,
 the KV latent and the rope key enter the heads through ``copy_to_model``,
 where the replicated part meets the split part, so that every rank's
 gradient of the replicated weights is all heads' (as Mamba's B and C).
-Its decode cache (the latent) is whole on every rank.
+Its decode cache (the latent) is whole on every model rank.
+
+Where the data axes split the slot axis of the self-attention and MLA
+caches (``parallel.sequence``: a batch they do not divide), the decode
+writes the new token on the rank owning its slot and combines the ranks'
+softmax statistics.
 """
 from __future__ import annotations
 
@@ -56,6 +61,7 @@ from repro_torch.core.types import ModelConfig
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models.modules import (apply_rope, dense_init, init_norm,
                                         rms_norm, whole)
+from repro_torch.parallel import sequence as seq
 from repro_torch.parallel.planner import tp_layout
 from repro_torch.parallel.tensor import copy_to_model, reduce_from_model
 
@@ -361,10 +367,8 @@ def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, dtype, device,
     """Slot axis first: k, v are (batch, slots, KV, hd), ``kv_heads`` (by
     default the config's) KV heads: a tensor-parallel rank's are those of
     its ``wk``."""
-    win = window if window is not None else cfg.sliding_window
-    slots = min(max_len, win) if win else max_len
-    shape = (batch, slots, kv_heads or cfg.num_kv_heads,
-             cfg.resolved_head_dim)
+    shape = (batch, seq.cache_slots(cfg, max_len, window),
+             kv_heads or cfg.num_kv_heads, cfg.resolved_head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
@@ -376,13 +380,16 @@ def _pos_vec(pos, batch: int, device) -> torch.Tensor:
     return pos.expand(batch) if pos.dim() == 0 else pos
 
 
-def _ring_slot_positions(pos: torch.Tensor, slots: int) -> torch.Tensor:
+def _ring_slot_positions(pos: torch.Tensor, slots: int, lo: int,
+                         n: int) -> torch.Tensor:
     """Positions stored in each ring slot after the token at ``pos`` was
-    inserted; -1 where the slot has never been written. pos: (B,).
+    inserted; -1 where the slot has never been written. pos: (B,).  Of
+    the ``n`` slots from ``lo`` of a ring of ``slots`` (a rank's block, or
+    0 and ``slots``: the whole ring).
 
     Floor modulo of possibly negative numbers: torch's ``%`` matches
     jnp.mod; ``torch.fmod`` would not."""
-    s = torch.arange(slots, device=pos.device)
+    s = torch.arange(lo, lo + n, device=pos.device)
     p = pos[:, None] - ((pos[:, None] - s[None, :]) % slots)
     return torch.where(p >= 0, p, torch.full_like(p, -1))
 
@@ -392,7 +399,10 @@ def gqa_decode(p: dict, cfg: ModelConfig, x, cache: dict, pos, *,
     """x: (B,1,d); pos: int or (B,) position(s) of the new token.
     Writes the new K/V into ``cache`` in place; returns
     (out (B,1,d), cache).  ``ctx``: as ``gqa_forward``'s; the cache holds
-    the KV heads this rank projects."""
+    the KV heads this rank projects.  A ``parallel.sequence.SlotBlock``
+    cache (a rank's block of the ring, ``ctx`` its data ranks'): the
+    token is written on the rank owning slot pos % slots, and the block's
+    softmax statistics are combined over the data ranks."""
     b = x.shape[0]
     pos = _pos_vec(pos, b, x.device)
     lay = _tp_heads(cfg, ctx)
@@ -404,13 +414,18 @@ def gqa_decode(p: dict, cfg: ModelConfig, x, cache: dict, pos, *,
     q = apply_rope(q, pos[:, None], cfg.rope_theta)
     k = apply_rope(k, pos[:, None], cfg.rope_theta)
 
-    slots = cache["k"].shape[1]
+    n = cache["k"].shape[1]
+    lo, slots = seq.block_of(cache, ctx)
+    split = n != slots
     slot = pos % slots
-    bi = torch.arange(b, device=x.device)
-    cache["k"][bi, slot] = k[:, 0].to(cache["k"].dtype)
-    cache["v"][bi, slot] = v[:, 0].to(cache["v"].dtype)
+    if split:
+        seq.write_owned(cache, slot - lo, {"k": k[:, 0], "v": v[:, 0]})
+    else:
+        bi = torch.arange(b, device=x.device)
+        cache["k"][bi, slot] = k[:, 0].to(cache["k"].dtype)
+        cache["v"][bi, slot] = v[:, 0].to(cache["v"].dtype)
 
-    slot_pos = _ring_slot_positions(pos, slots)  # (B, slots)
+    slot_pos = _ring_slot_positions(pos, slots, lo, n)  # (B, n)
     win = window if window is not None else cfg.sliding_window
     valid = (slot_pos >= 0) & (slot_pos <= pos[:, None])
     if win:
@@ -423,10 +438,15 @@ def gqa_decode(p: dict, cfg: ModelConfig, x, cache: dict, pos, *,
     scale = 1.0 / math.sqrt(q.shape[-1])
     scores = torch.einsum("bqkgh,bskh->bqkgs", qg.float(),
                           ck.float()) * scale
-    scores = torch.where(valid[:, None, None, None, :], scores,
-                         torch.full_like(scores, NEG_INF))
-    probs = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bqkgs,bskh->bqkgh", probs.to(cv.dtype), cv)
+    valid = valid[:, None, None, None, :]
+    if split:
+        m, e = seq.partial_softmax(scores, valid)
+        out = seq.combine(m, e.sum(dim=-1, keepdim=True), torch.einsum(
+            "bqkgs,bskh->bqkgh", e, cv.float()), ctx)
+    else:
+        scores = torch.where(valid, scores, torch.full_like(scores, NEG_INF))
+        probs = torch.softmax(scores, dim=-1)
+        out = torch.einsum("bqkgs,bskh->bqkgh", probs.to(cv.dtype), cv)
     out = out.reshape(b, 1, q.shape[2], -1).to(x.dtype)
     return _out_proj(out, p, None if lay is None else ctx), cache
 
@@ -540,15 +560,28 @@ def mla_decode(p: dict, cfg: ModelConfig, x, cache: dict, pos, ctx=None):
     Writes the new latent and rope key into ``cache`` in place; positions
     above ``pos`` are masked, so a recycled slot needs no reset.  Returns
     (out (B,1,d), cache).  ``ctx``: this rank's heads, as
-    ``mla_forward``'s; the latent cache is whole on every rank."""
+    ``mla_forward``'s; the latent cache is whole on every model rank.  A
+    ``parallel.sequence.SlotBlock`` cache (a rank's block of the
+    positions, ``ctx`` its data ranks'): the latent is written on the rank
+    owning position ``pos``, and the block's softmax statistics and its
+    output after ``w_uv`` (a linear map of the latent context) are
+    combined over the data ranks."""
     b = x.shape[0]
     pos = _pos_vec(pos, b, x.device)
     tctx = _tp_mla(cfg, ctx)
     q_nope, q_rope = _mla_q(p, cfg, x, pos[:, None], tctx)  # (B,1,H,*)
     c_new, k_rope_new = _mla_latent(p, cfg, x, pos[:, None])
-    bi = torch.arange(b, device=x.device)
-    cache["c"][bi, pos] = c_new[:, 0].to(cache["c"].dtype)
-    cache["k_rope"][bi, pos] = k_rope_new[:, 0].to(cache["k_rope"].dtype)
+    n = cache["c"].shape[1]
+    lo, slots = seq.block_of(cache, ctx)
+    split = n != slots
+    if split:
+        seq.write_owned(cache, pos - lo, {"c": c_new[:, 0],
+                                          "k_rope": k_rope_new[:, 0]})
+    else:
+        bi = torch.arange(b, device=x.device)
+        cache["c"][bi, pos] = c_new[:, 0].to(cache["c"].dtype)
+        cache["k_rope"][bi, pos] = k_rope_new[:, 0].to(
+            cache["k_rope"].dtype)
     c, k_rope = cache["c"], cache["k_rope"]
 
     q_lat = torch.einsum("bshk,rhk->bshr", q_nope, p["w_uk"])
@@ -556,10 +589,17 @@ def mla_decode(p: dict, cfg: ModelConfig, x, cache: dict, pos, ctx=None):
     scores = (torch.einsum("bshr,blr->bshl", q_lat.float(), c.float())
               + torch.einsum("bshk,blk->bshl", q_rope.float(),
                              k_rope.float())) * scale
-    valid = torch.arange(c.shape[1], device=x.device)[None, :] <= pos[:, None]
-    scores = torch.where(valid[:, None, None, :], scores,
-                         torch.full_like(scores, NEG_INF))
-    probs = torch.softmax(scores, dim=-1)
-    ctx_lat = torch.einsum("bshl,blr->bshr", probs.to(c.dtype), c)
-    v = torch.einsum("bshr,rhk->bshk", ctx_lat.to(x.dtype), p["w_uv"])
+    valid = torch.arange(lo, lo + n, device=x.device)[None, :] \
+        <= pos[:, None]
+    valid = valid[:, None, None, :]
+    if split:
+        m, e = seq.partial_softmax(scores, valid)
+        o = torch.einsum("bshr,rhk->bshk", torch.einsum(
+            "bshl,blr->bshr", e, c.float()), p["w_uv"].float())
+        v = seq.combine(m, e.sum(dim=-1, keepdim=True), o, ctx).to(x.dtype)
+    else:
+        scores = torch.where(valid, scores, torch.full_like(scores, NEG_INF))
+        probs = torch.softmax(scores, dim=-1)
+        ctx_lat = torch.einsum("bshl,blr->bshr", probs.to(c.dtype), c)
+        v = torch.einsum("bshr,rhk->bshk", ctx_lat.to(x.dtype), p["w_uv"])
     return _out_proj(v, p, tctx), cache

@@ -59,7 +59,8 @@ from repro_torch.models import ssm
 from repro_torch.models.modules import (dense_init, embed_init, ffn_apply,
                                         init_ffn, init_norm, rms_norm, whole)
 from repro_torch.parallel.fsdp import gather_tree
-from repro_torch.parallel.planner import tp_cut, tp_layout
+from repro_torch.parallel import sequence as seq
+from repro_torch.parallel.planner import slot_split, tp_cut, tp_layout
 from repro_torch.parallel.tensor import copy_to_model, vocab_embed
 
 
@@ -386,16 +387,25 @@ def encode(cfg: ModelConfig, params: dict, frames: torch.Tensor, *,
 
 def _init_layer_cache(cfg: ModelConfig, spec: LayerSpec, lp: dict,
                       batch: int, max_len: int, dtype, device, context,
-                      window) -> dict:
-    if spec.mixer == "attn" and cfg.attention == "mla":
-        return attn.init_mla_cache(cfg, batch, max_len, dtype, device)
+                      window, ctx=None) -> dict:
+    """One layer's cache of a global ``batch`` on this rank of ``ctx``'s
+    data axes (``init_cache``)."""
+    dp = ctx.dp if ctx is not None else 1
+    rows = batch // dp if batch % dp == 0 else batch
     if spec.mixer == "attn":
-        return attn.init_kv_cache(cfg, batch, max_len, dtype, device,
-                                  window=window,
-                                  kv_heads=lp["mixer"]["wk"].shape[1])
+        slots = seq.cache_slots(cfg, max_len, window)
+        n = slots // dp if slot_split(batch, slots, dp) else slots
+        if cfg.attention == "mla":
+            cache = attn.init_mla_cache(cfg, rows, n, dtype, device)
+        else:
+            cache = attn.init_kv_cache(cfg, rows, n, dtype, device,
+                                       window=window,
+                                       kv_heads=lp["mixer"]["wk"].shape[1])
+        return cache if n == slots else seq.SlotBlock(cache, slots,
+                                                      ctx.rank * n)
     if spec.mixer == "cross_attn":
         return attn.init_cross_cache(lp["mixer"], cfg, context, dtype)
-    return ssm.init_mamba_cache(cfg, batch, dtype, device,
+    return ssm.init_mamba_cache(cfg, rows, dtype, device,
                                 heads=lp["mixer"]["A_log"].shape[0])
 
 
@@ -412,13 +422,20 @@ def init_cache(cfg: ModelConfig, params: dict, batch: int, max_len: int,
     state is f32 always).  Each layer's cache has the KV heads of its
     ``wk`` and the SSM heads of its ``A_log``: on a tensor-parallel rank's
     parameters, that rank's part (``parallel.planner.cache_specs``).  An
-    FSDP ``ctx`` gathers each layer's shards first."""
+    FSDP ``ctx`` gathers each layer's shards first.
+
+    With data axes in ``ctx``, ``batch`` is the global batch and the cache
+    this rank's shard of it under ``cache_specs``: its batch // dp rows
+    where they divide the batch, else every row with the slot axis of each
+    self-attention and MLA cache split where ``planner.slot_split`` says
+    so, a ``parallel.sequence.SlotBlock`` of the rank's slots (the other
+    caches whole); ``context`` holds the rows of the rank's cache."""
     win = window if window is not None else cfg.sliding_window
     device = params["embed"].device
     context = _context(cfg, params, context)
     cache = {"layers": [
         _init_layer_cache(cfg, spec, gather_tree(lp, ctx, f"/layers/{i}"),
-                          batch, max_len, dtype, device, context, win)
+                          batch, max_len, dtype, device, context, win, ctx)
         for i, (spec, lp) in enumerate(zip(cfg.layer_specs(),
                                            params["layers"]))]}
     if cfg.is_encoder_decoder:

@@ -409,6 +409,15 @@ def cache_specs(cfg: ModelConfig, mesh_cfg: MeshConfig, batch: int,
         for path, t in _with_paths(cache_shapes)])
 
 
+def slot_split(batch: int, slots: int, dp: int) -> bool:
+    """Whether ``cache_specs`` puts the data axes (``dp`` ranks) on the slot
+    dim of a self-attention or MLA cache of ``slots`` slots for a global
+    ``batch``: where they do not divide the batch (the long-context batch-1
+    case) and do divide the slots (``guarded``).  ``models.init_cache``
+    and the decode path (``parallel.sequence``) read the decision here."""
+    return batch % dp != 0 and slots % dp == 0
+
+
 def zero1_spec(param_spec: Spec, shape: Sequence[int],
                mesh_cfg: MeshConfig) -> Spec:
     """The JAX package's ZeRO-1 spec of an optimizer-state leaf: the

@@ -48,7 +48,9 @@ class ContinuousBatcher:
         self.max_slots = max_slots
         self.max_len = max_len
         self.device = params["embed"].device
-        self.cache = init_cache(cfg, params, max_slots, max_len,
+        # the slots are this rank's own: its share of the data ranks'
+        self.cache = init_cache(cfg, params,
+                                max_slots * (ctx.dp if ctx else 1), max_len,
                                 dtype=cache_dtype, context=context,
                                 ctx=ctx)
         self.pos = np.zeros(max_slots, np.int64)  # next write position

@@ -261,20 +261,34 @@ def _zero1_update(params, grads, opt_state, tcfg, lr, ctx, grad_hook,
     return params, opt_state, opt_metrics
 
 
-def make_eval_step(cfg: ModelConfig) -> Callable:
+def make_eval_step(cfg: ModelConfig, ctx: Optional[ParallelCtx] = None
+                   ) -> Callable:
     """Returns eval_step(params, batch) -> the mean cross-entropy, with no
-    graph recorded (batch: as ``make_train_step``'s)."""
+    graph recorded (batch: as ``make_train_step``'s).  ``ctx``: as the
+    train step's, every rank returning the same mean: each data rank takes
+    its rows of the batch (``microbatch_rows``) and their NLL over the
+    batch's count of labels, summed over the data ranks (``allsum``); a
+    model axis runs ``encode`` and ``forward`` on the rank's blocks, and
+    its vocabulary-sharded logits take the vocabulary-parallel loss."""
+    lay = tp_layout(cfg, ctx)
+    vocab_ctx = ctx if lay is not None and lay.vocab else None
 
     def eval_step(params, batch):
         device = params["embed"].device
+        tokens, labels = _on(batch["tokens"], device), \
+            _on(batch["labels"], device)
+        _, mine = microbatch_rows(tokens.shape[0], 1, ctx)[0]
         context = batch.get("context")
         with torch.no_grad():
             if context is not None:
-                context = _on(context, device)
+                context = _on(context, device)[mine]
                 if cfg.is_encoder_decoder:
-                    context = encode(cfg, params, context)
-            logits, _ = forward(cfg, params, _on(batch["tokens"], device),
-                                context=context)
-            return cross_entropy(logits, _on(batch["labels"], device))
+                    context = encode(cfg, params, context, ctx=ctx)
+            logits, _ = forward(cfg, params, tokens[mine], context=context,
+                                ctx=ctx)
+            count = (labels != -1).sum().clamp(min=1).float()
+            ce = cross_entropy(logits, labels[mine], count=count,
+                               ctx=vocab_ctx)
+            return ce if ctx is None else ctx.allsum(ce)
 
     return eval_step

@@ -10,7 +10,9 @@
   roofline terms, which read each package's chip;
 - on a fake world at smoke size, the collectives the port places count
   what the ring formulas say (``chip_smoke.tp_forward_bytes`` for the
-  model axis, ``chip_smoke.fsdp_wire_bytes`` for FSDP);
+  model axis, ``chip_smoke.fsdp_wire_bytes`` for FSDP,
+  ``parallel.sequence.combine_bytes`` for a decode whose data axes split
+  the cache's slots);
 - ``measure_costs``' extrapolation equals the full-depth count.
 
 The dry-run's programs run in this process, each on a fake world it
@@ -41,14 +43,19 @@ from repro.launch.specs import uses_swa_variant as jax_uses_swa
 from repro.models.transformer import init_params as jax_init_params
 from repro.parallel.planner import param_specs as jax_param_specs
 from repro_torch.configs import ARCHS, smoke_config
-from repro_torch.core.types import INPUT_SHAPES, MeshConfig, ShapeConfig
+from repro_torch.core.types import (INPUT_SHAPES, SHAPES_BY_NAME, MeshConfig,
+                                    ShapeConfig)
 from repro_torch.launch import dryrun
-from repro_torch.launch.mesh import fake_world, mesh_groups
+from repro_torch.launch.mesh import fake_world, mesh_groups, production_world
+from repro_torch.launch.specs import cache_shapes, decode_window
 from repro_torch.parallel import make_ctx
 from repro_torch.parallel import fsdp as fsdp_mod
 from repro_torch.parallel.fsdp import fsdp_shard
-from repro_torch.parallel.planner import _with_paths
-from repro_torch.models import init_params
+from repro_torch.parallel.planner import (_bspec, _with_paths, cache_specs,
+                                          param_shapes, slot_split)
+from repro_torch.parallel.sequence import (SlotBlock, cache_slots,
+                                           combine_bytes)
+from repro_torch.models import init_cache, init_params
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SHAPES = [s.name for s in INPUT_SHAPES]
@@ -194,6 +201,79 @@ def test_tp_prefill_collectives(mesh, gather):
             rows * seq * cfg.padded_vocab * 2
     else:
         assert "all-gather" not in coll.count_by_kind
+
+
+@pytest.mark.parametrize("arch,mesh", [
+    ("qwen2-0.5b", (4, 1)), ("qwen2-0.5b", (2, 2)),
+    ("deepseek-v2-236b", (2, 2))])
+def test_seq_split_decode_collectives(arch, mesh):
+    """A decode at batch 1, whose data axes split the self-attention and
+    MLA caches' slots (``cache_specs``' long-context layout), on a fake
+    world: one all-gather a layer (the softmax combine of
+    ``parallel.sequence``), of (dp, B, H_local, d_o + 2) f32, and each
+    rank's wire bytes the combine's formula plus, on a model axis,
+    ``tp_forward_bytes``' decode all-reduces (bf16)."""
+    dp, tp = mesh
+    cfg, acc = _run(arch, "decode", mesh, batch=1, seq=64)
+    coll = acc.collectives
+    layers = sum(s.mixer == "attn" for s in cfg.layer_specs())
+    combine = combine_bytes(cfg, dp, tp, 1, 64)
+    assert combine > 0
+    assert coll.count_by_kind["all-gather"] == layers
+    assert coll.bytes_by_kind["all-gather"] == combine // (dp - 1) * dp
+    model = chip_smoke.tp_forward_bytes(
+        cfg, tp, 1, 1, 2, gather=False,
+        moe="decode" if cfg.is_moe else None) if tp > 1 else 0
+    assert coll.sent_bytes == combine + model
+
+
+@pytest.mark.parametrize("multi_pod", [False, True], ids=["1pod", "2pod"])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_init_cache_shards_are_cache_specs(arch, multi_pod):
+    """On a rank of the production mesh, ``init_cache(..., ctx=)`` over the
+    rank's parameters splits every leaf over the data axes as the port's
+    ``cache_specs`` (the JAX package's rule) splits the whole cache, for
+    decode_32k (the rows) and long_500k (the slots, ``slot_split``: the
+    attention and MLA caches ``SlotBlock``s, rank 37's block); the
+    dry-run's decode cache is built so.  The model axis's dims are
+    ``test_torch_tp_layout.py``'s."""
+    cfg = dryrun.get_config(arch)
+    whole = param_shapes(cfg)
+    mcfg = production_world(multi_pod=multi_pod, rank=37)
+    try:
+        dgroup, mgroup = mesh_groups(mcfg)
+        ctx = make_ctx(dgroup, mcfg, model_group=mgroup, cfg=cfg)
+        params = init_params(cfg, torch.Generator(), device="meta", ctx=ctx)
+        for name in ("decode_32k", "long_500k"):
+            shape = SHAPES_BY_NAME[name]
+            full = cache_shapes(cfg, shape, whole)
+            specs = cache_specs(cfg, mcfg, shape.global_batch, full)
+            rows = shape.global_batch // ctx.dp \
+                if shape.global_batch % ctx.dp == 0 else shape.global_batch
+            got = init_cache(cfg, params, shape.global_batch, shape.seq_len,
+                             torch.bfloat16, window=decode_window(cfg, shape),
+                             context=dryrun.context_spec(cfg, rows,
+                                                         torch.bfloat16),
+                             ctx=ctx)
+            data = _bspec(mcfg)
+            for (path, t), (_, sp), (_, w) in zip(
+                    _with_paths(got), _with_paths(specs), _with_paths(full)):
+                for i, (d, ax) in enumerate(zip(w.shape, sp)):
+                    if ax == data:
+                        assert t.shape[i] == d // ctx.dp, (name, path, sp)
+                    elif ax is None and i < 2:  # rows and slots left whole
+                        assert t.shape[i] == d, (name, path, sp)
+            slots = cache_slots(cfg, shape.seq_len, decode_window(cfg, shape))
+            split = slot_split(shape.global_batch, slots, ctx.dp)
+            assert split == (name == "long_500k" and slots % ctx.dp == 0)
+            for spec, lc in zip(cfg.layer_specs(), got["layers"]):
+                blk = spec.mixer == "attn" and split
+                assert isinstance(lc, SlotBlock) == blk, (name, spec)
+                if blk:
+                    assert lc.slots == slots
+                    assert lc.lo == ctx.rank * slots // ctx.dp
+    finally:
+        dist.destroy_process_group()
 
 
 @pytest.mark.parametrize("mesh", [(2, 1), (4, 1)])

@@ -1,15 +1,19 @@
 """The port's training step against the JAX package's on the dense
 configs (qwen2-0.5b's microbatches and bf16 gradients, granite with and
 without remat), and the step's other properties: remat changes no
-number, the eval step, serving parameters left without gradients, the
-microbatch check, and the learning test of
+number, the eval step (alone and on a mesh), serving parameters left
+without gradients, the microbatch check, and the learning test of
 tests/test_system.py::test_training_learns_synthetic_pattern."""
 import math
 
 import jax.numpy as jnp
+import numpy as np
 import pytest
 import torch
 
+from repro_torch.launch.ranks import spawn_ranks
+from torch_context import open_gates, stub_context
+from torch_tp_ranks import tp_eval
 from torch_train_cases import (_batch, _both, check_train_step, init_opt_state,
                                init_params, jax_make_eval_step, make_batches,
                                make_eval_step, make_prefill, make_train_step,
@@ -52,6 +56,38 @@ def test_eval_step_matches_jax():
                                          for k, v in batch.items()})
     assert got.grad_fn is None
     assert float(got) == pytest.approx(float(want), rel=1e-5)
+
+
+EVAL_ARCHS = ("qwen2-0.5b", "seamless-m4t-medium")
+
+
+@pytest.mark.parametrize("mesh", [(1, 2), (2, 2)])
+def test_eval_step_on_a_mesh_matches_single_rank(mesh):
+    """``make_eval_step(cfg, ctx)``: on a model axis the vocabulary-parallel
+    loss of the rank's blocks (the encoder's too), on the data axes the
+    ranks' rows summed, give every rank the single rank's mean
+    cross-entropy of the same draw and batch."""
+    rng = np.random.default_rng(0)
+    inputs = {}
+    for arch in EVAL_ARCHS:
+        cfg = smoke_config(arch)
+        tok = rng.integers(0, cfg.vocab_size, (4, 16)).astype(np.int64)
+        labels = np.roll(tok, -1, 1)
+        labels[0, :3] = -1  # ignored labels: the count is the batch's
+        inputs[arch] = {"tokens": tok, "labels": labels}
+        context = stub_context(cfg, 4, seed=1)
+        if context is not None:
+            inputs[arch]["context"] = context
+    ranks = spawn_ranks(tp_eval, mesh[0] * mesh[1], mesh, EVAL_ARCHS,
+                        inputs, timeout_s=300)
+    for arch in EVAL_ARCHS:
+        cfg = smoke_config(arch)
+        params = open_gates(init_params(
+            cfg, torch.Generator().manual_seed(0), device="cpu"))
+        want = float(make_eval_step(cfg)(params, inputs[arch]))
+        for r in ranks:
+            assert r[arch] == pytest.approx(want, rel=1e-5), (arch, r)
+        assert len({r[arch] for r in ranks}) == 1
 
 
 def test_step_leaves_serving_params_without_grad():

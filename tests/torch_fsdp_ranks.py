@@ -120,7 +120,7 @@ def _serve(cfg, tree, ctx, tokens) -> dict:
         got = make_prefill(cfg, ctx)(params, tok)
         want, _ = forward(cfg, whole, tok)
         steps = 8
-        cache = init_cache(cfg, params, tok.shape[0], steps, ctx=ctx)
+        cache = init_cache(cfg, params, len(tokens), steps, ctx=ctx)
         ref_cache = init_cache(cfg, whole, tok.shape[0], steps)
         dec = 0.0
         for t in range(steps):

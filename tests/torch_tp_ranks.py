@@ -498,3 +498,20 @@ def pipeline_cases(rank: int, world: int, inputs_path: str) -> dict:
         out[f"{name}|grad_x"] = x.grad.numpy()
         out[f"{name}|bytes"] = (s1 - s0, _permute.sent_bytes - s1)
     return out
+
+
+def tp_eval(rank: int, world: int, mesh_shape, archs, inputs: dict) -> dict:
+    """``make_eval_step(cfg, ctx)`` of each of ``archs`` on this rank of the
+    mesh, over the port's draw from seed 0 (this rank's part of it, gates
+    opened) and ``inputs[arch]`` (the batch, numpy): the mean
+    cross-entropy."""
+    from repro_torch.train import make_eval_step
+    from torch_context import open_gates
+    out = {}
+    for arch in archs:
+        cfg = tp_config(arch)
+        ctx = tp_ctx(world, mesh_shape, cfg)
+        params = open_gates(init_params(
+            cfg, torch.Generator().manual_seed(0), device="cpu", ctx=ctx))
+        out[arch] = float(make_eval_step(cfg, ctx)(params, inputs[arch]))
+    return out
