@@ -4015,16 +4015,31 @@ def ep_parity_rank(rank: int, world: int, cfg, seed: int, ref_path: str,
     return out
 
 
+def lm_head_ties(want, v: int):
+    """The positions of ``want`` (the reference's logits) whose top two
+    logits over the true vocabulary lie within PARITY_TOL of each other:
+    a run held to PARITY_TOL may pick either token there."""
+    top = want[..., :v].float().topk(2, dim=-1).values
+    return (top[..., 0] - top[..., 1]) <= (
+        PARITY_TOL["atol"] + PARITY_TOL["rtol"] * top[..., 0].abs())
+
+
 def _logit_err(got, want, v: int, ties=None) -> dict:
     """Max |err| of ``got`` against ``want`` over the true vocabulary, its
-    excess over PARITY_TOL and whether the greedy tokens agree; ``ties``
-    (a mask of the positions): positions held out of the excess and the
-    greedy tokens, counted, their own max |err| reported."""
+    excess over PARITY_TOL and whether the greedy tokens agree.  At an
+    LM-head tie of ``want`` (``lm_head_ties``) the greedy token is not
+    required to agree, its excess still counted: the ties and the tokens
+    that differ there are counted.  ``ties`` (a mask of the positions, the
+    router's): positions held out of the excess and the greedy tokens,
+    counted, their own max |err| reported."""
     err = (got[..., :v].float() - want[..., :v].float()).abs()
     excess = (err - PARITY_TOL["atol"] - PARITY_TOL["rtol"] *
               want[..., :v].float().abs()).amax(-1)
     same = got[..., :v].argmax(-1) == want[..., :v].argmax(-1)
-    out = {"max_abs_err": float(err.max())}
+    lm = lm_head_ties(want, v)
+    out = {"max_abs_err": float(err.max()), "lm_head_ties": int(lm.sum()),
+           "flips_at_lm_head_ties": int((lm & ~same).sum())}
+    same = same | lm
     if ties is not None:
         out.update(router_ties=int(ties.sum()),
                    positions_beyond_tol=int((excess > 0).sum()),
@@ -4034,6 +4049,13 @@ def _logit_err(got, want, v: int, ties=None) -> dict:
         same = same | ties
     return {**out, "excess": float(excess.max()),
             "greedy_equal": bool(same.all())}
+
+
+def lm_tie_counts(errs) -> dict:
+    """The LM-head ties and the greedy tokens that differ at them, summed
+    over ``_logit_err`` results (the ranks of a phase)."""
+    return {k: sum(e[k] for e in errs)
+            for k in ("lm_head_ties", "flips_at_lm_head_ties")}
 
 
 def phase_ep_parity(rng, seed: int) -> dict:
@@ -4091,6 +4113,7 @@ def phase_ep_parity(rng, seed: int) -> dict:
               "against": "plain emulation" if name == "drop" else "dense",
               **{k: head[name][k] for k in ("max_abs_err", "excess",
                                             "greedy_equal")},
+              **lm_tie_counts([r[name] for r in ranks]),
               "tol": PARITY_TOL, "identical_across_model_ranks": same,
               "launches_per_rank": [r[name]["launches"] for r in ranks]})
         check(same, f"ep_parity {name}: ranks hold different logits")
@@ -4937,6 +4960,18 @@ def tp_forward_bytes(cfg, tp: int, rows: int, seq: int, itemsize: int,
     return total
 
 
+def conv_gather_bytes(cfg, tp: int, rows: int) -> int:
+    """Wire bytes a rank of one decode step's ``conv_x`` all-gathers on a
+    model axis of ``tp`` that keeps the SSM heads whole and splits the
+    channels (``TPLayout.conv_x``): (tp - 1) blocks of (rows, d_inner /
+    tp) f32 a Mamba layer."""
+    lay = tp_layout(cfg, ParallelCtx(tp=tp))
+    if lay is None or not lay.conv_x:
+        return 0
+    layers = sum(s.mixer == "mamba" for s in cfg.layer_specs())
+    return layers * (tp - 1) * rows * (cfg.ssm_d_inner // tp) * 4
+
+
 def fsdp_wire_bytes(cfg, params, ctx, microbatches: int, remat: bool,
                     grad_itemsize: int) -> int:
     """Wire bytes a rank of one FSDP training step on a data-only mesh
@@ -5225,6 +5260,7 @@ def phase_tp_parity(rng, seed: int) -> dict:
                   **{k: max(p[case][k] for p in per)
                      for k in ("max_abs_err", "excess")},
                   "greedy_equal": all(p[case]["greedy_equal"] for p in per),
+                  **lm_tie_counts([p[case] for p in per]),
                   "tol": PARITY_TOL, "identical_across_model_ranks": same,
                   "launches_per_rank": [p[case]["launches"] for p in per]})
             check(same, f"tp_parity {mesh} {case}: the ranks of a data "
@@ -5521,8 +5557,9 @@ def phase_tp_mamba(rng, seed: int) -> dict:
     emit({"phase": "tp_mamba", "arch": cfg.name, "layers": cfg.num_layers,
           "mesh": [1, tp], "backend": "gloo",
           "ssd_heads_per_rank": cfg.ssm_num_heads // tp,
-          "f32": {k: {kk: max(r[k][kk] for r in ranks)
-                      for kk in ("max_abs_err", "excess")}
+          "f32": {k: {**{kk: max(r[k][kk] for r in ranks)
+                         for kk in ("max_abs_err", "excess")},
+                      **lm_tie_counts([r[k] for r in ranks])}
                   for k in ("prefill", "decode")},
           "greedy_equal": all(r[k]["greedy_equal"] for r in ranks
                               for k in ("prefill", "decode")),
@@ -6429,6 +6466,7 @@ def phase_tp_family(name: str, rng, seed: int) -> dict:
             same = len({p["checksum"] for p in per}) == 1
             line.update({k: max(p[k] for p in per)
                          for k in ("max_abs_err", "excess")},
+                        **lm_tie_counts(per),
                         greedy_equal=all(p["greedy_equal"] for p in per),
                         tol=PARITY_TOL, identical_on_all_ranks=same)
             if cfg.is_moe:
@@ -7367,7 +7405,7 @@ def phase_seq_decode(got: dict, seed: int) -> dict:
               "f32": {"max_abs_err": max(e["max_abs_err"] for e in f32),
                       "excess": max(e["excess"] for e in f32),
                       "greedy_equal": all(e["greedy_equal"] for e in f32),
-                      "tol": PARITY_TOL},
+                      **lm_tie_counts(f32), "tol": PARITY_TOL},
               "bit_equal": bit_equal,
               "bf16_max_abs_logit_diff": bf16_diff,
               "bf16_bound": bound, "single_card_bf16_err": own_bf16,
@@ -7417,6 +7455,229 @@ def phase_seq_decode(got: dict, seed: int) -> dict:
     emit({"phase": "seq_decode_total", "card": card,
           "seconds": time.perf_counter() - t0})
     return _ep_sum(launches)
+
+
+# tp_mamba_whole_heads: mamba2-130m at full width on (1, 16), 16 gloo ranks
+# sharing the card in a second pool of their own.  tp 16 keeps the 24 SSM
+# heads whole and splits the 1,536 ``conv_x`` channels of the decode cache,
+# 96 a rank (``TPLayout.conv_x``): of the configs only mamba2-130m has such
+# heads, and no smaller model axis splits its channels but not its heads.
+# 4 of the 24 layers (the phase's time), f32, 4 rows: 8 prompt tokens fed
+# through the serve step, then 8 greedy steps
+WH_RANKS = 16
+WH_LAYERS = 4
+WH_ROWS = 4
+WH_PROMPT = 8
+WH_NEW = 8
+
+
+def _wh_config():
+    return dataclasses.replace(get_config(SSM_ARCH), num_layers=WH_LAYERS)
+
+
+def wh_decode(cfg, params, prompts, ctx, device, fed=None):
+    """``prompts`` (rows, WH_PROMPT) fed one a step from position 0
+    through ``make_serve_step(cfg, ctx)``, then WH_NEW greedy steps, each
+    fed the token that the step before picked; or teacher-forced over
+    ``fed`` (rows, WH_PROMPT + WH_NEW).  Returns (the logits of every step
+    over the whole vocabulary (rows, steps, V_pad) on the host, the
+    tokens fed, each step's device ms, each step's wire bytes, the first
+    step's collectives by kind, the cache)."""
+    serve = make_serve_step(cfg, ctx)
+    steps = WH_PROMPT + WH_NEW
+    cache = init_cache(cfg, params, prompts.shape[0], steps, ctx=ctx)
+    tok, colls = None, None
+    logits, toks, ms, wire = [], [], [], []
+    with torch.no_grad():
+        for t in range(steps):
+            x = (fed[:, t:t + 1] if fed is not None else
+                 prompts[:, t:t + 1] if t < WH_PROMPT else tok).to(device)
+            toks.append(x.cpu())
+            ex0 = _exchange()
+            with record_collectives() as rec:
+                (tok, lg, cache), m, _ = _timed(
+                    lambda: serve(params, cache, x, t))
+            colls = colls or {"count": rec.count_by_kind,
+                              "bytes": rec.bytes_by_kind}
+            wire.append(_exchange_delta(ex0)["wire_bytes"])
+            ms.append(m)
+            logits.append(lg[:, 0].float().cpu())
+    return (torch.stack(logits, 1), torch.cat(toks, 1), ms, wire, colls,
+            cache)
+
+
+def _wh_reference(cfg, seed: int, prompts, fed=None) -> dict:
+    """The single card's f32 run of ``wh_decode`` from ``seed``: its
+    logits, the tokens fed, each step's device ms and each layer's
+    ``conv_x`` after the last step.  Host tensors; frees the card."""
+    params = _tp_params(cfg, seed, torch.float32, None, DEVICE)
+    logits, toks, ms, _, _, cache = wh_decode(cfg, params, prompts, None,
+                                              DEVICE, fed)
+    out = {"logits": logits, "fed": toks, "step_ms": ms,
+           "conv_x": [lc["conv_x"].cpu() for lc in cache["layers"]]}
+    del params, cache
+    _release()
+    return out
+
+
+def wh_rank(rank: int, world: int, cfg, seed: int, ref_path: str,
+            device: str) -> dict:
+    """One rank of ``tp_mamba_whole_heads``: its blocks drawn from the
+    seed, the greedy decode of ``wh_decode``.  Returns the tokens fed, a
+    checksum of the logits (rank 0 the logits too), each step's device ms
+    and wire bytes, the first step's collectives, the launches, and the
+    cache's leaves (``conv_x`` whole, the others' shapes)."""
+    dev = rank_device(device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    prompts = torch.load(ref_path)["prompts"]
+    ctx = _tp_ctx(cfg, (1, world), remat=False)
+    params = _tp_params(cfg, seed, torch.float32, ctx, dev)
+    dist.barrier()
+    n0 = launch_counts()
+    logits, fed, ms, wire, colls, cache = wh_decode(cfg, params, prompts,
+                                                    ctx, dev)
+    out = {"fed": fed, "checksum": launch_train.checksum([logits]),
+           "step_ms": ms, "wire_bytes": wire, "collectives": colls,
+           "launches": _delta(n0),
+           "conv_x": [lc["conv_x"].cpu() for lc in cache["layers"]],
+           "shapes": {k: tuple(t.shape)
+                      for k, t in cache["layers"][0].items()}}
+    if rank == 0:
+        out["logits"] = logits
+    return out
+
+
+def start_wh_pool() -> RankPool:
+    """The phase's own pool of ``WH_RANKS`` processes, started ahead of it
+    so that their imports overlap the phases before; the phase closes
+    it."""
+    return RankPool(WH_RANKS, env=RANK_ENV)
+
+
+def phase_tp_mamba_whole_heads(seed: int, pool=None) -> dict:
+    """Decode on a model axis that keeps the SSM heads whole and splits
+    the ``conv_x`` cache's channels (``WH_RANKS`` ranks, the comment
+    above): each rank convolves its 96 channels and all-gathers the f32
+    outputs before the whole-head state step.  Against the single card's
+    run (made first and freed): every rank's logits bit-equal and within
+    PARITY_TOL, the greedy tokens equal but at LM-head ties (where the
+    mesh took another token there, the reference continued with the
+    mesh's tokens); each rank's ``conv_x`` its (rows, 3, 96) block, within
+    PARITY_TOL of the single card's (the first layer's bit-equal), the
+    other leaves whole; each step's wire bytes the formula.  Returns the
+    launch counts (none: decode runs no kernel).  ``pool``: the ranks'
+    (``start_wh_pool``), closed here."""
+    t0 = time.perf_counter()
+    pool = pool or start_wh_pool()
+    card = nvidia_smi_card()
+    cfg = _wh_config()
+    rng = np.random.default_rng(seed)
+    prompts = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                            (WH_ROWS, WH_PROMPT)))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ref = _wh_reference(cfg, seed, prompts)
+    ref_s = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory(prefix="tp_mamba_wh_") as tmp:
+        path = os.path.join(tmp, "ref.pt")
+        torch.save({"prompts": prompts}, path)
+        t1 = time.perf_counter()
+        with pool:
+            ranks = pool.run(wh_rank, WH_RANKS, cfg, seed, path, DEVICE,
+                             backend="gloo", timeout_s=600)
+        ranks_s = time.perf_counter() - t1
+    head = ranks[0]
+    # G4: where the mesh's greedy token differs (an LM-head tie, or a
+    # fault that the check below catches), the reference goes on with the
+    # mesh's tokens
+    continued = not torch.equal(head["fed"], ref["fed"])
+    if continued:
+        ref = _wh_reference(cfg, seed, prompts, fed=head["fed"])
+    v, tp = cfg.vocab_size, WH_RANKS
+    err = _logit_err(head["logits"], ref["logits"], v)
+    # each token the mesh generated is its own logits' greedy pick
+    own = bool(torch.equal(head["fed"][:, WH_PROMPT:], head["logits"][
+        :, WH_PROMPT - 1:-1, :v].argmax(-1)))
+    same = len({r["checksum"] for r in ranks}) == 1 and all(
+        torch.equal(r["fed"], head["fed"]) for r in ranks)
+    blk = cfg.ssm_d_inner // tp
+    conv = []
+    for m, r in enumerate(ranks):
+        for i, (got, whole) in enumerate(zip(r["conv_x"], ref["conv_x"])):
+            want = whole[..., m * blk:(m + 1) * blk]
+            conv.append({
+                "rank": m, "layer": i, "shape": tuple(got.shape),
+                "max_abs_err": float((got - want).abs().max()),
+                "excess": float((got - want).abs().sub(
+                    PARITY_TOL["atol"] + PARITY_TOL["rtol"]
+                    * want.abs()).max()),
+                "bit_equal": bool(torch.equal(got, want))})
+    ms = [m for r in ranks for m in r["step_ms"]]
+    embed_and_logits = tp_forward_bytes(cfg, tp, WH_ROWS, 1, 4)
+    gather = conv_gather_bytes(cfg, tp, WH_ROWS)
+    wire = embed_and_logits + gather
+    emit({"phase": "tp_mamba_whole_heads", "arch": cfg.name,
+          "layers": cfg.num_layers, "mesh": [1, tp], "backend": "gloo",
+          "card": card, "dtype": "float32", "rows": WH_ROWS,
+          "prompt": WH_PROMPT, "new_tokens": WH_NEW,
+          "ssd_heads_per_rank": cfg.ssm_num_heads,
+          "conv_x_channels_per_rank": blk,
+          **err, "tol": PARITY_TOL,
+          "reference_continued_with_mesh_tokens": continued,
+          "mesh_fed_its_greedy_tokens": own,
+          "bit_equal_to_single_card": bool(torch.equal(head["logits"],
+                                                       ref["logits"])),
+          "identical_on_all_ranks": same,
+          "conv_x": {"max_abs_err": max(c["max_abs_err"] for c in conv),
+                     "excess": max(c["excess"] for c in conv),
+                     "bit_equal_layers": sorted({
+                         c["layer"] for c in conv if c["bit_equal"]}),
+                     "shape": sorted({c["shape"] for c in conv})},
+          "cache_shapes": head["shapes"],
+          "wire_bytes_per_step": sorted({w for r in ranks
+                                         for w in r["wire_bytes"]}),
+          "formula": wire, "conv_gather_wire_bytes": gather,
+          "collectives_per_step": head["collectives"],
+          "decode_step_ms_p50": float(np.percentile(ms, 50)),
+          "decode_step_ms_p99": float(np.percentile(ms, 99)),
+          "decode_step_ms_p50_per_rank": [
+              float(np.percentile(r["step_ms"], 50)) for r in ranks],
+          "single_card_step_ms_p50": float(np.percentile(ref["step_ms"],
+                                                         50)),
+          "reference_s": ref_s, "ranks_s": ranks_s,
+          "launches_per_rank": [r["launches"] for r in ranks]})
+    check(err["excess"] <= 0 and err["greedy_equal"],
+          f"tp_mamba_whole_heads: beyond {PARITY_TOL} or greedy tokens "
+          f"differ from the single card's: {err}")
+    check(same, "tp_mamba_whole_heads: the ranks hold different logits")
+    check(own, "tp_mamba_whole_heads: the mesh fed tokens other than its "
+               "greedy picks")
+    n = cfg.ssm_state
+    want_shapes = {"conv_x": (WH_ROWS, cfg.ssm_conv_kernel - 1, blk),
+                   "conv_b": (WH_ROWS, cfg.ssm_conv_kernel - 1, n),
+                   "conv_c": (WH_ROWS, cfg.ssm_conv_kernel - 1, n),
+                   "ssm": (WH_ROWS, cfg.ssm_num_heads, cfg.ssm_head_dim, n)}
+    for r in ranks:
+        check(r["shapes"] == want_shapes,
+              f"tp_mamba_whole_heads: cache {r['shapes']}, want "
+              f"{want_shapes}")
+        check(r["wire_bytes"] == [wire] * (WH_PROMPT + WH_NEW),
+              f"tp_mamba_whole_heads: wire bytes {r['wire_bytes']}, want "
+              f"{wire} a step")
+        check(r["launches"] == {},
+              f"tp_mamba_whole_heads: decode launched {r['launches']}")
+    for c in conv:
+        check(c["shape"] == want_shapes["conv_x"] and c["excess"] <= 0,
+              f"tp_mamba_whole_heads: conv_x {c}")
+        check(c["layer"] > 0 or c["bit_equal"],
+              f"tp_mamba_whole_heads: the first layer's conv_x differs "
+              f"from the single card's: {c}")
+    gathers = WH_LAYERS + tp_layout(cfg, ParallelCtx(tp=tp)).vocab
+    check(head["collectives"]["count"].get("all-gather") == gathers,
+          f"tp_mamba_whole_heads: {head['collectives']}, want one "
+          f"all-gather a layer and the logits'")
+    emit({"phase": "tp_mamba_whole_heads_total", "card": card,
+          "seconds": time.perf_counter() - t0})
+    return _ep_sum([r["launches"] for r in ranks])
 
 
 class _Clock:
@@ -7501,8 +7762,15 @@ def _main() -> int:
     clock("dryrun_card")
     paths["fsdp"] = phase_fsdp(predicted, SEED + 51)
     clock("fsdp")
-    paths["seq_decode"] = phase_seq_decode(predicted, SEED + 54)
-    clock("seq_decode")
+    wh_pool = start_wh_pool()  # its processes import during seq_decode
+    try:
+        paths["seq_decode"] = phase_seq_decode(predicted, SEED + 54)
+        clock("seq_decode")
+        paths["tp_mamba_whole_heads"] = phase_tp_mamba_whole_heads(
+            SEED + 56, wh_pool)
+    finally:
+        wh_pool.close(wait=False)
+    clock("tp_mamba_whole_heads")
 
     # each kernel's launches are read from the path that runs it
     main_path = {"flash_attention": ARCH, "flash_attention_bwd": "training",

@@ -24,6 +24,15 @@ gradient); the gated norm's mean square is summed over the model ranks
 by its slice of the scale; the output's partial sums go through
 ``reduce_from_model``.  The cache holds this rank's heads and
 ``conv_x`` channels.
+
+Where the model axis keeps the SSM heads whole but divides the ``d_inner``
+channels (``TPLayout.conv_x``: mamba2-130m's 24 heads at tp 16), every
+leaf and the computation stay whole, but ``cache_specs`` splits the
+decode cache's ``conv_x`` channels: a rank holds its block of them
+(``conv_block``).  Its decode convolves that block where it lives and
+all-gathers the f32 outputs over the model ranks, in rank order
+(``gather_from_model``), before the whole-head state step, as XLA does
+under those specs.
 """
 from __future__ import annotations
 
@@ -41,8 +50,8 @@ from repro_torch.kernels.ssd_scan.ref import (  # noqa: F401
 )
 from repro_torch.models.modules import dense_init, init_norm, rms_norm, whole
 from repro_torch.parallel.planner import tp_layout
-from repro_torch.parallel.tensor import (copy_to_model, reduce_from_model,
-                                         sum_over_model)
+from repro_torch.parallel.tensor import (copy_to_model, gather_from_model,
+                                         reduce_from_model, sum_over_model)
 
 
 def init_mamba(cfg: ModelConfig, dtype, device,
@@ -104,6 +113,15 @@ def _tp_heads(cfg: ModelConfig, ctx):
     return lay if lay is not None and lay.ssm else None
 
 
+def conv_block(cfg: ModelConfig, ctx):
+    """[lo, hi): the ``conv_x`` channels of this rank's decode cache where
+    the model axis splits them and not the heads (``TPLayout.conv_x``),
+    else ``None``."""
+    lay = tp_layout(cfg, ctx)
+    return lay.block(cfg.ssm_d_inner) if lay is not None and lay.conv_x \
+        else None
+
+
 def _gated_norm(p: dict, cfg: ModelConfig, y, z, lay, ctx):
     """``rms_norm(y * silu(z), norm.scale)`` over the whole ``d_inner``:
     with a layout, y and z are this rank's channels, their mean square a
@@ -147,13 +165,14 @@ def mamba_forward(p: dict, cfg: ModelConfig, xin: torch.Tensor, *,
 
 
 def init_mamba_cache(cfg: ModelConfig, batch: int, dtype, device,
-                     heads=None) -> dict:
+                     heads=None, channels=None) -> dict:
     """Slot axis first: conv histories (batch, K-1, C) in ``dtype``, the
     SSM state (batch, H, P, N) in f32; ``heads`` (by default the
-    config's) SSM heads and their ``conv_x`` channels: a tensor-parallel
-    rank's are those of its ``A_log``."""
+    config's) SSM heads, a tensor-parallel rank's those of its ``A_log``;
+    ``channels`` ``conv_x`` channels, by default those of the heads (a
+    rank's ``conv_block`` where the model axis splits them alone)."""
     h = heads or cfg.ssm_num_heads
-    din, n = h * cfg.ssm_head_dim, cfg.ssm_state
+    din, n = channels or h * cfg.ssm_head_dim, cfg.ssm_state
     km1 = cfg.ssm_conv_kernel - 1
     return {
         "conv_x": torch.zeros((batch, km1, din), dtype=dtype, device=device),
@@ -179,14 +198,25 @@ def mamba_decode(p: dict, cfg: ModelConfig, xin: torch.Tensor, cache: dict,
                  ctx=None) -> Tuple[torch.Tensor, dict]:
     """Single-token recurrent step. xin: (B, 1, d).  Updates ``cache`` in
     place; returns (out (B, 1, d), cache).  ``ctx``: as
-    ``mamba_forward``'s."""
+    ``mamba_forward``'s; where it splits the ``conv_x`` channels alone
+    (``conv_block``), the cache holds this rank's block of them."""
     lay = _tp_heads(cfg, ctx)
     h = p["A_log"].shape[0]
     hd = cfg.ssm_head_dim
     x0 = xin[:, 0]
     z = x0 @ p["z_proj"]
-    x = _conv_step(cache["conv_x"], x0 @ p["x_proj"], p["conv_x"],
-                   p["conv_x_bias"])
+    blk = conv_block(cfg, ctx)
+    if blk is None:
+        x = _conv_step(cache["conv_x"], x0 @ p["x_proj"], p["conv_x"],
+                       p["conv_x_bias"])
+    else:  # this rank's channels of the whole product, then all of them
+        lo, hi = blk
+        if cache["conv_x"].shape[-1] != hi - lo:
+            raise ValueError(f"conv_x cache of {cache['conv_x'].shape[-1]} "
+                             f"channels; this rank holds {hi - lo}")
+        x = gather_from_model(_conv_step(
+            cache["conv_x"], (x0 @ p["x_proj"])[:, lo:hi],
+            p["conv_x"][:, lo:hi], p["conv_x_bias"][lo:hi]), ctx)
     b = _conv_step(cache["conv_b"], x0 @ p["b_proj"], p["conv_b"],
                    p["conv_b_bias"])
     c = _conv_step(cache["conv_c"], x0 @ p["c_proj"], p["conv_c"],

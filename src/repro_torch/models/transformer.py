@@ -405,8 +405,11 @@ def _init_layer_cache(cfg: ModelConfig, spec: LayerSpec, lp: dict,
                                                       ctx.rank * n)
     if spec.mixer == "cross_attn":
         return attn.init_cross_cache(lp["mixer"], cfg, context, dtype)
+    blk = ssm.conv_block(cfg, ctx)
     return ssm.init_mamba_cache(cfg, rows, dtype, device,
-                                heads=lp["mixer"]["A_log"].shape[0])
+                                heads=lp["mixer"]["A_log"].shape[0],
+                                channels=None if blk is None
+                                else blk[1] - blk[0])
 
 
 def init_cache(cfg: ModelConfig, params: dict, batch: int, max_len: int,
@@ -421,7 +424,9 @@ def init_cache(cfg: ModelConfig, params: dict, batch: int, max_len: int,
     f32 whatever the parameters' dtype, like the JAX package (the SSM
     state is f32 always).  Each layer's cache has the KV heads of its
     ``wk`` and the SSM heads of its ``A_log``: on a tensor-parallel rank's
-    parameters, that rank's part (``parallel.planner.cache_specs``).  An
+    parameters, that rank's part (``parallel.planner.cache_specs``), and
+    where the model axis splits the ``conv_x`` channels and not the heads,
+    the rank's block of those channels (``ssm.conv_block``).  An
     FSDP ``ctx`` gathers each layer's shards first.
 
     With data axes in ``ctx``, ``batch`` is the global batch and the cache

@@ -457,7 +457,10 @@ class TPLayout:
     heads (``_mamba_head_axis``) and the experts of a MoE layer
     (``experts``: ``moe_expert``, which ``moe_dense`` reads without expert
     parallelism; expert parallelism needs them split).  Cross-attention
-    and the encoder read ``heads`` and ``kv`` as self-attention does."""
+    and the encoder read ``heads`` and ``kv`` as self-attention does.
+    ``conv_x``: ``cache_specs`` splits the decode cache's ``conv_x``
+    channels where the SSM heads stay whole (the channels divide tp, the
+    heads do not; where ``ssm`` holds they split with the heads)."""
 
     rank: int
     tp: int
@@ -468,6 +471,7 @@ class TPLayout:
     ssm: bool
     shared: bool
     experts: bool
+    conv_x: bool
 
     def block(self, n: int) -> Tuple[int, int]:
         """[lo, hi): this rank's block of a dim of ``n`` split tp ways."""
@@ -483,15 +487,18 @@ def tp_layout(cfg: ModelConfig, ctx: Optional[ParallelCtx]
         return None
     tp = ctx.tp
     shared = (cfg.moe_d_ff or cfg.d_ff) * cfg.num_shared_experts
+    ssm = bool(cfg.ssm_num_heads) and cfg.ssm_num_heads % tp == 0
     return TPLayout(
         rank=ctx.model_rank, tp=tp,
         heads=cfg.num_heads > 0 and cfg.num_heads % tp == 0,
         kv=cfg.num_kv_heads > 0 and cfg.num_kv_heads % tp == 0,
         ffn=cfg.d_ff > 0 and cfg.d_ff % tp == 0,
         vocab=cfg.padded_vocab % tp == 0,
-        ssm=bool(cfg.ssm_num_heads) and cfg.ssm_num_heads % tp == 0,
+        ssm=ssm,
         shared=shared > 0 and shared % tp == 0,
-        experts=cfg.is_moe and cfg.num_experts % tp == 0)
+        experts=cfg.is_moe and cfg.num_experts % tp == 0,
+        conv_x=bool(cfg.ssm_num_heads) and not ssm
+        and cfg.ssm_d_inner % tp == 0)
 
 
 def _tp_mesh(tp: int, axis: str) -> MeshConfig:

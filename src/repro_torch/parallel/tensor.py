@@ -21,12 +21,14 @@ row-parallel product:
 
 Each all-reduce is ``ccl.primitives.ring_all_reduce`` over
 ``ctx.model_group``: its hops go through ``_permute``, so the counters
-see them, and every rank ends with the same bits.  Then the
-vocabulary-parallel pieces: the embedding lookup on this rank's rows
-(``vocab_embed``), the gather of the logits before a token is picked
-(``gather_vocab``) and the cross-entropy of vocabulary-sharded logits,
-whose max, sum of exponentials and label logit are reduced over the model
-group without gathering the (B, S, V) logits
+see them, and every rank ends with the same bits.  Then the gather of
+every rank's block of the last dim (``gather_from_model``: the
+vocabulary-sharded logits before a token is picked, and Mamba's
+``conv_x`` outputs in decode, where the cache splits the channels and not
+the heads), and the vocabulary-parallel pieces: the embedding lookup on
+this rank's rows (``vocab_embed``) and the cross-entropy of
+vocabulary-sharded logits, whose max, sum of exponentials and label logit
+are reduced over the model group without gathering the (B, S, V) logits
 (``vocab_parallel_cross_entropy``, the small all-reduce of the JAX
 package's loss).
 """
@@ -101,10 +103,10 @@ def vocab_embed(embed: torch.Tensor, tokens: torch.Tensor, lo: int,
     return reduce_from_model(x, ctx)
 
 
-def gather_vocab(logits: torch.Tensor, ctx) -> torch.Tensor:
-    """Every rank's vocabulary block of ``logits`` (..., V/tp) side by
-    side: (..., V), the same bits on every rank (``ring_all_gather``)."""
-    got = prim.ring_all_gather(logits.contiguous(), ctx.model_group)
+def gather_from_model(x: torch.Tensor, ctx) -> torch.Tensor:
+    """Every model rank's block of ``x`` (..., n/tp) side by side, in rank
+    order: (..., n), the same bits on every rank (``ring_all_gather``)."""
+    got = prim.ring_all_gather(x.contiguous(), ctx.model_group)
     return torch.cat(got.unbind(0), dim=-1)
 
 

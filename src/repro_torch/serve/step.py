@@ -14,7 +14,7 @@ import torch
 from repro_torch.core.types import ModelConfig
 from repro_torch.models.transformer import decode_step, forward
 from repro_torch.parallel.planner import tp_layout
-from repro_torch.parallel.tensor import gather_vocab
+from repro_torch.parallel.tensor import gather_from_model
 
 
 def full_logits(cfg: ModelConfig, logits: torch.Tensor, ctx=None
@@ -23,7 +23,7 @@ def full_logits(cfg: ModelConfig, logits: torch.Tensor, ctx=None
     block gathered from the model ranks (the same bits on every rank),
     else ``logits`` itself."""
     lay = tp_layout(cfg, ctx)
-    return gather_vocab(logits, ctx) if lay is not None and lay.vocab \
+    return gather_from_model(logits, ctx) if lay is not None and lay.vocab \
         else logits
 
 

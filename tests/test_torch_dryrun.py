@@ -234,9 +234,10 @@ def test_init_cache_shards_are_cache_specs(arch, multi_pod):
     rank's parameters splits every leaf over the data axes as the port's
     ``cache_specs`` (the JAX package's rule) splits the whole cache, for
     decode_32k (the rows) and long_500k (the slots, ``slot_split``: the
-    attention and MLA caches ``SlotBlock``s, rank 37's block); the
-    dry-run's decode cache is built so.  The model axis's dims are
-    ``test_torch_tp_layout.py``'s."""
+    attention and MLA caches ``SlotBlock``s, rank 37's block), and every
+    dim that the spec puts on the model axis is its 1/tp there (mamba2's
+    ``conv_x`` channels too, whose heads tp 16 keeps whole); the dry-run's
+    decode cache is built so."""
     cfg = dryrun.get_config(arch)
     whole = param_shapes(cfg)
     mcfg = production_world(multi_pod=multi_pod, rank=37)
@@ -255,12 +256,14 @@ def test_init_cache_shards_are_cache_specs(arch, multi_pod):
                              context=dryrun.context_spec(cfg, rows,
                                                          torch.bfloat16),
                              ctx=ctx)
-            data = _bspec(mcfg)
+            data, model = _bspec(mcfg), mcfg.model_axes[0]
             for (path, t), (_, sp), (_, w) in zip(
                     _with_paths(got), _with_paths(specs), _with_paths(full)):
                 for i, (d, ax) in enumerate(zip(w.shape, sp)):
                     if ax == data:
                         assert t.shape[i] == d // ctx.dp, (name, path, sp)
+                    elif ax == model:
+                        assert t.shape[i] == d // ctx.tp, (name, path, sp)
                     elif ax is None and i < 2:  # rows and slots left whole
                         assert t.shape[i] == d, (name, path, sp)
             slots = cache_slots(cfg, shape.seq_len, decode_window(cfg, shape))
@@ -274,6 +277,42 @@ def test_init_cache_shards_are_cache_specs(arch, multi_pod):
                     assert lc.lo == ctx.rank * slots // ctx.dp
     finally:
         dist.destroy_process_group()
+
+
+# mamba2-130m's decode argument bytes a rank on the production meshes
+# before its ``conv_x`` cache held only the rank's channels (every channel
+# of 24 layers, bf16)
+MAMBA_WHOLE_CONV_ARGS = {False: 338_641_184, True: 262_111_504}
+
+
+@pytest.mark.parametrize("multi_pod", [False, True], ids=["1pod", "2pod"])
+def test_mamba_conv_split_decode(multi_pod):
+    """mamba2-130m's decode_32k on a rank of the production mesh, whose
+    model axis (tp 16) keeps the 24 SSM heads whole and splits the 1,536
+    ``conv_x`` channels (``TPLayout.conv_x``): the rank's cache holds 96
+    channels of each layer's ``conv_x``, 24 x rows x 3 x 1,440 bf16 bytes
+    below the whole channels' figure, and the step all-gathers each
+    layer's f32 conv outputs once, (tp, rows, 96) of result and 15 hops of
+    (rows, 96) on the wire, beside the embedding's all-reduce."""
+    program, _ = dryrun.build_dryrun("mamba2-130m", "decode_32k",
+                                     multi_pod=multi_pod)
+    acc = program()
+    cfg = dryrun.get_config("mamba2-130m")
+    tp, rows = 16, 8 if not multi_pod else 4
+    blk = cfg.ssm_d_inner // tp
+    assert blk == 96 and cfg.ssm_num_heads % tp
+    held_out = cfg.num_layers * rows * 3 * (cfg.ssm_d_inner - blk) * 2
+    assert held_out == (1_658_880 if not multi_pod else 829_440)
+    assert acc.argument_bytes == MAMBA_WHOLE_CONV_ARGS[multi_pod] - held_out
+    coll = acc.collectives
+    assert coll.count_by_kind == {"all-reduce": 1,
+                                  "all-gather": cfg.num_layers}
+    assert coll.bytes_by_kind["all-gather"] == \
+        cfg.num_layers * rows * cfg.ssm_d_inner * 4
+    embed = coll.bytes_by_kind["all-reduce"]  # (rows, 1, d) bf16
+    assert embed == rows * cfg.d_model * 2
+    assert coll.sent_bytes == (cfg.num_layers * (tp - 1) * rows * blk * 4
+                               + 2 * (tp - 1) * embed // tp)
 
 
 @pytest.mark.parametrize("mesh", [(2, 1), (4, 1)])
