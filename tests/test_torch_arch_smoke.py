@@ -3,6 +3,8 @@
 training steps on one batch: shapes, finite values, a falling loss; the
 full configs' spot checks and parameter counts; the stub frontends bit for
 bit against the JAX package's."""
+import torch_threads  # noqa: F401 - caps torch's threads under xdist
+
 import numpy as np
 import pytest
 import torch

@@ -1,6 +1,8 @@
 """The training half of ``tests/test_torch_arch_smoke.py`` for the
 architectures that file leaves out (a file of its own, so that a run's
 workers spread the two)."""
+import torch_threads  # noqa: F401 - caps torch's threads under xdist
+
 import pytest
 
 from repro_torch.configs import ARCHS

@@ -4,6 +4,8 @@ through the plain or chunked jnp attention), and the kernel launches the
 new families make on the card, counted from their configs.  Weights are
 JAX's ``init_mla`` / ``init_gqa(cross=True)``, the gate opened; inputs are
 numpy from a seed."""
+import torch_threads  # noqa: F401 - caps torch's threads under xdist
+
 import jax
 import jax.numpy as jnp
 import numpy as np

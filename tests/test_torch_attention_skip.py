@@ -4,6 +4,8 @@ JAX package's ``_flash_attention_jnp`` with the same flags, at the shapes
 of ``tests/test_attention_props.py``; the FLOPs that ``causal_skip``
 saves; and the two ``ParallelCtx`` flags reaching the chunked path through
 the model's layers."""
+import torch_threads  # noqa: F401 - caps torch's threads under xdist
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

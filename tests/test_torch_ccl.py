@@ -18,6 +18,8 @@ The port's hop algebra and f32 arithmetic are the JAX package's, so every
 result, lossless or quantized, is expected bit-equal to JAX's; on top of
 that each case is held to the JAX tests' own bound against the exact sum.
 """
+import torch_threads  # noqa: F401 - caps torch's threads under xdist
+
 import dataclasses
 import pickle
 

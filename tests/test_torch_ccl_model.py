@@ -6,6 +6,8 @@ composed algorithm, every closed form and cost term, every selection
 under ``AlphaBeta`` and ``FlowSim`` (costs, exclusions, cache counters),
 with error budgets and ``Fixed`` / ``Choice`` / ``Search`` knobs.  Each
 model test of tests/test_ccl.py also runs on the port."""
+import torch_threads  # noqa: F401 - caps torch's threads under xdist
+
 import math
 
 import pytest

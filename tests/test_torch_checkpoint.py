@@ -3,6 +3,8 @@ package's: the same layout and keys, so that a checkpoint written by either
 package restores in the other; the manifest through the port's own
 MessagePack coder, held against the ``msgpack`` package; and
 ``checkpoint_state_bytes``."""
+import torch_threads  # noqa: F401 - caps torch's threads under xdist
+
 import jax
 import msgpack
 import numpy as np

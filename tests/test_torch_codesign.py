@@ -10,6 +10,8 @@ the reports must be ``to_dict()`` JSON-equal in key order; reports cross-
 load both ways.  A separate case keeps the H100's peak and holds the
 compute-only quantities to the reference's scaled by the ratio of peaks.
 """
+import torch_threads  # noqa: F401 - caps torch's threads under xdist
+
 import dataclasses
 import json
 import os

@@ -10,6 +10,8 @@ reports (``ClusterReport``, ``ServingReport``, ``SearchResult``) must be
 cross-load both ways; a search over a serving problem does not load back
 in either package (``SearchResult.from_dict`` reads a training plan).
 """
+import torch_threads  # noqa: F401 - caps torch's threads under xdist
+
 import dataclasses
 import json
 import os

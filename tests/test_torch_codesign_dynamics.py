@@ -8,6 +8,8 @@ the same fake clock, so the ``DynamicsReport``s (re-plan and full-search
 seconds included) and the standing ``ClusterReport``s must be
 ``to_dict()`` JSON-equal in key order, and cross-load both ways.
 """
+import torch_threads  # noqa: F401 - caps torch's threads under xdist
+
 import json
 import os
 import sys

@@ -8,6 +8,8 @@ its peak pinned to the reference's (the walkthrough's seconds come from
 the demand builder, which prices FLOPs at the target's peak) and must load
 no jax and no ``repro`` module.
 """
+import torch_threads  # noqa: F401 - caps torch's threads under xdist
+
 import os
 import re
 import subprocess

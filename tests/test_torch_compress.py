@@ -7,6 +7,8 @@ parity with the JAX references and the interpret-mode Pallas kernels.
 Stochastic rounding is compared by feeding the same numpy uint32 bits to
 both sides (``jax.random`` is not re-implemented).  The low-rank codec is
 compared with JAX's own Q0 put into ``LowRankCodec._test_matrix``."""
+import torch_threads  # noqa: F401 - caps torch's threads under xdist
+
 import dataclasses
 import math
 

@@ -8,6 +8,8 @@ file imports no jax, so it also runs where jax is not installed:
 
     python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
 """
+import torch_threads  # noqa: F401 - caps torch's threads under xdist
+
 import numpy as np
 import pytest
 import torch

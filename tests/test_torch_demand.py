@@ -8,6 +8,8 @@ TPU; ``repro_torch.core.hw``: the H100).  So the parity tests pin the
 port's peak to the value they read from ``repro.core.hw`` and then ask
 for equal demands, field by field; a second test keeps the H100's peak
 and asks for the reference's times scaled by the ratio of the peaks."""
+import torch_threads  # noqa: F401 - caps torch's threads under xdist
+
 import dataclasses
 import math
 

@@ -18,6 +18,8 @@
 The dry-run's programs run in this process, each on a fake world it
 initialises and destroys (no other test here initialises
 ``torch.distributed`` in-process)."""
+import torch_threads  # noqa: F401 - caps torch's threads under xdist
+
 import dataclasses
 import functools
 import json

@@ -2,6 +2,8 @@
 (``examples/torch_quickstart.py``, ``torch_serve_batch.py``,
 ``torch_train_100m.py``) run on the CPU with tiny arguments: each ends
 the way its JAX original does, and prints its lines."""
+import torch_threads  # noqa: F401 - caps torch's threads under xdist
+
 import os
 import subprocess
 import sys

@@ -6,6 +6,8 @@ in interpret mode, on the same inputs made with numpy from a seed.  The
 CUDA kernel itself runs only on the card: tests/test_torch_cuda.py holds it
 against the plain version there.
 """
+import torch_threads  # noqa: F401 - caps torch's threads under xdist
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -10,6 +10,8 @@ on as many forced host devices runs the JAX step on an Auto-axis mesh
 optimizer-state specs.  The initial parameters are the JAX package's
 (``init_params``, key 0), the batch numpy from a seed; the tolerances and
 the update check are ``tests/test_torch_parallel.py``'s."""
+import torch_threads  # noqa: F401 - caps torch's threads under xdist
+
 import concurrent.futures
 import functools
 import json

@@ -5,6 +5,8 @@ data x model mesh against the JAX package's step, tensor parallelism on
 one against the launcher's own single-rank run, and the refusals (no card
 for the default ``--device cuda``; a model axis that does not divide the
 ranks)."""
+import torch_threads  # noqa: F401 - caps torch's threads under xdist
+
 import concurrent.futures
 import json
 import re

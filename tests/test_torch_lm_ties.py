@@ -15,6 +15,8 @@ the greedy token alone), a gap of 0.5 tolerances flipped by 0.3 each (a
 tie: counted, passes), and the same tie with a move of 3 tolerances
 (caught by the excess).
 """
+import torch_threads  # noqa: F401 - caps torch's threads under xdist
+
 import os
 import sys
 

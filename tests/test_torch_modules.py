@@ -1,5 +1,7 @@
 """The port's building blocks, configs and device rules against the JAX
 package: the same numpy inputs through both sides."""
+import torch_threads  # noqa: F401 - caps torch's threads under xdist
+
 import dataclasses
 
 import jax

@@ -8,6 +8,8 @@ Parity of routing is tested in f32 on random inputs: ``jax.lax.top_k``
 breaks ties toward the lower index and ``torch.topk`` promises no order, so
 the two can differ only on exactly tied probabilities, which random f32
 inputs do not produce."""
+import torch_threads  # noqa: F401 - caps torch's threads under xdist
+
 import dataclasses
 
 import jax

@@ -5,6 +5,8 @@ experts for expanded tokens) against ``jax.vjp`` of the JAX package's
 records on the card) on CPU tensors against autograd of the plain forward.
 Inputs from numpy seeds; the CUDA kernel is held against the plain version
 on the card (tests/test_torch_cuda.py)."""
+import torch_threads  # noqa: F401 - caps torch's threads under xdist
+
 import jax
 import jax.numpy as jnp
 import numpy as np

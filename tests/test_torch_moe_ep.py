@@ -15,6 +15,8 @@ Tolerances: the MoE functions 2e-5 (tests/test_moe.py:69), the logits
 experts) no dispatch is dropped and the paths equal ``moe_dense``; at 1.25
 and 0.25 the drops are JAX's.
 """
+import torch_threads  # noqa: F401 - caps torch's threads under xdist
+
 import concurrent.futures
 import dataclasses
 import json

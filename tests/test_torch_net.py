@@ -5,6 +5,8 @@ calls, exactly: every topology node for node and link for link (the
 insertion order is what breaks ``nx.shortest_path`` ties), every routed
 path, per-link byte map, simulated time and ATP comparison.  Each test of
 tests/test_net.py also runs on the port's objects."""
+import torch_threads  # noqa: F401 - caps torch's threads under xdist
+
 import itertools
 
 import pytest

@@ -10,6 +10,8 @@ Chrome trace, ``json.dumps(..., sort_keys=True)``-equal; with the live
 topology (each package's own) the per-link counter tracks are equal too.
 Meters compare counter for counter, clock-derived observations under an
 injected clock.  ``obs.probe`` is not ported yet (it has no twin here)."""
+import torch_threads  # noqa: F401 - caps torch's threads under xdist
+
 import itertools
 import json
 import os

@@ -6,6 +6,8 @@ forced host devices and against the sequential composition: the scripts of
 on shared numpy inputs.  The JAX pipelines' gradients need ``jax.set_mesh``
 on jax 0.9.0 (ROADMAP R1), so the port's are held against the gradient of
 the sequential composition; their forwards against both."""
+import torch_threads  # noqa: F401 - caps torch's threads under xdist
+
 import concurrent.futures
 
 import numpy as np

@@ -13,6 +13,8 @@ the ranks' slices, each rank's slice must be the reference's buffer bit
 for bit, and the bytes a rank sends must be the executable's.  The JAX
 side runs in a subprocess (``helpers.run_multidevice``) beside the ranks.
 """
+import torch_threads  # noqa: F401 - caps torch's threads under xdist
+
 import json
 import math
 import threading

@@ -6,6 +6,8 @@ listed here with their reasons; each public function's and method's
 parameters are the port's twin's too, but for the parameter departures.
 Then the two names whose values are compared: ``list_archs`` and
 ``batch_specs``."""
+import torch_threads  # noqa: F401 - caps torch's threads under xdist
+
 import ast
 import importlib
 import inspect

@@ -6,6 +6,8 @@ and exchange counters at 0, the matmul precision at its start value),
 whatever the run before it left.  A failed rank raises in the caller with
 its traceback and closes the pool.  Gloo on the CPU.
 """
+import torch_threads  # noqa: F401 - caps torch's threads under xdist
+
 import os
 
 import pytest

@@ -14,6 +14,8 @@ sends that token to a wrong expert while its router picked the flipped
 ones is caught, though holding the tie out of the comparison (the check
 before) lets it pass.
 """
+import torch_threads  # noqa: F401 - caps torch's threads under xdist
+
 import os
 import sys
 

@@ -5,6 +5,8 @@ exactly: every ``SimResult`` (timeline, exposure attribution, algorithm
 choices) under each policy, every multi-job JCT, phase search and
 re-stagger, every sampled arrival stream.  Each test of the two JAX files
 also runs on the port."""
+import torch_threads  # noqa: F401 - caps torch's threads under xdist
+
 import dataclasses
 import json
 

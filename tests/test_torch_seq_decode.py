@@ -23,6 +23,8 @@ rank's logits bit-equal.  The two planted faults (the combine skipped, the
 new token written on every rank) move the logits beyond five times the
 tolerance.
 """
+import torch_threads  # noqa: F401 - caps torch's threads under xdist
+
 import concurrent.futures
 import dataclasses
 import json

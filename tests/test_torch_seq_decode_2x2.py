@@ -5,6 +5,8 @@ parallelism) beside the two data ranks' blocks of the slots; and a batch
 of 3 on the 2 data ranks, each sequence at its own position, each with its
 own owner.  One ``spawn_ranks`` of 4 gloo ranks and one JAX subprocess on 4
 forced devices, as there, with its checks and tolerances."""
+import torch_threads  # noqa: F401 - caps torch's threads under xdist
+
 import pytest
 
 from test_torch_seq_decode import (check_matches_jax,

@@ -5,6 +5,8 @@ family (the cross-attention ones with the stub context and their gates
 opened, ``torch_context``), and bf16 decode against the JAX package's; the
 batcher's (tests/test_batcher.py) are in ``test_torch_serve_batcher.py``.  Weights are the JAX package's, carried over by
 ``params_from_jax``; inputs are made with numpy from a seed."""
+import torch_threads  # noqa: F401 - caps torch's threads under xdist
+
 import dataclasses
 import os
 import subprocess

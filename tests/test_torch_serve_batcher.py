@@ -5,6 +5,8 @@ slots, the context families' contexts and caches, the zeroed-context
 fault).  Weights are the JAX package's, carried over by
 ``params_from_jax``; inputs are made with numpy from a seed.  Shared parts
 are ``test_torch_serve.py``'s."""
+import torch_threads  # noqa: F401 - caps torch's threads under xdist
+
 import jax
 import jax.numpy as jnp
 import numpy as np

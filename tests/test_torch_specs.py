@@ -4,6 +4,8 @@ the decode window policy, the input stand-ins (meta tensors against
 ``jax.ShapeDtypeStruct``s) and the decode cache's leaves, the JAX
 package's group-stacking dim removed as ``tests/test_torch_tp_layout.py``
 removes it."""
+import torch_threads  # noqa: F401 - caps torch's threads under xdist
+
 import functools
 
 import jax

@@ -6,6 +6,8 @@ autograd Function that ``ssd_scan`` records on the card) on CPU tensors
 against autograd of the plain forward.  Inputs from numpy seeds; the CUDA
 kernel itself is held against the plain version on the card
 (tests/test_torch_cuda.py)."""
+import torch_threads  # noqa: F401 - caps torch's threads under xdist
+
 import jax
 import jax.numpy as jnp
 import numpy as np

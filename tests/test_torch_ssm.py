@@ -3,6 +3,8 @@ against the JAX package, at small size on the CPU: the same numpy inputs
 through both sides.  Ports of tests/test_kernels.py::test_ssd_scan_sweep and
 ::test_ssd_scan_state_continuity, plus ssd_chunked, mamba_forward and
 mamba_decode with the JAX package's weights."""
+import torch_threads  # noqa: F401 - caps torch's threads under xdist
+
 import jax
 import jax.numpy as jnp
 import numpy as np

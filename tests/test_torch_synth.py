@@ -15,6 +15,8 @@ bit-equal, ``bits=8`` included; each rank's wire bytes are its moves out.
 
 The plan/search cases of tests/test_synth.py drive ``codesign`` (not
 ported yet) and have no twin here."""
+import torch_threads  # noqa: F401 - caps torch's threads under xdist
+
 import dataclasses
 
 import numpy as np

@@ -26,6 +26,8 @@ and 1e-5 against the single-rank run, the training step
 ``tests/test_torch_parallel.py``'s (metrics rel 1e-5, moments and
 gradients 1e-5, parameters through their update).
 """
+import torch_threads  # noqa: F401 - caps torch's threads under xdist
+
 import concurrent.futures
 import dataclasses
 import json

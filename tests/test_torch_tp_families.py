@@ -19,6 +19,8 @@ single-rank run.  The inputs are the JAX package's parameters
 ``torch_context.open_gates``), the stub contexts and numpy from a seed.
 Tolerances as ``tests/test_torch_tp.py``'s.
 """
+import torch_threads  # noqa: F401 - caps torch's threads under xdist
+
 import numpy as np
 import pytest
 

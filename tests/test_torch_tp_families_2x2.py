@@ -2,6 +2,8 @@
 (2, 2) mesh.  A file of its own, so that a run's workers take the two
 meshes' runs at the same time; the cases are that file's, collected here
 with this file's ``runs``."""
+import torch_threads  # noqa: F401 - caps torch's threads under xdist
+
 import pytest
 
 from test_torch_tp import MESHES

@@ -6,6 +6,8 @@ meshes; and what the port's model axis takes from them (``tp_layout``,
 ``shard_params``, the decode cache).  Ports ``tests/test_planner.py``.  The port's trees are matched to
 the JAX layout through ``bridge.to_jax_layout`` (a JAX leaf stacked over a
 layer group's repeats has one more, unsharded, leading dim)."""
+import torch_threads  # noqa: F401 - caps torch's threads under xdist
+
 import functools
 
 import jax

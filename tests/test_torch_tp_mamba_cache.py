@@ -20,6 +20,8 @@ gather moves bits, and each channel's arithmetic is the single rank's).
 The two planted faults (the gather skipped, a rank convolving another
 rank's weight block) move the logits beyond five times the tolerance.
 """
+import torch_threads  # noqa: F401 - caps torch's threads under xdist
+
 import dataclasses
 
 import jax

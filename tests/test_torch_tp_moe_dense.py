@@ -20,6 +20,8 @@ with 6 experts (``torch_tp_ranks.REPLICATED_EXPERTS``: 4 ranks do not
 divide them).  The (2, 2) mesh's run is
 ``tests/test_torch_tp_moe_dense_2x2.py``'s.
 """
+import torch_threads  # noqa: F401 - caps torch's threads under xdist
+
 import numpy as np
 import pytest
 

@@ -6,6 +6,8 @@ deepseek-v2-236b and jamba-1.5-large-398b, whose 4 experts split in two.
 A file of its own, so that a run's workers take the two meshes' runs at
 the same time; the checks are that file's, run here on this file's
 ``runs``."""
+import torch_threads  # noqa: F401 - caps torch's threads under xdist
+
 import pytest
 
 from test_torch_tp import (MESHES, MOE_ARCHS,

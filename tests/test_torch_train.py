@@ -7,6 +7,8 @@ the chunked attention path and the launch counts); the shared parts in
 package's, carried over by the bridge; inputs are made with numpy from a
 seed.  The JAX side runs as its own tests run it: jitted, on the CPU,
 through the plain attention path."""
+import torch_threads  # noqa: F401 - caps torch's threads under xdist
+
 import dataclasses
 import math
 

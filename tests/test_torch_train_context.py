@@ -3,6 +3,8 @@ that take a context (llama-3.2-vision-90b, seamless-m4t-medium, also in
 two microbatches under remat), the kernel launches of a training step
 (``train_launches``), and the chunked CPU attention path against the JAX
 package's."""
+import torch_threads  # noqa: F401 - caps torch's threads under xdist
+
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -4,6 +4,8 @@ without remat), and the step's other properties: remat changes no
 number, the eval step (alone and on a mesh), serving parameters left
 without gradients, the microbatch check, and the learning test of
 tests/test_system.py::test_training_learns_synthetic_pattern."""
+import torch_threads  # noqa: F401 - caps torch's threads under xdist
+
 import math
 
 import jax.numpy as jnp

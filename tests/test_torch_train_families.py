@@ -1,6 +1,8 @@
 """The port's training step against the JAX package's on the SSM, MoE,
 hybrid and MLA families (mamba2-130m, dbrx-132b, jamba-1.5-large-398b,
 deepseek-v2-236b), at smoke size on the CPU."""
+import torch_threads  # noqa: F401 - caps torch's threads under xdist
+
 import pytest
 
 from torch_train_cases import check_train_step, step_cases
